@@ -33,6 +33,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 RTOL = 1e-5
+# dependent latencies in SM cycles (Hopper microbenchmarks), for the chain
+# model only: a shared-memory load, an f32 add/compare/select, an L2 hit
+SMEM_CYCLES, ALU_CYCLES, L2_CYCLES = 30, 4, 260
 
 N_TRACES = 512              # the service's decode batch
 T_MAIN = 64
@@ -108,10 +111,22 @@ def wire_ops(B, T, K):
 
 
 def bound_ms(tensors, T, K):
+    """The least time for the decode's bytes and operations on the card:
+    a floor that ignores the serial chain (see ``chain_cycles``)."""
     B = tensors[0].shape[0]
     t_bytes = wire_bytes(tensors, T) / HBM_BYTES_PER_S
     t_ops = wire_ops(B, T, K) / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def chain_cycles(T, K):
+    """A model of one trace's dependence chain in SM cycles, from
+    microbenchmarked Hopper latencies: per step, the shared-memory round
+    trip of the previous scores, the add of the transition, K dependent
+    compare-selects of the running max, and the add of the emission;
+    then T-1 dependent backpointer loads served by L2."""
+    step = SMEM_CYCLES + ALU_CYCLES + K * 2 * ALU_CYCLES + ALU_CYCLES
+    return (T - 1) * (step + L2_CYCLES)
 
 
 # -- phases --------------------------------------------------------------------
@@ -127,15 +142,13 @@ def phase_build():
 
 
 def phase_verify(dev):
-    """Kernel vs plain on the card, same inputs; returns the largest
-    absolute score difference seen at the main path's shape."""
+    """Kernel vs plain on the card, same inputs."""
     import torch
     from reporter_tpu_torch.ops import viterbi_cuda, viterbi_plain
     cases = [((N_TRACES, T_MAIN, K), False), ((64, 1024, K), False),
              ((37, 16, K), False), ((16, 64, 40), False),
              ((64, T_MAIN, K), True)]
     sigma, beta = np.float32(4.07), np.float32(3.0)
-    main_err = 0.0
     for seed, ((B, T, Kc), ties) in enumerate(cases):
         arrays = random_inputs(B, T, Kc, seed, ties=ties)
         for f16 in (True, False):
@@ -152,15 +165,12 @@ def phase_verify(dev):
             not_bit_equal = int((k_scores.view(torch.int32)
                                  != p_scores.view(torch.int32)).sum())
             err = float((k_scores - p_scores).abs().max())
-            if (B, T, Kc) == (N_TRACES, T_MAIN, K) and f16:
-                main_err = err
             if ties:
                 check(bool((k_paths % 2 == 0).all()),
                       "exact ties did not break to the lowest index")
             log(f"[verify] B,T,K={B},{T},{Kc} {'f16' if f16 else 'f32'}"
                 f"{' ties' if ties else ''}: paths equal, scores not "
                 f"bit-equal {not_bit_equal}/{B}, max abs err {err:g}")
-    return main_err
 
 
 def make_requests(matcher, rng, n, lengths, min_edges):
@@ -247,28 +257,42 @@ def phase_main(dev):
     n_seg = sum(len(m["segments"]) for m in got_main)
     check(n_seg > N_TRACES, f"only {n_seg} segments matched")
 
+    # the main path's own batches through the kernel and the plain version
+    # on the card: paths equal to each other and to the CPU run, scores
+    # within rtol
     sigma, beta = np.float32(params.effective_sigma), np.float32(params.beta)
     buckets = set()
-    main_batch = None
+    main_x, main_err = None, None
     for reqs in (main, mixed):
-        for batch in pack_batches(cpu.prepare_many(reqs), pad_pow2=True):
-            buckets.add(batch.case.shape[1])
-            want = cpu.decode(batch, sigma, beta)
-            check(np.array_equal(gpu.decode(batch, sigma, beta), want),
-                  f"paths differ from the CPU run, bucket "
-                  f"{batch.case.shape}")
-            if batch.case.shape == (N_TRACES, T_MAIN):
-                main_batch = batch
+        for batch in pack_batches(cpu.prepare_many(reqs)):
+            shape = batch.case.shape
+            buckets.add(shape[1])
+            x = tuple(torch.from_numpy(a).to(dev) for a in
+                      (batch.dist_m, batch.valid, batch.route_m, batch.gc_m,
+                       batch.case))
+            k_paths, k_scores = ops.viterbi_cuda(*x, sigma, beta)
+            torch.cuda.synchronize()
+            p_paths, p_scores = ops.viterbi_plain(*x, sigma, beta)
+            torch.cuda.synchronize()
+            check(torch.equal(k_paths, p_paths),
+                  f"paths differ from the plain version, batch {shape}")
+            check(np.array_equal(k_paths.cpu().numpy(),
+                                 cpu.decode(batch, sigma, beta)),
+                  f"paths differ from the CPU run, batch {shape}")
+            check(torch.allclose(k_scores, p_scores, rtol=RTOL, atol=0.0),
+                  f"scores beyond rtol {RTOL}, batch {shape}")
+            err = float((k_scores - p_scores).abs().max())
+            log(f"[main] batch {shape} {batch.dist_m.dtype}: paths equal, "
+                f"max abs score err {err:g}")
+            if shape == (N_TRACES, T_MAIN):
+                main_x, main_err = x, err
     check(buckets == {16, 64, 256}, f"buckets {sorted(buckets)}")
-    check(main_batch is not None and main_batch.dist_m.dtype == np.float16,
+    check(main_x is not None and main_x[0].dtype == torch.float16,
           "no (512, 64) f16 batch on the main path")
     log(f"[main] /report bodies byte-equal to the CPU run for all "
         f"{len(main) + len(mixed)} traces, paths equal in buckets "
         f"{sorted(buckets)}, {n_seg} segments")
-    x = tuple(torch.from_numpy(a).to(dev) for a in
-              (main_batch.dist_m, main_batch.valid, main_batch.route_m,
-               main_batch.gc_m, main_batch.case))
-    return launches, x, (sigma, beta)
+    return launches, main_x, main_err, (sigma, beta)
 
 
 def time_ms(fn, iters):
@@ -285,7 +309,7 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def phase_timing(dev, main_x, scalars):
+def phase_timing(dev, main_x, scalars, sm_mhz):
     """Kernel time from back-to-back launches into buffers allocated
     once (no per-call wrapper work between them); the inputs stay in
     the 50 MB L2 across launches, as they do right after the matcher's
@@ -310,13 +334,25 @@ def phase_timing(dev, main_x, scalars):
         ms = kernel_ms[B]
         plain = time_ms(lambda: viterbi_plain(*x, sigma, beta), 3)
         bms, by = bound_ms(x, T, Kx)
+        cyc = chain_cycles(T, Kx)
         log(f"[timing] B,T,K={B},{T},{Kx} f16 wire: kernel {ms:.4f} ms, "
             f"one trace {kernel_ms[1]:.4f} ms, plain {plain:.3f} ms, "
             f"bound {bms:.5f} ms by {by} ({wire_bytes(x, T)} bytes, "
-            f"{wire_ops(B, T, Kx)} f32 ops)")
+            f"{wire_ops(B, T, Kx)} f32 ops), chain model {cyc} cycles = "
+            f"{cyc / (sm_mhz * 1e3):.4f} ms at {sm_mhz} MHz")
         out[name] = (ms, plain, bms, by)
     log("[timing] library: no single PyTorch call computes a Viterbi decode")
     return out
+
+
+def max_sm_mhz() -> int:
+    """The card's maximum SM clock, which the chain model runs at."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    check(bool(out), "nvidia-smi gave no clocks.max.sm")
+    return int(out[0])
 
 
 def main() -> int:
@@ -336,9 +372,9 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     phase_build()
-    max_err = phase_verify(dev)
-    launches, main_x, scalars = phase_main(dev)
-    times = phase_timing(dev, main_x, scalars)
+    phase_verify(dev)
+    launches, main_x, max_err, scalars = phase_main(dev)
+    times = phase_timing(dev, main_x, scalars, max_sm_mhz())
 
     ms, plain, bms, by = times["main"]
     kernels = [{

@@ -139,13 +139,10 @@ class RouteCache:
     SegmentMatcher concurrent-Match contract).
     """
 
-    def __init__(self, net: RoadNetwork, max_nodes: Optional[int] = None,
-                 max_pairs: Optional[int] = None):
+    def __init__(self, net: RoadNetwork):
         self.net = net
         self._cache: "OrderedDict[int, tuple]" = OrderedDict()
         self._pairs: "OrderedDict[tuple, tuple]" = OrderedDict()
-        self.max_nodes = max_nodes if max_nodes is not None else NODE_CAP
-        self.max_pairs = max_pairs if max_pairs is not None else PAIR_CAP
 
     @staticmethod
     def _bump(lru: OrderedDict, key) -> None:
@@ -170,7 +167,7 @@ class RouteCache:
         dist = _dijkstra_bounded(self.net, node, max_dist)
         self._cache[node] = (max_dist, dist)
         self._bump(self._cache, node)
-        self._evict(self._cache, self.max_nodes)
+        self._evict(self._cache, NODE_CAP)
         return dist
 
     # ---- pair level ------------------------------------------------------
@@ -186,7 +183,7 @@ class RouteCache:
     def pair_put(self, edge_a: int, edge_b: int,
                  bound: float, node_dist: float, node_secs: float) -> None:
         self._pairs[(edge_a, edge_b)] = (bound, node_dist, node_secs)
-        self._evict(self._pairs, self.max_pairs)
+        self._evict(self._pairs, PAIR_CAP)
 
 
 def route_distance(net: RoadNetwork, edge_a: int, offset_a: float,

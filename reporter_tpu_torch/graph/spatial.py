@@ -62,7 +62,7 @@ class SpatialGrid:
     the grid query itself is columnar, no Python per point.
     """
 
-    def __init__(self, net: RoadNetwork, cell_m: float = 250.0):
+    def __init__(self, net: RoadNetwork, cell_m: float):
         self.net = net
         self.cell_m = float(cell_m)
         nx, ny = net.node_xy()

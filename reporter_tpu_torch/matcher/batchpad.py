@@ -232,17 +232,10 @@ def _f16_safe(p: PreparedTrace) -> bool:
     return True
 
 
-def _next_pow2(n: int) -> int:
-    return 1 << max(n - 1, 0).bit_length()
-
-
-def pack_batches(prepared: Sequence[PreparedTrace],
-                 pad_pow2: bool = False) -> List[PaddedBatch]:
-    """Group prepared traces by bucket length and stack into batches.
-
-    ``pad_pow2`` rounds the batch dimension up to a power of two with
-    all-SKIP filler rows that decode to nothing, bounding the number of
-    distinct decode shapes per bucket.
+def pack_batches(prepared: Sequence[PreparedTrace]) -> List[PaddedBatch]:
+    """Group prepared traces by bucket length and stack into batches of
+    exactly the group's size: the decode kernel takes any batch size, so
+    no filler rows are shipped or decoded.
 
     The float tensors are built in the f16 wire format — the cast happens
     inside the copy the pack already performs, halving host->device
@@ -258,7 +251,7 @@ def pack_batches(prepared: Sequence[PreparedTrace],
     batches = []
     for T, group in sorted(by_T.items()):
         dtype = np.float16 if all(map(_f16_safe, group)) else np.float32
-        B = _next_pow2(len(group)) if pad_pow2 else len(group)
+        B = len(group)
         K = group[0].edge_ids.shape[1]
         with np.errstate(over="ignore"):  # sentinels overflow f16 to +inf
             dist = np.full((B, T, K), PAD_DIST, dtype=dtype)

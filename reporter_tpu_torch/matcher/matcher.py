@@ -36,6 +36,9 @@ from .params import MatchParams
 
 #: traces per prep + decode chunk: the service's batch
 DECODE_CHUNK = 512
+#: spatial grid cell, ~1.5x the default 50 m search radius: reach stays 1
+#: (a 3x3 cell scan) while each cell holds few edges
+GRID_CELL_M = 75.0
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,16 +59,13 @@ class SegmentMatcher:
     """Batched HMM matcher bound to one road network and one device."""
 
     def __init__(self, net: Optional[RoadNetwork] = None,
-                 params: Optional[MatchParams] = None, device=None,
-                 # ~1.5x the default 50 m search radius: reach stays 1 (a
-                 # 3x3 cell scan) while each cell holds few edges
-                 grid_cell_m: float = 75.0):
+                 params: Optional[MatchParams] = None, device=None):
         self.device = resolve_device(device)
         if net is None:
             raise ValueError("no network: pass net=")
         self.net = net
         self.params = params if params is not None else MatchParams()
-        self.grid = SpatialGrid(net, cell_m=grid_cell_m)
+        self.grid = SpatialGrid(net, cell_m=GRID_CELL_M)
         self.route_cache = RouteCache(net)
         #: wall seconds per stage, summed over calls (callers may reset)
         self.stage_seconds = {"prep": 0.0, "decode": 0.0, "assemble": 0.0}
@@ -156,7 +156,7 @@ class SegmentMatcher:
         sigma = np.float32(params.effective_sigma)
         beta = np.float32(params.beta)
         idx_of = {id(p): int(i) for p, i in zip(prepped, part)}
-        for batch in pack_batches(prepped, pad_pow2=True):
+        for batch in pack_batches(prepped):
             paths = self.decode(batch, sigma, beta)
             t0 = time.perf_counter()
             for b, p in enumerate(batch.traces):

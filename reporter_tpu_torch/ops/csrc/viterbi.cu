@@ -65,16 +65,14 @@ __device__ __forceinline__ float emission(float d, uint8_t valid, int c,
   return c == SKIP ? 0.0f : s;
 }
 
-// KC > 0 fixes K at compile time (the service's K=8); KC == 0 takes any K.
-template <typename F, int KC>
+template <typename F>
 __global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
 viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
                const F* __restrict__ route, const F* __restrict__ gc,
                const int32_t* __restrict__ cases, int B, int T, int Tr,
-               int K_arg, float sigma, float beta, int32_t* __restrict__ bps,
+               int K, float sigma, float beta, int32_t* __restrict__ bps,
                int32_t* __restrict__ paths, float* __restrict__ scores) {
   extern __shared__ float smem[];
-  const int K = KC > 0 ? KC : K_arg;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
@@ -154,7 +152,7 @@ viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
   }
 }
 
-template <typename F, int KC>
+template <typename F>
 cudaError_t launch(const void* dist, const void* valid, const void* route,
                    const void* gc, const void* cases, int B, int T, int Tr,
                    int K, float sigma, float beta, void* bps, void* paths,
@@ -166,7 +164,7 @@ cudaError_t launch(const void* dist, const void* valid, const void* route,
     warps /= 2;
     smem = (size_t)warps * 2 * K * sizeof(float);
   }
-  auto kernel = viterbi_kernel<F, KC>;
+  auto kernel = viterbi_kernel<F>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -183,18 +181,6 @@ cudaError_t launch(const void* dist, const void* valid, const void* route,
   return cudaGetLastError();
 }
 
-template <typename F>
-cudaError_t dispatch_k(const void* dist, const void* valid, const void* route,
-                       const void* gc, const void* cases, int B, int T, int Tr,
-                       int K, float sigma, float beta, void* bps, void* paths,
-                       void* scores, cudaStream_t stream) {
-  if (K == 8)
-    return launch<F, 8>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
-                        beta, bps, paths, scores, stream);
-  return launch<F, 0>(dist, valid, route, gc, cases, B, T, Tr, K, sigma, beta,
-                      bps, paths, scores, stream);
-}
-
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
@@ -209,9 +195,9 @@ extern "C" int viterbi_decode(const void* dist, const void* valid,
   if (T <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_f16 ? dispatch_k<__half>(dist, valid, route, gc, cases, B, T, Tr, K,
-                                  sigma, beta, bps, paths, scores, s)
-             : dispatch_k<float>(dist, valid, route, gc, cases, B, T, Tr, K,
-                                 sigma, beta, bps, paths, scores, s);
+      is_f16 ? launch<__half>(dist, valid, route, gc, cases, B, T, Tr, K,
+                              sigma, beta, bps, paths, scores, s)
+             : launch<float>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
+                             beta, bps, paths, scores, s);
   return (int)err;
 }
