@@ -16,32 +16,76 @@
 // scores (B,) f32. Inputs are the matcher's wire tensors as they arrive:
 // dist (B, T, K), valid (B, T, K) bool, route (B, Tr, K, K) and gc (B, Tr)
 // with Tr = T-1 or T (a dead trailing step), all f16 or all f32, and case
-// (B, T) int32. The (B, T-1, K, K) score tensor is never written.
+// (B, T) int32.
 //
 // Bound. Per launch the kernel must read every input once and write the
-// paths and scores: at B=512, T=64, K=8 on the f16 wire about 5.2 MB
+// paths and scores: at B=512, T=64, K=8 on the f16 wire 5,243,904 bytes
 // (route 4.1 MB), 1.6 us at 3.35 TB/s. Its arithmetic is ~10 f32 ops per
-// (t, i, j), far below the card's rate. What bounds it in practice is the
-// dependence chain: T-1 serial steps, each a K-long max/argmax over the
-// previous step's scores, then a T-long backtrace.
+// (t, i, j), far below the card's rate. What bounds it in practice is one
+// trace's dependence chain: T-1 serial steps, each a K-wide max/argmax
+// over the previous step's scores, then a T-1 step backtrace. Traces are
+// independent, so a launch takes about as long as its slowest trace.
 //
-// Design. One warp per trace; lane j owns candidate j (lane-strided over j
-// when K > 32). The running scores live in shared memory (double-buffered,
-// 2*K floats per warp), so every lane reads every s[t, i] as a broadcast.
-// Scoring is fused into the step: route values are read straight from the
-// wire tensor (upcast in registers), so the bytes moved are the inputs'
-// own. Traces are independent, so B warps run with no cross-block
-// communication and many traces' chains overlap on the card; each chain
-// is still T-1 serial steps. Backpointers go to a global scratch
-// (B, T-1, K) that lane 0 walks back after a __syncwarp. This is the
-// simple, exact design; keeping backpointers in shared memory, packing
-// several traces into one warp at K=8 and hoisting the route loads off
-// the chain are the known ways to shorten it.
+// What held the first design back (one warp per trace, scoring fused into
+// the step; ~3,500 SM cycles per step on the H100):
+//  - global loads at the top of every step: the case code and gc, then the
+//    route values behind the branch on the case code, then dist/valid, two
+//    or more dependent global round trips per serial step;
+//  - an IEEE division per (i, j) and per j inside the step, computed before
+//    the reachability select (so +inf reached the division);
+//  - at K=8 only 8 of 32 lanes busy, a shared-memory round trip and a
+//    __syncwarp per step;
+//  - int32 backpointers in a global scratch, walked back by lane 0 with
+//    T-1 dependent global loads;
+//  - 40 registers and a stack frame with spills.
 //
-// Numerics. Every float op is an IEEE round-to-nearest f32 op in the
-// reference's order (the __f*_rn intrinsics cannot contract into FMA;
-// the build also passes --fmad=false), ties break to the lowest index with
-// a strict '>' scan in ascending i, and sentinels are selected, never
+// This design, per item:
+//  - Warp roles. A block has 128 threads. Warp 0 runs the chain of each of
+//    the block's traces; warps 1-3 (the producers) stage and score. Named
+//    barriers hand scored chunks over (FULL + slot) and back (EMPTY + slot).
+//  - Staging. The producers copy each trace's wire slices (route, gc, case,
+//    dist, valid) into shared memory with cp.async 16-byte copies, a chunk
+//    of C steps at a time, and start chunk c+1's copies as soon as chunk c
+//    is scored. A slice need not start on 16 bytes (K=5, odd T): the copy
+//    takes the 16-byte granules that cover it, which lie inside the
+//    tensor's allocation (allocations are 16-byte aligned), and the reader
+//    adds the slice's offset in its first granule.
+//  - Scoring off the chain. The producers compute tr[t, i, j] and em[t, j]
+//    as f32 into shared memory. At K <= 32 there are two scored slots, so
+//    chunk c+1 is scored while the chain runs chunk c, and a slot holds the
+//    transitions transposed (row j = tr[t, 0..G-1, j], pads NEG_INF) so a
+//    lane reads its row with 16-byte loads. Above 32 one slot holds them as
+//    the route is laid out, and the f32 route is scored in place (so T=1024
+//    at K=128 fits a block); there the chain waits for each chunk. The
+//    reachability select comes before the division, and the division is
+//    div_rn below (one f64 multiply, no ptxas division sequence). RESTART
+//    folds in as tr = -0.0, the one value whose add leaves every f32
+//    unchanged, so a restart step gives the reference's max(prev) + em bit
+//    for bit; SKIP is the identity row.
+//  - The chain step. At K <= 32 lane j keeps s[t, j] in a register: the
+//    step is G shuffles of the previous scores, G independent adds, a
+//    max/argmax tree of log2(G) levels and one add of em (loaded before the
+//    tree). Above 32 the scores go through shared memory and lanes stride
+//    over candidates, one tile of 32 previous candidates at a time. The
+//    tree orders (value, index) pairs by larger value, then lower index,
+//    with pads (-inf, i >= K); that reduction is associative, so it gives
+//    what the reference's ascending strict '>' scan gives.
+//  - Lanes. The launch plan gives each trace a warp. The kernel also takes
+//    G = 8 or 16 lanes per trace (32/G traces in warp 0); at K=8 that was
+//    slower on the H100 (PERF.md), and chip_smoke.py times it beside.
+//  - Backpointers as uint8 in shared memory, (T-1)*K bytes per trace. At
+//    K <= 32 the backtrace runs in parallel over segments of the rows (see
+//    the end of the kernel): about 3*(T-1)/32 + 32 dependent shared loads
+//    in place of T-1; above, lane 0 walks them. Each step's choice goes
+//    over its consumed row, and the lanes store the path from there.
+//  - The launch plan (lanes, traces per block, chunk steps, shared bytes,
+//    grid) is made in Python (ops/viterbi.py `launch_plan`); the entry
+//    point checks it against `layout` below and launches what it is given.
+//
+// Numerics. Every float op gives the IEEE round-to-nearest f32 result in
+// the reference's order (the __f*_rn intrinsics cannot contract into FMA,
+// the build also passes --fmad=false, and div_rn rounds as division does),
+// ties break to the lowest index and sentinels are selected, never
 // multiplied in. So the results match the plain PyTorch scan bit for bit.
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -53,151 +97,589 @@ constexpr float NEG_INF = -1.0e30f;
 constexpr float UNREACHABLE_THRESHOLD = 0.5e9f;
 constexpr int RESTART = 1;
 constexpr int SKIP = 2;
-constexpr int WARPS_PER_BLOCK = 4;
+constexpr int THREADS = 128;
+constexpr int SMEM_MAX = 232448;
+constexpr int PRODUCER_THREADS = THREADS - 32;  // warps 1-3
+constexpr unsigned ALL_LANES = 0xffffffffu;
+// K <= SMALL_K: one tile of G candidates, transposed transition rows
+constexpr int SMALL_K = 32;
 
 __device__ __forceinline__ float upcast(float v) { return v; }
 __device__ __forceinline__ float upcast(__half v) { return __half2float(v); }
 
-__device__ __forceinline__ float emission(float d, uint8_t valid, int c,
-                                          float sigma) {
-  const float z = __fdiv_rn(d, sigma);
-  const float s = valid ? __fmul_rn(__fmul_rn(-0.5f, z), z) : NEG_INF;
-  return c == SKIP ? 0.0f : s;
+// -inf: pads of the max/argmax, below every real score (NEG_INF included)
+__device__ __forceinline__ float minus_inf() {
+  return __int_as_float(0xff800000);
 }
 
+__host__ __device__ constexpr int group_width(int K) {
+  return K <= 8 ? 8 : (K <= 16 ? 16 : 32);
+}
+
+__host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
+
+// Bytes per backpointer row: K above SMALL_K; at or below, the least
+// multiple of 4 >= K whose quarter is odd, so that the parallel
+// backtrace's lanes (an odd number of rows apart) read different banks.
+__host__ __device__ inline int bp_row(int K) {
+  if (K > SMALL_K) return K;
+  const int q = (K + 3) / 4;
+  return 4 * (q | 1);
+}
+
+// Byte offsets of one trace's regions in shared memory (ops/viterbi.py
+// `trace_bytes` computes the same sizes). Staging regions carry 16 bytes of
+// slack for a slice that starts inside its first granule. At K <= SMALL_K
+// the transitions are stored transposed, row j holding tr[t, 0..G-1, j],
+// and the route is staged apart from them; above, they are stored as the
+// route is (row i), and the f32 route is scored in place.
+struct Layout {
+  int bp, bps, scores, em, tr, route, gc, cs, dist, valid, stride;
+  int slots, em_slot, tr_slot;  // scored chunks in flight, bytes of each
+};
+
+__host__ __device__ inline Layout layout(int T, int K, int C, int L) {
+  const int G = group_width(K);
+  const int KP = (K + G - 1) / G * G;
+  const bool small = K <= SMALL_K;
+  Layout o;
+  int at = 0;
+  o.bps = bp_row(K);
+  o.bp = at;     at += round16((T - 1) * o.bps);
+  o.scores = at; at += 2 * KP * 4;
+  // two scored slots at K <= SMALL_K (the producers score chunk c+1 while
+  // the chain reads chunk c), one above
+  o.slots = small ? 2 : 1;
+  o.em_slot = round16(C * (small ? G : K) * 4);
+  o.tr_slot = small ? C * G * G * 4 : round16(C * K * K * 4) + 16;
+  o.em = at;     at += o.slots * o.em_slot;
+  o.tr = at;     at += o.slots * o.tr_slot;
+  o.route = at;  at += round16(C * K * K * (small ? 4 : 2)) + 16;
+  o.gc = at;     at += round16(C * 4) + 16;
+  o.cs = at;     at += round16(C * 4) + 16;
+  o.dist = at;   at += round16(C * K * 4) + 16;
+  o.valid = at;  at += round16(C * K) + 16;
+  // a stride of 4*L bytes past a 128-byte line puts the lane groups of
+  // one warp on different shared-memory banks
+  o.stride = ((at + 127) & ~127) + (L < 32 ? 4 * L : 0);
+  return o;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Offset of a slice inside its first 16-byte granule.
+__device__ __forceinline__ int granule_offset(const void* p) {
+  return (int)(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// Producer threads: copy the 16-byte granules covering [src, src + n) to
+// dst.
+__device__ __forceinline__ void stage(uint8_t* dst, const void* src, int n) {
+  const uintptr_t a0 = reinterpret_cast<uintptr_t>(src) & ~(uintptr_t)15;
+  const uintptr_t a1 =
+      (reinterpret_cast<uintptr_t>(src) + (uintptr_t)n + 15) & ~(uintptr_t)15;
+  const int granules = (int)((a1 - a0) >> 4);
+  for (int g = threadIdx.x - 32; g < granules; g += PRODUCER_THREADS)
+    cp_async16(dst + 16 * g, reinterpret_cast<const void*>(a0 + 16 * g));
+}
+
+// a / b rounded to f32 as IEEE division rounds it, given inv = 1/b rounded
+// to f64. a * inv in f64 is within 2^-52 (relative) of a / b. If a / b is
+// a float, that rounds to it; if not, a / b (a 24-bit integer over another,
+// scaled) lies at least 2^-49 (relative) from every point halfway between
+// two floats, so a * inv rounds to the same float as a / b. One f64
+// multiply and two conversions, where div.rn.f32 is a dozen instructions
+// and a branch.
+__device__ __forceinline__ float div_rn(float a, double inv) {
+  return __double2float_rn(__dmul_rn((double)a, inv));
+}
+
+__device__ __forceinline__ float emission(float d, bool valid, int c,
+                                          double inv_sigma) {
+  if (c == SKIP) return 0.0f;
+  if (!valid) return NEG_INF;
+  const float z = div_rn(d, inv_sigma);
+  return __fmul_rn(__fmul_rn(-0.5f, z), z);
+}
+
+// The transition score of a reachability-checked route value: the division
+// sees the route only when it is below the threshold (+inf never does).
+__device__ __forceinline__ float transition(float r, float g, int c,
+                                            bool diag, double inv_beta) {
+  const bool reach = r < UNREACHABLE_THRESHOLD;
+  const float q = div_rn(-fabsf(__fsub_rn(reach ? r : g, g)), inv_beta);
+  return c == RESTART ? -0.0f  // x + -0.0 == x for every f32 x
+         : c == SKIP  ? (diag ? 0.0f : NEG_INF)
+         : reach      ? q
+                      : NEG_INF;
+}
+
+// (value, index) max over v[0..G-1], indices ascending: the larger value
+// wins, the lower index on ties. Leaves the result in v[0], ix[0].
+template <int G>
+__device__ __forceinline__ void argmax_tree(float (&v)[G], int (&ix)[G]) {
+#pragma unroll
+  for (int w = 1; w < G; w *= 2) {
+#pragma unroll
+    for (int u = 0; u < G; u += 2 * w) {
+      const bool right = v[u + w] > v[u];
+      v[u] = right ? v[u + w] : v[u];
+      ix[u] = right ? ix[u + w] : ix[u];
+    }
+  }
+}
+
+// Where one trace's chunk lives in global memory.
 template <typename F>
-__global__ void __launch_bounds__(32 * WARPS_PER_BLOCK)
+struct Slices {
+  const F* route;
+  const F* gc;
+  const int32_t* cs;
+  const F* dist;
+  const uint8_t* valid;
+};
+
+template <typename F>
+__device__ __forceinline__ Slices<F> slices(const F* dist,
+                                            const uint8_t* valid,
+                                            const F* route, const F* gc,
+                                            const int32_t* cases, int b,
+                                            int T, int Tr, int K, int s0) {
+  const long long KK = (long long)K * K;
+  Slices<F> s;
+  s.route = route + ((long long)b * Tr + s0) * KK;
+  s.gc = gc + (long long)b * Tr + s0;
+  s.cs = cases + (long long)b * T + s0 + 1;
+  s.dist = dist + ((long long)b * T + s0 + 1) * K;
+  s.valid = valid + ((long long)b * T + s0 + 1) * K;
+  return s;
+}
+
+// Producer threads: start the copies of chunk c of the block's traces (the
+// points' slices and/or the route) and commit them as one group.
+template <typename F>
+__device__ __forceinline__ void issue(uint8_t* smem, Layout lay,
+                                      const F* dist, const uint8_t* valid,
+                                      const F* route, const F* gc,
+                                      const int32_t* cases, int B, int T,
+                                      int Tr, int K, int C, int TPB, int c,
+                                      bool points, bool rt, bool in_place) {
+  const int s0 = c * C;
+  const int ns = min(C, T - 1 - s0);
+  const int b0 = blockIdx.x * TPB;
+  for (int tt = 0; tt < TPB && b0 + tt < B; ++tt) {
+    uint8_t* tb = smem + tt * lay.stride;
+    const Slices<F> g =
+        slices(dist, valid, route, gc, cases, b0 + tt, T, Tr, K, s0);
+    if (rt)
+      stage(tb + (in_place ? lay.tr : lay.route), g.route,
+            ns * K * K * (int)sizeof(F));
+    if (points) {
+      stage(tb + lay.gc, g.gc, ns * (int)sizeof(F));
+      stage(tb + lay.cs, g.cs, ns * 4);
+      stage(tb + lay.dist, g.dist, ns * K * (int)sizeof(F));
+      stage(tb + lay.valid, g.valid, ns * K);
+    }
+  }
+  cp_async_commit();
+}
+
+// Named barriers between the producer warps (1-3) and the chain warp (0):
+// PRODUCERS among the producers alone; FULL + slot when a slot's chunk is
+// scored, EMPTY + slot when the chain has left it.
+constexpr int PRODUCERS = 1, FULL = 2, EMPTY = 4;
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Producers: score chunk c (steps s0..s0+ns-1) of the block's traces from
+// the staged slices into transition/emission slot `slot`.
+template <typename F, int G>
+__device__ __forceinline__ void score(uint8_t* smem, Layout lay,
+                                      const F* dist, const uint8_t* valid,
+                                      const F* route, const F* gc,
+                                      const int32_t* cases, int B, int T,
+                                      int Tr, int K, int TPB, int s0, int ns,
+                                      int slot, bool in_place,
+                                      double inv_sigma, double inv_beta) {
+  constexpr int GG = G * G;
+  const int p = threadIdx.x - 32;
+  const int KK = K * K;
+  const int b0 = blockIdx.x * TPB;
+  for (int tt = 0; tt < TPB && b0 + tt < B; ++tt) {
+    uint8_t* tb = smem + tt * lay.stride;
+    const Slices<F> g =
+        slices(dist, valid, route, gc, cases, b0 + tt, T, Tr, K, s0);
+    const int o_rt = granule_offset(g.route);
+    const F* gcs =
+        reinterpret_cast<const F*>(tb + lay.gc + granule_offset(g.gc));
+    const int32_t* css =
+        reinterpret_cast<const int32_t*>(tb + lay.cs + granule_offset(g.cs));
+    const F* dst =
+        reinterpret_cast<const F*>(tb + lay.dist + granule_offset(g.dist));
+    const uint8_t* vs = tb + lay.valid + granule_offset(g.valid);
+    if (K <= SMALL_K) {
+      // transposed, padded to G x G: n = (s, j, i); pads are NEG_INF
+      const F* rr = reinterpret_cast<const F*>(tb + lay.route + o_rt);
+      float* trp = reinterpret_cast<float*>(tb + lay.tr + slot * lay.tr_slot);
+      float* em = reinterpret_cast<float*>(tb + lay.em + slot * lay.em_slot);
+#pragma unroll 4
+      for (int n = p; n < ns * GG; n += PRODUCER_THREADS) {
+        const int s = n / GG, j = n % GG / G, i = n % G;
+        const bool real = i < K && j < K;
+        const float v =
+            transition(upcast(rr[s * KK + (real ? i * K + j : 0)]),
+                       upcast(gcs[s]), css[s], i == j, inv_beta);
+        trp[n] = real ? v : NEG_INF;
+      }
+#pragma unroll 4
+      for (int n = p; n < ns * G; n += PRODUCER_THREADS) {
+        const int s = n / G, j = n % G, jc = j < K ? j : 0;
+        em[n] = emission(upcast(dst[s * K + jc]), vs[s * K + jc] != 0,
+                         css[s], inv_sigma);
+      }
+    } else {
+      // as the route is laid out, one slot; the f32 route in place
+      float* trp =
+          reinterpret_cast<float*>(tb + lay.tr + (in_place ? o_rt : 0));
+      const F* rr = reinterpret_cast<const F*>(
+          in_place ? tb + lay.tr + o_rt : tb + lay.route + o_rt);
+      float* em = reinterpret_cast<float*>(tb + lay.em);
+      // n = (s, i, j) walks by PRODUCER_THREADS = (st_s, st_i, st_j) with
+      // carries, so the loop does no integer division
+      const int st_s = PRODUCER_THREADS / KK,
+                st_i = PRODUCER_THREADS % KK / K,
+                st_j = PRODUCER_THREADS % K;
+      int s = p / KK, i = p % KK / K, j = p % K;
+      for (int n = p; n < ns * KK; n += PRODUCER_THREADS) {
+        trp[n] = transition(upcast(rr[n]), upcast(gcs[s]), css[s], i == j,
+                            inv_beta);
+        j += st_j;
+        i += st_i + (j >= K);
+        j -= j >= K ? K : 0;
+        s += st_s + (i >= K);
+        i -= i >= K ? K : 0;
+      }
+      for (int n = p; n < ns * K; n += PRODUCER_THREADS)
+        em[n] = emission(upcast(dst[n]), vs[n] != 0, css[n / K], inv_sigma);
+    }
+  }
+}
+
+template <typename F, int G>
+__global__ void __launch_bounds__(THREADS, 1)
 viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
                const F* __restrict__ route, const F* __restrict__ gc,
                const int32_t* __restrict__ cases, int B, int T, int Tr,
-               int K, float sigma, float beta, int32_t* __restrict__ bps,
-               int32_t* __restrict__ paths, float* __restrict__ scores) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (b >= B) return;  // the whole warp leaves together
+               int K, double inv_sigma, double inv_beta, int L, int TPB,
+               int C, int32_t* __restrict__ paths,
+               float* __restrict__ scores) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  constexpr int GG = G * G;
+  const Layout lay = layout(T, K, C, L);
+  const bool small = K <= SMALL_K;  // then one tile: NS == 1
+  const bool in_place = sizeof(F) == 4 && !small;
+  const int slots = lay.slots;
+  const int NS = (K + G - 1) / G;   // candidate slots per lane = i tiles
+  const int KP = NS * G;
+  const int steps = T - 1;
+  const int chunks = (steps + C - 1) / C;
 
-  float* cur = smem + (size_t)warp * 2 * K;
-  float* nxt = cur + K;
-  const long long TK = (long long)T * K;
-  const F* dist_b = dist + b * TK;
-  const uint8_t* valid_b = valid + b * TK;
-  const int32_t* case_b = cases + (long long)b * T;
-  const F* route_b = route + (long long)b * Tr * K * K;
-  const F* gc_b = gc + (long long)b * Tr;
-  int32_t* bps_b = bps + (long long)b * (T - 1) * K;
-
-  const int c0 = case_b[0];
-  for (int j = lane; j < K; j += 32)
-    cur[j] = emission(upcast(dist_b[j]), valid_b[j], c0, sigma);
-  __syncwarp();
-
-  for (int t = 0; t < T - 1; ++t) {
-    const int ct = case_b[t + 1];
-    const float g = upcast(gc_b[t]);
-    const F* rt = route_b + (long long)t * K * K;
-    for (int j = lane; j < K; j += 32) {
-      float best = 0.0f;
-      int arg = 0;
-#pragma unroll 8
-      for (int i = 0; i < K; ++i) {
-        const float p = cur[i];
-        float c;
-        if (ct == RESTART) {
-          // a zero transition row: score max(prev) + em, backpointer
-          // argmax(prev) for every j
-          c = p;
-        } else if (ct == SKIP) {
-          c = __fadd_rn(p, i == j ? 0.0f : NEG_INF);
-        } else {
-          const float r = upcast(rt[(long long)i * K + j]);
-          const float dev = fabsf(__fsub_rn(r, g));
-          const float tr = r < UNREACHABLE_THRESHOLD ? __fdiv_rn(-dev, beta)
-                                                     : NEG_INF;
-          c = __fadd_rn(p, tr);
-        }
-        if (i == 0 || c > best) {
-          best = c;
-          arg = i;
-        }
-      }
-      const long long e = (long long)(t + 1) * K + j;
-      nxt[j] = __fadd_rn(best, emission(upcast(dist_b[e]), valid_b[e], ct,
-                                        sigma));
-      bps_b[(long long)t * K + j] = arg;
+  if (threadIdx.x >= 32) {
+    // Producers: stage chunk c+1 while the chain runs chunk c, score each
+    // chunk into a free slot, hand it over.
+    if (chunks > 0)
+      issue<F>(smem, lay, dist, valid, route, gc, cases, B, T, Tr, K, C, TPB,
+               0, true, !in_place, in_place);
+    for (int c = 0; c < chunks; ++c) {
+      const int slot = c % slots;
+      if (c >= slots) bar_sync(EMPTY + slot, THREADS);
+      if (in_place)  // the route lands where the chain read chunk c-1
+        issue<F>(smem, lay, dist, valid, route, gc, cases, B, T, Tr, K, C,
+                 TPB, c, false, true, true);
+      cp_async_wait_all();
+      bar_sync(PRODUCERS, PRODUCER_THREADS);
+      score<F, G>(smem, lay, dist, valid, route, gc, cases, B, T, Tr, K, TPB,
+                  c * C, min(C, steps - c * C), slot, in_place, inv_sigma,
+                  inv_beta);
+      bar_sync(PRODUCERS, PRODUCER_THREADS);
+      if (c + 1 < chunks)
+        issue<F>(smem, lay, dist, valid, route, gc, cases, B, T, Tr, K, C,
+                 TPB, c + 1, true, !in_place, in_place);
+      bar_arrive(FULL + slot, THREADS);
     }
-    __syncwarp();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    return;
   }
 
-  if (lane == 0) {
+  // The chain: warp 0, one lane group per trace, shared memory only.
+  const int gi = threadIdx.x / L;
+  const int l = threadIdx.x % L;
+  const int cb = blockIdx.x * TPB + gi;
+  const bool live = gi < TPB && cb < B;
+  uint8_t* const ctb = smem + (gi < TPB ? gi : 0) * lay.stride;
+  float* cur = reinterpret_cast<float*>(ctb + lay.scores);
+  float* nxt = cur + KP;
+  uint8_t* const bp = ctb + lay.bp;
+  const int BPS = lay.bps;
+
+  // Running scores start at point 0's emissions; pads are -inf forever.
+  if (live) {
+    const int c0 = cases[(long long)cb * T];
+    const long long e0 = (long long)cb * T * K;
+    for (int j = l; j < KP; j += L) {
+      cur[j] = j < K ? emission(upcast(dist[e0 + j]), valid[e0 + j] != 0, c0,
+                                inv_sigma)
+                     : minus_inf();
+      nxt[j] = minus_inf();
+    }
+  }
+  // K <= SMALL_K: lane l's running score, -inf past K
+  float sc = live && l < K ? cur[l] : minus_inf();
+
+  for (int c = 0; c < chunks; ++c) {
+    const int slot = c % slots;
+    const int s0 = c * C;
+    const int ns = min(C, steps - s0);
+    bar_sync(FULL + slot, THREADS);
+    if (small) {
+      // lane l owns candidate j = l and keeps its score in a register;
+      // its transition row is contiguous
+      const int jr = min(l, K - 1);
+      const float* row = reinterpret_cast<const float*>(
+                             ctb + lay.tr + slot * lay.tr_slot) + jr * G;
+      const float* emr = reinterpret_cast<const float*>(
+                             ctb + lay.em + slot * lay.em_slot) + jr;
+      const int base = gi * L;
+      for (int s = 0; s < ns; ++s) {
+        const float* rs = row + s * GG;
+        const float e = emr[s * G];  // loaded early: off the chain
+        float v[G];
+        int ix[G];
+#pragma unroll
+        for (int u = 0; u < G; u += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(rs + u);
+          v[u] = __fadd_rn(__shfl_sync(ALL_LANES, sc, base + u), t.x);
+          v[u + 1] = __fadd_rn(__shfl_sync(ALL_LANES, sc, base + u + 1), t.y);
+          v[u + 2] = __fadd_rn(__shfl_sync(ALL_LANES, sc, base + u + 2), t.z);
+          v[u + 3] = __fadd_rn(__shfl_sync(ALL_LANES, sc, base + u + 3), t.w);
+          ix[u] = u;
+          ix[u + 1] = u + 1;
+          ix[u + 2] = u + 2;
+          ix[u + 3] = u + 3;
+        }
+        argmax_tree<G>(v, ix);
+        if (live && l < K) bp[(s0 + s) * BPS + l] = (uint8_t)ix[0];
+        sc = l < K ? __fadd_rn(v[0], e) : minus_inf();
+      }
+    } else {
+      // K > 32: lane l owns j = l + 32m; tiles of G previous candidates
+      // combine in ascending order
+      const Slices<F> g =
+          slices(dist, valid, route, gc, cases, live ? cb : 0, T, Tr, K, s0);
+      const float* trc = reinterpret_cast<const float*>(
+          ctb + lay.tr + (in_place ? granule_offset(g.route) : 0));
+      const float* emc = reinterpret_cast<const float*>(ctb + lay.em);
+      const int KK = K * K;
+      for (int s = 0; s < ns; ++s) {
+        if (live) {
+          const float* trs = trc + s * KK;
+#pragma unroll 1
+          for (int m = 0; m < NS; ++m) {
+            const int j = l + G * m;
+            const int jr = min(j, K - 1);
+            float best = 0.0f;
+            int arg = 0;
+#pragma unroll 1
+            for (int q = 0; q < NS; ++q) {
+              float v[G];
+              int ix[G];
+#pragma unroll
+              for (int u = 0; u < G; ++u) {
+                const int i = q * G + u;
+                v[u] = __fadd_rn(cur[i], trs[min(i, K - 1) * K + jr]);
+                ix[u] = i;
+              }
+              argmax_tree<G>(v, ix);
+              if (q == 0 || v[0] > best) {
+                best = v[0];
+                arg = ix[0];
+              }
+            }
+            if (j < K) {
+              nxt[j] = __fadd_rn(best, emc[s * K + jr]);
+              bp[(s0 + s) * BPS + j] = (uint8_t)arg;
+            }
+          }
+        }
+        __syncwarp();
+        float* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+      }
+    }
+    if (c + slots < chunks) bar_arrive(EMPTY + slot, THREADS);
+  }
+
+  // Final argmax (lane 0 of each group), then the backtrace over the
+  // shared backpointers.
+  if (small && live && l < K) cur[l] = sc;
+  __syncwarp();
+  int arg = 0;
+  if (live && l == 0) {
     float best = cur[0];
-    int arg = 0;
     for (int j = 1; j < K; ++j) {
       if (cur[j] > best) {
         best = cur[j];
         arg = j;
       }
     }
-    scores[b] = best;
-    int32_t* path_b = paths + (long long)b * T;
-    path_b[T - 1] = arg;
+    scores[cb] = best;
+    paths[(long long)cb * T + T - 1] = arg;
+  }
+  int32_t* path_b = paths + (long long)cb * T;
+  if (small) {
+    // In parallel: the T-1 rows split into L segments. Each lane maps every
+    // state at the top of its segment to the state at its bottom (G walks
+    // side by side), lane 0 chains the maps from the final argmax down,
+    // and each lane walks its segment again from its entry state, storing
+    // the path. The maps go where the scored slots were.
+    uint8_t* maps = ctb + lay.tr;  // L x K states, then L entry states
+    uint8_t* entry = maps + L * K;
+    const int seg = (steps + L - 1) / L | 1;  // odd: see bp_row
+    const int lo = min(l * seg, steps), hi = min(lo + seg, steps);
+    if (live) {
+      int x[G];
+#pragma unroll
+      for (int k = 0; k < G; ++k) x[k] = min(k, K - 1);
+      for (int t = hi - 1; t >= lo; --t) {
+        const uint8_t* row = bp + t * BPS;
+#pragma unroll
+        for (int k = 0; k < G; ++k) x[k] = row[x[k]];
+      }
+#pragma unroll
+      for (int k = 0; k < G; ++k)
+        if (k < K) maps[l * K + k] = (uint8_t)x[k];
+    }
+    __syncwarp();
+    if (live && l == 0) {
+      for (int q = L - 1; q >= 0; --q) {
+        entry[q] = (uint8_t)arg;
+        arg = maps[q * K + arg];
+      }
+    }
+    __syncwarp();
+    if (live) {
+      int y = entry[l];
+      for (int t = hi - 1; t >= lo; --t) {
+        y = bp[t * BPS + y];
+        bp[t * BPS] = (uint8_t)y;  // over row t, consumed
+      }
+    }
+  } else if (live && l == 0) {
+    // lane 0 walks, writing step t's choice over row t (consumed)
     for (int t = T - 2; t >= 0; --t) {
-      arg = bps_b[(long long)t * K + arg];
-      path_b[t] = arg;
+      arg = bp[t * BPS + arg];
+      bp[t * BPS] = (uint8_t)arg;
     }
   }
+  __syncwarp();
+  if (live)  // the lanes store the path, coalesced
+    for (int t = l; t < T - 1; t += L) path_b[t] = bp[t * BPS];
+}
+
+template <typename F, int G>
+cudaError_t launch(const void* dist, const void* valid, const void* route,
+                   const void* gc, const void* cases, int B, int T, int Tr,
+                   int K, float sigma, float beta, int lanes, int tpb,
+                   int chunk, int smem, int grid, void* paths, void* scores,
+                   cudaStream_t stream) {
+  auto kernel = viterbi_kernel<F, G>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, THREADS, smem, stream>>>(
+      static_cast<const F*>(dist), static_cast<const uint8_t*>(valid),
+      static_cast<const F*>(route), static_cast<const F*>(gc),
+      static_cast<const int32_t*>(cases), B, T, Tr, K, 1.0 / (double)sigma,
+      1.0 / (double)beta, lanes,
+      tpb, chunk, static_cast<int32_t*>(paths), static_cast<float*>(scores));
+  return cudaGetLastError();
 }
 
 template <typename F>
-cudaError_t launch(const void* dist, const void* valid, const void* route,
-                   const void* gc, const void* cases, int B, int T, int Tr,
-                   int K, float sigma, float beta, void* bps, void* paths,
-                   void* scores, cudaStream_t stream) {
-  // fewer traces per block when K is large, so one block's scores fit
-  int warps = WARPS_PER_BLOCK;
-  size_t smem = (size_t)warps * 2 * K * sizeof(float);
-  while (warps > 1 && smem > 48 * 1024) {
-    warps /= 2;
-    smem = (size_t)warps * 2 * K * sizeof(float);
+cudaError_t launch_g(int G, const void* dist, const void* valid,
+                     const void* route, const void* gc, const void* cases,
+                     int B, int T, int Tr, int K, float sigma, float beta,
+                     int lanes, int tpb, int chunk, int smem, int grid,
+                     void* paths, void* scores, cudaStream_t s) {
+  switch (G) {
+    case 8:
+      return launch<F, 8>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
+                          beta, lanes, tpb, chunk, smem, grid, paths, scores,
+                          s);
+    case 16:
+      return launch<F, 16>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
+                           beta, lanes, tpb, chunk, smem, grid, paths, scores,
+                           s);
+    default:
+      return launch<F, 32>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
+                           beta, lanes, tpb, chunk, smem, grid, paths, scores,
+                           s);
   }
-  auto kernel = viterbi_kernel<F>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((B + warps - 1) / warps);
-  const dim3 block(32 * warps);
-  kernel<<<grid, block, smem, stream>>>(
-      static_cast<const F*>(dist), static_cast<const uint8_t*>(valid),
-      static_cast<const F*>(route), static_cast<const F*>(gc),
-      static_cast<const int32_t*>(cases), B, T, Tr, K, sigma, beta,
-      static_cast<int32_t*>(bps), static_cast<int32_t*>(paths),
-      static_cast<float*>(scores));
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes. Returns the cudaError_t of the
-// launch (0 on success). The caller allocates every buffer; the launch is
-// asynchronous on `stream`.
+// Plain C entry point, loaded with ctypes. Launches the plan it is given
+// (lanes per trace, traces per block, chunk steps, dynamic shared bytes,
+// grid of `threads`-thread blocks) after checking it against this file's
+// layout, and returns the cudaError_t of the launch (0 on success). The
+// caller allocates every buffer; the launch is asynchronous on `stream`.
 extern "C" int viterbi_decode(const void* dist, const void* valid,
                               const void* route, const void* gc,
                               const void* cases, int B, int T, int Tr, int K,
-                              int is_f16, float sigma, float beta, void* bps,
-                              void* paths, void* scores, void* stream) {
+                              int is_f16, float sigma, float beta, int lanes,
+                              int traces_per_block, int chunk, int smem,
+                              int grid, int threads, void* paths,
+                              void* scores, void* stream) {
   if (B <= 0) return 0;
-  if (T <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const int G = group_width(K);
+  if (T <= 0 || K <= 0 || K > 255 || (Tr != T - 1 && Tr != T) ||
+      (long long)(T - 1) * K > SMEM_MAX ||
+      (long long)chunk * K * K * 4 > SMEM_MAX ||
+      threads != THREADS || (lanes != G && lanes != 32) ||
+      traces_per_block < 1 || traces_per_block * lanes > 32 || chunk < 1 ||
+      smem > SMEM_MAX ||
+      (long long)traces_per_block * layout(T, K, chunk, lanes).stride >
+          smem ||
+      (long long)grid * traces_per_block < B)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      is_f16 ? launch<__half>(dist, valid, route, gc, cases, B, T, Tr, K,
-                              sigma, beta, bps, paths, scores, s)
-             : launch<float>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
-                             beta, bps, paths, scores, s);
+      is_f16 ? launch_g<__half>(G, dist, valid, route, gc, cases, B, T, Tr, K,
+                                sigma, beta, lanes, traces_per_block, chunk,
+                                smem, grid, paths, scores, s)
+             : launch_g<float>(G, dist, valid, route, gc, cases, B, T, Tr, K,
+                               sigma, beta, lanes, traces_per_block, chunk,
+                               smem, grid, paths, scores, s);
   return (int)err;
 }

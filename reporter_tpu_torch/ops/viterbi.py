@@ -10,6 +10,11 @@ with ``ctypes``. Its plain version is the PyTorch scan
 launches the kernel or raises, and counts launches in
 ``viterbi_cuda.launches``. ``ops.decode_batch`` sends CPU tensors to the
 plain version and CUDA tensors here.
+
+:func:`launch_plan` decides the launch (lanes per trace, traces per
+block, chunk steps, dynamic shared memory, grid) on the host, so the CPU
+tests can pin it; the C entry point checks it against the kernel's own
+shared-memory layout and launches what it is given.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -30,8 +36,106 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC")
-#: two f32 score rows per trace must fit one block's shared memory
-MAX_K = 227 * 1024 // 8
+#: uint8 backpointers: one trace's (T-1)*K bytes at T=1024 fit one block
+MAX_K = 128
+#: shared memory one block may use on Hopper
+SMEM_MAX = 232_448
+#: threads per block: warp 0 runs the chains, warps 1-3 stage and score
+BLOCK_THREADS = 128
+#: f32 transition bytes scored per trace per chunk (32 steps at K=8); at
+#: K <= SMALL_K a chunk has at least MIN_CHUNK steps where that fits
+CHUNK_BYTES = 8_192
+MIN_CHUNK = 8
+
+
+class LaunchPlan(NamedTuple):
+    lanes: int              # lanes per trace (the group width, or a warp)
+    traces_per_block: int
+    chunk_steps: int        # C: time steps staged and scored at a time
+    smem_bytes: int         # dynamic shared memory per block
+    grid: int               # blocks
+    threads: int            # threads per block
+
+
+def group_width(K: int) -> int:
+    """G: the next power of two >= K, at least 8, capped at 32."""
+    return 8 if K <= 8 else 16 if K <= 16 else 32
+
+
+def _round16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+#: up to this K one lane's candidates are one tile, and the transitions
+#: are stored transposed (csrc/viterbi.cu `SMALL_K`)
+SMALL_K = 32
+
+
+def tr_bytes_per_step(K: int) -> int:
+    """f32 transition bytes one staged step takes in shared memory."""
+    G = group_width(K)
+    return G * G * 4 if K <= SMALL_K else K * K * 4
+
+
+def bp_row(K: int) -> int:
+    """Bytes per backpointer row (csrc/viterbi.cu `bp_row`)."""
+    return K if K > SMALL_K else 4 * (((K + 3) // 4) | 1)
+
+
+def trace_bytes(T: int, K: int, C: int, lanes: int) -> int:
+    """Shared bytes of one trace's regions, the stride between traces;
+    csrc/viterbi.cu `layout` computes the same. At K <= ``SMALL_K`` two
+    scored chunks are in flight (the producer warps score one while the
+    chain reads the other). Staging regions carry 16 bytes of slack for a
+    slice that starts inside its first granule."""
+    G = group_width(K)
+    KP = -(-K // G) * G
+    small = K <= SMALL_K
+    slots = 2 if small else 1
+    n = (_round16((T - 1) * bp_row(K))               # uint8 backpointers
+         + 2 * KP * 4                                 # running scores
+         + slots * _round16(C * (G if small else K) * 4)     # emissions
+         + slots * (C * tr_bytes_per_step(K) if small        # transitions
+                    else _round16(C * tr_bytes_per_step(K)) + 16)
+         + _round16(C * K * K * (4 if small else 2)) + 16   # staged route
+         + 2 * (_round16(C * 4) + 16)                 # staged gc, case
+         + _round16(C * K * 4) + 16                   # staged dist
+         + _round16(C * K) + 16)                      # staged valid
+    return ((n + 127) & ~127) + (4 * lanes if lanes < 32 else 0)
+
+
+def launch_plan(B: int, T: int, K: int) -> LaunchPlan:
+    """The kernel's launch for a (B, T, K) batch: a warp per trace (it
+    beat ``group_width(K)`` lanes per trace, four traces to a warp at K=8,
+    on the H100: PERF.md), one trace per block, and the longest chunk of
+    about ``CHUNK_BYTES`` that fits the block's shared memory. Raises
+    ``ValueError`` when K > ``MAX_K`` or one trace does not fit a block."""
+    return plan_with_lanes(B, T, K, 32)
+
+
+def plan_with_lanes(B: int, T: int, K: int, lanes: int) -> LaunchPlan:
+    """:func:`launch_plan` with ``lanes`` per trace (``group_width(K)`` or
+    32); ``chip_smoke.py`` times the other layout against it."""
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K={K} outside 1..{MAX_K}: one trace's uint8 "
+                         f"backpointers must fit one block")
+    if T < 1 or B < 0:
+        raise ValueError(f"bad batch shape B={B}, T={T}")
+    if lanes not in (group_width(K), 32):
+        raise ValueError(f"lanes={lanes}: {group_width(K)} or 32 at K={K}")
+    tpb = 32 // lanes
+    C = CHUNK_BYTES // tr_bytes_per_step(K)
+    C = max(1, min(T - 1, max(C, MIN_CHUNK) if K <= SMALL_K else C))
+    while C > 1 and tpb * trace_bytes(T, K, C, lanes) > SMEM_MAX:
+        C = (C + 1) // 2
+    while tpb > 1 and tpb * trace_bytes(T, K, C, lanes) > SMEM_MAX:
+        tpb //= 2
+    smem = tpb * trace_bytes(T, K, C, lanes)
+    if smem > SMEM_MAX:
+        raise ValueError(f"T={T}, K={K}: one trace needs {smem} bytes of "
+                         f"shared memory, more than {SMEM_MAX}")
+    return LaunchPlan(lanes, tpb, C, smem, -(-B // tpb), BLOCK_THREADS)
+
 
 _lock = threading.Lock()
 _kernel = None  # (ctypes function, build log) once built
@@ -70,7 +174,7 @@ def build():
             fn = ctypes.CDLL(str(out)).viterbi_decode
             p, i = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
-                           ctypes.c_float, p, p, p, p]
+                           ctypes.c_float, i, i, i, i, i, i, p, p, p]
             fn.restype = i
             _kernel = (fn, log)
         return _kernel
@@ -84,6 +188,9 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
     if dist_m.dim() != 3:
         raise ValueError(f"dist_m must be (B, T, K), got {tuple(dist_m.shape)}")
     B, T, K = dist_m.shape
+    if K > MAX_K:
+        raise ValueError(f"K={K}: the CUDA decode takes at most {MAX_K} "
+                         f"candidates")
     dev = dist_m.device
     tensors = {"dist_m": dist_m, "valid": valid, "route_m": route_m,
                "gc_m": gc_m, "case": case}
@@ -100,32 +207,32 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
     if valid.dtype != torch.bool or case.dtype != torch.int32:
         raise TypeError("valid must be bool and case int32")
     Tr = route_m.shape[1] if route_m.dim() == 4 else -1
-    if T < 1 or K < 1 or K > MAX_K or Tr not in (T - 1, T) \
+    if T < 1 or K < 1 or Tr not in (T - 1, T) \
             or tuple(valid.shape) != (B, T, K) \
             or tuple(route_m.shape) != (B, Tr, K, K) \
             or tuple(gc_m.shape) != (B, Tr) or tuple(case.shape) != (B, T):
         raise ValueError(
             f"unsupported shapes dist {tuple(dist_m.shape)} valid "
             f"{tuple(valid.shape)} route {tuple(route_m.shape)} gc "
-            f"{tuple(gc_m.shape)} case {tuple(case.shape)} (K <= {MAX_K})")
+            f"{tuple(gc_m.shape)} case {tuple(case.shape)}")
+    plan = launch_plan(B, T, K)
     out = (torch.empty((B, T), dtype=torch.int32, device=dev),
-           torch.empty((B,), dtype=torch.float32, device=dev),
-           torch.empty((B, T - 1, K), dtype=torch.int32, device=dev))
-    launch((dist_m, valid, route_m, gc_m, case), sigma, beta, out)
+           torch.empty((B,), dtype=torch.float32, device=dev))
+    launch((dist_m, valid, route_m, gc_m, case), sigma, beta, out, plan)
     viterbi_cuda.launches += 1
-    return out[0], out[1]
+    return out
 
 
 viterbi_cuda.launches = 0
 
 
-def launch(inputs, sigma, beta, out) -> None:
-    """Enqueue one kernel launch on the current stream, uncounted and
-    unchecked: ``inputs`` as :func:`viterbi_cuda` has validated them,
-    ``out`` the (paths, scores, backpointer scratch) buffers. Timing
-    loops call this with buffers allocated once."""
+def launch(inputs, sigma, beta, out, plan: LaunchPlan) -> None:
+    """Enqueue one kernel launch of ``plan`` on the current stream,
+    uncounted and unchecked: ``inputs`` as :func:`viterbi_cuda` has
+    validated them, ``out`` the (paths, scores) buffers. Timing loops call
+    this with buffers allocated once."""
     dist_m, valid, route_m, gc_m, case = inputs
-    paths, scores, bps = out
+    paths, scores = out
     B, T, K = dist_m.shape
     fn, _log = build()
     with torch.cuda.device(dist_m.device):
@@ -133,8 +240,7 @@ def launch(inputs, sigma, beta, out) -> None:
         err = fn(dist_m.data_ptr(), valid.data_ptr(), route_m.data_ptr(),
                  gc_m.data_ptr(), case.data_ptr(), B, T, route_m.shape[1], K,
                  int(dist_m.dtype == torch.float16), float(sigma),
-                 float(beta), bps.data_ptr(), paths.data_ptr(),
-                 scores.data_ptr(), stream)
+                 float(beta), *plan, paths.data_ptr(), scores.data_ptr(),
+                 stream)
     if err != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {err}")
-

@@ -5,7 +5,9 @@ scan repeats the JAX scan's float operations in its order, so on the CPU
 its paths are equal and its scores bit-equal to
 ``reporter_tpu.matcher.hmm.viterbi_decode_batch``; against the Pallas
 kernel (run in interpret mode, as the JAX package's own tests run it)
-scores agree within rtol 1e-5 and paths exactly.
+scores agree within rtol 1e-5 and paths exactly. The CUDA kernel's launch
+plan, made on the host, is pinned here too; the kernel itself runs only on
+the card (``chip_smoke.py``).
 """
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch
 from reporter_tpu.matcher import hmm as jax_hmm
 from reporter_tpu.ops.pallas_viterbi import viterbi_pallas_batch
 from reporter_tpu_torch import ops
+from reporter_tpu_torch.ops import viterbi
 from reporter_tpu_torch.matcher import hmm
 from reporter_tpu_torch.matcher.hmm import NORMAL, RESTART, SKIP
 
@@ -141,3 +144,46 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         ops.viterbi_cuda(*(torch.from_numpy(a) for a in
                            (dist, valid, route, gc, case)), sigma, beta)
+
+
+PLAN_T = (1, 2, 16, 64, 256, 1024)
+PLAN_K = (1, 5, 8, 12, 32, 40, 64, 128)
+
+
+@pytest.mark.parametrize("K", PLAN_K)
+@pytest.mark.parametrize("T", PLAN_T)
+def test_launch_plan_fits_one_block_and_covers_the_batch(T, K):
+    """The CUDA kernel's launch plan, made on the host: shared memory
+    within the 227 KB a Hopper block may use, a power-of-two lane group
+    per trace, every trace of the batch in some block. The layout the
+    chip run compares against (a lane group per trace) holds the same."""
+    for lanes in (None, viterbi.group_width(K)):
+        for B in (1, 37, 512):
+            plan = (viterbi.launch_plan(B, T, K) if lanes is None
+                    else viterbi.plan_with_lanes(B, T, K, lanes))
+            assert plan.smem_bytes <= viterbi.SMEM_MAX == 232_448
+            assert plan.lanes & (plan.lanes - 1) == 0
+            assert min(K, 32) <= plan.lanes <= 32
+            assert 1 <= plan.traces_per_block
+            assert plan.traces_per_block * plan.lanes <= 32
+            assert plan.grid * plan.traces_per_block >= B
+            assert (plan.grid - 1) * plan.traces_per_block < B
+            assert 1 <= plan.chunk_steps <= max(T - 1, 1)
+            assert plan.smem_bytes == plan.traces_per_block * \
+                viterbi.trace_bytes(T, K, plan.chunk_steps, plan.lanes)
+            assert plan.threads == viterbi.BLOCK_THREADS == 128
+
+
+@pytest.mark.parametrize("K", [0, 129])
+def test_launch_plan_refuses_k_outside_1_to_128(K):
+    with pytest.raises(ValueError, match="outside 1..128"):
+        viterbi.launch_plan(512, 64, K)
+
+
+def test_kernel_wrapper_refuses_k_above_128():
+    """The card takes at most 128 candidates: a matcher on cuda with
+    max_candidates > 128 raises rather than decoding elsewhere."""
+    args = random_inputs(2, 4, 129, 9, with_restarts=False)
+    with pytest.raises(ValueError, match="at most 128"):
+        ops.viterbi_cuda(*(torch.from_numpy(a) for a in args[:5]),
+                         *args[5:])
