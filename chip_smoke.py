@@ -19,9 +19,9 @@ Phases, each fatal on failure:
             launch count read around this phase alone
 4. timing   CUDA-event times of the kernel from CUDA graphs (batch and
             one trace at T=64/256/1024, twice in turns; the per-step slope
-            and intercept; one batch with the L2 flushed; the two lane
-            layouts) and of the plain version, beside the least time the
-            card could take and a model of the chain
+            and intercept; one batch with the L2 flushed) and of the plain
+            version, beside the least time the card could take and a model
+            of the chain
 
 Prints the card's name and power limit, one JSON line describing the
 kernel, and as the last line {"ok": true, "device": {...}}. Exits non-zero,
@@ -431,8 +431,7 @@ def phase_timing(dev, main_x, scalars, sm_mhz):
     graphs: the batch, twice in turns, and the batch's first trace alone,
     whose three times give the chain's cost per step (slope) and its fixed
     part (intercept); the main batch launched from Python without a graph
-    and with the L2 flushed before each launch; the two lane layouts at
-    the main shape in turns; the plain version."""
+    and with the L2 flushed before each launch; the plain version."""
     from reporter_tpu_torch.ops import viterbi, viterbi_plain
     shapes = {"main": main_x,
               "mid": to_device(random_inputs(64, 256, K, 98), True, dev),
@@ -462,14 +461,6 @@ def phase_timing(dev, main_x, scalars, sm_mhz):
     flushed = flushed_ms(main_x, scalars, plan)
     log(f"[timing] B,T,K={B},{T},{Kx} with the L2 flushed before each "
         f"launch: {flushed:.4f} ms")
-    other = viterbi.plan_with_lanes(B, T, Kx, viterbi.group_width(Kx))
-    lay = {}
-    for p in (plan, other, other, plan):
-        lay.setdefault(p.lanes, []).append(kernel_ms(main_x, scalars, p))
-    log("[timing] lane layouts at " f"{B},{T},{Kx} (in turns): " + ", ".join(
-        f"{lanes} lanes/trace ({32 // lanes} traces/warp) "
-        + " / ".join(f"{v:.4f}" for v in ms) + " ms"
-        for lanes, ms in lay.items()))
 
     out = {}
     for name, x in shapes.items():

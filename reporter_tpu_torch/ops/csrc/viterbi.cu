@@ -40,10 +40,13 @@
 //  - 40 registers and a stack frame with spills.
 //
 // This design, per item:
-//  - Warp roles. A block has 128 threads. Warp 0 runs the chain of each of
-//    the block's traces; warps 1-3 (the producers) stage and score. Named
-//    barriers hand scored chunks over (FULL + slot) and back (EMPTY + slot).
-//  - Staging. The producers copy each trace's wire slices (route, gc, case,
+//  - Warp roles. A block of 128 threads decodes one trace. Warp 0 runs its
+//    chain; warps 1-3 (the producers) stage and score. Named barriers hand
+//    scored chunks over (FULL + slot) and back (EMPTY + slot). A whole warp
+//    per trace, though K=8 needs 8 lanes: packing four traces into warp 0
+//    (and a quarter of the blocks) took 1.85x as long at B=512, T=64 on the
+//    H100 (PERF.md).
+//  - Staging. The producers copy the trace's wire slices (route, gc, case,
 //    dist, valid) into shared memory with cp.async 16-byte copies, a chunk
 //    of C steps at a time, and start chunk c+1's copies as soon as chunk c
 //    is scored. A slice need not start on 16 bytes (K=5, odd T): the copy
@@ -62,25 +65,25 @@
 //    folds in as tr = -0.0, the one value whose add leaves every f32
 //    unchanged, so a restart step gives the reference's max(prev) + em bit
 //    for bit; SKIP is the identity row.
-//  - The chain step. At K <= 32 lane j keeps s[t, j] in a register: the
-//    step is G shuffles of the previous scores, G independent adds, a
-//    max/argmax tree of log2(G) levels and one add of em (loaded before the
-//    tree). Above 32 the scores go through shared memory and lanes stride
+//  - The chain step. G = 8, 16 or 32 (the least of these >= K; a template
+//    parameter, K itself is a run-time argument). At K <= 32 lane j keeps
+//    s[t, j] in a register: the step is G shuffles of the previous scores,
+//    G independent adds, a max/argmax tree of log2(G) levels and one add
+//    of em (loaded before the tree). Above 32 the scores go through shared memory and lanes stride
 //    over candidates, one tile of 32 previous candidates at a time. The
 //    tree orders (value, index) pairs by larger value, then lower index,
 //    with pads (-inf, i >= K); that reduction is associative, so it gives
 //    what the reference's ascending strict '>' scan gives.
-//  - Lanes. The launch plan gives each trace a warp. The kernel also takes
-//    G = 8 or 16 lanes per trace (32/G traces in warp 0); at K=8 that was
-//    slower on the H100 (PERF.md), and chip_smoke.py times it beside.
-//  - Backpointers as uint8 in shared memory, (T-1)*K bytes per trace. At
-//    K <= 32 the backtrace runs in parallel over segments of the rows (see
-//    the end of the kernel): about 3*(T-1)/32 + 32 dependent shared loads
-//    in place of T-1; above, lane 0 walks them. Each step's choice goes
-//    over its consumed row, and the lanes store the path from there.
-//  - The launch plan (lanes, traces per block, chunk steps, shared bytes,
-//    grid) is made in Python (ops/viterbi.py `launch_plan`); the entry
-//    point checks it against `layout` below and launches what it is given.
+//  - Backpointers as uint8 in shared memory, T-1 rows of K bytes (padded
+//    to bp_row(K) at K <= 32). At K <= 32 the backtrace runs in parallel
+//    over segments of the rows (see the end of the kernel): about
+//    2*(T-1)/32 + 32 dependent shared loads in place of T-1; above, lane 0
+//    walks them. Each step's choice goes over its consumed row, and the
+//    lanes store the path from there.
+//  - The launch plan (lanes per trace, traces per block, chunk steps,
+//    shared bytes, grid) is made in Python (ops/viterbi.py `launch_plan`);
+//    the entry point checks it against `layout` below and launches what it
+//    is given.
 //
 // Numerics. Every float op gives the IEEE round-to-nearest f32 result in
 // the reference's order (the __f*_rn intrinsics cannot contract into FMA,
@@ -127,18 +130,18 @@ __host__ __device__ inline int bp_row(int K) {
   return 4 * (q | 1);
 }
 
-// Byte offsets of one trace's regions in shared memory (ops/viterbi.py
-// `trace_bytes` computes the same sizes). Staging regions carry 16 bytes of
+// Byte offsets of a block's regions in shared memory, one trace's
+// (ops/viterbi.py `trace_bytes` computes the same total). Staging regions carry 16 bytes of
 // slack for a slice that starts inside its first granule. At K <= SMALL_K
 // the transitions are stored transposed, row j holding tr[t, 0..G-1, j],
 // and the route is staged apart from them; above, they are stored as the
 // route is (row i), and the f32 route is scored in place.
 struct Layout {
-  int bp, bps, scores, em, tr, route, gc, cs, dist, valid, stride;
+  int bp, bps, scores, em, tr, route, gc, cs, dist, valid, bytes;
   int slots, em_slot, tr_slot;  // scored chunks in flight, bytes of each
 };
 
-__host__ __device__ inline Layout layout(int T, int K, int C, int L) {
+__host__ __device__ inline Layout layout(int T, int K, int C) {
   const int G = group_width(K);
   const int KP = (K + G - 1) / G * G;
   const bool small = K <= SMALL_K;
@@ -159,9 +162,7 @@ __host__ __device__ inline Layout layout(int T, int K, int C, int L) {
   o.cs = at;     at += round16(C * 4) + 16;
   o.dist = at;   at += round16(C * K * 4) + 16;
   o.valid = at;  at += round16(C * K) + 16;
-  // a stride of 4*L bytes past a 128-byte line puts the lane groups of
-  // one warp on different shared-memory banks
-  o.stride = ((at + 127) & ~127) + (L < 32 ? 4 * L : 0);
+  o.bytes = at;
   return o;
 }
 
@@ -267,31 +268,27 @@ __device__ __forceinline__ Slices<F> slices(const F* dist,
   return s;
 }
 
-// Producer threads: start the copies of chunk c of the block's traces (the
+// Producer threads: start the copies of chunk c of the block's trace (the
 // points' slices and/or the route) and commit them as one group.
 template <typename F>
 __device__ __forceinline__ void issue(uint8_t* smem, Layout lay,
                                       const F* dist, const uint8_t* valid,
                                       const F* route, const F* gc,
-                                      const int32_t* cases, int B, int T,
-                                      int Tr, int K, int C, int TPB, int c,
-                                      bool points, bool rt, bool in_place) {
+                                      const int32_t* cases, int T, int Tr,
+                                      int K, int C, int c, bool points,
+                                      bool rt, bool in_place) {
   const int s0 = c * C;
   const int ns = min(C, T - 1 - s0);
-  const int b0 = blockIdx.x * TPB;
-  for (int tt = 0; tt < TPB && b0 + tt < B; ++tt) {
-    uint8_t* tb = smem + tt * lay.stride;
-    const Slices<F> g =
-        slices(dist, valid, route, gc, cases, b0 + tt, T, Tr, K, s0);
-    if (rt)
-      stage(tb + (in_place ? lay.tr : lay.route), g.route,
-            ns * K * K * (int)sizeof(F));
-    if (points) {
-      stage(tb + lay.gc, g.gc, ns * (int)sizeof(F));
-      stage(tb + lay.cs, g.cs, ns * 4);
-      stage(tb + lay.dist, g.dist, ns * K * (int)sizeof(F));
-      stage(tb + lay.valid, g.valid, ns * K);
-    }
+  const Slices<F> g =
+      slices(dist, valid, route, gc, cases, blockIdx.x, T, Tr, K, s0);
+  if (rt)
+    stage(smem + (in_place ? lay.tr : lay.route), g.route,
+          ns * K * K * (int)sizeof(F));
+  if (points) {
+    stage(smem + lay.gc, g.gc, ns * (int)sizeof(F));
+    stage(smem + lay.cs, g.cs, ns * 4);
+    stage(smem + lay.dist, g.dist, ns * K * (int)sizeof(F));
+    stage(smem + lay.valid, g.valid, ns * K);
   }
   cp_async_commit();
 }
@@ -309,77 +306,71 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// Producers: score chunk c (steps s0..s0+ns-1) of the block's traces from
+// Producers: score chunk c (steps s0..s0+ns-1) of the block's trace from
 // the staged slices into transition/emission slot `slot`.
 template <typename F, int G>
 __device__ __forceinline__ void score(uint8_t* smem, Layout lay,
                                       const F* dist, const uint8_t* valid,
                                       const F* route, const F* gc,
-                                      const int32_t* cases, int B, int T,
-                                      int Tr, int K, int TPB, int s0, int ns,
-                                      int slot, bool in_place,
-                                      double inv_sigma, double inv_beta) {
+                                      const int32_t* cases, int T, int Tr,
+                                      int K, int s0, int ns, int slot,
+                                      bool in_place, double inv_sigma,
+                                      double inv_beta) {
   constexpr int GG = G * G;
   const int p = threadIdx.x - 32;
   const int KK = K * K;
-  const int b0 = blockIdx.x * TPB;
-  for (int tt = 0; tt < TPB && b0 + tt < B; ++tt) {
-    uint8_t* tb = smem + tt * lay.stride;
-    const Slices<F> g =
-        slices(dist, valid, route, gc, cases, b0 + tt, T, Tr, K, s0);
-    const int o_rt = granule_offset(g.route);
-    const F* gcs =
-        reinterpret_cast<const F*>(tb + lay.gc + granule_offset(g.gc));
-    const int32_t* css =
-        reinterpret_cast<const int32_t*>(tb + lay.cs + granule_offset(g.cs));
-    const F* dst =
-        reinterpret_cast<const F*>(tb + lay.dist + granule_offset(g.dist));
-    const uint8_t* vs = tb + lay.valid + granule_offset(g.valid);
-    if (K <= SMALL_K) {
-      // transposed, padded to G x G: n = (s, j, i); pads are NEG_INF
-      const F* rr = reinterpret_cast<const F*>(tb + lay.route + o_rt);
-      float* trp = reinterpret_cast<float*>(tb + lay.tr + slot * lay.tr_slot);
-      float* em = reinterpret_cast<float*>(tb + lay.em + slot * lay.em_slot);
+  const Slices<F> g =
+      slices(dist, valid, route, gc, cases, blockIdx.x, T, Tr, K, s0);
+  const int o_rt = granule_offset(g.route);
+  const F* gcs =
+      reinterpret_cast<const F*>(smem + lay.gc + granule_offset(g.gc));
+  const int32_t* css =
+      reinterpret_cast<const int32_t*>(smem + lay.cs + granule_offset(g.cs));
+  const F* dst =
+      reinterpret_cast<const F*>(smem + lay.dist + granule_offset(g.dist));
+  const uint8_t* vs = smem + lay.valid + granule_offset(g.valid);
+  if (K <= SMALL_K) {
+    // transposed, padded to G x G: n = (s, j, i); pads are NEG_INF
+    const F* rr = reinterpret_cast<const F*>(smem + lay.route + o_rt);
+    float* trp = reinterpret_cast<float*>(smem + lay.tr + slot * lay.tr_slot);
+    float* em = reinterpret_cast<float*>(smem + lay.em + slot * lay.em_slot);
 #pragma unroll 4
-      for (int n = p; n < ns * GG; n += PRODUCER_THREADS) {
-        const int s = n / GG, j = n % GG / G, i = n % G;
-        const bool real = i < K && j < K;
-        const float v =
-            transition(upcast(rr[s * KK + (real ? i * K + j : 0)]),
-                       upcast(gcs[s]), css[s], i == j, inv_beta);
-        trp[n] = real ? v : NEG_INF;
-      }
-#pragma unroll 4
-      for (int n = p; n < ns * G; n += PRODUCER_THREADS) {
-        const int s = n / G, j = n % G, jc = j < K ? j : 0;
-        em[n] = emission(upcast(dst[s * K + jc]), vs[s * K + jc] != 0,
-                         css[s], inv_sigma);
-      }
-    } else {
-      // as the route is laid out, one slot; the f32 route in place
-      float* trp =
-          reinterpret_cast<float*>(tb + lay.tr + (in_place ? o_rt : 0));
-      const F* rr = reinterpret_cast<const F*>(
-          in_place ? tb + lay.tr + o_rt : tb + lay.route + o_rt);
-      float* em = reinterpret_cast<float*>(tb + lay.em);
-      // n = (s, i, j) walks by PRODUCER_THREADS = (st_s, st_i, st_j) with
-      // carries, so the loop does no integer division
-      const int st_s = PRODUCER_THREADS / KK,
-                st_i = PRODUCER_THREADS % KK / K,
-                st_j = PRODUCER_THREADS % K;
-      int s = p / KK, i = p % KK / K, j = p % K;
-      for (int n = p; n < ns * KK; n += PRODUCER_THREADS) {
-        trp[n] = transition(upcast(rr[n]), upcast(gcs[s]), css[s], i == j,
-                            inv_beta);
-        j += st_j;
-        i += st_i + (j >= K);
-        j -= j >= K ? K : 0;
-        s += st_s + (i >= K);
-        i -= i >= K ? K : 0;
-      }
-      for (int n = p; n < ns * K; n += PRODUCER_THREADS)
-        em[n] = emission(upcast(dst[n]), vs[n] != 0, css[n / K], inv_sigma);
+    for (int n = p; n < ns * GG; n += PRODUCER_THREADS) {
+      const int s = n / GG, j = n % GG / G, i = n % G;
+      const bool real = i < K && j < K;
+      const float v = transition(upcast(rr[s * KK + (real ? i * K + j : 0)]),
+                                 upcast(gcs[s]), css[s], i == j, inv_beta);
+      trp[n] = real ? v : NEG_INF;
     }
+#pragma unroll 4
+    for (int n = p; n < ns * G; n += PRODUCER_THREADS) {
+      const int s = n / G, j = n % G, jc = j < K ? j : 0;
+      em[n] = emission(upcast(dst[s * K + jc]), vs[s * K + jc] != 0, css[s],
+                       inv_sigma);
+    }
+  } else {
+    // as the route is laid out, one slot; the f32 route in place
+    float* trp =
+        reinterpret_cast<float*>(smem + lay.tr + (in_place ? o_rt : 0));
+    const F* rr = reinterpret_cast<const F*>(
+        in_place ? smem + lay.tr + o_rt : smem + lay.route + o_rt);
+    float* em = reinterpret_cast<float*>(smem + lay.em);
+    // n = (s, i, j) walks by PRODUCER_THREADS = (st_s, st_i, st_j) with
+    // carries, so the loop does no integer division
+    const int st_s = PRODUCER_THREADS / KK, st_i = PRODUCER_THREADS % KK / K,
+              st_j = PRODUCER_THREADS % K;
+    int s = p / KK, i = p % KK / K, j = p % K;
+    for (int n = p; n < ns * KK; n += PRODUCER_THREADS) {
+      trp[n] = transition(upcast(rr[n]), upcast(gcs[s]), css[s], i == j,
+                          inv_beta);
+      j += st_j;
+      i += st_i + (j >= K);
+      j -= j >= K ? K : 0;
+      s += st_s + (i >= K);
+      i -= i >= K ? K : 0;
+    }
+    for (int n = p; n < ns * K; n += PRODUCER_THREADS)
+      em[n] = emission(upcast(dst[n]), vs[n] != 0, css[n / K], inv_sigma);
   }
 }
 
@@ -388,12 +379,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
                const F* __restrict__ route, const F* __restrict__ gc,
                const int32_t* __restrict__ cases, int B, int T, int Tr,
-               int K, double inv_sigma, double inv_beta, int L, int TPB,
-               int C, int32_t* __restrict__ paths,
-               float* __restrict__ scores) {
+               int K, double inv_sigma, double inv_beta, int C,
+               int32_t* __restrict__ paths, float* __restrict__ scores) {
   extern __shared__ __align__(128) uint8_t smem[];
   constexpr int GG = G * G;
-  const Layout lay = layout(T, K, C, L);
+  const int b = blockIdx.x;  // one trace per block
+  if (b >= B) return;
+  const Layout lay = layout(T, K, C);
   const bool small = K <= SMALL_K;  // then one tile: NS == 1
   const bool in_place = sizeof(F) == 4 && !small;
   const int slots = lay.slots;
@@ -406,52 +398,45 @@ viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
     // Producers: stage chunk c+1 while the chain runs chunk c, score each
     // chunk into a free slot, hand it over.
     if (chunks > 0)
-      issue<F>(smem, lay, dist, valid, route, gc, cases, B, T, Tr, K, C, TPB,
-               0, true, !in_place, in_place);
+      issue<F>(smem, lay, dist, valid, route, gc, cases, T, Tr, K, C, 0, true,
+               !in_place, in_place);
     for (int c = 0; c < chunks; ++c) {
       const int slot = c % slots;
       if (c >= slots) bar_sync(EMPTY + slot, THREADS);
       if (in_place)  // the route lands where the chain read chunk c-1
-        issue<F>(smem, lay, dist, valid, route, gc, cases, B, T, Tr, K, C,
-                 TPB, c, false, true, true);
+        issue<F>(smem, lay, dist, valid, route, gc, cases, T, Tr, K, C, c,
+                 false, true, true);
       cp_async_wait_all();
       bar_sync(PRODUCERS, PRODUCER_THREADS);
-      score<F, G>(smem, lay, dist, valid, route, gc, cases, B, T, Tr, K, TPB,
-                  c * C, min(C, steps - c * C), slot, in_place, inv_sigma,
-                  inv_beta);
+      score<F, G>(smem, lay, dist, valid, route, gc, cases, T, Tr, K, c * C,
+                  min(C, steps - c * C), slot, in_place, inv_sigma, inv_beta);
       bar_sync(PRODUCERS, PRODUCER_THREADS);
       if (c + 1 < chunks)
-        issue<F>(smem, lay, dist, valid, route, gc, cases, B, T, Tr, K, C,
-                 TPB, c + 1, true, !in_place, in_place);
+        issue<F>(smem, lay, dist, valid, route, gc, cases, T, Tr, K, C,
+                 c + 1, true, !in_place, in_place);
       bar_arrive(FULL + slot, THREADS);
     }
     return;
   }
 
-  // The chain: warp 0, one lane group per trace, shared memory only.
-  const int gi = threadIdx.x / L;
-  const int l = threadIdx.x % L;
-  const int cb = blockIdx.x * TPB + gi;
-  const bool live = gi < TPB && cb < B;
-  uint8_t* const ctb = smem + (gi < TPB ? gi : 0) * lay.stride;
-  float* cur = reinterpret_cast<float*>(ctb + lay.scores);
+  // The chain: warp 0, shared memory and registers only.
+  const int l = threadIdx.x;
+  float* cur = reinterpret_cast<float*>(smem + lay.scores);
   float* nxt = cur + KP;
-  uint8_t* const bp = ctb + lay.bp;
+  uint8_t* const bp = smem + lay.bp;
   const int BPS = lay.bps;
 
   // Running scores start at point 0's emissions; pads are -inf forever.
-  if (live) {
-    const int c0 = cases[(long long)cb * T];
-    const long long e0 = (long long)cb * T * K;
-    for (int j = l; j < KP; j += L) {
-      cur[j] = j < K ? emission(upcast(dist[e0 + j]), valid[e0 + j] != 0, c0,
-                                inv_sigma)
-                     : minus_inf();
-      nxt[j] = minus_inf();
-    }
+  const int c0 = cases[(long long)b * T];
+  const long long e0 = (long long)b * T * K;
+  for (int j = l; j < KP; j += 32) {
+    cur[j] = j < K ? emission(upcast(dist[e0 + j]), valid[e0 + j] != 0, c0,
+                              inv_sigma)
+                   : minus_inf();
+    nxt[j] = minus_inf();
   }
   // K <= SMALL_K: lane l's running score, -inf past K
-  float sc = live && l < K ? cur[l] : minus_inf();
+  float sc = l < K ? cur[l] : minus_inf();
 
   for (int c = 0; c < chunks; ++c) {
     const int slot = c % slots;
@@ -463,10 +448,9 @@ viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
       // its transition row is contiguous
       const int jr = min(l, K - 1);
       const float* row = reinterpret_cast<const float*>(
-                             ctb + lay.tr + slot * lay.tr_slot) + jr * G;
+                             smem + lay.tr + slot * lay.tr_slot) + jr * G;
       const float* emr = reinterpret_cast<const float*>(
-                             ctb + lay.em + slot * lay.em_slot) + jr;
-      const int base = gi * L;
+                             smem + lay.em + slot * lay.em_slot) + jr;
       for (int s = 0; s < ns; ++s) {
         const float* rs = row + s * GG;
         const float e = emr[s * G];  // loaded early: off the chain
@@ -475,57 +459,55 @@ viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
 #pragma unroll
         for (int u = 0; u < G; u += 4) {
           const float4 t = *reinterpret_cast<const float4*>(rs + u);
-          v[u] = __fadd_rn(__shfl_sync(ALL_LANES, sc, base + u), t.x);
-          v[u + 1] = __fadd_rn(__shfl_sync(ALL_LANES, sc, base + u + 1), t.y);
-          v[u + 2] = __fadd_rn(__shfl_sync(ALL_LANES, sc, base + u + 2), t.z);
-          v[u + 3] = __fadd_rn(__shfl_sync(ALL_LANES, sc, base + u + 3), t.w);
+          v[u] = __fadd_rn(__shfl_sync(ALL_LANES, sc, u), t.x);
+          v[u + 1] = __fadd_rn(__shfl_sync(ALL_LANES, sc, u + 1), t.y);
+          v[u + 2] = __fadd_rn(__shfl_sync(ALL_LANES, sc, u + 2), t.z);
+          v[u + 3] = __fadd_rn(__shfl_sync(ALL_LANES, sc, u + 3), t.w);
           ix[u] = u;
           ix[u + 1] = u + 1;
           ix[u + 2] = u + 2;
           ix[u + 3] = u + 3;
         }
         argmax_tree<G>(v, ix);
-        if (live && l < K) bp[(s0 + s) * BPS + l] = (uint8_t)ix[0];
+        if (l < K) bp[(s0 + s) * BPS + l] = (uint8_t)ix[0];
         sc = l < K ? __fadd_rn(v[0], e) : minus_inf();
       }
     } else {
       // K > 32: lane l owns j = l + 32m; tiles of G previous candidates
       // combine in ascending order
       const Slices<F> g =
-          slices(dist, valid, route, gc, cases, live ? cb : 0, T, Tr, K, s0);
+          slices(dist, valid, route, gc, cases, b, T, Tr, K, s0);
       const float* trc = reinterpret_cast<const float*>(
-          ctb + lay.tr + (in_place ? granule_offset(g.route) : 0));
-      const float* emc = reinterpret_cast<const float*>(ctb + lay.em);
+          smem + lay.tr + (in_place ? granule_offset(g.route) : 0));
+      const float* emc = reinterpret_cast<const float*>(smem + lay.em);
       const int KK = K * K;
       for (int s = 0; s < ns; ++s) {
-        if (live) {
-          const float* trs = trc + s * KK;
+        const float* trs = trc + s * KK;
 #pragma unroll 1
-          for (int m = 0; m < NS; ++m) {
-            const int j = l + G * m;
-            const int jr = min(j, K - 1);
-            float best = 0.0f;
-            int arg = 0;
+        for (int m = 0; m < NS; ++m) {
+          const int j = l + G * m;
+          const int jr = min(j, K - 1);
+          float best = 0.0f;
+          int arg = 0;
 #pragma unroll 1
-            for (int q = 0; q < NS; ++q) {
-              float v[G];
-              int ix[G];
+          for (int q = 0; q < NS; ++q) {
+            float v[G];
+            int ix[G];
 #pragma unroll
-              for (int u = 0; u < G; ++u) {
-                const int i = q * G + u;
-                v[u] = __fadd_rn(cur[i], trs[min(i, K - 1) * K + jr]);
-                ix[u] = i;
-              }
-              argmax_tree<G>(v, ix);
-              if (q == 0 || v[0] > best) {
-                best = v[0];
-                arg = ix[0];
-              }
+            for (int u = 0; u < G; ++u) {
+              const int i = q * G + u;
+              v[u] = __fadd_rn(cur[i], trs[min(i, K - 1) * K + jr]);
+              ix[u] = i;
             }
-            if (j < K) {
-              nxt[j] = __fadd_rn(best, emc[s * K + jr]);
-              bp[(s0 + s) * BPS + j] = (uint8_t)arg;
+            argmax_tree<G>(v, ix);
+            if (q == 0 || v[0] > best) {
+              best = v[0];
+              arg = ix[0];
             }
+          }
+          if (j < K) {
+            nxt[j] = __fadd_rn(best, emc[s * K + jr]);
+            bp[(s0 + s) * BPS + j] = (uint8_t)arg;
           }
         }
         __syncwarp();
@@ -537,12 +519,11 @@ viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
     if (c + slots < chunks) bar_arrive(EMPTY + slot, THREADS);
   }
 
-  // Final argmax (lane 0 of each group), then the backtrace over the
-  // shared backpointers.
-  if (small && live && l < K) cur[l] = sc;
+  // Final argmax (lane 0), then the backtrace over the shared backpointers.
+  if (small && l < K) cur[l] = sc;
   __syncwarp();
   int arg = 0;
-  if (live && l == 0) {
+  if (l == 0) {
     float best = cur[0];
     for (int j = 1; j < K; ++j) {
       if (cur[j] > best) {
@@ -550,49 +531,45 @@ viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
         arg = j;
       }
     }
-    scores[cb] = best;
-    paths[(long long)cb * T + T - 1] = arg;
+    scores[b] = best;
+    paths[(long long)b * T + T - 1] = arg;
   }
-  int32_t* path_b = paths + (long long)cb * T;
+  int32_t* path_b = paths + (long long)b * T;
   if (small) {
-    // In parallel: the T-1 rows split into L segments. Each lane maps every
+    // In parallel: the T-1 rows split into 32 segments. Each lane maps every
     // state at the top of its segment to the state at its bottom (G walks
     // side by side), lane 0 chains the maps from the final argmax down,
     // and each lane walks its segment again from its entry state, storing
     // the path. The maps go where the scored slots were.
-    uint8_t* maps = ctb + lay.tr;  // L x K states, then L entry states
-    uint8_t* entry = maps + L * K;
-    const int seg = (steps + L - 1) / L | 1;  // odd: see bp_row
+    uint8_t* maps = smem + lay.tr;  // 32 x K states, then 32 entry states
+    uint8_t* entry = maps + 32 * K;
+    const int seg = (steps + 31) / 32 | 1;  // odd: see bp_row
     const int lo = min(l * seg, steps), hi = min(lo + seg, steps);
-    if (live) {
-      int x[G];
+    int x[G];
 #pragma unroll
-      for (int k = 0; k < G; ++k) x[k] = min(k, K - 1);
-      for (int t = hi - 1; t >= lo; --t) {
-        const uint8_t* row = bp + t * BPS;
+    for (int k = 0; k < G; ++k) x[k] = min(k, K - 1);
+    for (int t = hi - 1; t >= lo; --t) {
+      const uint8_t* row = bp + t * BPS;
 #pragma unroll
-        for (int k = 0; k < G; ++k) x[k] = row[x[k]];
-      }
-#pragma unroll
-      for (int k = 0; k < G; ++k)
-        if (k < K) maps[l * K + k] = (uint8_t)x[k];
+      for (int k = 0; k < G; ++k) x[k] = row[x[k]];
     }
+#pragma unroll
+    for (int k = 0; k < G; ++k)
+      if (k < K) maps[l * K + k] = (uint8_t)x[k];
     __syncwarp();
-    if (live && l == 0) {
-      for (int q = L - 1; q >= 0; --q) {
+    if (l == 0) {
+      for (int q = 31; q >= 0; --q) {
         entry[q] = (uint8_t)arg;
         arg = maps[q * K + arg];
       }
     }
     __syncwarp();
-    if (live) {
-      int y = entry[l];
-      for (int t = hi - 1; t >= lo; --t) {
-        y = bp[t * BPS + y];
-        bp[t * BPS] = (uint8_t)y;  // over row t, consumed
-      }
+    int y = entry[l];
+    for (int t = hi - 1; t >= lo; --t) {
+      y = bp[t * BPS + y];
+      bp[t * BPS] = (uint8_t)y;  // over row t, consumed
     }
-  } else if (live && l == 0) {
+  } else if (l == 0) {
     // lane 0 walks, writing step t's choice over row t (consumed)
     for (int t = T - 2; t >= 0; --t) {
       arg = bp[t * BPS + arg];
@@ -600,16 +577,15 @@ viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
     }
   }
   __syncwarp();
-  if (live)  // the lanes store the path, coalesced
-    for (int t = l; t < T - 1; t += L) path_b[t] = bp[t * BPS];
+  for (int t = l; t < T - 1; t += 32)  // the lanes store the path, coalesced
+    path_b[t] = bp[t * BPS];
 }
 
 template <typename F, int G>
 cudaError_t launch(const void* dist, const void* valid, const void* route,
                    const void* gc, const void* cases, int B, int T, int Tr,
-                   int K, float sigma, float beta, int lanes, int tpb,
-                   int chunk, int smem, int grid, void* paths, void* scores,
-                   cudaStream_t stream) {
+                   int K, float sigma, float beta, int chunk, int smem,
+                   int grid, void* paths, void* scores, cudaStream_t stream) {
   auto kernel = viterbi_kernel<F, G>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -620,8 +596,8 @@ cudaError_t launch(const void* dist, const void* valid, const void* route,
       static_cast<const F*>(dist), static_cast<const uint8_t*>(valid),
       static_cast<const F*>(route), static_cast<const F*>(gc),
       static_cast<const int32_t*>(cases), B, T, Tr, K, 1.0 / (double)sigma,
-      1.0 / (double)beta, lanes,
-      tpb, chunk, static_cast<int32_t*>(paths), static_cast<float*>(scores));
+      1.0 / (double)beta, chunk, static_cast<int32_t*>(paths),
+      static_cast<float*>(scores));
   return cudaGetLastError();
 }
 
@@ -629,31 +605,29 @@ template <typename F>
 cudaError_t launch_g(int G, const void* dist, const void* valid,
                      const void* route, const void* gc, const void* cases,
                      int B, int T, int Tr, int K, float sigma, float beta,
-                     int lanes, int tpb, int chunk, int smem, int grid,
-                     void* paths, void* scores, cudaStream_t s) {
+                     int chunk, int smem, int grid, void* paths, void* scores,
+                     cudaStream_t s) {
   switch (G) {
     case 8:
       return launch<F, 8>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
-                          beta, lanes, tpb, chunk, smem, grid, paths, scores,
-                          s);
+                          beta, chunk, smem, grid, paths, scores, s);
     case 16:
       return launch<F, 16>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
-                           beta, lanes, tpb, chunk, smem, grid, paths, scores,
-                           s);
+                           beta, chunk, smem, grid, paths, scores, s);
     default:
       return launch<F, 32>(dist, valid, route, gc, cases, B, T, Tr, K, sigma,
-                           beta, lanes, tpb, chunk, smem, grid, paths, scores,
-                           s);
+                           beta, chunk, smem, grid, paths, scores, s);
   }
 }
 
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Launches the plan it is given
-// (lanes per trace, traces per block, chunk steps, dynamic shared bytes,
-// grid of `threads`-thread blocks) after checking it against this file's
-// layout, and returns the cudaError_t of the launch (0 on success). The
-// caller allocates every buffer; the launch is asynchronous on `stream`.
+// (a warp of lanes per trace, one trace per block, chunk steps, dynamic
+// shared bytes, a grid of `threads`-thread blocks) after checking it
+// against this file's layout, and returns the cudaError_t of the launch
+// (0 on success). The caller allocates every buffer; the launch is
+// asynchronous on `stream`.
 extern "C" int viterbi_decode(const void* dist, const void* valid,
                               const void* route, const void* gc,
                               const void* cases, int B, int T, int Tr, int K,
@@ -662,24 +636,20 @@ extern "C" int viterbi_decode(const void* dist, const void* valid,
                               int grid, int threads, void* paths,
                               void* scores, void* stream) {
   if (B <= 0) return 0;
-  const int G = group_width(K);
   if (T <= 0 || K <= 0 || K > 255 || (Tr != T - 1 && Tr != T) ||
       (long long)(T - 1) * K > SMEM_MAX ||
-      (long long)chunk * K * K * 4 > SMEM_MAX ||
-      threads != THREADS || (lanes != G && lanes != 32) ||
-      traces_per_block < 1 || traces_per_block * lanes > 32 || chunk < 1 ||
-      smem > SMEM_MAX ||
-      (long long)traces_per_block * layout(T, K, chunk, lanes).stride >
-          smem ||
-      (long long)grid * traces_per_block < B)
+      (long long)chunk * K * K * 4 > SMEM_MAX || lanes != 32 ||
+      traces_per_block != 1 || threads != THREADS || chunk < 1 ||
+      smem > SMEM_MAX || layout(T, K, chunk).bytes > smem || grid < B)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int G = group_width(K);
   cudaError_t err =
       is_f16 ? launch_g<__half>(G, dist, valid, route, gc, cases, B, T, Tr, K,
-                                sigma, beta, lanes, traces_per_block, chunk,
-                                smem, grid, paths, scores, s)
+                                sigma, beta, chunk, smem, grid, paths, scores,
+                                s)
              : launch_g<float>(G, dist, valid, route, gc, cases, B, T, Tr, K,
-                               sigma, beta, lanes, traces_per_block, chunk,
-                               smem, grid, paths, scores, s);
+                               sigma, beta, chunk, smem, grid, paths, scores,
+                               s);
   return (int)err;
 }

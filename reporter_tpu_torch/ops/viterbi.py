@@ -49,8 +49,8 @@ MIN_CHUNK = 8
 
 
 class LaunchPlan(NamedTuple):
-    lanes: int              # lanes per trace (the group width, or a warp)
-    traces_per_block: int
+    lanes: int              # lanes per trace: a warp
+    traces_per_block: int   # one
     chunk_steps: int        # C: time steps staged and scored at a time
     smem_bytes: int         # dynamic shared memory per block
     grid: int               # blocks
@@ -82,59 +82,48 @@ def bp_row(K: int) -> int:
     return K if K > SMALL_K else 4 * (((K + 3) // 4) | 1)
 
 
-def trace_bytes(T: int, K: int, C: int, lanes: int) -> int:
-    """Shared bytes of one trace's regions, the stride between traces;
-    csrc/viterbi.cu `layout` computes the same. At K <= ``SMALL_K`` two
-    scored chunks are in flight (the producer warps score one while the
-    chain reads the other). Staging regions carry 16 bytes of slack for a
-    slice that starts inside its first granule."""
+def trace_bytes(T: int, K: int, C: int) -> int:
+    """Shared bytes a block takes for its trace; csrc/viterbi.cu `layout`
+    computes the same. At K <= ``SMALL_K`` two scored chunks are in flight
+    (the producer warps score one while the chain reads the other).
+    Staging regions carry 16 bytes of slack for a slice that starts inside
+    its first granule."""
     G = group_width(K)
     KP = -(-K // G) * G
     small = K <= SMALL_K
     slots = 2 if small else 1
-    n = (_round16((T - 1) * bp_row(K))               # uint8 backpointers
-         + 2 * KP * 4                                 # running scores
-         + slots * _round16(C * (G if small else K) * 4)     # emissions
-         + slots * (C * tr_bytes_per_step(K) if small        # transitions
-                    else _round16(C * tr_bytes_per_step(K)) + 16)
-         + _round16(C * K * K * (4 if small else 2)) + 16   # staged route
-         + 2 * (_round16(C * 4) + 16)                 # staged gc, case
-         + _round16(C * K * 4) + 16                   # staged dist
-         + _round16(C * K) + 16)                      # staged valid
-    return ((n + 127) & ~127) + (4 * lanes if lanes < 32 else 0)
+    return (_round16((T - 1) * bp_row(K))             # uint8 backpointers
+            + 2 * KP * 4                               # running scores
+            + slots * _round16(C * (G if small else K) * 4)     # emissions
+            + slots * (C * tr_bytes_per_step(K) if small        # transitions
+                       else _round16(C * tr_bytes_per_step(K)) + 16)
+            + _round16(C * K * K * (4 if small else 2)) + 16    # staged route
+            + 2 * (_round16(C * 4) + 16)               # staged gc, case
+            + _round16(C * K * 4) + 16                 # staged dist
+            + _round16(C * K) + 16)                    # staged valid
 
 
 def launch_plan(B: int, T: int, K: int) -> LaunchPlan:
-    """The kernel's launch for a (B, T, K) batch: a warp per trace (it
-    beat ``group_width(K)`` lanes per trace, four traces to a warp at K=8,
-    on the H100: PERF.md), one trace per block, and the longest chunk of
-    about ``CHUNK_BYTES`` that fits the block's shared memory. Raises
-    ``ValueError`` when K > ``MAX_K`` or one trace does not fit a block."""
-    return plan_with_lanes(B, T, K, 32)
-
-
-def plan_with_lanes(B: int, T: int, K: int, lanes: int) -> LaunchPlan:
-    """:func:`launch_plan` with ``lanes`` per trace (``group_width(K)`` or
-    32); ``chip_smoke.py`` times the other layout against it."""
+    """The kernel's launch for a (B, T, K) batch: a block per trace, a warp
+    of lanes per trace (it beat a lane group of ``group_width(K)`` lanes,
+    four traces to a warp, at K=8 on the H100: PERF.md), and the longest
+    chunk of about ``CHUNK_BYTES`` that fits the block's shared memory.
+    Raises ``ValueError`` when K is outside 1..``MAX_K`` or one trace does
+    not fit a block."""
     if not 1 <= K <= MAX_K:
         raise ValueError(f"K={K} outside 1..{MAX_K}: one trace's uint8 "
                          f"backpointers must fit one block")
     if T < 1 or B < 0:
         raise ValueError(f"bad batch shape B={B}, T={T}")
-    if lanes not in (group_width(K), 32):
-        raise ValueError(f"lanes={lanes}: {group_width(K)} or 32 at K={K}")
-    tpb = 32 // lanes
     C = CHUNK_BYTES // tr_bytes_per_step(K)
     C = max(1, min(T - 1, max(C, MIN_CHUNK) if K <= SMALL_K else C))
-    while C > 1 and tpb * trace_bytes(T, K, C, lanes) > SMEM_MAX:
+    while C > 1 and trace_bytes(T, K, C) > SMEM_MAX:
         C = (C + 1) // 2
-    while tpb > 1 and tpb * trace_bytes(T, K, C, lanes) > SMEM_MAX:
-        tpb //= 2
-    smem = tpb * trace_bytes(T, K, C, lanes)
+    smem = trace_bytes(T, K, C)
     if smem > SMEM_MAX:
         raise ValueError(f"T={T}, K={K}: one trace needs {smem} bytes of "
                          f"shared memory, more than {SMEM_MAX}")
-    return LaunchPlan(lanes, tpb, C, smem, -(-B // tpb), BLOCK_THREADS)
+    return LaunchPlan(32, 1, C, smem, B, BLOCK_THREADS)
 
 
 _lock = threading.Lock()

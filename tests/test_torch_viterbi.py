@@ -16,9 +16,9 @@ import torch
 from reporter_tpu.matcher import hmm as jax_hmm
 from reporter_tpu.ops.pallas_viterbi import viterbi_pallas_batch
 from reporter_tpu_torch import ops
-from reporter_tpu_torch.ops import viterbi
 from reporter_tpu_torch.matcher import hmm
 from reporter_tpu_torch.matcher.hmm import NORMAL, RESTART, SKIP
+from reporter_tpu_torch.ops import viterbi
 
 
 def random_inputs(B, T, K, seed, with_restarts=True, with_skips=True):
@@ -155,23 +155,20 @@ PLAN_K = (1, 5, 8, 12, 32, 40, 64, 128)
 def test_launch_plan_fits_one_block_and_covers_the_batch(T, K):
     """The CUDA kernel's launch plan, made on the host: shared memory
     within the 227 KB a Hopper block may use, a power-of-two lane group
-    per trace, every trace of the batch in some block. The layout the
-    chip run compares against (a lane group per trace) holds the same."""
-    for lanes in (None, viterbi.group_width(K)):
-        for B in (1, 37, 512):
-            plan = (viterbi.launch_plan(B, T, K) if lanes is None
-                    else viterbi.plan_with_lanes(B, T, K, lanes))
-            assert plan.smem_bytes <= viterbi.SMEM_MAX == 232_448
-            assert plan.lanes & (plan.lanes - 1) == 0
-            assert min(K, 32) <= plan.lanes <= 32
-            assert 1 <= plan.traces_per_block
-            assert plan.traces_per_block * plan.lanes <= 32
-            assert plan.grid * plan.traces_per_block >= B
-            assert (plan.grid - 1) * plan.traces_per_block < B
-            assert 1 <= plan.chunk_steps <= max(T - 1, 1)
-            assert plan.smem_bytes == plan.traces_per_block * \
-                viterbi.trace_bytes(T, K, plan.chunk_steps, plan.lanes)
-            assert plan.threads == viterbi.BLOCK_THREADS == 128
+    per trace, every trace of the batch in some block."""
+    for B in (1, 37, 512):
+        plan = viterbi.launch_plan(B, T, K)
+        assert plan.smem_bytes <= viterbi.SMEM_MAX == 232_448
+        assert plan.lanes & (plan.lanes - 1) == 0
+        assert min(K, 32) <= plan.lanes <= 32
+        assert 1 <= plan.traces_per_block
+        assert plan.traces_per_block * plan.lanes <= 32
+        assert plan.grid * plan.traces_per_block >= B
+        assert (plan.grid - 1) * plan.traces_per_block < B
+        assert 1 <= plan.chunk_steps <= max(T - 1, 1)
+        assert plan.smem_bytes == plan.traces_per_block * \
+            viterbi.trace_bytes(T, K, plan.chunk_steps)
+        assert plan.threads == viterbi.BLOCK_THREADS == 128
 
 
 @pytest.mark.parametrize("K", [0, 129])
