@@ -144,20 +144,25 @@ def chain_cycles(T, K):
     + select, the add of the emission and the select that keeps pads at
     -inf. Above 32: the previous scores read from shared memory, then per
     candidate slot and tile of G the adds and the tree, the tiles combined
-    in turn, and the add of the emission. Then T-1 dependent backpointer
-    loads from shared memory. Staging and scoring are left out: the
-    producer warps do them beside the chain."""
+    in turn, and the add of the emission. Then the backtrace's dependent
+    loads from shared memory: at K <= 32 the kernel splits the T-1 rows
+    into 32 odd-length segments, each lane walks its segment twice and
+    lane 0 chains the 32 segment maps between the walks (2 * segment +
+    32 loads); above, lane 0 walks all T-1 rows. Staging and scoring are
+    left out: the producer warps do them beside the chain."""
     from reporter_tpu_torch.ops.viterbi import SMALL_K, group_width
     G = group_width(K)
     levels = int(np.log2(G)) * 2 * ALU_CYCLES
     if K <= SMALL_K:
         step = SHFL_CYCLES + (G - 1) + ALU_CYCLES + levels + 2 * ALU_CYCLES
+        back = 2 * (((T - 1 + 31) // 32) | 1) + 32
     else:
         n = -(-K // G)
         tile = ALU_CYCLES + levels
         step = (SMEM_CYCLES + n * (n * tile + (n - 1) * 2 * ALU_CYCLES)
                 + ALU_CYCLES)
-    return (T - 1) * (step + SMEM_CYCLES)
+        back = T - 1
+    return (T - 1) * step + back * SMEM_CYCLES
 
 
 # -- phases --------------------------------------------------------------------
@@ -411,19 +416,28 @@ def kernel_ms(x, scalars, plan, n=100):
 
 def flushed_ms(x, scalars, plan, n=50):
     """Kernel time per launch with a 128 MB buffer written before each, so
-    the inputs come from HBM: a graph of (write, launch) pairs less a
-    graph of the writes alone."""
+    the inputs come from HBM: each launch between its own pair of CUDA
+    events, the median and the spread (least, most) of ``n``. The write
+    takes the card longer than the host takes to queue the next launch,
+    so the launches wait in the stream and no host time falls between
+    the events."""
     import torch
     from reporter_tpu_torch.ops import viterbi
     bufs = out_bufs(x)
     flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32,
                         device=x[0].device)
     check(flush.numel() * 4 > L2_BYTES, "flush buffer smaller than L2")
-
-    def both():
+    viterbi.launch(x, *scalars, bufs, plan)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in events:
         flush.fill_(1.0)
+        start.record()
         viterbi.launch(x, *scalars, bufs, plan)
-    return graph_ms(both, n) - graph_ms(lambda: flush.fill_(1.0), n)
+        end.record()
+    torch.cuda.synchronize()
+    ms = [start.elapsed_time(end) for start, end in events]
+    return float(np.median(ms)), min(ms), max(ms)
 
 
 def phase_timing(dev, main_x, scalars, sm_mhz):
@@ -458,9 +472,10 @@ def phase_timing(dev, main_x, scalars, sm_mhz):
     eager = time_ms(lambda: viterbi.launch(main_x, *scalars, bufs, plan), 200)
     log(f"[timing] B,T,K={B},{T},{Kx} launched from Python back to back "
         f"(no graph): {eager:.4f} ms a launch")
-    flushed = flushed_ms(main_x, scalars, plan)
+    med, lo, hi = flushed_ms(main_x, scalars, plan)
     log(f"[timing] B,T,K={B},{T},{Kx} with the L2 flushed before each "
-        f"launch: {flushed:.4f} ms")
+        f"launch, own events each: median {med:.4f} ms (least {lo:.4f}, "
+        f"most {hi:.4f})")
 
     out = {}
     for name, x in shapes.items():
