@@ -2,6 +2,7 @@
 """Smoke run of reporter_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR
 
 Phases, each fatal on failure:
 
@@ -26,6 +27,12 @@ Phases, each fatal on failure:
 Prints the card's name and power limit, one JSON line describing the
 kernel, and as the last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
+
+With ``--against DIR`` (another checkout of the repo, such as a parent
+commit unpacked with ``git archive``) only the build runs, then both
+kernels decode the same inputs at (512,64,8) and (64,1024,8): their
+outputs must be equal, and each is timed by CUDA graphs and by launches
+from Python, in the order other, this, this, other.
 """
 import json
 import subprocess
@@ -378,7 +385,9 @@ def time_ms(fn, iters):
 def graph_ms(fn, n):
     """Device time of ``fn`` per call: ``n`` calls captured in one CUDA
     graph, replayed three times between CUDA events, so no host work
-    (Python, ctypes, the launch itself) sits between the kernels."""
+    (Python, ctypes, the launch itself) sits between the kernels. A
+    kernel's inputs stay in the 50 MB L2 across launches, as they do right
+    after the matcher's host-to-device copy."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -405,35 +414,39 @@ def out_bufs(x):
             torch.empty((B,), dtype=torch.float32, device=x[0].device))
 
 
-def kernel_ms(x, scalars, plan, n=100):
-    """Kernel time per launch of ``plan``, back to back in a CUDA graph,
-    into buffers allocated once; the inputs stay in the 50 MB L2 across
-    launches, as they do right after the matcher's host-to-device copy."""
-    from reporter_tpu_torch.ops import viterbi
-    bufs = out_bufs(x)
-    return graph_ms(lambda: viterbi.launch(x, *scalars, bufs, plan), n)
-
-
-def flushed_ms(x, scalars, plan, n=50):
-    """Kernel time per launch with a 128 MB buffer written before each, so
-    the inputs come from HBM: each launch between its own pair of CUDA
-    events, the median and the spread (least, most) of ``n``. The write
-    takes the card longer than the host takes to queue the next launch,
-    so the launches wait in the stream and no host time falls between
-    the events."""
+def launcher(mod, x, scalars):
+    """A call that enqueues one launch of ``mod``'s kernel (an
+    ``ops.viterbi`` module) on ``x`` into buffers allocated once, uncounted.
+    A module without ``launch_plan`` has the first design's launch, which
+    also takes an int32 backpointer scratch."""
     import torch
-    from reporter_tpu_torch.ops import viterbi
     bufs = out_bufs(x)
-    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32,
-                        device=x[0].device)
+    if hasattr(mod, "launch_plan"):
+        plan = mod.launch_plan(*x[0].shape)
+        return lambda: mod.launch(x, *scalars, bufs, plan)
+    B, T, Kx = x[0].shape
+    bufs += (torch.empty((B, T - 1, Kx), dtype=torch.int32,
+                         device=x[0].device),)
+    return lambda: mod.launch(x, *scalars, bufs)
+
+
+def flushed_ms(fn, dev, n=50):
+    """Kernel time per launch with a 128 MB buffer written before each, so
+    the inputs come from HBM: each launch of ``fn`` between its own pair of
+    CUDA events, the median and the spread (least, most) of ``n``. The
+    write takes the card longer than the host takes to queue the next
+    launch, so the launches wait in the stream and no host time falls
+    between the events."""
+    import torch
+    flush = torch.empty(128 * 2**20 // 4, dtype=torch.float32, device=dev)
     check(flush.numel() * 4 > L2_BYTES, "flush buffer smaller than L2")
-    viterbi.launch(x, *scalars, bufs, plan)
+    fn()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(n)]
     for start, end in events:
         flush.fill_(1.0)
         start.record()
-        viterbi.launch(x, *scalars, bufs, plan)
+        fn()
         end.record()
     torch.cuda.synchronize()
     ms = [start.elapsed_time(end) for start, end in events]
@@ -453,13 +466,10 @@ def phase_timing(dev, main_x, scalars, sm_mhz):
     batch = {name: [] for name in shapes}
     for _round in range(2):
         for name, x in shapes.items():
-            batch[name].append(kernel_ms(
-                x, scalars, viterbi.launch_plan(*x[0].shape)))
-    one = {}
-    for name, x in shapes.items():
-        _B, T, Kx = x[0].shape
-        one[name] = kernel_ms(tuple(t[:1] for t in x), scalars,
-                              viterbi.launch_plan(1, T, Kx))
+            batch[name].append(graph_ms(launcher(viterbi, x, scalars), 100))
+    one = {name: graph_ms(launcher(viterbi, tuple(t[:1] for t in x),
+                                   scalars), 100)
+           for name, x in shapes.items()}
     steps = np.array([x[0].shape[1] - 1 for x in shapes.values()], float)
     slope, intercept = np.polyfit(steps, np.array(list(one.values())), 1)
     log(f"[timing] one trace: per-step slope {slope * 1e3:.5f} us "
@@ -467,12 +477,10 @@ def phase_timing(dev, main_x, scalars, sm_mhz):
         f"{intercept:.5f} ms")
 
     B, T, Kx = main_x[0].shape
-    plan = viterbi.launch_plan(B, T, Kx)
-    bufs = out_bufs(main_x)
-    eager = time_ms(lambda: viterbi.launch(main_x, *scalars, bufs, plan), 200)
+    eager = time_ms(launcher(viterbi, main_x, scalars), 200)
     log(f"[timing] B,T,K={B},{T},{Kx} launched from Python back to back "
         f"(no graph): {eager:.4f} ms a launch")
-    med, lo, hi = flushed_ms(main_x, scalars, plan)
+    med, lo, hi = flushed_ms(launcher(viterbi, main_x, scalars), dev)
     log(f"[timing] B,T,K={B},{T},{Kx} with the L2 flushed before each "
         f"launch, own events each: median {med:.4f} ms (least {lo:.4f}, "
         f"most {hi:.4f})")
@@ -499,6 +507,66 @@ def phase_timing(dev, main_x, scalars, sm_mhz):
     return out
 
 
+def load_other(path):
+    """The ``reporter_tpu_torch.ops.viterbi`` module of the checkout at
+    ``path``, imported under a package name of its own beside this one;
+    it builds its kernel into that checkout."""
+    import importlib
+    import importlib.util
+    root = Path(path).resolve() / "reporter_tpu_torch"
+    check((root / "ops" / "viterbi.py").is_file(),
+          f"no reporter_tpu_torch/ops/viterbi.py under {path}")
+    name = "other_reporter_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, root / "__init__.py", submodule_search_locations=[str(root)])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    return importlib.import_module(f"{name}.ops.viterbi")
+
+
+def phase_against(dev, path):
+    """This checkout's kernel against the one at ``path`` (K=8, f16 wire,
+    same inputs): paths equal and scores bit-equal, then each timed per
+    launch by CUDA graphs (``graph_ms``) and by launches from Python back
+    to back (``time_ms``), in the order other, this, this, other. Returns
+    {"B,T,K": {method: {"other": [ms, ms], "this": [ms, ms]}}}."""
+    import torch
+    from reporter_tpu_torch.ops import viterbi
+    other = load_other(path)
+    t0 = time.perf_counter()
+    other.build()
+    log(f"[against] built {path}'s kernel in "
+        f"{time.perf_counter() - t0:.2f} s")
+    scalars = (np.float32(4.07), np.float32(3.0))
+    out = {}
+    for seed, shape in enumerate([(N_TRACES, T_MAIN, K), (64, 1024, K)]):
+        x = to_device(random_inputs(*shape, 300 + seed), True, dev)
+        (t_paths, t_scores), (o_paths, o_scores) = (
+            mod.viterbi_cuda(*x, *scalars) for mod in (viterbi, other))
+        torch.cuda.synchronize()
+        check(torch.equal(t_paths, o_paths),
+              f"paths differ from {path}'s kernel at {shape}")
+        differ = bit_equal(t_scores, o_scores)
+        check(differ == 0, f"{differ} scores differ from {path}'s kernel "
+              f"at {shape}")
+        fns = {"this": launcher(viterbi, x, scalars),
+               "other": launcher(other, x, scalars)}
+        ms = {m: {"other": [], "this": []} for m in ("graph", "eager")}
+        for name in ("other", "this", "this", "other"):
+            ms["graph"][name].append(graph_ms(fns[name], 100))
+            ms["eager"][name].append(time_ms(fns[name], 200))
+        what = ",".join(map(str, shape))
+        for method, by in ms.items():
+            ratio = np.mean(by["other"]) / np.mean(by["this"])
+            log(f"[against] B,T,K={what} {method}: {path} "
+                f"{by['other'][0]:.4f} / {by['other'][1]:.4f} ms, this "
+                f"{by['this'][0]:.4f} / {by['this'][1]:.4f} ms; "
+                f"{path} takes {ratio:.2f}x as long")
+        out[what] = ms
+    return out
+
+
 def max_sm_mhz() -> int:
     """The card's maximum SM clock, which the chain model runs at."""
     out = subprocess.run(
@@ -510,6 +578,12 @@ def max_sm_mhz() -> int:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", metavar="DIR",
+                    help="time this kernel against the one in the "
+                         "checkout at DIR; nothing else runs")
+    args = ap.parse_args()
     if not (ROOT / "reporter_tpu_torch" / "ops" / "csrc" / "viterbi.cu").is_file():
         fail("reporter_tpu_torch is not beside this script")
     import torch
@@ -526,6 +600,10 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     spills = phase_build()
+    if args.against:
+        against = phase_against(dev, args.against)
+        check(not spills, f"ptxas reports spills: {spills}")
+        return finish(smi, {"against": args.against, "ms": against})
     phase_verify(dev)
     launches, main_x, max_err, scalars = phase_main(dev)
     times = phase_timing(dev, main_x, scalars, max_sm_mhz())
@@ -545,8 +623,15 @@ def main() -> int:
         "bound_by": by,
         "library_ms": None,
     }]
+    return finish(smi, {"kernels": kernels})
+
+
+def finish(smi, result) -> int:
+    """Print the card's name and power limit, ``result`` as a JSON line
+    and the closing {"ok": true, ...} line; returns the exit code 0."""
+    import torch
     print(smi[0] if smi else "nvidia-smi: no output", flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

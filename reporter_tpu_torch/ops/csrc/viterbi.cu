@@ -50,9 +50,15 @@
 //    dist, valid) into shared memory with cp.async 16-byte copies, a chunk
 //    of C steps at a time, and start chunk c+1's copies as soon as chunk c
 //    is scored. A slice need not start on 16 bytes (K=5, odd T): the copy
-//    takes the 16-byte granules that cover it, which lie inside the
-//    tensor's allocation (allocations are 16-byte aligned), and the reader
-//    adds the slice's offset in its first granule.
+//    takes the 16-byte granules that cover it and the reader adds the
+//    slice's offset in its first granule. The wrapper takes only tensors
+//    whose data starts on 16 bytes, so no granule starts before its
+//    tensor. A slice is followed by more of its tensor except in the last
+//    chunk of the last trace; there, on a branch of its own, the last
+//    granule reads only up to the slice's end (cp.async's src-size; the
+//    rest is zero-filled), so no byte past a tensor is read. At T=1024 the
+//    chain waits on the producers, so their copy loop stays as lean as it
+//    can be: clamping inside it cost 5% there on the H100 (PERF.md).
 //  - Scoring off the chain. The producers compute tr[t, i, j] and em[t, j]
 //    as f32 into shared memory. At K <= 32 there are two scored slots, so
 //    chunk c+1 is scored while the chain runs chunk c, and a slot holds the
@@ -80,10 +86,9 @@
 //    2*(T-1)/32 + 32 dependent shared loads in place of T-1; above, lane 0
 //    walks them. Each step's choice goes over its consumed row, and the
 //    lanes store the path from there.
-//  - The launch plan (lanes per trace, traces per block, chunk steps,
-//    shared bytes, grid) is made in Python (ops/viterbi.py `launch_plan`);
-//    the entry point checks it against `layout` below and launches what it
-//    is given.
+//  - The launch plan (chunk steps, shared bytes, grid) is made in Python
+//    (ops/viterbi.py `launch_plan`); the entry point refuses shared bytes
+//    that differ from `layout` below and launches what it is given.
 //
 // Numerics. Every float op gives the IEEE round-to-nearest f32 result in
 // the reference's order (the __f*_rn intrinsics cannot contract into FMA,
@@ -172,6 +177,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                "l"(src));
 }
 
+// Copy a 16-byte granule, reading its first `bytes` (1..15) from global
+// memory and zero-filling the rest: a slice's partial last granule.
+__device__ __forceinline__ void cp_async16_part(void* dst, const void* src,
+                                                int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -186,14 +200,20 @@ __device__ __forceinline__ int granule_offset(const void* p) {
 }
 
 // Producer threads: copy the 16-byte granules covering [src, src + n) to
-// dst.
+// dst; with TO_END, read nothing past src + n (the granules wholly inside,
+// then one thread copies the partial last granule).
+template <bool TO_END>
 __device__ __forceinline__ void stage(uint8_t* dst, const void* src, int n) {
+  const uintptr_t end = reinterpret_cast<uintptr_t>(src) + (uintptr_t)n;
   const uintptr_t a0 = reinterpret_cast<uintptr_t>(src) & ~(uintptr_t)15;
-  const uintptr_t a1 =
-      (reinterpret_cast<uintptr_t>(src) + (uintptr_t)n + 15) & ~(uintptr_t)15;
-  const int granules = (int)((a1 - a0) >> 4);
-  for (int g = threadIdx.x - 32; g < granules; g += PRODUCER_THREADS)
+  const int granules = (int)((((end + 15) & ~(uintptr_t)15) - a0) >> 4);
+  const int whole = TO_END ? (int)((end - a0) >> 4) : granules;
+  for (int g = threadIdx.x - 32; g < whole; g += PRODUCER_THREADS)
     cp_async16(dst + 16 * g, reinterpret_cast<const void*>(a0 + 16 * g));
+  if (TO_END && whole < granules && threadIdx.x == 32)
+    cp_async16_part(dst + 16 * whole,
+                    reinterpret_cast<const void*>(a0 + 16 * whole),
+                    (int)(end - (a0 + 16 * whole)));
 }
 
 // a / b rounded to f32 as IEEE division rounds it, given inv = 1/b rounded
@@ -268,8 +288,26 @@ __device__ __forceinline__ Slices<F> slices(const F* dist,
   return s;
 }
 
-// Producer threads: start the copies of chunk c of the block's trace (the
-// points' slices and/or the route) and commit them as one group.
+// Producer threads: start the copies of the slices `g` of one chunk (the
+// points' and/or the route) and commit them as one group.
+template <typename F, bool TO_END>
+__device__ __forceinline__ void stage_chunk(uint8_t* smem, Layout lay,
+                                            const Slices<F>& g, int K, int ns,
+                                            bool points, bool rt,
+                                            bool in_place) {
+  if (rt)
+    stage<TO_END>(smem + (in_place ? lay.tr : lay.route), g.route,
+                  ns * K * K * (int)sizeof(F));
+  if (points) {
+    stage<TO_END>(smem + lay.gc, g.gc, ns * (int)sizeof(F));
+    stage<TO_END>(smem + lay.cs, g.cs, ns * 4);
+    stage<TO_END>(smem + lay.dist, g.dist, ns * K * (int)sizeof(F));
+    stage<TO_END>(smem + lay.valid, g.valid, ns * K);
+  }
+  cp_async_commit();
+}
+
+// Producer threads: start the copies of chunk c of the block's trace.
 template <typename F>
 __device__ __forceinline__ void issue(uint8_t* smem, Layout lay,
                                       const F* dist, const uint8_t* valid,
@@ -281,16 +319,11 @@ __device__ __forceinline__ void issue(uint8_t* smem, Layout lay,
   const int ns = min(C, T - 1 - s0);
   const Slices<F> g =
       slices(dist, valid, route, gc, cases, blockIdx.x, T, Tr, K, s0);
-  if (rt)
-    stage(smem + (in_place ? lay.tr : lay.route), g.route,
-          ns * K * K * (int)sizeof(F));
-  if (points) {
-    stage(smem + lay.gc, g.gc, ns * (int)sizeof(F));
-    stage(smem + lay.cs, g.cs, ns * 4);
-    stage(smem + lay.dist, g.dist, ns * K * (int)sizeof(F));
-    stage(smem + lay.valid, g.valid, ns * K);
-  }
-  cp_async_commit();
+  // only the last trace's last chunk can reach the end of a tensor
+  if (blockIdx.x == gridDim.x - 1 && s0 + ns == T - 1)
+    stage_chunk<F, true>(smem, lay, g, K, ns, points, rt, in_place);
+  else
+    stage_chunk<F, false>(smem, lay, g, K, ns, points, rt, in_place);
 }
 
 // Named barriers between the producer warps (1-3) and the chain warp (0):
@@ -329,7 +362,7 @@ __device__ __forceinline__ void score(uint8_t* smem, Layout lay,
   const F* dst =
       reinterpret_cast<const F*>(smem + lay.dist + granule_offset(g.dist));
   const uint8_t* vs = smem + lay.valid + granule_offset(g.valid);
-  if (K <= SMALL_K) {
+  if (G < 32 || K <= SMALL_K) {  // G < 32: K <= 16, known at compile time
     // transposed, padded to G x G: n = (s, j, i); pads are NEG_INF
     const F* rr = reinterpret_cast<const F*>(smem + lay.route + o_rt);
     float* trp = reinterpret_cast<float*>(smem + lay.tr + slot * lay.tr_slot);
@@ -386,7 +419,9 @@ viterbi_kernel(const F* __restrict__ dist, const uint8_t* __restrict__ valid,
   const int b = blockIdx.x;  // one trace per block
   if (b >= B) return;
   const Layout lay = layout(T, K, C);
-  const bool small = K <= SMALL_K;  // then one tile: NS == 1
+  // then one tile: NS == 1. G < 32 means K <= 16, so the instantiations
+  // for G = 8 and 16 hold no code for K > SMALL_K
+  const bool small = G < 32 || K <= SMALL_K;
   const bool in_place = sizeof(F) == 4 && !small;
   const int slots = lay.slots;
   const int NS = (K + G - 1) / G;   // candidate slots per lane = i tiles
@@ -623,24 +658,22 @@ cudaError_t launch_g(int G, const void* dist, const void* valid,
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Launches the plan it is given
-// (a warp of lanes per trace, one trace per block, chunk steps, dynamic
-// shared bytes, a grid of `threads`-thread blocks) after checking it
-// against this file's layout, and returns the cudaError_t of the launch
-// (0 on success). The caller allocates every buffer; the launch is
-// asynchronous on `stream`.
+// (chunk steps, dynamic shared bytes, a grid of one block per trace),
+// refusing shared bytes that differ from this file's layout, and returns
+// the cudaError_t of the launch (0 on success). The caller allocates
+// every buffer; the launch is asynchronous on `stream`.
 extern "C" int viterbi_decode(const void* dist, const void* valid,
                               const void* route, const void* gc,
                               const void* cases, int B, int T, int Tr, int K,
-                              int is_f16, float sigma, float beta, int lanes,
-                              int traces_per_block, int chunk, int smem,
-                              int grid, int threads, void* paths,
-                              void* scores, void* stream) {
+                              int is_f16, float sigma, float beta, int chunk,
+                              int smem, int grid, void* paths, void* scores,
+                              void* stream) {
   if (B <= 0) return 0;
+  // the first two bounds keep `layout`'s int arithmetic from overflowing
   if (T <= 0 || K <= 0 || K > 255 || (Tr != T - 1 && Tr != T) ||
       (long long)(T - 1) * K > SMEM_MAX ||
-      (long long)chunk * K * K * 4 > SMEM_MAX || lanes != 32 ||
-      traces_per_block != 1 || threads != THREADS || chunk < 1 ||
-      smem > SMEM_MAX || layout(T, K, chunk).bytes > smem || grid < B)
+      (long long)chunk * K * K * 4 > SMEM_MAX || chunk < 1 ||
+      smem > SMEM_MAX || layout(T, K, chunk).bytes != smem || grid != B)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = group_width(K);

@@ -13,8 +13,10 @@ plain version and CUDA tensors here.
 
 :func:`launch_plan` decides the launch (lanes per trace, traces per
 block, chunk steps, dynamic shared memory, grid) on the host, so the CPU
-tests can pin it; the C entry point checks it against the kernel's own
-shared-memory layout and launches what it is given.
+tests can pin it. The C entry point takes the chunk steps, shared bytes
+and grid, refuses shared bytes that differ from the kernel's own layout
+(so the two copies of the layout cannot drift apart unseen on the card),
+and launches what it is given.
 """
 from __future__ import annotations
 
@@ -40,8 +42,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_K = 128
 #: shared memory one block may use on Hopper
 SMEM_MAX = 232_448
-#: threads per block: warp 0 runs the chains, warps 1-3 stage and score
-BLOCK_THREADS = 128
 #: f32 transition bytes scored per trace per chunk (32 steps at K=8); at
 #: K <= SMALL_K a chunk has at least MIN_CHUNK steps where that fits
 CHUNK_BYTES = 8_192
@@ -53,8 +53,7 @@ class LaunchPlan(NamedTuple):
     traces_per_block: int   # one
     chunk_steps: int        # C: time steps staged and scored at a time
     smem_bytes: int         # dynamic shared memory per block
-    grid: int               # blocks
-    threads: int            # threads per block
+    grid: int               # blocks: one per trace
 
 
 def group_width(K: int) -> int:
@@ -84,7 +83,8 @@ def bp_row(K: int) -> int:
 
 def trace_bytes(T: int, K: int, C: int) -> int:
     """Shared bytes a block takes for its trace; csrc/viterbi.cu `layout`
-    computes the same. At K <= ``SMALL_K`` two scored chunks are in flight
+    computes the same, and the C entry point refuses a plan whose bytes
+    differ. At K <= ``SMALL_K`` two scored chunks are in flight
     (the producer warps score one while the chain reads the other).
     Staging regions carry 16 bytes of slack for a slice that starts inside
     its first granule."""
@@ -111,8 +111,9 @@ def launch_plan(B: int, T: int, K: int) -> LaunchPlan:
     Raises ``ValueError`` when K is outside 1..``MAX_K`` or one trace does
     not fit a block."""
     if not 1 <= K <= MAX_K:
-        raise ValueError(f"K={K} outside 1..{MAX_K}: one trace's uint8 "
-                         f"backpointers must fit one block")
+        raise ValueError(f"K={K} outside 1..{MAX_K}: the CUDA decode takes "
+                         f"at most {MAX_K} candidates (one trace's uint8 "
+                         f"backpointers must fit one block)")
     if T < 1 or B < 0:
         raise ValueError(f"bad batch shape B={B}, T={T}")
     C = CHUNK_BYTES // tr_bytes_per_step(K)
@@ -123,7 +124,7 @@ def launch_plan(B: int, T: int, K: int) -> LaunchPlan:
     if smem > SMEM_MAX:
         raise ValueError(f"T={T}, K={K}: one trace needs {smem} bytes of "
                          f"shared memory, more than {SMEM_MAX}")
-    return LaunchPlan(32, 1, C, smem, B, BLOCK_THREADS)
+    return LaunchPlan(32, 1, C, smem, B)
 
 
 _lock = threading.Lock()
@@ -148,7 +149,7 @@ def build():
             tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
                                  ).hexdigest()[:16]
             out = BUILD_DIR / f"libviterbi-{tag}.so"
-            log = ""
+            log_path = out.with_suffix(".log")  # kept for a later process
             if not out.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -159,11 +160,13 @@ def build():
                 if proc.returncode != 0:
                     raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                        f"{log}")
+                log_path.write_text(log)
                 os.replace(tmp, out)
+            log = log_path.read_text() if log_path.exists() else ""
             fn = ctypes.CDLL(str(out)).viterbi_decode
             p, i = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
-                           ctypes.c_float, i, i, i, i, i, i, p, p, p]
+                           ctypes.c_float, i, i, i, p, p, p]
             fn.restype = i
             _kernel = (fn, log)
         return _kernel
@@ -177,9 +180,7 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
     if dist_m.dim() != 3:
         raise ValueError(f"dist_m must be (B, T, K), got {tuple(dist_m.shape)}")
     B, T, K = dist_m.shape
-    if K > MAX_K:
-        raise ValueError(f"K={K}: the CUDA decode takes at most {MAX_K} "
-                         f"candidates")
+    plan = launch_plan(B, T, K)
     dev = dist_m.device
     tensors = {"dist_m": dist_m, "valid": valid, "route_m": route_m,
                "gc_m": gc_m, "case": case}
@@ -189,6 +190,9 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
                              f"got {x.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (a tensor of "
+                             f"its own does; a slice may not)")
     if dist_m.dtype not in (torch.float16, torch.float32) or \
             route_m.dtype != dist_m.dtype or gc_m.dtype != dist_m.dtype:
         raise TypeError("dist_m, route_m and gc_m must share one dtype, "
@@ -196,15 +200,13 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
     if valid.dtype != torch.bool or case.dtype != torch.int32:
         raise TypeError("valid must be bool and case int32")
     Tr = route_m.shape[1] if route_m.dim() == 4 else -1
-    if T < 1 or K < 1 or Tr not in (T - 1, T) \
-            or tuple(valid.shape) != (B, T, K) \
+    if Tr not in (T - 1, T) or tuple(valid.shape) != (B, T, K) \
             or tuple(route_m.shape) != (B, Tr, K, K) \
             or tuple(gc_m.shape) != (B, Tr) or tuple(case.shape) != (B, T):
         raise ValueError(
             f"unsupported shapes dist {tuple(dist_m.shape)} valid "
             f"{tuple(valid.shape)} route {tuple(route_m.shape)} gc "
             f"{tuple(gc_m.shape)} case {tuple(case.shape)}")
-    plan = launch_plan(B, T, K)
     out = (torch.empty((B, T), dtype=torch.int32, device=dev),
            torch.empty((B,), dtype=torch.float32, device=dev))
     launch((dist_m, valid, route_m, gc_m, case), sigma, beta, out, plan)
@@ -229,7 +231,7 @@ def launch(inputs, sigma, beta, out, plan: LaunchPlan) -> None:
         err = fn(dist_m.data_ptr(), valid.data_ptr(), route_m.data_ptr(),
                  gc_m.data_ptr(), case.data_ptr(), B, T, route_m.shape[1], K,
                  int(dist_m.dtype == torch.float16), float(sigma),
-                 float(beta), *plan, paths.data_ptr(), scores.data_ptr(),
-                 stream)
+                 float(beta), plan.chunk_steps, plan.smem_bytes, plan.grid,
+                 paths.data_ptr(), scores.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {err}")
