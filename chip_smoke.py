@@ -6,23 +6,35 @@
 
 Phases, each fatal on failure:
 
-1. build    compile ops/csrc/viterbi.cu with nvcc for sm_90a and load it,
-            printing ptxas's registers and spills (any spill fails the
-            run, after the timing)
+1. build    compile ops/csrc/viterbi.cu with nvcc for sm_90a and the host
+            runtime (native/csrc/host_runtime.cpp) with g++, and load
+            both, printing ptxas's registers and spills (any spill fails
+            the run, after the timing)
 2. verify   the kernel against its plain PyTorch version on the card at
-            the main path's shapes and at shapes that reach every branch
-            of the launch plan, f16 and f32 wire: paths equal, scores
+            the main path's shapes, the native prep's layout (route and
+            gc with T time rows) and shapes that reach every branch of
+            the launch plan, f16 and f32 wire: paths equal, scores
             bit-equal
-3. main     the /report path: SegmentMatcher.match_many + report() on
-            the 20x20 synthetic city, 512 traces of the T=64 bucket and a
-            mixed T=16/64/256 batch, on the card; every body byte-equal
-            to the port's own CPU run, every path equal, and the kernel's
-            launch count read around this phase alone
-4. timing   CUDA-event times of the kernel from CUDA graphs (batch and
-            one trace at T=64/256/1024, twice in turns; the per-step slope
-            and intercept; one batch with the L2 flushed) and of the plain
-            version, beside the least time the card could take and a model
-            of the chain
+3. main     the /report path: SegmentMatcher.match_many (native prep,
+            the two device lanes) + report_json() on the 20x20 synthetic
+            city, 512 traces of the T=64 bucket and a mixed T=16/64/256
+            batch, on the card, and the same batches through the numpy
+            prep on the card (native=False, lanes on); every body
+            byte-equal to the port's own CPU runs on the native and the
+            numpy path, the kernel's launches read around each run and
+            held to its path's chunking; both paths' own batches (route
+            and gc in T and in T-1 rows) through the kernel and the plain
+            version; traces/s with the lanes on, and the stage split of
+            a run without them
+4. city     512 traces of the T=64 bucket on a 100x100 grid city (10,000
+            nodes, 39,600 edges) through the native matcher on the card:
+            bodies byte-equal to the port's native CPU run, the kernel's
+            launches in this phase, the route-pair memo's counters
+5. timing   CUDA-event times of the kernel from CUDA graphs (the main
+            path's batch, and batches and one trace at T=64/256/1024,
+            twice in turns; the per-step slope and intercept; the main
+            batch with the L2 flushed) and of the plain version, beside
+            the least time the card could take and a model of the chain
 
 Prints the card's name and power limit, one JSON line describing the
 kernel, and as the last line {"ok": true, "device": {...}}. Exits non-zero,
@@ -55,6 +67,9 @@ N_TRACES = 512              # the service's decode batch
 T_MAIN = 64
 K = 8                       # MatchParams.max_candidates default
 CITY = dict(rows=20, cols=20, spacing_m=200.0, seed=42)
+BIG_CITY = dict(rows=100, cols=100, spacing_m=200.0, seed=42)
+OPTS = {"mode": "auto", "report_levels": [0, 1, 2],
+        "transition_levels": [0, 1, 2]}
 
 
 def log(msg: str) -> None:
@@ -120,11 +135,21 @@ def to_device(arrays, f16, dev):
                  for a in (dist, valid, route, gc, case))
 
 
-def wire_bytes(tensors, T):
-    """Bytes the decode must move: each input read once, paths (B, T) i32
-    and scores (B,) f32 written once."""
-    B = tensors[0].shape[0]
-    return sum(t.numel() * t.element_size() for t in tensors) + B * T * 4 + B * 4
+def wire_bytes(tensors, T, rows=None):
+    """Bytes the decode must move for its first ``rows`` traces (all rows
+    by default; a padded batch's filler rows decode to nothing): dist,
+    valid and case read once, route and gc only for the T-1 transitions
+    (the dead T-th row the native prep writes feeds no output), paths
+    (rows, T) i32 and scores (rows,) f32 written once."""
+    dist, valid, route, gc, case = tensors
+    B = dist.shape[0] if rows is None else rows
+    steps = min(route.shape[1], T - 1)
+    Kx = dist.shape[2]
+    per_trace = (T * Kx * (dist.element_size() + valid.element_size())
+                 + steps * (Kx * Kx * route.element_size()
+                            + gc.element_size())
+                 + T * case.element_size())
+    return B * (per_trace + T * 4 + 4)
 
 
 def wire_ops(B, T, K):
@@ -134,11 +159,12 @@ def wire_ops(B, T, K):
     return B * (T - 1) * K * K * 6 + B * T * K * 4
 
 
-def bound_ms(tensors, T, K):
-    """The least time for the decode's bytes and operations on the card:
-    a floor that ignores the serial chain (see ``chain_cycles``)."""
-    B = tensors[0].shape[0]
-    t_bytes = wire_bytes(tensors, T) / HBM_BYTES_PER_S
+def bound_ms(tensors, T, K, rows=None):
+    """The least time for the decode's bytes and operations on the card
+    (for the first ``rows`` traces, all by default): a floor that ignores
+    the serial chain (see ``chain_cycles``)."""
+    B = tensors[0].shape[0] if rows is None else rows
+    t_bytes = wire_bytes(tensors, T, rows) / HBM_BYTES_PER_S
     t_ops = wire_ops(B, T, K) / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
@@ -189,6 +215,12 @@ def phase_build():
         if m and m.groups() != ("0", "0"):
             spills.append(line.strip())
     check("spill stores" in build_log, "nvcc printed no ptxas -v report")
+    from reporter_tpu_torch import native
+    t0 = time.perf_counter()
+    native.load()
+    log(f"[build] {native.SOURCE.relative_to(ROOT)} -> g++ "
+        f"{' '.join(native.cxx_flags())} in "
+        f"{time.perf_counter() - t0:.2f} s")
     return spills
 
 
@@ -203,11 +235,14 @@ def phase_verify(dev):
     bit-equal. The shapes reach every branch of the launch plan: K from 1
     to 128 (lane groups of 8, 16, 32 and strided lanes), T=1 and 2, chunks
     that end mid-trace (T=200 at K=5 and 8, T=1024), B=1 and B not a
-    multiple of the traces per block, Tr = T, traces RESTART at every step
-    or SKIP after their first point, and exact ties."""
+    multiple of the traces per block, Tr = T (the native prep's layout,
+    also at the main shape), traces RESTART at every step or SKIP after
+    their first point, and exact ties."""
     import torch
     from reporter_tpu_torch.ops import viterbi, viterbi_cuda, viterbi_plain
-    cases = [((N_TRACES, T_MAIN, K), {}), ((64, 1024, K), {}),
+    cases = [((N_TRACES, T_MAIN, K), {}),
+             ((N_TRACES, T_MAIN, K), {"dead_step": True}),
+             ((64, 1024, K), {}),
              ((37, 16, K), {}), ((16, 64, 40), {}),
              ((64, T_MAIN, K), {"ties": True}),
              ((9, 16, 1), {"special": True}),
@@ -246,29 +281,33 @@ def phase_verify(dev):
     torch.cuda.empty_cache()
 
 
-def make_requests(matcher, rng, n, lengths, min_edges):
+def draw_requests(net, rng, n, lengths, min_edges):
     """``n`` synthetic /report requests, traces cut to the given lengths
-    in turn; each kept only if its kept points land in the bucket of its
-    length (drawn in bulk, prepared in bulk)."""
-    from reporter_tpu_torch.matcher.batchpad import bucket_length
+    in turn (each drawn trace has at least its length)."""
     from reporter_tpu_torch.synth import generate_trace
-    opts = {"mode": "auto", "report_levels": [0, 1, 2],
-            "transition_levels": [0, 1, 2]}
+    out = []
+    while len(out) < n:
+        L = lengths[len(out) % len(lengths)]
+        tr = generate_trace(net, f"veh-{len(out)}", rng, noise_m=4.0,
+                            min_route_edges=min_edges, max_route_edges=60)
+        if tr is not None and len(tr.points) >= L:
+            out.append({"uuid": tr.uuid, "trace": tr.points[:L],
+                        "match_options": OPTS})
+    return out
+
+
+def make_requests(numpy_matcher, rng, n, lengths, min_edges):
+    """``n`` requests as :func:`draw_requests` draws them, each kept only
+    if its kept points land in the bucket of its length, so the numpy and
+    the native path (which buckets by raw length) decode it at one T."""
+    from reporter_tpu_torch.matcher.batchpad import bucket_length
     out, tries = [], 0
     while len(out) < n:
         tries += 1
         check(tries < 50, "could not draw enough traces")
-        cand = []
-        while len(cand) < 2 * (n - len(out)):
-            L = lengths[(len(out) + len(cand)) % len(lengths)]
-            tr = generate_trace(matcher.net, f"veh-{len(out) + len(cand)}",
-                                rng, noise_m=4.0, min_route_edges=min_edges,
-                                max_route_edges=60)
-            if tr is None or len(tr.points) < L:
-                continue
-            cand.append({"uuid": tr.uuid, "trace": tr.points[:L],
-                         "match_options": opts})
-        for req, p in zip(cand, matcher.prepare_many(cand)):
+        cand = draw_requests(numpy_matcher.net, rng, 2 * (n - len(out)),
+                             lengths, min_edges)
+        for req, p in zip(cand, numpy_matcher.prepare_many(cand)):
             if len(out) < n and p.T == bucket_length(len(req["trace"])):
                 req["uuid"] = f"veh-{len(out)}"
                 out.append(req)
@@ -277,15 +316,79 @@ def make_requests(matcher, rng, n, lengths, min_edges):
 
 def bodies(matches, reqs):
     from reporter_tpu_torch.service.report import report_json
-    return [report_json(json.loads(json.dumps(m)), r, 15, {0, 1, 2},
-                        {0, 1, 2}) for m, r in zip(matches, reqs)]
+    return [report_json(m, r, 15, {0, 1, 2}, {0, 1, 2})
+            for m, r in zip(matches, reqs)]
+
+
+def expected_launches(reqs, chunk):
+    """Kernel launches the native dispatch makes for ``reqs``: one per
+    chunk of each raw-length bucket. No bucket splits: the power of two
+    at or above each request's length (12, 48, 64, 200) is its bucket."""
+    from reporter_tpu_torch.matcher.batchpad import bucket_length
+    counts = {}
+    for r in reqs:
+        T = bucket_length(len(r["trace"]))
+        counts[T] = counts.get(T, 0) + 1
+    return sum(-(-n // chunk) for n in counts.values())
+
+
+def expected_launches_numpy(reqs, chunk):
+    """Kernel launches the numpy dispatch makes for ``reqs``: each chunk of
+    ``chunk`` requests in order is prepped at once and ``pack_batches``
+    gives one batch per bucket in it (``make_requests`` keeps only
+    requests whose kept points land in the bucket of their length)."""
+    from reporter_tpu_torch.matcher.batchpad import bucket_length
+    return sum(len({bucket_length(len(r["trace"]))
+                    for r in reqs[lo:lo + chunk]})
+               for lo in range(0, len(reqs), chunk))
+
+
+def numpy_batches(numpy_matcher, reqs, chunk):
+    """The batches the numpy dispatch builds for ``reqs``: route and gc
+    with T-1 time rows, exactly the bucket's traces."""
+    from reporter_tpu_torch.matcher.batchpad import pack_batches
+    for lo in range(0, len(reqs), chunk):
+        yield from pack_batches(numpy_matcher.prepare_many(reqs[lo:lo + chunk]))
+
+
+def native_batches(runtime, reqs, params, chunk):
+    """The native batches the dispatch builds for ``reqs`` (one bucket
+    per raw length, chunks of ``chunk``, rows padded to a power of two)."""
+    from reporter_tpu_torch.core.tracebatch import TraceBatch
+    from reporter_tpu_torch.matcher.batchpad import (bucket_length,
+                                                     padded_batch_rows,
+                                                     prepare_batch)
+    by_T = {}
+    for r in reqs:
+        by_T.setdefault(bucket_length(len(r["trace"])), []).append(r)
+    for T, group in sorted(by_T.items()):
+        for lo in range(0, len(group), chunk):
+            part = group[lo:lo + chunk]
+            yield prepare_batch(runtime, TraceBatch.from_requests(part),
+                                params, T,
+                                pad_rows=padded_batch_rows(len(part)))
+
+
+def timed_run(matcher, reqs):
+    """One counted, timed match_many + report_json of ``reqs`` after a
+    warm-up call (route caches and memo warm): (bodies, wall seconds,
+    kernel launches, stage seconds)."""
+    from reporter_tpu_torch import ops
+    matcher.match_many(reqs)
+    for k in matcher.stage_seconds:
+        matcher.stage_seconds[k] = 0.0
+    ops.viterbi_cuda.launches = 0
+    t0 = time.perf_counter()
+    out = bodies(matcher.match_many(reqs), reqs)
+    wall = time.perf_counter() - t0
+    return (out, wall, ops.viterbi_cuda.launches,
+            {k: round(v, 4) for k, v in matcher.stage_seconds.items()})
 
 
 def phase_main(dev):
     import torch
     from reporter_tpu_torch import ops
     from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
-    from reporter_tpu_torch.matcher.batchpad import pack_batches
     from reporter_tpu_torch.synth import build_grid_city
 
     t0 = time.perf_counter()
@@ -293,79 +396,156 @@ def phase_main(dev):
     params = MatchParams(max_candidates=K)
     gpu = SegmentMatcher(city, params)          # the card, by default
     check(gpu.device.type == "cuda", f"default device is {gpu.device}")
+    check(gpu.runtime is not None and gpu._lanes is not None,
+          "the default matcher is not native with the lanes on")
+    inline = SegmentMatcher(city, params, pipeline=False)
+    gpu_numpy = SegmentMatcher(city, params, native=False)
+    check(gpu_numpy.device.type == "cuda" and gpu_numpy.runtime is None
+          and gpu_numpy._lanes is not None,
+          "the numpy matcher is not on the card with the lanes on")
     cpu = SegmentMatcher(city, params, device="cpu")
+    cpu_numpy = SegmentMatcher(city, params, device="cpu", native=False)
     rng = np.random.default_rng(7)
-    main = make_requests(gpu, rng, N_TRACES, [T_MAIN], max(4, T_MAIN // 12))
-    mixed = make_requests(gpu, rng, 96, [12, 48, 200], 21)
+    main = make_requests(cpu_numpy, rng, N_TRACES, [T_MAIN],
+                         max(4, T_MAIN // 12))
+    mixed = make_requests(cpu_numpy, rng, 96, [12, 48, 200], 21)
     log(f"[main] city {city.num_nodes} nodes / {city.num_edges} edges, "
         f"{len(main)} T={T_MAIN} + {len(mixed)} mixed requests in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; chunk {gpu.chunk} traces, "
+        f"{gpu.prep_threads} prep threads")
 
-    # one call to warm the host route cache, then the counted, timed run
-    gpu.match_many(main)
-    for k in gpu.stage_seconds:
-        gpu.stage_seconds[k] = 0.0
-    ops.viterbi_cuda.launches = 0
-    t0 = time.perf_counter()
-    got_main = gpu.match_many(main)
-    body_main = bodies(got_main, main)
-    wall_main = time.perf_counter() - t0
-    launches_main = ops.viterbi_cuda.launches
-    stages = {k: round(v, 4) for k, v in gpu.stage_seconds.items()}
-    got_mixed = gpu.match_many(mixed)
-    body_mixed = bodies(got_mixed, mixed)
-    launches = ops.viterbi_cuda.launches
-    check(launches_main >= 1, "match_many on cuda never launched the kernel")
-    check(launches - launches_main == 3,
-          f"mixed batch took {launches - launches_main} launches, want 3")
-    log(f"[main] {N_TRACES} traces: {N_TRACES / wall_main:.1f} traces/s "
-        f"({wall_main:.3f} s wall, warm route cache), stages {stages}, "
-        f"kernel launches {launches_main}; mixed batch launches "
-        f"{launches - launches_main}")
+    # the counted, timed runs: the lanes on (the main path), then inline
+    # for a stage split that sums to the wall, then the numpy prep on the
+    # card with the lanes on
+    body_main, wall_main, launches_main, stages_piped = timed_run(gpu, main)
+    body_mixed, _wall, launches_mixed, _st = timed_run(gpu, mixed)
+    launches = launches_main + launches_mixed
+    body_inline, wall_inline, _n, stages = timed_run(inline, main)
+    np_main, wall_np, launches_np_main, stages_np = timed_run(gpu_numpy, main)
+    np_mixed, _wall, launches_np_mixed, _st = timed_run(gpu_numpy, mixed)
+    for what, reqs, got, want in (
+            ("native T=64 batch", main, launches_main,
+             expected_launches(main, gpu.chunk)),
+            ("native mixed batch", mixed, launches_mixed,
+             expected_launches(mixed, gpu.chunk)),
+            ("numpy T=64 batch", main, launches_np_main,
+             expected_launches_numpy(main, gpu_numpy.chunk)),
+            ("numpy mixed batch", mixed, launches_np_mixed,
+             expected_launches_numpy(mixed, gpu_numpy.chunk))):
+        check(got == want, f"{what}: {got} kernel launches, want {want} "
+                           f"(chunks of {gpu.chunk})")
+    log(f"[main] {N_TRACES} traces, lanes on: "
+        f"{N_TRACES / wall_main:.1f} traces/s ({wall_main:.4f} s wall, warm "
+        f"route memo), stage seconds {stages_piped} (overlapped), kernel "
+        f"launches {launches_main}; mixed batch launches {launches_mixed}")
+    rest = wall_inline - sum(stages.values())
+    log(f"[main] {N_TRACES} traces, inline: "
+        f"{N_TRACES / wall_inline:.1f} traces/s ({wall_inline:.4f} s wall), "
+        f"stage split {stages}, report + rest {rest:.4f} s")
+    log(f"[main] {N_TRACES} traces, numpy prep, lanes on: "
+        f"{N_TRACES / wall_np:.1f} traces/s ({wall_np:.4f} s wall, warm "
+        f"route cache), stage seconds {stages_np} (overlapped), kernel "
+        f"launches {launches_np_main}; mixed batch launches "
+        f"{launches_np_mixed}")
 
-    check(body_main == bodies(cpu.match_many(main), main),
-          "/report bodies differ from the port's CPU run (T=64 batch)")
-    check(body_mixed == bodies(cpu.match_many(mixed), mixed),
-          "/report bodies differ from the port's CPU run (mixed batch)")
-    n_seg = sum(len(m["segments"]) for m in got_main)
+    check(body_inline == body_main, "inline bodies differ from the lanes'")
+    for name, ref in (("native", cpu), ("numpy", cpu_numpy)):
+        want_main = bodies(ref.match_many(main), main)
+        want_mixed = bodies(ref.match_many(mixed), mixed)
+        for path, got_main, got_mixed in (("native", body_main, body_mixed),
+                                          ("numpy", np_main, np_mixed)):
+            check(got_main == want_main,
+                  f"the card's {path} /report bodies differ from the "
+                  f"port's {name} CPU run (T=64 batch)")
+            check(got_mixed == want_mixed,
+                  f"the card's {path} /report bodies differ from the "
+                  f"port's {name} CPU run (mixed batch)")
+    n_seg = sum(b.count('"way_ids"') for b in body_main)
     check(n_seg > N_TRACES, f"only {n_seg} segments matched")
 
-    # the main path's own batches through the kernel and the plain version
-    # on the card: paths equal to each other and to the CPU run, scores
-    # bit-equal
+    # the main path's own batches, native (route and gc with T time rows)
+    # and numpy (T-1 rows), through the kernel and the plain version on
+    # the card: paths equal to each other and to the CPU plain decode,
+    # scores bit-equal
     sigma, beta = np.float32(params.effective_sigma), np.float32(params.beta)
     buckets = set()
-    main_x, main_err = None, None
-    for reqs in (main, mixed):
-        for batch in pack_batches(cpu.prepare_many(reqs)):
-            shape = batch.case.shape
-            buckets.add(shape[1])
-            x = tuple(torch.from_numpy(a).to(dev) for a in
-                      (batch.dist_m, batch.valid, batch.route_m, batch.gc_m,
-                       batch.case))
-            k_paths, k_scores = ops.viterbi_cuda(*x, sigma, beta)
-            torch.cuda.synchronize()
-            p_paths, p_scores = ops.viterbi_plain(*x, sigma, beta)
-            torch.cuda.synchronize()
-            check(torch.equal(k_paths, p_paths),
-                  f"paths differ from the plain version, batch {shape}")
-            check(np.array_equal(k_paths.cpu().numpy(),
-                                 cpu.decode(batch, sigma, beta)),
-                  f"paths differ from the CPU run, batch {shape}")
-            differ = bit_equal(k_scores, p_scores)
-            check(differ == 0, f"{differ} scores not bit-equal, batch {shape}")
-            err = float((k_scores - p_scores).abs().max())
-            log(f"[main] batch {shape} {batch.dist_m.dtype}: paths equal, "
-                f"scores bit-equal")
-            if shape == (N_TRACES, T_MAIN):
-                main_x, main_err = x, err
-    check(buckets == {16, 64, 256}, f"buckets {sorted(buckets)}")
-    check(main_x is not None and main_x[0].dtype == torch.float16,
-          "no (512, 64) f16 batch on the main path")
-    log(f"[main] /report bodies byte-equal to the CPU run for all "
-        f"{len(main) + len(mixed)} traces, paths equal in buckets "
-        f"{sorted(buckets)}, {n_seg} segments")
-    return launches, main_x, main_err, (sigma, beta)
+    main_x = main_err = main_rows = None
+    for layout, batches in (
+            ("native", lambda reqs: native_batches(cpu.runtime, reqs, params,
+                                                   gpu.chunk)),
+            ("numpy", lambda reqs: numpy_batches(cpu_numpy, reqs,
+                                                 gpu_numpy.chunk))):
+        for reqs in (main, mixed):
+            for batch in batches(reqs):
+                shape = batch.case.shape
+                buckets.add((layout, shape[1]))
+                arrays = (batch.dist_m, batch.valid, batch.route_m,
+                          batch.gc_m, batch.case)
+                x = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+                want_rows = shape[1] if layout == "native" else shape[1] - 1
+                check(x[2].shape[1] == want_rows,
+                      f"{layout} route_m has {x[2].shape[1]} time rows")
+                k_paths, k_scores = ops.viterbi_cuda(*x, sigma, beta)
+                torch.cuda.synchronize()
+                p_paths, p_scores = ops.viterbi_plain(*x, sigma, beta)
+                torch.cuda.synchronize()
+                what = f"{layout} batch {shape}"
+                check(torch.equal(k_paths, p_paths),
+                      f"paths differ from the plain version, {what}")
+                cpu_paths, _ = ops.viterbi_plain(
+                    *(torch.from_numpy(a) for a in arrays), sigma, beta)
+                check(torch.equal(k_paths.cpu(), cpu_paths),
+                      f"paths differ from the CPU run, {what}")
+                differ = bit_equal(k_scores, p_scores)
+                check(differ == 0, f"{differ} scores not bit-equal, {what}")
+                err = float((k_scores - p_scores).abs().max())
+                log(f"[main] {what} {batch.dist_m.dtype}: paths equal, "
+                    f"scores bit-equal")
+                if main_x is None:  # the native T=64 batch's first chunk
+                    main_x, main_err = x, err
+                    main_rows = len(batch.traces)
+    want_buckets = {(layout, T) for layout in ("native", "numpy")
+                    for T in (16, 64, 256)}
+    check(buckets == want_buckets, f"buckets {sorted(buckets)}")
+    check(tuple(main_x[0].shape) == (min(gpu.chunk, N_TRACES), T_MAIN, K)
+          and main_x[0].dtype == torch.float16,
+          f"the main path's first batch is {tuple(main_x[0].shape)} "
+          f"{main_x[0].dtype}")
+    log(f"[main] /report bodies of the native and the numpy path on the "
+        f"card byte-equal to the native and numpy CPU runs for all "
+        f"{len(main) + len(mixed)} traces, lanes on and inline, paths "
+        f"equal in buckets 16, 64 and 256 of both layouts, {n_seg} segments")
+    return launches, (main_x, main_rows), main_err, (sigma, beta)
+
+
+def phase_city():
+    """512 traces of the T=64 bucket on the 100x100 city through the
+    native matcher on the card, lanes on: bodies byte-equal to the port's
+    native CPU run, and the kernel's launches counted in this phase."""
+    from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
+    from reporter_tpu_torch.synth import build_grid_city
+
+    t0 = time.perf_counter()
+    city = build_grid_city(**BIG_CITY)
+    params = MatchParams(max_candidates=K)
+    gpu = SegmentMatcher(city, params)
+    cpu = SegmentMatcher(city, params, device="cpu")
+    reqs = draw_requests(city, np.random.default_rng(11), N_TRACES, [T_MAIN],
+                         max(4, T_MAIN // 12))
+    log(f"[city] {city.num_nodes} nodes / {city.num_edges} edges, "
+        f"{len(reqs)} T={T_MAIN} requests in "
+        f"{time.perf_counter() - t0:.2f} s")
+    got, wall, launches, stages = timed_run(gpu, reqs)
+    want = expected_launches(reqs, gpu.chunk)
+    check(launches == want, f"{launches} kernel launches, want {want}")
+    check(got == bodies(cpu.match_many(reqs), reqs),
+          "/report bodies differ from the port's native CPU run")
+    log(f"[city] {N_TRACES} traces, lanes on: {N_TRACES / wall:.1f} "
+        f"traces/s ({wall:.4f} s wall, warm route memo), stage seconds "
+        f"{stages} (overlapped), kernel launches {launches}; bodies "
+        f"byte-equal to the native CPU run; route-pair memo "
+        f"{gpu.runtime.route_memo_stats()}")
+    return launches
 
 
 def time_ms(fn, iters):
@@ -453,14 +633,21 @@ def flushed_ms(fn, dev, n=50):
     return float(np.median(ms)), min(ms), max(ms)
 
 
-def phase_timing(dev, main_x, scalars, sm_mhz):
-    """Kernel times at T=64, 256 and 1024 (K=8, f16 wire), from CUDA
-    graphs: the batch, twice in turns, and the batch's first trace alone,
-    whose three times give the chain's cost per step (slope) and its fixed
-    part (intercept); the main batch launched from Python without a graph
-    and with the L2 flushed before each launch; the plain version."""
+def phase_timing(dev, main, scalars, sm_mhz):
+    """Kernel times (K=8, f16 wire) from CUDA graphs: the main path's
+    native batch (``main``: its tensors and its rows that hold traces), a
+    512-trace T=64 batch with route and gc in T-1 rows (the shape and
+    layout the ``kernels`` line timed in the slice before the native prep,
+    kept as a series across commits) and batches at T=256 and 1024, twice
+    in turns; the first trace alone at T=64, 256 and 1024, whose three
+    times give the chain's cost per step (slope) and its fixed part
+    (intercept); the main batch launched from Python without a graph and
+    with the L2 flushed before each launch; the plain version."""
     from reporter_tpu_torch.ops import viterbi, viterbi_plain
+    main_x, main_rows = main
     shapes = {"main": main_x,
+              "b512": to_device(random_inputs(N_TRACES, T_MAIN, K, 97),
+                                True, dev),
               "mid": to_device(random_inputs(64, 256, K, 98), True, dev),
               "long": to_device(random_inputs(64, 1024, K, 99), True, dev)}
     batch = {name: [] for name in shapes}
@@ -469,8 +656,8 @@ def phase_timing(dev, main_x, scalars, sm_mhz):
             batch[name].append(graph_ms(launcher(viterbi, x, scalars), 100))
     one = {name: graph_ms(launcher(viterbi, tuple(t[:1] for t in x),
                                    scalars), 100)
-           for name, x in shapes.items()}
-    steps = np.array([x[0].shape[1] - 1 for x in shapes.values()], float)
+           for name, x in shapes.items() if name != "b512"}
+    steps = np.array([shapes[name][0].shape[1] - 1 for name in one], float)
     slope, intercept = np.polyfit(steps, np.array(list(one.values())), 1)
     log(f"[timing] one trace: per-step slope {slope * 1e3:.5f} us "
         f"({slope * sm_mhz * 1e3:.1f} cycles at {sm_mhz} MHz), intercept "
@@ -490,16 +677,19 @@ def phase_timing(dev, main_x, scalars, sm_mhz):
         B, T, Kx = x[0].shape
         plain = (time_ms(lambda: viterbi_plain(*x, *scalars), 3)
                  if name != "mid" else None)
-        bms, by = bound_ms(x, T, Kx)
+        rows = main_rows if name == "main" else B
+        bms, by = bound_ms(x, T, Kx, rows)
         cyc = chain_cycles(T, Kx)
         p = viterbi.launch_plan(B, T, Kx)
+        one_ms = f"{one[name]:.4f} ms" if name in one else "not timed"
         log(f"[timing] B,T,K={B},{T},{Kx} f16 wire: kernel "
             f"{batch[name][0]:.4f} / {batch[name][1]:.4f} ms (two rounds), "
-            f"one trace {one[name]:.4f} ms, chain model {cyc} cycles = "
+            f"one trace {one_ms}, chain model {cyc} cycles = "
             f"{cyc / (sm_mhz * 1e3):.4f} ms at {sm_mhz} MHz, plain "
             f"{'not timed' if plain is None else f'{plain:.3f} ms'}, "
             f"bound {bms:.5f} ms by {by} "
-            f"({wire_bytes(x, T)} bytes, {wire_ops(B, T, Kx)} f32 ops); "
+            f"({wire_bytes(x, T, rows)} bytes, {wire_ops(rows, T, Kx)} "
+            f"f32 ops for {rows} traces); "
             f"plan lanes={p.lanes} traces/block={p.traces_per_block} "
             f"C={p.chunk_steps} smem={p.smem_bytes} grid={p.grid}")
         out[name] = (batch[name][0], plain, bms, by)
@@ -605,11 +795,13 @@ def main() -> int:
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"against": args.against, "ms": against})
     phase_verify(dev)
-    launches, main_x, max_err, scalars = phase_main(dev)
-    times = phase_timing(dev, main_x, scalars, max_sm_mhz())
+    launches, main, max_err, scalars = phase_main(dev)
+    phase_city()
+    times = phase_timing(dev, main, scalars, max_sm_mhz())
     check(not spills, f"ptxas reports spills: {spills}")
 
     ms, plain, bms, by = times["main"]
+    ms_512, _plain, bms_512, _by = times["b512"]
     kernels = [{
         "name": "viterbi_decode",
         "route": "cuda",
@@ -622,6 +814,10 @@ def main() -> int:
         "bound_ms": bms,
         "bound_by": by,
         "library_ms": None,
+        # the same kernel at a fixed (512,64,8), route and gc in T-1
+        # rows: the shape the line's "ms" had before the native prep
+        "ms_512_64_8": ms_512,
+        "bound_ms_512_64_8": bms_512,
     }]
     return finish(smi, {"kernels": kernels})
 

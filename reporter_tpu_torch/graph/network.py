@@ -56,12 +56,16 @@ class RoadNetwork:
     def num_edges(self) -> int:
         return len(self.edge_start)
 
+    def projection_anchor(self):
+        """(lat0, lon0) the local projection is anchored at: the network
+        centroid. The native batched prep projects points with it."""
+        return float(np.mean(self.node_lat)), float(np.mean(self.node_lon))
+
     def projection(self):
         """Local equirectangular meters projection anchored at the network
         centroid; built once and shared by spatial index and matcher."""
         if self._proj is None:
-            self._proj = local_meters_projection(
-                float(np.mean(self.node_lat)), float(np.mean(self.node_lon)))
+            self._proj = local_meters_projection(*self.projection_anchor())
         return self._proj
 
     def node_xy(self):

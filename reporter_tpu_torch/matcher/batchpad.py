@@ -11,6 +11,10 @@ fixed-shape and branch-free:
 
 2. **Bucketed padding.** Kept subsequences are padded to the smallest bucket
    in ``LENGTH_BUCKETS``, so the decode sees a handful of shapes.
+
+Two preps give the same tensors: :func:`prepare_traces_numpy` +
+:func:`pack_batches` (numpy, per trace) and :func:`prepare_batch` (one
+call into the native host runtime per chunk).
 """
 from __future__ import annotations
 
@@ -29,12 +33,30 @@ from .hmm import NORMAL, RESTART, SKIP, UNREACHABLE_THRESHOLD, WIRE_MAX_M
 from .params import MatchParams
 
 LENGTH_BUCKETS = (16, 64, 256, 1024)
+#: padding-waste ratio above which the native dispatch breaks a
+#: mixed-length bucket into power-of-two sub-buckets
+#: (``SegmentMatcher._split_bucket``): a 17-point trace padded to T=64
+#: (waste ~0.73) splits, an exactly filled bucket never does
+SPLIT_WASTE = 0.35
 
 
 def bucket_length(n: int) -> int:
     """Smallest bucket >= n (the last bucket caps the trace length)."""
     idx = bisect.bisect_left(LENGTH_BUCKETS, n)
     return LENGTH_BUCKETS[min(idx, len(LENGTH_BUCKETS) - 1)]
+
+
+def kept_point_count(batch: "PaddedBatch") -> int:
+    """Kept (non-SKIP) probe points across a padded batch: filler rows
+    and padding tails are all-SKIP."""
+    return int(np.count_nonzero(np.asarray(batch.case) != SKIP))
+
+
+def padded_batch_rows(B: int) -> int:
+    """Rows a native batch of B traces decodes as: the next power of two,
+    which bounds the launch shapes per bucket; the filler rows are
+    all-SKIP and decode to nothing."""
+    return 1 << max(B - 1, 0).bit_length()
 
 
 @dataclass
@@ -208,15 +230,46 @@ def _prepare_from_candidates(net, lat, lon, times, all_cands, has_cands,
                          has_cands=np.asarray(has_cands))
 
 
+class _LazyTraceViews:
+    """Sequence of PreparedTrace views over a native batch, built on first
+    element access: the native matcher only takes ``len()``."""
+
+    def __init__(self, n: int, build):
+        self._n = n
+        self._build = build
+        self._views: List[PreparedTrace] | None = None
+
+    def _mat(self) -> List[PreparedTrace]:
+        if self._views is None:
+            self._views = self._build()
+        return self._views
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, i):
+        return self._mat()[i]
+
+    def __iter__(self):
+        return iter(self._mat())
+
+
 @dataclass
 class PaddedBatch:
     """A device-ready batch of same-bucket traces (host numpy arrays)."""
-    traces: List[PreparedTrace]
+    traces: "List[PreparedTrace] | _LazyTraceViews"
     dist_m: np.ndarray   # (B, T, K) f16 wire or f32
     valid: np.ndarray    # (B, T, K) bool
-    route_m: np.ndarray  # (B, T-1, K, K) f16 wire or f32
-    gc_m: np.ndarray     # (B, T-1) f16 wire or f32
+    # route/gc time rows: T-1 from pack_batches, T from prepare_batch (a
+    # dead last step); the decode takes either
+    route_m: np.ndarray  # (B, T-1 | T, K, K) f16 wire or f32
+    gc_m: np.ndarray     # (B, T-1 | T) f16 wire or f32
     case: np.ndarray     # (B, T) i32
+    # prepare_batch only: the native prep's tensors and the chunk's flat
+    # point offsets and times, which the native assembly reads
+    prep: "dict | None" = None
+    pt_off: "np.ndarray | None" = None      # (B+1,) i64
+    times_flat: "np.ndarray | None" = None  # flat f64 raw probe times
 
 
 def _f16_safe(p: PreparedTrace) -> bool:
@@ -269,3 +322,62 @@ def pack_batches(prepared: Sequence[PreparedTrace]) -> List[PaddedBatch]:
         batches.append(PaddedBatch(traces=group, dist_m=dist, valid=valid,
                                    route_m=route, gc_m=gc, case=case))
     return batches
+
+
+def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
+                  pad_rows: int | None = None,
+                  n_threads: int = 0) -> PaddedBatch:
+    """Whole-chunk host prep through ONE native call
+    (``NativeRuntime.prepare_batch``), with the per-trace semantics of
+    :func:`prepare_traces_numpy`: the flat coordinate columns of ``tb``
+    go straight to C++ threads, which write padded (rows, T, ...)
+    tensors.
+
+    ``T`` is the padding bucket every trace of the chunk shares (callers
+    bucket by raw length first); ``pad_rows`` >= B adds all-SKIP filler
+    rows. Float tensors ship on the f16 wire when every finite distance
+    the prep wrote is at most ``WIRE_MAX_M`` (the prep's ``max_finite``),
+    else f32, as :func:`pack_batches` decides. route_m and gc_m carry T
+    time rows (a dead last step).
+
+    The batch's ``traces`` are PreparedTrace views over rows of the f32
+    tensors, built on first access.
+    """
+    B = len(tb)
+    pt_off, times = tb.offsets, tb.time
+    counts = np.diff(pt_off)
+    out = runtime.prepare_batch(
+        pt_off, tb.lat, tb.lon, times, T, params.max_candidates,
+        search_radius=params.search_radius,
+        interpolation_distance=params.interpolation_distance,
+        breakage_distance=params.breakage_distance,
+        max_route_distance_factor=params.max_route_distance_factor,
+        backward_tolerance_m=params.backward_tolerance_m,
+        max_route_time_factor=params.max_route_time_factor,
+        min_time_bound_s=params.min_time_bound_s,
+        turn_penalty_factor=params.turn_penalty_factor,
+        n_threads=n_threads, n_rows=pad_rows)
+
+    def build_views() -> List[PreparedTrace]:
+        kept, num_kept = out["kept_idx"], out["num_kept"]
+        views = []
+        for b in range(B):
+            nk = int(num_kept[b])
+            lo, hi = pt_off[b], pt_off[b + 1]
+            views.append(PreparedTrace(
+                num_raw=int(counts[b]), num_kept=nk, kept_idx=kept[b, :nk],
+                times=times[lo:hi], edge_ids=out["edge_ids"][b],
+                dist_m=out["dist_m"][b], offset_m=out["offset_m"][b],
+                route_m=out["route_m"][b, :max(T - 1, 0)],
+                gc_m=out["gc_m"][b, :max(T - 1, 0)], case=out["case"][b],
+                trailing_jitter_dwell_s=float(out["dwell"][b]),
+                has_cands=out["has_cands"][lo:hi].astype(bool)))
+        return views
+
+    dist, route, gc = out["dist_m"], out["route_m"], out["gc_m"]
+    if float(out["max_finite"][0]) <= WIRE_MAX_M:
+        dist, route, gc = (runtime.to_f16(a) for a in (dist, route, gc))
+    return PaddedBatch(traces=_LazyTraceViews(B, build_views), dist_m=dist,
+                       valid=out["edge_ids"] != PAD_EDGE, route_m=route,
+                       gc_m=gc, case=out["case"], prep=out, pt_off=pt_off,
+                       times_flat=times)

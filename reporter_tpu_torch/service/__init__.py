@@ -1,3 +1,3 @@
-from .report import report, report_json
+from .report import report, report_json, report_wire
 
-__all__ = ["report", "report_json"]
+__all__ = ["report", "report_json", "report_wire"]

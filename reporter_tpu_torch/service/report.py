@@ -20,14 +20,19 @@ the stats ``length`` fields instead of accumulating
 (reporter_service.py:138,142); here lengths are summed, which is the
 evident intent of the telemetry.
 
-The ``/report`` response body is :func:`report_json`:
-``json.dumps(report(...), separators=(",", ":"))``.
+The ``/report`` response body is :func:`report_json` (a string) or
+:func:`report_wire` (bytes), byte-equal to
+``json.dumps(report(...), separators=(",", ":"))``: a MatchRuns from the
+native path is written by the C writer straight from its run columns.
 """
 from __future__ import annotations
 
 import json
 import math
 from typing import Iterable, List, Optional, Tuple
+
+from ..matcher import matcher as _matcher
+from . import wire
 
 
 class _Scan:
@@ -43,8 +48,15 @@ class _Scan:
 
 def _segment_columns(match) -> Tuple[list, ...]:
     """(seg_id, internal, start, end, length, queue, begin_idx, end_idx)
-    parallel lists for the scan, one comprehension pass per field over the
-    match's segment dicts. Absent segment ids are None (unassociated)."""
+    parallel lists for the scan: straight slices of a MatchRuns's run
+    columns, or one comprehension pass per field over plain segment dicts
+    (the numpy path). Absent segment ids are -1 (columns) or None
+    (dicts); the scan treats both as unassociated."""
+    if isinstance(match, _matcher.MatchRuns):
+        c, lo, hi = match.cols, match.lo, match.hi
+        return (c.seg_id[lo:hi], c.internal[lo:hi], c.start[lo:hi],
+                c.end[lo:hi], c.length[lo:hi], c.queue[lo:hi],
+                c.begin_idx[lo:hi], c.end_idx[lo:hi])
     segs = match["segments"]
     return ([s.get("segment_id") for s in segs],
             [s.get("internal", False) for s in segs],
@@ -211,9 +223,78 @@ def report(match: dict, trace: dict, threshold_sec: float,
     return out
 
 
-def report_json(match: dict, trace: dict, threshold_sec: float,
+def report_json(match, trace: dict, threshold_sec: float,
                 report_levels: Iterable[int],
                 transition_levels: Iterable[int]) -> str:
-    """The ``/report`` response body."""
-    return json.dumps(report(match, trace, threshold_sec, report_levels,
-                             transition_levels), separators=(",", ":"))
+    """The ``/report`` response body, byte-equal to
+    ``json.dumps(report(...), separators=(",", ":"))``: a plain-dict match
+    (the numpy path) takes exactly that route, a MatchRuns the C writer
+    (:func:`report_wire`)."""
+    if not isinstance(match, _matcher.MatchRuns):
+        return json.dumps(report(match, trace, threshold_sec, report_levels,
+                                 transition_levels), separators=(",", ":"))
+    return bytes(report_wire(match, trace, threshold_sec, report_levels,
+                             transition_levels)).decode("utf-8")
+
+
+def report_wire(match, trace: dict, threshold_sec: float,
+                report_levels: Iterable[int],
+                transition_levels: Iterable[int]):
+    """The ``/report`` response body as bytes: for a MatchRuns, the C
+    writer's buffer (a memoryview, no re-encode), or the Python columnar
+    writer's where the level sets are not a bitmask; for a dict, the
+    encoded :func:`report_json`. Stamps ``match["mode"] = "auto"``."""
+    if not isinstance(match, _matcher.MatchRuns):
+        return report_json(match, trace, threshold_sec, report_levels,
+                           transition_levels).encode("utf-8")
+    out = wire.maybe_native_report(
+        match.cols.arrays, match.lo, match.hi, trace["trace"][-1]["time"],
+        threshold_sec, report_levels, transition_levels)
+    if out is None:
+        return _report_json_py(match, trace, threshold_sec, report_levels,
+                               transition_levels).encode("utf-8")
+    match["mode"] = "auto"  # the same side effect as report()
+    return out
+
+
+def _report_json_py(match, trace: dict, threshold_sec: float,
+                    report_levels: Iterable[int],
+                    transition_levels: Iterable[int]) -> str:
+    """The Python columnar writer for a MatchRuns, the oracle the C writer
+    is held against: the body straight from the run columns, byte-equal to
+    ``json.dumps(report(...))``."""
+    scan = _scan_segments(
+        *_segment_columns(match), trace["trace"][-1]["time"],
+        threshold_sec, set(report_levels), set(transition_levels))
+    match["mode"] = "auto"  # the same side effect as report()
+    r_t0, r_t1 = scan.r_t0, scan.r_t1
+    parts = []
+    for i in range(len(scan.r_id)):
+        # t0/t1 are columnar start/end values, always finite floats here,
+        # so bare repr matches json.dumps byte for byte
+        nx = scan.r_next[i]
+        parts.append(
+            f'{{"id":{scan.r_id[i]},"t0":{r_t0[i]!r},'
+            f'"t1":{r_t1[i]!r},"length":{scan.r_len[i]},'
+            f'"queue_length":{scan.r_queue[i]}'
+            + (f',"next_id":{nx}}}' if nx is not None else "}"))
+    jnum = _matcher._jnum
+    body = (
+        '{"stats":{"successful_matches":{"count":%d,"length":%s},'
+        '"unreported_matches":{"count":%d,"length":%s},'
+        '"match_errors":{"discontinuities":%d,"invalid_speeds":%d,'
+        '"invalid_times":%d},"unassociated_segments":%d}'
+        % (scan.successful, jnum(round(scan.successful_km, 3)),
+           scan.unreported, jnum(round(scan.unreported_km, 3)),
+           scan.discontinuities, scan.invalid_speeds, scan.invalid_times,
+           scan.unassociated))
+    if scan.shape_used:
+        body += f',"shape_used":{scan.shape_used}'
+    # the holdback cut is over reported segments only; the echoed
+    # segment_matcher carries every run, as report() does
+    body += (',"segment_matcher":'
+             + _matcher.render_segments_json_py(match.cols, match.lo,
+                                                match.hi, "auto")
+             + ',"datastore":{"mode":"auto","reports":['
+             + ",".join(parts) + "]}}")
+    return body

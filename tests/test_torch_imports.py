@@ -1,10 +1,13 @@
 """The port stands alone: importing every module of ``reporter_tpu_torch``
-pulls in neither JAX nor any module of ``reporter_tpu``, and its entry
-points refuse to run without CUDA unless given the CPU."""
+pulls in neither JAX nor any module of ``reporter_tpu`` and builds no
+library, the port reads no environment variable, and its entry points
+refuse to run without CUDA unless given the CPU."""
 import json
 import pkgutil
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -20,7 +23,9 @@ names = [m.name for m in pkgutil.walk_packages(reporter_tpu_torch.__path__,
                                                "reporter_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-print(json.dumps({"imported": names, "modules": sorted(sys.modules)}))
+print(json.dumps({"imported": names, "modules": sorted(sys.modules),
+                  "native_loaded": sys.modules[
+                      "reporter_tpu_torch.native"]._lib is not None}))
 """
 
 
@@ -31,7 +36,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     expected = {m.name for m in pkgutil.walk_packages(
         reporter_tpu_torch.__path__, "reporter_tpu_torch.")}
     assert set(got["imported"]) == expected
-    assert "reporter_tpu_torch.ops.viterbi" in expected
+    assert {"reporter_tpu_torch.ops.viterbi",
+            "reporter_tpu_torch.native"} <= expected
+    assert not got["native_loaded"]
     mods = got["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
     assert not [m for m in mods
@@ -47,3 +54,16 @@ def test_default_device_is_cuda_and_raises_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         SegmentMatcher(build_grid_city(rows=3, cols=3))
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_port_reads_no_environment_variable():
+    root = Path(reporter_tpu_torch.__file__).parent
+    files = [p for p in root.rglob("*")
+             if p.suffix in (".py", ".cpp", ".cu", ".h", ".cuh")]
+    assert {p.name for p in files} >= {"host_runtime.cpp", "viterbi.cu",
+                                       "matcher.py"}
+    found = [f"{p.relative_to(root)}:{n}"
+             for p in files
+             for n, line in enumerate(p.read_text().splitlines(), 1)
+             if re.search(r"os\.environ|getenv", line)]
+    assert not found
