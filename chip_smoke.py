@@ -15,29 +15,48 @@ Phases, each fatal on failure:
             gc with T time rows) and shapes that reach every branch of
             the launch plan, f16 and f32 wire: paths equal, scores
             bit-equal
-3. main     the /report path: SegmentMatcher.match_many (native prep,
-            the two device lanes) + report_json() on the 20x20 synthetic
-            city, 512 traces of the T=64 bucket and a mixed T=16/64/256
-            batch, on the card, and the same batches through the numpy
-            prep on the card (native=False, lanes on); every body
-            byte-equal to the port's own CPU runs on the native and the
-            numpy path, the kernel's launches read around each run and
-            held to its path's chunking; both paths' own batches (route
-            and gc in T and in T-1 rows) through the kernel and the plain
-            version; traces/s with the lanes on, and the stage split of
-            a run without them
-4. city     512 traces of the T=64 bucket on a 100x100 grid city (10,000
+3. main     SegmentMatcher.match_many (native prep, the two device lanes)
+            + report_json() on the 20x20 synthetic city, 512 traces of
+            the T=64 bucket and a mixed T=16/64/256 batch, on the card,
+            and the same batches through the numpy prep on the card
+            (native=False, lanes on); every body byte-equal to the port's
+            own CPU runs on the native and the numpy path, the kernel's
+            launches read around each run and held to its path's
+            chunking; both paths' own batches (route and gc in T and in
+            T-1 rows) through the kernel and the plain version; traces/s
+            with the lanes on, and the stage split of a run without them
+4. serve    the /report front door in this process (serve(): 64 handler
+            threads, the dispatcher's flush cap of 256, native prep) on
+            the card, two services built from config files, one with the
+            lanes on and one with "pipeline": false: main's 608 requests
+            POSTed from 64 client threads in a child process, a warm
+            window each, then eight timed windows in turns (four each);
+            every body byte-equal to the native CPU run, a few GETs too,
+            the error answers equal to a CPU service's, the kernel
+            launched at least once per dispatcher batch and at most once
+            per chunk of each bucket in it; every batch the dispatchers
+            formed rebuilt and held kernel against plain; per window
+            requests/s, p50/p99 latency, batches, mean batch size,
+            launches and the service's own timers, then each setting's
+            median and range
+5. prefork  python3 -m reporter_tpu_torch.service.server ... --procs 2 as
+            a subprocess on the card: both workers answer 64 requests
+            with the CPU run's bytes, SIGTERM reaps them and the parent
+            exits 0 (the workers open the card after the fork)
+6. city     512 traces of the T=64 bucket on a 100x100 grid city (10,000
             nodes, 39,600 edges) through the native matcher on the card:
             bodies byte-equal to the port's native CPU run, the kernel's
             launches in this phase, the route-pair memo's counters
-5. timing   CUDA-event times of the kernel from CUDA graphs (the main
+7. timing   CUDA-event times of the kernel from CUDA graphs (the main
             path's batch, and batches and one trace at T=64/256/1024,
             twice in turns; the per-step slope and intercept; the main
             batch with the L2 flushed) and of the plain version, beside
             the least time the card could take and a model of the chain
 
 Prints the card's name and power limit, one JSON line describing the
-kernel, and as the last line {"ok": true, "device": {...}}. Exits non-zero,
+kernel (``launches``: match_many's in the main phase; ``launches_serve``:
+each timed serve window's, lanes on), and as the
+last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
 
 With ``--against DIR`` (another checkout of the repo, such as a parent
@@ -64,6 +83,11 @@ SMEM_CYCLES, ALU_CYCLES, SHFL_CYCLES = 30, 4, 30
 L2_BYTES = 50 * 2**20       # H100 L2; the flush buffer is larger
 
 N_TRACES = 512              # the service's decode batch
+SERVE_CLIENTS = 64          # client threads, as many as handler threads
+# the serve phase's timed windows of 608 requests: four with the lanes
+# on and four inline, in turns so that neither setting always goes first
+SERVE_ORDER = ("lanes on", "inline", "inline", "lanes on",
+               "inline", "lanes on", "lanes on", "inline")
 T_MAIN = 64
 K = 8                       # MatchParams.max_candidates default
 CITY = dict(rows=20, cols=20, spacing_m=200.0, seed=42)
@@ -324,10 +348,16 @@ def expected_launches(reqs, chunk):
     """Kernel launches the native dispatch makes for ``reqs``: one per
     chunk of each raw-length bucket. No bucket splits: the power of two
     at or above each request's length (12, 48, 64, 200) is its bucket."""
+    return chunks_per_bucket([len(r["trace"]) for r in reqs], chunk)
+
+
+def chunks_per_bucket(lengths, chunk):
+    """Chunks of ``chunk`` traces in each raw-length bucket of traces
+    with these point counts, summed."""
     from reporter_tpu_torch.matcher.batchpad import bucket_length
     counts = {}
-    for r in reqs:
-        T = bucket_length(len(r["trace"]))
+    for n in lengths:
+        T = bucket_length(int(n))
         counts[T] = counts.get(T, 0) + 1
     return sum(-(-n // chunk) for n in counts.values())
 
@@ -351,22 +381,38 @@ def numpy_batches(numpy_matcher, reqs, chunk):
         yield from pack_batches(numpy_matcher.prepare_many(reqs[lo:lo + chunk]))
 
 
-def native_batches(runtime, reqs, params, chunk):
-    """The native batches the dispatch builds for ``reqs`` (one bucket
-    per raw length, chunks of ``chunk``, rows padded to a power of two)."""
-    from reporter_tpu_torch.core.tracebatch import TraceBatch
+def native_batches(runtime, tb, params, chunk):
+    """The native batches the dispatch builds for the TraceBatch ``tb``
+    (one bucket per raw length, chunks of ``chunk``, rows padded to a
+    power of two)."""
     from reporter_tpu_torch.matcher.batchpad import (bucket_length,
                                                      padded_batch_rows,
                                                      prepare_batch)
     by_T = {}
-    for r in reqs:
-        by_T.setdefault(bucket_length(len(r["trace"])), []).append(r)
+    for i, n in enumerate(tb.lengths()):
+        by_T.setdefault(bucket_length(int(n)), []).append(i)
     for T, group in sorted(by_T.items()):
         for lo in range(0, len(group), chunk):
             part = group[lo:lo + chunk]
-            yield prepare_batch(runtime, TraceBatch.from_requests(part),
-                                params, T,
+            yield prepare_batch(runtime, tb.gather(part), params, T,
                                 pad_rows=padded_batch_rows(len(part)))
+
+
+def against_plain(x, sigma, beta, what):
+    """One batch ``x`` on the card through the kernel and the plain
+    version: paths equal, scores bit-equal. Returns (the kernel's paths,
+    the scores' largest absolute difference)."""
+    import torch
+    from reporter_tpu_torch import ops
+    k_paths, k_scores = ops.viterbi_cuda(*x, sigma, beta)
+    torch.cuda.synchronize()
+    p_paths, p_scores = ops.viterbi_plain(*x, sigma, beta)
+    torch.cuda.synchronize()
+    check(torch.equal(k_paths, p_paths),
+          f"paths differ from the plain version, {what}")
+    differ = bit_equal(k_scores, p_scores)
+    check(differ == 0, f"{differ} scores not bit-equal, {what}")
+    return k_paths, float((k_scores - p_scores).abs().max())
 
 
 def timed_run(matcher, reqs):
@@ -388,6 +434,7 @@ def timed_run(matcher, reqs):
 def phase_main(dev):
     import torch
     from reporter_tpu_torch import ops
+    from reporter_tpu_torch.core.tracebatch import TraceBatch
     from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
     from reporter_tpu_torch.synth import build_grid_city
 
@@ -449,9 +496,11 @@ def phase_main(dev):
         f"{launches_np_mixed}")
 
     check(body_inline == body_main, "inline bodies differ from the lanes'")
+    cpu_bodies = {}
     for name, ref in (("native", cpu), ("numpy", cpu_numpy)):
         want_main = bodies(ref.match_many(main), main)
         want_mixed = bodies(ref.match_many(mixed), mixed)
+        cpu_bodies[name] = want_main + want_mixed
         for path, got_main, got_mixed in (("native", body_main, body_mixed),
                                           ("numpy", np_main, np_mixed)):
             check(got_main == want_main,
@@ -471,8 +520,9 @@ def phase_main(dev):
     buckets = set()
     main_x = main_err = main_rows = None
     for layout, batches in (
-            ("native", lambda reqs: native_batches(cpu.runtime, reqs, params,
-                                                   gpu.chunk)),
+            ("native", lambda reqs: native_batches(
+                cpu.runtime, TraceBatch.from_requests(reqs), params,
+                gpu.chunk)),
             ("numpy", lambda reqs: numpy_batches(cpu_numpy, reqs,
                                                  gpu_numpy.chunk))):
         for reqs in (main, mixed):
@@ -485,20 +535,12 @@ def phase_main(dev):
                 want_rows = shape[1] if layout == "native" else shape[1] - 1
                 check(x[2].shape[1] == want_rows,
                       f"{layout} route_m has {x[2].shape[1]} time rows")
-                k_paths, k_scores = ops.viterbi_cuda(*x, sigma, beta)
-                torch.cuda.synchronize()
-                p_paths, p_scores = ops.viterbi_plain(*x, sigma, beta)
-                torch.cuda.synchronize()
                 what = f"{layout} batch {shape}"
-                check(torch.equal(k_paths, p_paths),
-                      f"paths differ from the plain version, {what}")
+                k_paths, err = against_plain(x, sigma, beta, what)
                 cpu_paths, _ = ops.viterbi_plain(
                     *(torch.from_numpy(a) for a in arrays), sigma, beta)
                 check(torch.equal(k_paths.cpu(), cpu_paths),
                       f"paths differ from the CPU run, {what}")
-                differ = bit_equal(k_scores, p_scores)
-                check(differ == 0, f"{differ} scores not bit-equal, {what}")
-                err = float((k_scores - p_scores).abs().max())
                 log(f"[main] {what} {batch.dist_m.dtype}: paths equal, "
                     f"scores bit-equal")
                 if main_x is None:  # the native T=64 batch's first chunk
@@ -515,7 +557,339 @@ def phase_main(dev):
         f"card byte-equal to the native and numpy CPU runs for all "
         f"{len(main) + len(mixed)} traces, lanes on and inline, paths "
         f"equal in buckets 16, 64 and 256 of both layouts, {n_seg} segments")
-    return launches, (main_x, main_rows), main_err, (sigma, beta)
+    served = {"city": city, "params": params, "reqs": main + mixed,
+              "want": cpu_bodies["native"]}
+    return launches, (main_x, main_rows), main_err, (sigma, beta), served
+
+
+def http(url, data=None):
+    """(status, headers, body) of one request: POST with ``data``, else
+    GET."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=data,
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.headers, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read()
+
+
+def post_all(url, reqs, clients):
+    """POST every request to ``url``/report from a pool of ``clients``
+    threads in a child process (so the load does not share the
+    service's GIL): ([(status, X-Reporter-Proc, body)] in request order,
+    per-request seconds, wall seconds)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(f"{tmp}/reqs.json", "w") as f:
+            json.dump(reqs, f)
+        subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.client_main(*sys.argv[1:])", url,
+             f"{tmp}/reqs.json", f"{tmp}/out.json", str(clients)],
+            cwd=ROOT, check=True, timeout=600)
+        with open(f"{tmp}/out.json") as f:
+            out = json.load(f)
+    return ([(st, tag, body.encode()) for st, tag, body in out["answers"]],
+            out["seconds"], out["wall"])
+
+
+def client_main(url, reqs_path, out_path, clients):
+    """The load generator :func:`post_all` runs in its own process."""
+    from concurrent.futures import ThreadPoolExecutor
+    with open(reqs_path) as f:
+        reqs = json.load(f)
+    # urllib's first use in 64 threads at once races its lazy set-up
+    # (seconds on a loaded host): one GET from this thread first
+    http(url + "/health")
+
+    def one(req):
+        t0 = time.perf_counter()
+        st, h, body = http(url + "/report", json.dumps(req).encode())
+        return ((st, h["X-Reporter-Proc"], body.decode()),
+                time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(int(clients)) as pool:
+        done = list(pool.map(one, reqs))
+    wall = time.perf_counter() - t0
+    with open(out_path, "w") as f:
+        json.dump({"answers": [a for a, _ in done],
+                   "seconds": [t for _, t in done], "wall": wall}, f)
+
+
+def error_requests(req):
+    """(method, path, body) of the requests the service refuses: each
+    validation error, malformed JSON, a GET without json, a bad action."""
+    import urllib.parse
+    pts = req["trace"][:5]
+    bad = [{"trace": pts, "match_options": OPTS},
+           {"uuid": "e", "trace": pts[:1], "match_options": OPTS},
+           {"uuid": "e", "trace": pts,
+            "match_options": {"transition_levels": [0]}},
+           {"uuid": "e", "trace": pts,
+            "match_options": {"report_levels": [0]}}]
+    return ([("/report", json.dumps(b).encode()) for b in bad]
+            + [("/report", b'{"uuid": '), ("/report", None),
+               ("/nope?json=" + urllib.parse.quote(json.dumps(req)), None)])
+
+
+def answers_match(answers, want, what):
+    """Every answer 200 with the body the native CPU run gave."""
+    for i, (st, _tag, body) in enumerate(answers):
+        check(st == 200, f"{what}: request {i} answered {st}")
+        check(body.decode() == want[i],
+              f"{what}: /report body {i} differs from the native CPU run")
+
+
+def spread(values):
+    """(median, least, most) of a window series."""
+    return float(np.median(values)), float(min(values)), float(max(values))
+
+
+def phase_serve(dev, served):
+    """The /report front door on the card: two services of the port in
+    this process (``serve()``, 64 handler threads, the dispatcher's
+    default flush cap of 256 traces, the native prep), built from config
+    files as ``main`` builds them, one with the lanes on and one with
+    ``"service": {"pipeline": false}``. Each takes a warm window of the
+    main path's 512 T=64 and 96 mixed requests, POSTed from 64 client
+    threads in a child process, then a few GETs and the error requests;
+    then the timed windows of the same 608 requests run in the turns of
+    ``SERVE_ORDER``. In every window every body is byte-equal to the
+    native CPU run's, and each dispatcher batch launched the kernel at
+    least once and at most once per chunk of each bucket in it; the error
+    answers equal a CPU service's. Afterwards every batch the dispatchers
+    formed in the timed windows is rebuilt by the native prep and goes
+    through the kernel and the plain version on the card (paths equal,
+    scores bit-equal). Returns {"lanes on"/"inline": [window numbers]}."""
+    import tempfile
+    import urllib.parse
+    import torch
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.service.server import (ReporterService,
+                                                   matcher_from_config,
+                                                   read_config, serve)
+    from reporter_tpu_torch.utils import metrics
+    city, params = served["city"], served["params"]
+    reqs, want = served["reqs"], served["want"]
+    cpu_svc = ReporterService(SegmentMatcher(city, params, device="cpu"))
+    cpu_httpd = serve(cpu_svc, "127.0.0.1", 0)
+    cpu_url = f"http://127.0.0.1:{cpu_httpd.server_address[1]}"
+    up = {}        # setting -> (matcher, service, server, url, batches)
+    windows = {"lanes on": [], "inline": []}
+    formed = []    # (TraceBatch, its kernel launches) of the timed windows
+    with tempfile.TemporaryDirectory() as tmp:
+        city.save(f"{tmp}/city.npz")
+        try:
+            for lanes, keys in (("lanes on", {}),
+                                ("inline", {"pipeline": False})):
+                cfg = f"{tmp}/{len(up)}.json"
+                with open(cfg, "w") as f:
+                    json.dump({"graph": f"{tmp}/city.npz",
+                               "matcher": {"max_candidates": K},
+                               "service": keys}, f)
+                conf = read_config(cfg)
+                matcher = matcher_from_config(conf, "cuda")
+                lanes_on = matcher._lanes is not None
+                check(matcher.device.type == "cuda"
+                      and matcher.runtime is not None
+                      and lanes_on == (lanes == "lanes on"),
+                      f"the {lanes} matcher is not native on the card")
+                batches = []
+                match_many = matcher.match_many
+
+                def counted(tb, match_many=match_many, batches=batches):
+                    before = ops.viterbi_cuda.launches
+                    result = match_many(tb)
+                    batches.append((tb, ops.viterbi_cuda.launches - before))
+                    return result
+
+                matcher.match_many = counted   # the service binds it below
+                svc = ReporterService(matcher, **conf["service"])
+                check(svc.dispatcher.max_batch == 256, "flush cap is not 256")
+                httpd = serve(svc, "127.0.0.1", 0)
+                url = f"http://127.0.0.1:{httpd.server_address[1]}"
+                up[lanes] = (matcher, svc, httpd, url, batches)
+                # warm (route memo), then the GETs and the error answers
+                answers_match(post_all(url, reqs, SERVE_CLIENTS)[0], want,
+                              f"{lanes}, warm window")
+                for i in (0, 1, N_TRACES, len(reqs) - 1):
+                    st, _h, body = http(
+                        url + "/report?json="
+                        + urllib.parse.quote(json.dumps(reqs[i])))
+                    check(st == 200 and body.decode() == want[i],
+                          f"{lanes}: GET body {i} differs")
+                for path, data in error_requests(reqs[0]):
+                    got, ref = http(url + path, data), http(cpu_url + path,
+                                                            data)
+                    check((got[0], got[2]) == (ref[0], ref[2])
+                          and got[0] in (400, 500),
+                          f"{lanes}: {path} answered {got[0]} {got[2]!r}, "
+                          f"the CPU service {ref[0]} {ref[2]!r}")
+            for turn, lanes in enumerate(SERVE_ORDER):
+                matcher, _svc, _httpd, url, batches = up[lanes]
+                what = f"{lanes}, window {turn}"
+                batches.clear()
+                metrics.default.reset()
+                ops.viterbi_cuda.launches = 0
+                answers, secs, wall = post_all(url, reqs, SERVE_CLIENTS)
+                launches = ops.viterbi_cuda.launches
+                run = list(batches)
+                timers = metrics.snapshot()["timers"]
+                answers_match(answers, want, what)
+                check(sum(len(tb) for tb, _k in run) == len(reqs),
+                      f"{what}: the dispatcher matched "
+                      f"{sum(len(tb) for tb, _k in run)} traces")
+                check(sum(k for _tb, k in run) == launches,
+                      f"{what}: launches outside the dispatcher's batches")
+                for tb, k in run:
+                    most = chunks_per_bucket(tb.lengths(), matcher.chunk)
+                    check(1 <= k <= most,
+                          f"{what}: a batch of {len(tb)} traces launched "
+                          f"the kernel {k} times, want 1..{most}")
+                formed += run
+                lat = np.array(secs) * 1e3
+                handle = timers["service.handle"]
+                match = timers["dispatch.match_many"]
+                w = {"requests_per_s": len(reqs) / wall, "wall_s": wall,
+                     "p50_ms": float(np.percentile(lat, 50)),
+                     "p99_ms": float(np.percentile(lat, 99)),
+                     "batches": len(run), "mean_batch": len(reqs) / len(run),
+                     "launches": launches,
+                     "handle_mean_ms": handle["mean_s"] * 1e3,
+                     "match_many_mean_ms": match["mean_s"] * 1e3,
+                     "match_many_busy": match["total_s"] / wall}
+                windows[lanes].append(w)
+                log(f"[serve] {what}: {len(reqs)} requests from "
+                    f"{SERVE_CLIENTS} client threads in {wall:.4f} s: "
+                    f"{w['requests_per_s']:.1f} requests/s, p50 "
+                    f"{w['p50_ms']:.2f} ms, p99 {w['p99_ms']:.2f} ms; "
+                    f"{len(run)} dispatcher batches, mean "
+                    f"{w['mean_batch']:.1f} traces; {launches} kernel "
+                    f"launches; service.handle mean "
+                    f"{w['handle_mean_ms']:.2f} ms; match_many mean "
+                    f"{w['match_many_mean_ms']:.2f} ms, busy "
+                    f"{w['match_many_busy']:.1%} of the wall")
+        finally:
+            for _m, svc, httpd, _u, _b in up.values():
+                httpd.shutdown()
+                httpd.server_close()
+                check(svc.dispatcher.close(), "a dispatcher did not stop")
+            cpu_httpd.shutdown()
+            cpu_httpd.server_close()
+            check(cpu_svc.dispatcher.close(), "the CPU dispatcher did not stop")
+
+    # the dispatchers' own batches, rebuilt by the native prep, through
+    # the kernel and the plain version on the card
+    sigma, beta = np.float32(params.effective_sigma), np.float32(params.beta)
+    shapes = {}
+    for tb, _k in formed:
+        for batch in native_batches(cpu_svc.matcher.runtime, tb, params,
+                                    up["lanes on"][0].chunk):
+            x = tuple(torch.from_numpy(a).to(dev)
+                      for a in (batch.dist_m, batch.valid, batch.route_m,
+                                batch.gc_m, batch.case))
+            against_plain(x, sigma, beta,
+                          f"a served batch {tuple(batch.case.shape)}")
+            shape = tuple(batch.case.shape)
+            shapes[shape] = shapes.get(shape, 0) + 1
+    log(f"[serve] the {len(formed)} dispatcher batches of the timed "
+        f"windows, rebuilt by the native prep: {sum(shapes.values())} "
+        f"kernel batches of (rows, T) {dict(sorted(shapes.items()))}, paths "
+        f"equal to the plain version on the card, scores bit-equal")
+
+    for lanes, ws in windows.items():
+        parts = []
+        for key, fmt in (("requests_per_s", ".1f"), ("p50_ms", ".2f"),
+                         ("p99_ms", ".2f"), ("mean_batch", ".1f"),
+                         ("launches", ".0f")):
+            med, lo, hi = spread([w[key] for w in ws])
+            parts.append(f"{key} {med:{fmt}} ({lo:{fmt}}-{hi:{fmt}})")
+        log(f"[serve] {lanes}, {len(ws)} windows, median (least-most): "
+            + "; ".join(parts))
+    (on, on_lo, on_hi), (off, off_lo, off_hi) = (
+        spread([w["requests_per_s"] for w in windows[k]])
+        for k in ("lanes on", "inline"))
+    overlap = max(on_lo, off_lo) <= min(on_hi, off_hi)
+    log(f"[serve] all bodies of both settings byte-equal to the native CPU "
+        f"run in every window; lanes on / inline, medians of requests/s: "
+        f"{on / off:.3f}; the two ranges "
+        f"{'overlap' if overlap else 'do not overlap'}")
+    return windows
+
+
+def phase_prefork(served):
+    """``python3 -m reporter_tpu_torch.service.server cfg 127.0.0.1:PORT
+    --procs 2`` on the card: both workers answer (two X-Reporter-Proc
+    tags) 64 requests from 64 client threads with the native CPU run's
+    bytes, and SIGTERM to the parent reaps both workers and exits 0. The
+    workers open the card after the fork: a parent that had initialised
+    CUDA, or run a torch op, would leave them none that works. No rate is
+    taken: one burst of 64 requests measures its own start and end."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    reqs = served["reqs"][:32] + served["reqs"][N_TRACES:N_TRACES + 32]
+    want = served["want"][:32] + served["want"][N_TRACES:N_TRACES + 32]
+    with tempfile.TemporaryDirectory() as tmp, socket.socket() as sock:
+        served["city"].save(f"{tmp}/city.npz")
+        with open(f"{tmp}/cfg.json", "w") as f:
+            json.dump({"graph": f"{tmp}/city.npz",
+                       "matcher": {"max_candidates": K}}, f)
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        url = f"http://127.0.0.1:{port}"
+        err = open(f"{tmp}/stderr", "w+")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "reporter_tpu_torch.service.server",
+             f"{tmp}/cfg.json", f"127.0.0.1:{port}", "--procs", "2"],
+            cwd=ROOT, stdout=subprocess.DEVNULL, stderr=err)
+        try:
+            tags = {}
+            while len(tags) < 2:
+                if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                    err.seek(0)
+                    fail(f"the pre-fork server gave {tags} (rc "
+                         f"{proc.poll()}): {err.read()[-3000:]}")
+                try:
+                    st, h, _b = http(url + "/health")
+                except OSError:
+                    time.sleep(0.1)
+                    continue
+                tag = h["X-Reporter-Proc"]
+                tags[tag.split(":")[0]] = tag
+            up = time.perf_counter() - t0
+            answers = post_all(url, reqs, SERVE_CLIENTS)[0]
+            answers_match(answers, want, "pre-fork")
+            seen = {tag for _st, tag, _body in answers}
+            check(seen == set(tags.values()),
+                  f"answers came from {sorted(seen)}, workers "
+                  f"{sorted(tags.values())}")
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        check(rc == 0, f"the pre-fork parent exited {rc} on SIGTERM")
+        for tag in tags.values():
+            try:
+                os.kill(int(tag.split(":")[1]), 0)
+            except ProcessLookupError:
+                continue
+            fail(f"worker {tag} outlived its parent")
+        err.close()
+    log(f"[prefork] 2 workers {sorted(tags.values())} up in {up:.2f} s "
+        f"on the card; both answered {len(reqs)} requests from "
+        f"{SERVE_CLIENTS} client threads, bodies byte-equal to the native "
+        f"CPU run; SIGTERM reaped both, parent rc 0")
 
 
 def phase_city():
@@ -795,7 +1169,9 @@ def main() -> int:
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"against": args.against, "ms": against})
     phase_verify(dev)
-    launches, main, max_err, scalars = phase_main(dev)
+    launches, main, max_err, scalars, served = phase_main(dev)
+    serving = phase_serve(dev, served)
+    phase_prefork(served)
     phase_city()
     times = phase_timing(dev, main, scalars, max_sm_mhz())
     check(not spills, f"ptxas reports spills: {spills}")
@@ -807,7 +1183,11 @@ def main() -> int:
         "route": "cuda",
         "source": "reporter_tpu_torch/ops/csrc/viterbi.cu",
         "replaces": "reporter_tpu/ops/pallas_viterbi.py:77",
+        # match_many's main and mixed batches (phase_main)
         "launches": launches,
+        # each timed window of the /report front door, lanes on
+        # (phase_serve): the count follows how the dispatcher batched
+        "launches_serve": [w["launches"] for w in serving["lanes on"]],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,

@@ -1,7 +1,7 @@
 """reporter_tpu_torch — the GPS probe map matcher on PyTorch and CUDA.
 
 The port of ``reporter_tpu`` (JAX on a TPU) to PyTorch on an NVIDIA H100.
-It runs the ``/report`` match path: host-side candidate lookup and route
+It serves the ``/report`` match path: host-side candidate lookup and route
 tensors feed a batched HMM Viterbi decode on the card — a hand-written
 CUDA kernel (ops/csrc/viterbi.cu) — whose paths assemble into OSMLR
 segment runs and datastore reports. It imports ``torch`` and numpy, and
@@ -15,7 +15,10 @@ Layout (each module mirrors its ``reporter_tpu`` counterpart):
   matcher/  — HMM scoring + plain PyTorch decode, padding, assembly,
               SegmentMatcher
   ops/      — the CUDA decode kernel, its build and its dispatch
-  service/  — report(): the /report body
+  native/   — the C++ host runtime (batched prep, assembly, wire writer)
+  service/  — the /report HTTP service: report(), the micro-batching
+              dispatcher, the threaded server, pre-fork workers
+  utils/    — metrics and post-fork resets
   synth.py  — synthetic grid cities and probe traces
 """
 

@@ -96,9 +96,22 @@ class RoadNetwork:
             self._csr_edges = order.astype(np.int32)
         return self._csr_offsets, self._csr_edges
 
+    def save(self, path) -> None:
+        """Write the network ``.npz``: the persisted columns, then the
+        segment lengths as ``seg_ids`` (sorted) and ``seg_lens`` (f32), the
+        format :meth:`load` and the JAX package's ``RoadNetwork.load``
+        read."""
+        seg_ids = np.array(sorted(self.segment_length_m), dtype=np.int64)
+        seg_lens = np.array([self.segment_length_m[s] for s in seg_ids],
+                            dtype=np.float32)
+        np.savez_compressed(path, **{name: getattr(self, name)
+                                     for name in COLUMNS},
+                            seg_ids=seg_ids, seg_lens=seg_lens)
+
     @classmethod
     def load(cls, path) -> "RoadNetwork":
-        """Read a network ``.npz`` (the JAX package's ``save`` format)."""
+        """Read a network ``.npz`` (:meth:`save`'s format, which is the
+        JAX package's)."""
         with np.load(path) as data:
             return network_from_arrays({k: data[k] for k in data.files})
 

@@ -60,6 +60,11 @@ GRID_CELL_M = 75.0
 #: the native prep's default worker count is the host's cores up to this
 #: cap (the reference's); past it the threads mostly contend
 PREP_THREADS_MAX = 32
+#: the service dispatcher's default flush cap in traces: two 128-trace
+#: chunks per drained batch, so the dispatch lane has a second chunk in
+#: flight while the drain lane assembles the first. One device per
+#: matcher; a decode mesh would scale it
+MATCH_BATCH_DEFAULT = 256
 
 
 def resolve_device(device=None) -> torch.device:
