@@ -6,10 +6,11 @@
 
 Phases, each fatal on failure:
 
-1. build    compile ops/csrc/viterbi.cu with nvcc for sm_90a and the host
-            runtime (native/csrc/host_runtime.cpp) with g++, and load
-            both, printing ptxas's registers and spills (any spill fails
-            the run, after the timing)
+1. build    compile ops/csrc/viterbi.cu and ops/csrc/route_relax.cu with
+            nvcc for sm_90a and the host runtime (native/csrc/
+            host_runtime.cpp) with g++, all three at once, and load them,
+            printing ptxas's registers and spills (any spill fails the
+            run, after the timing)
 2. verify   the kernel against its plain PyTorch version on the card at
             the main path's shapes, the native prep's layout (route and
             gc with T time rows) and shapes that reach every branch of
@@ -47,15 +48,48 @@ Phases, each fatal on failure:
             nodes, 39,600 edges) through the native matcher on the card:
             bodies byte-equal to the port's native CPU run, the kernel's
             launches in this phase, the route-pair memo's counters
-7. timing   CUDA-event times of the kernel from CUDA graphs (the main
-            path's batch, and batches and one trace at T=64/256/1024,
+7. route-city  512 traces with route_device=True on a 40x40 grid city
+            (1,600 nodes, 6,240 edges), cold and warm: bodies byte-equal
+            to the native CPU run with host routes, launches held to the
+            chunking (the 100x100 city's chunks exceed the relaxation's
+            state budget, so with route_device=True it raises; city shows
+            it on its first chunk)
+8. timing   CUDA-event times of the decode kernel from CUDA graphs (the
+            main path's batch, and batches and one trace at T=64/256/1024,
             twice in turns; the per-step slope and intercept; the main
             batch with the L2 flushed) and of the plain version, beside
-            the least time the card could take and a model of the chain
+            the least time the card could take and a model of the chain;
+            then of one relaxation sweep (the first, and the mean over the
+            main chunk's whole relaxation) and one pair_costs launch at
+            the main path's first chunk, and their plain versions, beside
+            their byte bounds
+
+After main come two phases of the device route costs (``route_device``):
+
+   verify-routes  relax_sweep against the plain relax_csr on the card (the
+            20x20 city's first main chunk, S=512, at its chunk bound; the
+            same with max_iters=1; the 100x100 city with 256 sources at
+            1,500 m): dist and time bit-equal, iters and converged equal;
+            pair_costs against its plain version at (128, 64, 8), cached
+            and uncached node kernels, turn penalty off and on, time caps
+            and backward pairs in the inputs: route bit-equal, max_finite
+            equal
+   routes   match_many for main's 608 requests on the card, device
+            routes (route_device=True) and host routes, each lanes on and
+            inline: one cold run each, then ten warm rounds in turns;
+            bodies byte-equal to the CPU runs with host routes and with
+            route_device=True; launches (decode and pair_costs once per
+            chunk, relax sweeps the sum of iters) and the route.device
+            counters; the prep stage's seconds and the wall, each
+            setting's warm median and range, with the host prep's own
+            route share (phase_ns); every chunk's device route tensor
+            equal to the host prep's
 
 Prints the card's name and power limit, one JSON line describing the
-kernel (``launches``: match_many's in the main phase; ``launches_serve``:
-each timed serve window's, lanes on), and as the
+kernels (viterbi_decode: ``launches`` match_many's in the main phase,
+``launches_serve`` each timed serve window's, lanes on; relax_sweep and
+pair_costs: the routes phase's device lanes-on runs, cold and the first
+warm round), and as the
 last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
 
@@ -63,7 +97,11 @@ With ``--against DIR`` (another checkout of the repo, such as a parent
 commit unpacked with ``git archive``) only the build runs, then both
 kernels decode the same inputs at (512,64,8) and (64,1024,8): their
 outputs must be equal, and each is timed by CUDA graphs and by launches
-from Python, in the order other, this, this, other.
+from Python, in the order other, this, this, other. Then main's 608
+requests go through match_many with route_device=True and the lanes on,
+one matcher from each checkout, cold once and ten warm rounds in turns:
+bodies byte-equal to host routes, the prep stage's seconds and the wall
+of each run, and each side's warm median and range.
 """
 import json
 import subprocess
@@ -92,6 +130,7 @@ T_MAIN = 64
 K = 8                       # MatchParams.max_candidates default
 CITY = dict(rows=20, cols=20, spacing_m=200.0, seed=42)
 BIG_CITY = dict(rows=100, cols=100, spacing_m=200.0, seed=42)
+MID_CITY = dict(rows=40, cols=40, spacing_m=200.0, seed=42)
 OPTS = {"mode": "auto", "report_levels": [0, 1, 2],
         "transition_levels": [0, 1, 2]}
 
@@ -224,27 +263,40 @@ def chain_cycles(T, K):
 
 # -- phases --------------------------------------------------------------------
 def phase_build():
-    """Build the kernel; returns the ptxas spill lines that are not 0."""
+    """Build the kernels (one nvcc per source) and the host runtime (g++),
+    all at once; returns the ptxas spill lines that are not 0."""
     import re
-    from reporter_tpu_torch.ops import viterbi
-    t0 = time.perf_counter()
-    _fn, build_log = viterbi.build()
-    secs = time.perf_counter() - t0
-    log(f"[build] {viterbi.SOURCE.relative_to(ROOT)} -> sm_90a in {secs:.2f} s")
-    spills = []
-    for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            log(f"[build] {line.strip()}")
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and m.groups() != ("0", "0"):
-            spills.append(line.strip())
-    check("spill stores" in build_log, "nvcc printed no ptxas -v report")
+    from concurrent.futures import ThreadPoolExecutor
     from reporter_tpu_torch import native
-    t0 = time.perf_counter()
-    native.load()
+    from reporter_tpu_torch.ops import route_relax, viterbi
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [(mod.SOURCE, pool.submit(timed, mod.build))
+                for mod in (viterbi, route_relax)]
+        host = pool.submit(timed, native.load)
+        built = [(src, job.result()) for src, job in jobs]
+        _lib, host_secs = host.result()
+    spills = []
+    for src, ((_fn, build_log), secs) in built:
+        log(f"[build] {src.relative_to(ROOT)} -> sm_90a in {secs:.2f} s")
+        for line in build_log.splitlines():
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
+                log(f"[build] {line.strip()}")
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m and m.groups() != ("0", "0"):
+                spills.append(f"{src.name}: {line.strip()}")
+        check("spill stores" in build_log,
+              f"nvcc printed no ptxas -v report for {src.name}")
     log(f"[build] {native.SOURCE.relative_to(ROOT)} -> g++ "
-        f"{' '.join(native.cxx_flags())} in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{' '.join(native.cxx_flags())} in {host_secs:.2f} s (beside the "
+        f"nvcc builds)")
     return spills
 
 
@@ -338,10 +390,23 @@ def make_requests(numpy_matcher, rng, n, lengths, min_edges):
     return out
 
 
-def bodies(matches, reqs):
-    from reporter_tpu_torch.service.report import report_json
+def bodies(matches, reqs, report_json=None):
+    """The /report bodies of ``matches``, by this package's writer unless
+    given another checkout's."""
+    if report_json is None:
+        from reporter_tpu_torch.service.report import report_json
     return [report_json(m, r, 15, {0, 1, 2}, {0, 1, 2})
             for m, r in zip(matches, reqs)]
+
+
+def main_requests(cpu_numpy):
+    """main's 512 requests at T=64 and its 96 mixed ones (T=16/64/256),
+    drawn from numpy seed 7 on ``cpu_numpy``'s city."""
+    rng = np.random.default_rng(7)
+    main = make_requests(cpu_numpy, rng, N_TRACES, [T_MAIN],
+                         max(4, T_MAIN // 12))
+    mixed = make_requests(cpu_numpy, rng, 96, [12, 48, 200], 21)
+    return main, mixed
 
 
 def expected_launches(reqs, chunk):
@@ -381,10 +446,10 @@ def numpy_batches(numpy_matcher, reqs, chunk):
         yield from pack_batches(numpy_matcher.prepare_many(reqs[lo:lo + chunk]))
 
 
-def native_batches(runtime, tb, params, chunk):
+def native_batches(runtime, tb, params, chunk, **kw):
     """The native batches the dispatch builds for the TraceBatch ``tb``
     (one bucket per raw length, chunks of ``chunk``, rows padded to a
-    power of two)."""
+    power of two); ``kw`` goes to ``prepare_batch``."""
     from reporter_tpu_torch.matcher.batchpad import (bucket_length,
                                                      padded_batch_rows,
                                                      prepare_batch)
@@ -395,7 +460,7 @@ def native_batches(runtime, tb, params, chunk):
         for lo in range(0, len(group), chunk):
             part = group[lo:lo + chunk]
             yield prepare_batch(runtime, tb.gather(part), params, T,
-                                pad_rows=padded_batch_rows(len(part)))
+                                pad_rows=padded_batch_rows(len(part)), **kw)
 
 
 def against_plain(x, sigma, beta, what):
@@ -452,10 +517,7 @@ def phase_main(dev):
           "the numpy matcher is not on the card with the lanes on")
     cpu = SegmentMatcher(city, params, device="cpu")
     cpu_numpy = SegmentMatcher(city, params, device="cpu", native=False)
-    rng = np.random.default_rng(7)
-    main = make_requests(cpu_numpy, rng, N_TRACES, [T_MAIN],
-                         max(4, T_MAIN // 12))
-    mixed = make_requests(cpu_numpy, rng, 96, [12, 48, 200], 21)
+    main, mixed = main_requests(cpu_numpy)
     log(f"[main] city {city.num_nodes} nodes / {city.num_edges} edges, "
         f"{len(main)} T={T_MAIN} + {len(mixed)} mixed requests in "
         f"{time.perf_counter() - t0:.2f} s; chunk {gpu.chunk} traces, "
@@ -560,6 +622,354 @@ def phase_main(dev):
     served = {"city": city, "params": params, "reqs": main + mixed,
               "want": cpu_bodies["native"]}
     return launches, (main_x, main_rows), main_err, (sigma, beta), served
+
+
+def first_chunk(runtime, params, reqs, chunk, backward=False):
+    """The native prep dict of the first ``chunk`` requests (one T=64
+    chunk of the main batch) and its trace count; with ``backward``, the
+    first 16 traces' second point repeats the first's candidates 10 m
+    further back (same-edge pairs within the backward tolerance)."""
+    from reporter_tpu_torch.core.tracebatch import TraceBatch
+    from reporter_tpu_torch.matcher.batchpad import (bucket_length,
+                                                     prepare_batch)
+    part = reqs[:chunk]
+    T = bucket_length(len(part[0]["trace"]))
+    prep = prepare_batch(runtime, TraceBatch.from_requests(part), params,
+                         T).prep
+    if backward:
+        prep = dict(prep, edge_ids=prep["edge_ids"].copy(),
+                    offset_m=prep["offset_m"].copy())
+        prep["edge_ids"][:16, 1] = prep["edge_ids"][:16, 0]
+        prep["offset_m"][:16, 1] = np.maximum(prep["offset_m"][:16, 0] - 10,
+                                              0)
+    return prep, len(part)
+
+
+def abs_err(a, b) -> float:
+    """Largest absolute difference of two f32 tensors, entries that
+    compare equal (infinities included) counting 0."""
+    import torch
+    return float(torch.where(a == b, torch.zeros_like(a), (a - b).abs()
+                             ).max())
+
+
+def relax_against_plain(kernel, srcs, bound, max_iters, what):
+    """``srcs`` relaxed at ``bound`` on the card by the kernel
+    (``relax_cuda``) and by the plain version: dist and time bit-equal,
+    iters and converged equal. Returns (kernel dist, kernel time, iters,
+    converged, the largest absolute difference)."""
+    import torch
+    from reporter_tpu_torch.ops import route_relax
+    cols = (kernel._e_start, kernel._e_end, kernel._e_len, kernel._e_secs)
+    src = torch.from_numpy(np.asarray(srcs, np.int32)).to(kernel.device)
+    k_out = route_relax.relax_cuda(*cols, src, bound, n_nodes=kernel.n_nodes,
+                                   max_iters=max_iters)
+    torch.cuda.synchronize()
+    p_out = route_relax.relax_csr(*cols, src, bound, n_nodes=kernel.n_nodes,
+                                  max_iters=max_iters)
+    torch.cuda.synchronize()
+    for name, a, b in (("dist", k_out[0], p_out[0]),
+                       ("time", k_out[1], p_out[1])):
+        differ = bit_equal(a, b)
+        check(differ == 0, f"relax {name}: {differ} entries not bit-equal, "
+                           f"{what}")
+    check(k_out[2:] == p_out[2:], f"relax iters/converged {k_out[2:]} "
+                                  f"against the plain {p_out[2:]}, {what}")
+    return (*k_out, max(abs_err(k_out[0], p_out[0]),
+                        abs_err(k_out[1], p_out[1])))
+
+
+def phase_verify_routes(dev, served):
+    """The two route kernels against their plain versions on the card, same
+    inputs. ``relax_sweep`` (through ``relax_cuda``): the 20x20 city with
+    the first main chunk's sources (S = 512 after padding) at its chunk
+    bound, the same with max_iters=1 (not converged), and the 100x100 city
+    with 256 seeded sources at 1,500 m: dist and time bit-equal, iters and
+    converged equal. ``pair_costs`` at the first main chunk's (128, 64, 8),
+    its first 16 traces given same-edge backward pairs, on the cached
+    (N, N) and the uncached (S, N) kernels, with the turn penalty off and
+    on (time caps are armed by the default params): route bit-equal and
+    max_finite equal. Returns each kernel's largest absolute difference
+    from its plain version."""
+    import torch
+    from reporter_tpu_torch.graph.route_device import (DeviceRouteKernel,
+                                                       _next_pow2,
+                                                       pack_blobs)
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.ops import route_relax
+    from reporter_tpu_torch.synth import build_grid_city
+    city, params = served["city"], served["params"]
+    cpu = SegmentMatcher(city, params, device="cpu")
+    kernel = DeviceRouteKernel(city, dev)
+    prep, B = first_chunk(cpu.runtime, params, served["reqs"], 128,
+                          backward=True)
+    plan = kernel.plan(prep, params, B)
+    S = _next_pow2(len(plan.srcs))
+    srcs = np.concatenate([plan.srcs, np.full(S - len(plan.srcs),
+                                              plan.srcs[0], np.int32)])
+    check(S == 512, f"the first main chunk relaxes {S} sources, not 512")
+    dist, time_sn, iters, ok, relax_err = relax_against_plain(
+        kernel, srcs, plan.chunk_bound, kernel.n_nodes, "20x20 first chunk")
+    check(ok, "the first chunk's relaxation did not converge")
+    log(f"[verify-routes] relax_sweep, 20x20 city (N={kernel.n_nodes}, "
+        f"E={kernel.n_edges}), S={S} ({len(plan.srcs)} sources) at "
+        f"{float(plan.chunk_bound):.1f} m: {iters} sweeps, converged; dist "
+        f"and time bit-equal to the plain version")
+    it1 = relax_against_plain(kernel, srcs, plan.chunk_bound, 1,
+                              "max_iters=1")[2:4]
+    check(it1 == (1, False), f"max_iters=1 gave {it1}")
+    log("[verify-routes] relax_sweep, same sources, max_iters=1: 1 sweep, "
+        "not converged, bit-equal")
+    big = DeviceRouteKernel(build_grid_city(**BIG_CITY), dev)
+    big_srcs = np.random.default_rng(5).choice(big.n_nodes, 256,
+                                               replace=False)
+    *_, big_iters, big_ok, big_err = relax_against_plain(
+        big, big_srcs, np.float32(1500.0), big.n_nodes, "100x100 city")
+    relax_err = max(relax_err, big_err)
+    check(big_ok, "the 100x100 relaxation did not converge")
+    log(f"[verify-routes] relax_sweep, 100x100 city (N={big.n_nodes}, "
+        f"E={big.n_edges}), S=256 at 1500 m: {big_iters} sweeps, "
+        f"converged, bit-equal")
+    del big
+
+    # node kernels on both layouts: rows of the relaxed sources (S, N), and
+    # the cache's (N, N) with row i = node i
+    N = kernel.n_nodes
+    layouts = {}
+    row = np.full(N, -1, np.int32)
+    row[plan.srcs] = np.arange(len(plan.srcs), dtype=np.int32)
+    layouts["uncached"] = (dist, time_sn, row)
+    full = [torch.full((N, N), float("inf"), device=dev) for _ in range(2)]
+    idx = torch.from_numpy(plan.srcs.astype(np.int64)).to(dev)
+    for f, part in zip(full, (dist, time_sn)):
+        f.index_copy_(0, idx, part[:len(plan.srcs)])
+    row = np.full(N, -1, np.int32)
+    row[plan.srcs] = plan.srcs
+    layouts["cached"] = (*full, row)
+    Bc, T, Kc = plan.edge.shape
+    edge = plan.edge
+    same = edge[:, 1:, None, :] == edge[:, :-1, :, None]
+    back = same & (plan.offset[:, 1:, None, :] < plan.offset[:, :-1, :, None])
+    check(bool(back.any()) and bool((plan.caps >= 0).any()),
+          "no backward pairs or no time caps in the pair-costs inputs")
+    cols = kernel.edge_columns()
+    pair_max_err = 0.0
+    for name, (d_sn, t_sn, node_row) in layouts.items():
+        for tpen in (0.0, 0.5):
+            ints, f32s = (torch.from_numpy(a).to(dev) for a in pack_blobs(
+                edge, plan.offset, plan.nk, plan.bounds, plan.caps, node_row,
+                params.backward_tolerance_m, tpen))
+            k_route, k_max = route_relax.pair_costs_cuda(
+                ints, f32s, d_sn, t_sn, *cols, B=Bc, T=T, K=Kc, N=N)
+            torch.cuda.synchronize()
+            p_route, p_max = route_relax.pair_costs_packed(
+                ints, f32s, d_sn, t_sn, *cols, B=Bc, T=T, K=Kc, N=N)
+            torch.cuda.synchronize()
+            what = f"pair_costs ({Bc},{T},{Kc}) {name}, turn penalty {tpen}"
+            differ = bit_equal(k_route, p_route)
+            check(differ == 0, f"{what}: {differ} entries not bit-equal")
+            check(float(k_max) == float(p_max),
+                  f"{what}: max_finite {float(k_max)} against the plain "
+                  f"{float(p_max)}")
+            finite = k_route < route_relax.UNREACHABLE
+            pair_max_err = max(pair_max_err, abs_err(k_route, p_route))
+            n_back = int((back & (k_route.cpu().numpy() == 0.0)).sum())
+            log(f"[verify-routes] {what}: route bit-equal, max_finite "
+                f"{float(k_max):.3f} equal; {int(finite.sum())} finite of "
+                f"{k_route.numel()}, {n_back} free backward pairs")
+    return {"relax_err": relax_err, "pair_err": pair_max_err}
+
+
+def counted_run(matcher, reqs):
+    """One match_many + report_json of ``reqs`` with every kernel's launch
+    count, the metrics and the stage seconds set to 0 just before and read
+    just after: (bodies, wall seconds, {kernel: launches}, counters, stage
+    seconds)."""
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.utils import metrics
+    wrappers = {"viterbi_decode": ops.viterbi_cuda,
+                "relax_sweep": ops.relax_cuda,
+                "pair_costs": ops.pair_costs_cuda}
+    for k in matcher.stage_seconds:
+        matcher.stage_seconds[k] = 0.0
+    metrics.default.reset()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = bodies(matcher.match_many(reqs), reqs)
+    wall = time.perf_counter() - t0
+    return (out, wall, {k: fn.launches for k, fn in wrappers.items()},
+            metrics.snapshot()["counters"],
+            {k: round(v, 4) for k, v in matcher.stage_seconds.items()})
+
+
+def check_route_launches(what, reqs, chunk, launches, counters):
+    """The chunking's launch counts: the decode and ``pair_costs`` once per
+    chunk (every chunk here has live transitions), relax sweeps equal to
+    the sum of the relaxations' iters."""
+    chunks = expected_launches(reqs, chunk)
+    routed = counters.get("route.device.chunks", 0)
+    check(launches["viterbi_decode"] == chunks,
+          f"{what}: {launches['viterbi_decode']} decode launches, want "
+          f"{chunks}")
+    check(routed + counters.get("route.device.empty_chunks", 0) == chunks
+          and launches["pair_costs"] == routed == chunks,
+          f"{what}: {launches['pair_costs']} pair_costs launches for "
+          f"{routed} routed chunks, want {chunks}")
+    check(launches["relax_sweep"] == counters.get("route.device.sweeps", 0),
+          f"{what}: {launches['relax_sweep']} relax sweeps, the relaxations "
+          f"counted {counters.get('route.device.sweeps', 0)}")
+
+
+def route_counters(counters) -> dict:
+    from reporter_tpu_torch.utils.metrics import ROUTE_DEVICE_COUNTERS
+    return {k.split(".", 2)[2]: counters.get(k, 0)
+            for k in ROUTE_DEVICE_COUNTERS}
+
+
+#: phase_routes' settings: (route_device, pipeline)
+ROUTE_SETTINGS = {"device, lanes on": (True, True),
+                  "host, lanes on": (False, True),
+                  "device, inline": (True, False),
+                  "host, inline": (False, False)}
+#: warm rounds in turns, in phase_routes and in the --against comparison
+ROUTE_WARM_ROUNDS = 10
+
+
+def phase_routes(dev, served):
+    """match_many on the card for main's 512 + 96 requests in each of
+    ``ROUTE_SETTINGS``: device routes (``route_device=True``) or host
+    routes, lanes on or inline. Each setting runs once cold (a new
+    matcher: empty node-kernel cache, cold route memo), then
+    ``ROUTE_WARM_ROUNDS`` warm rounds in turns (the order reversed every
+    other round). Every body is byte-equal to the port's native CPU run
+    with host routes and to its CPU run with ``route_device=True`` (the
+    plain versions); device launches are held to the chunking. Prints each
+    run's prep-stage seconds, wall and the host prep's own route share
+    (``phase_ns``), and each setting's warm median and range. Then every
+    chunk's device route tensor, rebuilt by
+    ``prepare_batch(route_kernel=...)``, is held equal to the host prep's.
+    Returns the lanes-on device setting's kernel launches (cold and the
+    first warm round) and the runs' numbers."""
+    from reporter_tpu_torch.core.tracebatch import TraceBatch
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    city, params = served["city"], served["params"]
+    reqs, want = served["reqs"], served["want"]
+    t0 = time.perf_counter()
+    cpu_dev = SegmentMatcher(city, params, device="cpu", route_device=True)
+    check(bodies(cpu_dev.match_many(reqs), reqs) == want,
+          "the port's CPU run with route_device=True differs from host "
+          "routes")
+    log(f"[routes] the CPU run with route_device=True (plain versions): "
+        f"all {len(reqs)} bodies byte-equal to host routes, "
+        f"{time.perf_counter() - t0:.2f} s")
+    matchers = {name: SegmentMatcher(city, params, route_device=device,
+                                     pipeline=pipeline)
+                for name, (device, pipeline) in ROUTE_SETTINGS.items()}
+    names = list(ROUTE_SETTINGS)
+    order = [(name, "cold") for name in names]
+    for r in range(ROUTE_WARM_ROUNDS):
+        order += [(name, f"warm {r + 1}")
+                  for name in (names if r % 2 == 0 else names[::-1])]
+    runs, launches = {}, {"relax_sweep": 0, "pair_costs": 0}
+    warm = {name: {"prep": [], "wall": []} for name in names}
+    for name, run in order:
+        m = matchers[name]
+        got, wall, n, ctr, stages = counted_run(m, reqs)
+        what = f"{name}, {run}"
+        check(got == want, f"{what}: /report bodies differ from the native "
+                           f"CPU run with host routes")
+        if name.startswith("device"):
+            check_route_launches(what, reqs, m.chunk, n, ctr)
+        if name == "device, lanes on" and run in ("cold", "warm 1"):
+            for k in launches:
+                launches[k] += n[k]
+        if run != "cold":
+            warm[name]["prep"].append(m.stage_seconds["prep"])
+            warm[name]["wall"].append(wall)
+        phase = {k: ctr.get(f"prep.phase.{k}_ns", 0)
+                 for k in ("candidates", "select", "routes")}
+        share = phase["routes"] / max(sum(phase.values()), 1)
+        runs[what] = {"wall_s": wall, "stages": stages, "launches": n,
+                      "route": route_counters(ctr), "phase_ns": phase}
+        sweeps = ctr.get("route.device.sweeps", 0)
+        relaxes = ctr.get("route.device.relaxes", 0)
+        log(f"[routes] {what}: {len(reqs)} traces in {wall:.4f} s "
+            f"({len(reqs) / wall:.1f} traces/s), prep "
+            f"{m.stage_seconds['prep']:.6f} s, stage seconds {stages}; "
+            f"launches {n}; native prep phase_ns {phase} (routes "
+            f"{share:.1%}); sweeps per relax "
+            f"{sweeps / relaxes if relaxes else 0:.1f}; route.device "
+            f"{route_counters(ctr)}")
+    for name in names:
+        p, w = warm[name]["prep"], warm[name]["wall"]
+        log(f"[routes] {name}, {len(p)} warm rounds: prep median "
+            f"{float(np.median(p)):.6f} s (range {min(p):.6f}-{max(p):.6f}),"
+            f" wall median {float(np.median(w)):.6f} s (range "
+            f"{min(w):.6f}-{max(w):.6f})")
+    runs["warm"] = warm
+
+    gpu = matchers["device, lanes on"]
+    cpu = SegmentMatcher(city, params, device="cpu")
+    tb = TraceBatch.from_requests(reqs)
+    n_chunks = 0
+    for host, got in zip(
+            native_batches(cpu.runtime, tb, params, gpu.chunk),
+            native_batches(gpu.runtime, tb, params, gpu.chunk,
+                           route_kernel=gpu.route_kernel, defer_routes=True)):
+        got.finalize_wire()
+        got.routes_to_host()
+        B, T = len(host.traces), host.case.shape[1]
+        check(got.prep["route_m"][:B, :T - 1].tobytes()
+              == host.prep["route_m"][:B, :T - 1].tobytes()
+              and got.prep["max_finite"][0] == host.prep["max_finite"][0],
+              f"chunk {n_chunks} ({B}, {T}): device route rows differ from "
+              f"the host prep's")
+        check(got.route_m.device.type == dev.type
+              and got.route_m.cpu().numpy().tobytes()
+              == host.route_m.tobytes(),
+              f"chunk {n_chunks}: the wire route tensor on the card differs "
+              f"from the host prep's")
+        n_chunks += 1
+    log(f"[routes] all {n_chunks} chunks: the device route tensor equal to "
+        f"the host prep's route_m[:B, :T-1] (and on the {host.route_m.dtype} "
+        f"wire, filler rows and the dead step included)")
+    return launches, runs
+
+
+def phase_route_city():
+    """512 traces of the T=64 bucket with ``route_device=True`` on a 40x40
+    grid city (1,600 nodes, 6,240 edges: the largest square grid whose
+    chunks all fit the relaxation's state budget, and its node kernels the
+    cache's), cold and warm: bodies byte-equal to the native CPU run with
+    host routes, launches held to the chunking."""
+    from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
+    from reporter_tpu_torch.synth import build_grid_city
+    t0 = time.perf_counter()
+    city = build_grid_city(**MID_CITY)
+    params = MatchParams(max_candidates=K)
+    reqs = draw_requests(city, np.random.default_rng(13), N_TRACES, [T_MAIN],
+                         max(4, T_MAIN // 12))
+    want = bodies(SegmentMatcher(city, params, device="cpu").match_many(reqs),
+                  reqs)
+    gpu = SegmentMatcher(city, params, route_device=True)
+    check(gpu.route_kernel._cache_ok, "the 40x40 city is not cached")
+    log(f"[route-city] {city.num_nodes} nodes / {city.num_edges} edges, "
+        f"{len(reqs)} T={T_MAIN} requests and their CPU bodies in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out = {}
+    for run in ("cold", "warm"):
+        got, wall, n, ctr, stages = counted_run(gpu, reqs)
+        check(got == want, f"40x40 city, {run}: /report bodies differ from "
+                           f"the native CPU run with host routes")
+        check_route_launches(f"40x40 city, {run}", reqs, gpu.chunk, n, ctr)
+        out[run] = {"wall_s": wall, "stages": stages, "launches": n,
+                    "route": route_counters(ctr)}
+        log(f"[route-city] {run}: {N_TRACES / wall:.1f} traces/s "
+            f"({wall:.4f} s wall), stage seconds {stages} (overlapped); "
+            f"launches {n}; route.device {route_counters(ctr)}; bodies "
+            f"byte-equal to host routes")
+    return out
 
 
 def http(url, data=None):
@@ -919,6 +1329,16 @@ def phase_city():
         f"{stages} (overlapped), kernel launches {launches}; bodies "
         f"byte-equal to the native CPU run; route-pair memo "
         f"{gpu.runtime.route_memo_stats()}")
+    from reporter_tpu_torch.graph.route_device import DeviceRouteKernel
+    prep, B = first_chunk(cpu.runtime, params, reqs, gpu.chunk)
+    try:
+        DeviceRouteKernel(city, gpu.device).plan(prep, params, B)
+    except RuntimeError as e:
+        log(f"[city] this city stays on host routes: with route_device=True "
+            f"its first chunk raises ({e}; the state budget is "
+            f"sources x max(nodes, edges) x 2 <= 64M elements)")
+    else:
+        fail("the 100x100 city's first chunk fits the route state budget")
     return launches
 
 
@@ -1071,22 +1491,121 @@ def phase_timing(dev, main, scalars, sm_mhz):
     return out
 
 
-def load_other(path):
-    """The ``reporter_tpu_torch.ops.viterbi`` module of the checkout at
-    ``path``, imported under a package name of its own beside this one;
-    it builds its kernel into that checkout."""
+def phase_timing_routes(dev, served):
+    """The route kernels at the main path's first chunk (the 20x20 city,
+    128 T=64 traces: S = 512 relaxation sources, the (128, 64, 8) route
+    tensor from the cached (N, N) node kernels, default params), timed by
+    CUDA graphs: one sweep from the sources' start state, and the chunk's
+    whole relaxation (its state reset, then its sweeps back to back) per
+    sweep; one ``pair_costs`` launch; the plain versions' one sweep and one
+    assembly; each beside its bound. Returns {kernel: (ms, plain ms,
+    bound ms, bound by)}."""
+    import torch
+    from reporter_tpu_torch.graph.route_device import (DeviceRouteKernel,
+                                                       _next_pow2,
+                                                       pack_blobs)
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.ops import route_relax
+    city, params = served["city"], served["params"]
+    kernel = DeviceRouteKernel(city, dev)
+    prep, B = first_chunk(SegmentMatcher(city, params, device="cpu").runtime,
+                          params, served["reqs"], 128)
+    plan = kernel.plan(prep, params, B)
+    N, E = kernel.n_nodes, kernel.n_edges
+    S = _next_pow2(len(plan.srcs))
+    pad = np.concatenate([plan.srcs, np.full(S - len(plan.srcs),
+                                             plan.srcs[0], np.int32)])
+    src = torch.from_numpy(pad).to(dev)
+    cols = (kernel._e_start, kernel._e_end, kernel._e_len, kernel._e_secs)
+    bound = float(plan.chunk_bound)
+    dist, time_sn, iters, ok = route_relax.relax_cuda(
+        *cols, src, bound, n_nodes=N, max_iters=N)
+    check(ok, "the timed relaxation did not converge")
+    start = route_relax.pack_sources(src, N)
+    bufs = (start.clone(), torch.empty_like(start))
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def first_sweep():
+        route_relax.launch_sweep(start, bufs[1], *cols, bound, flag)
+
+    def relaxation():
+        bufs[0].copy_(start)
+        for k in range(iters):
+            route_relax.launch_sweep(bufs[k % 2], bufs[1 - k % 2], *cols,
+                                     bound, flag)
+
+    first_ms = graph_ms(first_sweep, 50)
+    whole_ms = graph_ms(relaxation, 5)
+    sweep_ms = whole_ms / iters
+    d0, t0, _i, _ok = route_relax.relax_csr(*cols, src, bound, n_nodes=N,
+                                            max_iters=0)
+    e_start, e_end = cols[0].long(), cols[1].long()
+    bound_t = torch.tensor(bound, dtype=torch.float32, device=dev)
+    plain_sweep = time_ms(lambda: route_relax.relax_step(
+        d0, t0, e_start, e_end, cols[2], cols[3], bound_t), 5)
+    sweep_bytes = 16 * S * N + 16 * E
+    sweep_ops = 4 * S * E     # per (row, edge): two adds, a compare, a min
+    t_b, t_o = sweep_bytes / HBM_BYTES_PER_S, sweep_ops / F32_OPS_PER_S
+    sweep_bound = (max(t_b, t_o) * 1e3,
+                   "bytes" if t_b >= t_o else "operations")
+    log(f"[timing] relax_sweep S={S}, N={N}, E={E} at {bound:.1f} m: first "
+        f"sweep {first_ms:.4f} ms; the chunk's {iters} sweeps (state reset "
+        f"included) {whole_ms:.4f} ms = {sweep_ms:.4f} ms a sweep; plain "
+        f"sweep {plain_sweep:.3f} ms; bound {sweep_bound[0]:.5f} ms by "
+        f"{sweep_bound[1]} ({sweep_bytes} bytes, {sweep_ops} f32 ops)")
+
+    # the main path's assembly: the cached (N, N) node kernels
+    full = [torch.full((N, N), float("inf"), device=dev) for _ in range(2)]
+    idx = torch.from_numpy(plan.srcs.astype(np.int64)).to(dev)
+    for f, part in zip(full, (dist, time_sn)):
+        f.index_copy_(0, idx, part[:len(plan.srcs)])
+    node_row = np.full(N, -1, np.int32)
+    node_row[plan.srcs] = plan.srcs
+    ints, f32s = (torch.from_numpy(a).to(dev) for a in pack_blobs(
+        plan.edge, plan.offset, plan.nk, plan.bounds, plan.caps, node_row,
+        params.backward_tolerance_m, params.turn_penalty_factor))
+    Bc, T, Kc = plan.edge.shape
+    route = torch.empty((Bc, T - 1, Kc, Kc), device=dev)
+    max_bits = torch.zeros(1, dtype=torch.int32, device=dev)
+    edges = kernel.edge_columns()
+    pair_ms = graph_ms(lambda: route_relax.launch_pair_costs(
+        ints, f32s, *full, edges, Bc, T, Kc, N, route, max_bits), 100)
+    plain_pair = time_ms(lambda: route_relax.pair_costs_packed(
+        ints, f32s, *full, *edges, B=Bc, T=T, K=Kc, N=N), 5)
+    pair_bytes = route.numel() * 4 + ints.numel() * 4 + f32s.numel() * 4
+    pair_ops = route.numel() * 25  # the emit ladder, about 25 f32 ops
+    t_b, t_o = pair_bytes / HBM_BYTES_PER_S, pair_ops / F32_OPS_PER_S
+    pair_bound = (max(t_b, t_o) * 1e3,
+                  "bytes" if t_b >= t_o else "operations")
+    log(f"[timing] pair_costs ({Bc},{T},{Kc}), cached (N, N) kernels: "
+        f"{pair_ms:.4f} ms; plain {plain_pair:.3f} ms; bound "
+        f"{pair_bound[0]:.5f} ms by {pair_bound[1]} ({pair_bytes} bytes: "
+        f"the route tensor written, the blobs read; {pair_ops} f32 ops)")
+    log("[timing] library: no single PyTorch call computes a bounded "
+        "relaxation or the emit ladder")
+    return {"relax_sweep": (sweep_ms, plain_sweep, *sweep_bound),
+            "pair_costs": (pair_ms, plain_pair, *pair_bound)}
+
+
+def load_other(path, module):
+    """The ``reporter_tpu_torch.<module>`` module of the checkout at
+    ``path``, its package imported once under a name of its own beside
+    this one; it builds its kernels and host runtime into that
+    checkout."""
     import importlib
     import importlib.util
-    root = Path(path).resolve() / "reporter_tpu_torch"
-    check((root / "ops" / "viterbi.py").is_file(),
-          f"no reporter_tpu_torch/ops/viterbi.py under {path}")
     name = "other_reporter_tpu_torch"
-    spec = importlib.util.spec_from_file_location(
-        name, root / "__init__.py", submodule_search_locations=[str(root)])
-    pkg = importlib.util.module_from_spec(spec)
-    sys.modules[name] = pkg
-    spec.loader.exec_module(pkg)
-    return importlib.import_module(f"{name}.ops.viterbi")
+    if name not in sys.modules:
+        root = Path(path).resolve() / "reporter_tpu_torch"
+        check((root / "ops" / "viterbi.py").is_file(),
+              f"no reporter_tpu_torch/ops/viterbi.py under {path}")
+        spec = importlib.util.spec_from_file_location(
+            name, root / "__init__.py",
+            submodule_search_locations=[str(root)])
+        pkg = importlib.util.module_from_spec(spec)
+        sys.modules[name] = pkg
+        spec.loader.exec_module(pkg)
+    return importlib.import_module(f"{name}.{module}")
 
 
 def phase_against(dev, path):
@@ -1097,7 +1616,7 @@ def phase_against(dev, path):
     {"B,T,K": {method: {"other": [ms, ms], "this": [ms, ms]}}}."""
     import torch
     from reporter_tpu_torch.ops import viterbi
-    other = load_other(path)
+    other = load_other(path, "ops.viterbi")
     t0 = time.perf_counter()
     other.build()
     log(f"[against] built {path}'s kernel in "
@@ -1131,6 +1650,65 @@ def phase_against(dev, path):
     return out
 
 
+def phase_against_routes(path):
+    """Device-route prep of this checkout against the one at ``path``:
+    main's 608 requests through ``match_many`` with ``route_device=True``
+    and the lanes on, one matcher from each checkout (each from its own
+    package: city, params, matcher, writer), one cold run each, then
+    ``ROUTE_WARM_ROUNDS`` warm rounds in turns (other, this, this, other,
+    ...). Every body is byte-equal to this checkout's native CPU run with
+    host routes. Returns {"other"|"this": {"prep": [...], "wall": [...]}}
+    of the warm runs, in seconds."""
+    from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
+    from reporter_tpu_torch.synth import build_grid_city
+    t0 = time.perf_counter()
+    city = build_grid_city(**CITY)
+    params = MatchParams(max_candidates=K)
+    main, mixed = main_requests(
+        SegmentMatcher(city, params, device="cpu", native=False))
+    reqs = main + mixed
+    want = bodies(SegmentMatcher(city, params, device="cpu").match_many(reqs),
+                  reqs)
+    om = load_other(path, "matcher")
+    sides = {
+        "other": (om.SegmentMatcher(
+            load_other(path, "synth").build_grid_city(**CITY),
+            om.MatchParams(max_candidates=K), route_device=True),
+            load_other(path, "service.report").report_json),
+        "this": (SegmentMatcher(city, params, route_device=True), None)}
+    log(f"[against-routes] {len(reqs)} requests, both matchers built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    order = ["other", "this"]
+    for r in range(ROUTE_WARM_ROUNDS):
+        order += ["other", "this"] if r % 2 else ["this", "other"]
+    out = {name: {"prep": [], "wall": []} for name in sides}
+    for i, name in enumerate(order):
+        m, writer = sides[name]
+        for k in m.stage_seconds:
+            m.stage_seconds[k] = 0.0
+        t1 = time.perf_counter()
+        got = bodies(m.match_many(reqs), reqs, writer)
+        wall = time.perf_counter() - t1
+        run = "cold" if i < 2 else "warm"
+        check(got == want, f"{name}, {run}: /report bodies differ from the "
+                           f"native CPU run with host routes")
+        if run == "warm":
+            out[name]["prep"].append(m.stage_seconds["prep"])
+            out[name]["wall"].append(wall)
+        log(f"[against-routes] {name} ({path if name == 'other' else '.'}), "
+            f"{run}: wall {wall:.6f} s, stage seconds "
+            f"{ {k: round(v, 6) for k, v in m.stage_seconds.items()} }")
+    for what in ("prep", "wall"):
+        o, t = out["other"][what], out["this"][what]
+        wins = sum(a > b for a, b in zip(o, t))
+        log(f"[against-routes] warm {what}, {len(t)} pairs: {path} median "
+            f"{float(np.median(o)):.6f} s (range {min(o):.6f}-{max(o):.6f}),"
+            f" this median {float(np.median(t)):.6f} s (range "
+            f"{min(t):.6f}-{max(t):.6f}); this shorter in {wins} of "
+            f"{len(t)} pairs")
+    return out
+
+
 def max_sm_mhz() -> int:
     """The card's maximum SM clock, which the chain model runs at."""
     out = subprocess.run(
@@ -1145,8 +1723,8 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="time this kernel against the one in the "
-                         "checkout at DIR; nothing else runs")
+                    help="time this kernel, and device-route prep, "
+                         "against the checkout at DIR; nothing else runs")
     args = ap.parse_args()
     if not (ROOT / "reporter_tpu_torch" / "ops" / "csrc" / "viterbi.cu").is_file():
         fail("reporter_tpu_torch is not beside this script")
@@ -1166,14 +1744,20 @@ def main() -> int:
     spills = phase_build()
     if args.against:
         against = phase_against(dev, args.against)
+        routes = phase_against_routes(args.against)
         check(not spills, f"ptxas reports spills: {spills}")
-        return finish(smi, {"against": args.against, "ms": against})
+        return finish(smi, {"against": args.against, "ms": against,
+                            "routes_s": routes})
     phase_verify(dev)
     launches, main, max_err, scalars, served = phase_main(dev)
+    verified = phase_verify_routes(dev, served)
+    route_launches, _runs = phase_routes(dev, served)
     serving = phase_serve(dev, served)
     phase_prefork(served)
     phase_city()
+    phase_route_city()
     times = phase_timing(dev, main, scalars, max_sm_mhz())
+    route_times = phase_timing_routes(dev, served)
     check(not spills, f"ptxas reports spills: {spills}")
 
     ms, plain, bms, by = times["main"]
@@ -1199,6 +1783,21 @@ def main() -> int:
         "ms_512_64_8": ms_512,
         "bound_ms_512_64_8": bms_512,
     }]
+    source = "reporter_tpu_torch/ops/csrc/route_relax.cu"
+    for name, replaces, err in (
+            ("relax_sweep", "reporter_tpu/ops/route_relax.py:61",
+             verified["relax_err"]),
+            ("pair_costs", "reporter_tpu/ops/route_relax.py:120",
+             verified["pair_err"])):
+        r_ms, r_plain, r_bound, r_by = route_times[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            # match_many with route_device=True, lanes on, cold and warm
+            # (phase_routes); relax_sweep counts sweeps
+            "launches": route_launches[name],
+            "max_abs_err": err, "ms": r_ms, "plain_ms": r_plain,
+            "bound_ms": r_bound, "bound_by": r_by, "library_ms": None})
     return finish(smi, {"kernels": kernels})
 
 

@@ -14,7 +14,8 @@ fixed-shape and branch-free:
 
 Two preps give the same tensors: :func:`prepare_traces_numpy` +
 :func:`pack_batches` (numpy, per trace) and :func:`prepare_batch` (one
-call into the native host runtime per chunk).
+call into the native host runtime per chunk, whose route costs may come
+from the device route kernel instead, ``graph/route_device.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from dataclasses import dataclass
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from ..core.geo import equirectangular_m
 from ..core.tracebatch import TraceBatch
@@ -122,11 +124,14 @@ def _select_kept(lat, lon, has_cands, interpolation_distance):
 def prepare_traces_numpy(net: RoadNetwork, grid: SpatialGrid,
                          tb: TraceBatch, params: MatchParams,
                          cache: RouteCache | None = None,
+                         prune_margin_m: float = 0.0,
                          ) -> List[PreparedTrace]:
     """Whole-chunk host prep: ONE vectorised candidate search over every
     point of every trace in the chunk, then per-trace route tensors
     through the shared cross-batch route cache. The grid query is a pure
-    per-point function, so each trace's slice equals a per-trace lookup."""
+    per-point function, so each trace's slice equals a per-trace lookup.
+    ``prune_margin_m`` > 0 prunes each kept point's candidates as the
+    native prep does (:func:`_prune_candidates`)."""
     K = params.max_candidates
     all_c = grid.candidates(tb.lat, tb.lon, K, params.search_radius)
     has_all = (all_c.edge_ids != PAD_EDGE).any(axis=1)
@@ -140,12 +145,13 @@ def prepare_traces_numpy(net: RoadNetwork, grid: SpatialGrid,
             proj_y=all_c.proj_y[lo:hi])
         out.append(_prepare_from_candidates(
             net, tb.lat[lo:hi], tb.lon[lo:hi], tb.time[lo:hi], sub,
-            has_all[lo:hi], params, cache))
+            has_all[lo:hi], params, cache, prune_margin_m))
     return out
 
 
 def _prepare_from_candidates(net, lat, lon, times, all_cands, has_cands,
-                             params: MatchParams, cache) -> PreparedTrace:
+                             params: MatchParams, cache,
+                             prune_margin_m: float) -> PreparedTrace:
     """Kept-point selection, route tensors, case codes and padding for one
     trace whose candidate lookup already happened."""
     num_raw = len(lat)
@@ -178,6 +184,7 @@ def _prepare_from_candidates(net, lat, lon, times, all_cands, has_cands,
         edge_ids=all_cands.edge_ids[kept], dist_m=all_cands.dist_m[kept],
         offset_m=all_cands.offset_m[kept], proj_x=all_cands.proj_x[kept],
         proj_y=all_cands.proj_y[kept])
+    cands = _prune_candidates(cands, prune_margin_m)
 
     gc = equirectangular_m(lat[kept[:-1]], lon[kept[:-1]],
                            lat[kept[1:]], lon[kept[1:]]) if n > 1 else np.zeros(0)
@@ -230,6 +237,23 @@ def _prepare_from_candidates(net, lat, lon, times, all_cands, has_cands,
                          has_cands=np.asarray(has_cands))
 
 
+def _prune_candidates(cands: CandidateSet, margin: float) -> CandidateSet:
+    """The native prep's candidate pruning: per point, drop the
+    distance-sorted suffix beyond ``dist[0] + margin``. The best
+    candidate always survives; pad slots stay pad."""
+    if margin <= 0 or cands.edge_ids.size == 0:
+        return cands
+    live = cands.edge_ids != PAD_EDGE
+    cut = (cands.dist_m > cands.dist_m[:, :1] + np.float32(margin)) & live
+    if not cut.any():
+        return cands
+    return CandidateSet(
+        edge_ids=np.where(cut, PAD_EDGE, cands.edge_ids),
+        dist_m=np.where(cut, PAD_DIST, cands.dist_m),
+        offset_m=np.where(cut, np.float32(0.0), cands.offset_m),
+        proj_x=cands.proj_x, proj_y=cands.proj_y)
+
+
 class _LazyTraceViews:
     """Sequence of PreparedTrace views over a native batch, built on first
     element access: the native matcher only takes ``len()``."""
@@ -256,13 +280,15 @@ class _LazyTraceViews:
 
 @dataclass
 class PaddedBatch:
-    """A device-ready batch of same-bucket traces (host numpy arrays)."""
+    """A device-ready batch of same-bucket traces: host numpy arrays, but
+    for ``route_m`` after a device route fill (a tensor on the route
+    kernel's device)."""
     traces: "List[PreparedTrace] | _LazyTraceViews"
     dist_m: np.ndarray   # (B, T, K) f16 wire or f32
     valid: np.ndarray    # (B, T, K) bool
     # route/gc time rows: T-1 from pack_batches, T from prepare_batch (a
     # dead last step); the decode takes either
-    route_m: np.ndarray  # (B, T-1 | T, K, K) f16 wire or f32
+    route_m: "np.ndarray | torch.Tensor | None"  # (B, T-1|T, K, K) f16/f32
     gc_m: np.ndarray     # (B, T-1 | T) f16 wire or f32
     case: np.ndarray     # (B, T) i32
     # prepare_batch only: the native prep's tensors and the chunk's flat
@@ -270,6 +296,28 @@ class PaddedBatch:
     prep: "dict | None" = None
     pt_off: "np.ndarray | None" = None      # (B+1,) i64
     times_flat: "np.ndarray | None" = None  # flat f64 raw probe times
+    # deferred device routes (prepare_batch(defer_routes=True)): the
+    # decode stage runs ``finalize`` once before it reads the tensors, and
+    # waits for the route tensor's finite max there instead of in prep;
+    # route_m is None until it has run. ``routes`` (a graph.route_device.
+    # DeferredRoutes) copies the route bytes back into ``prep``
+    finalize: "object | None" = None
+    routes: "object | None" = None
+
+    def finalize_wire(self) -> None:
+        """Install the deferred route tensor and settle the wire dtype; a
+        no-op for a batch built without deferred routes, and after the
+        first call."""
+        f, self.finalize = self.finalize, None
+        if f is not None:
+            f(self)
+
+    def routes_to_host(self) -> None:
+        """Write deferred device routes into the prep dict, waiting for
+        their copy back (a no-op without them, and after the first
+        call)."""
+        if self.routes is not None:
+            self.routes.write_back(self.prep)
 
 
 def _f16_safe(p: PreparedTrace) -> bool:
@@ -326,7 +374,9 @@ def pack_batches(prepared: Sequence[PreparedTrace]) -> List[PaddedBatch]:
 
 def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
                   pad_rows: int | None = None,
-                  n_threads: int = 0) -> PaddedBatch:
+                  n_threads: int = 0, route_kernel=None,
+                  defer_routes: bool = False,
+                  prune_margin_m: float = 0.0) -> PaddedBatch:
     """Whole-chunk host prep through ONE native call
     (``NativeRuntime.prepare_batch``), with the per-trace semantics of
     :func:`prepare_traces_numpy`: the flat coordinate columns of ``tb``
@@ -338,7 +388,20 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
     rows. Float tensors ship on the f16 wire when every finite distance
     the prep wrote is at most ``WIRE_MAX_M`` (the prep's ``max_finite``),
     else f32, as :func:`pack_batches` decides. route_m and gc_m carry T
-    time rows (a dead last step).
+    time rows (a dead last step). ``prune_margin_m`` > 0 prunes
+    candidates in the native prep.
+
+    ``route_kernel`` (``graph.route_device.DeviceRouteKernel``) moves the
+    route costs to its device: the native call skips its route search
+    and the kernel fills ``route_m`` from one batched relaxation. A
+    device failure raises. With ``defer_routes=True`` the route tensor
+    stays on the device: ``route_m`` is None and the batch carries a
+    ``finalize`` that the decode stage runs (:meth:`PaddedBatch.
+    finalize_wire`), which installs the padded (rows, T, K, K) tensor on
+    the device and decides the wire dtype from the same folded
+    ``max_finite`` the synchronous path reads. The route bytes reach the
+    prep dict through ``routes`` (:meth:`PaddedBatch.routes_to_host`),
+    which the assembly and the per-trace views wait on.
 
     The batch's ``traces`` are PreparedTrace views over rows of the f32
     tensors, built on first access.
@@ -356,9 +419,16 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
         max_route_time_factor=params.max_route_time_factor,
         min_time_bound_s=params.min_time_bound_s,
         turn_penalty_factor=params.turn_penalty_factor,
+        prune_margin_m=prune_margin_m,
+        skip_routes=route_kernel is not None,
         n_threads=n_threads, n_rows=pad_rows)
+    pending = None
+    if route_kernel is not None:
+        pending = route_kernel.fill_prep(out, params, B, defer=defer_routes)
 
     def build_views() -> List[PreparedTrace]:
+        if pending is not None:
+            pending.write_back(out)
         kept, num_kept = out["kept_idx"], out["num_kept"]
         views = []
         for b in range(B):
@@ -375,9 +445,31 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
         return views
 
     dist, route, gc = out["dist_m"], out["route_m"], out["gc_m"]
-    if float(out["max_finite"][0]) <= WIRE_MAX_M:
+    finalize = None
+    if pending is not None:
+        route = None
+
+        def finalize(batch, rows=int(dist.shape[0])):
+            batch.route_m = _device_route_full(pending.route, rows, T)
+            if pending.fold_max(out) <= WIRE_MAX_M:
+                batch.dist_m = runtime.to_f16(out["dist_m"])
+                batch.gc_m = runtime.to_f16(out["gc_m"])
+                batch.route_m = batch.route_m.to(torch.float16)
+    elif float(out["max_finite"][0]) <= WIRE_MAX_M:
         dist, route, gc = (runtime.to_f16(a) for a in (dist, route, gc))
     return PaddedBatch(traces=_LazyTraceViews(B, build_views), dist_m=dist,
                        valid=out["edge_ids"] != PAD_EDGE, route_m=route,
                        gc_m=gc, case=out["case"], prep=out, pt_off=pt_off,
-                       times_flat=times)
+                       times_flat=times, finalize=finalize, routes=pending)
+
+
+def _device_route_full(route_dev, rows: int, T: int):
+    """The device route tensor (B, T-1, K, K) in the native wire layout
+    (rows, T, K, K), a fresh allocation on its device: filler rows and the
+    dead last step carry UNREACHABLE, the bytes the native tail fill
+    writes, so every decode shape and SKIP row is as on the host path."""
+    B, _steps, K, _ = route_dev.shape
+    full = torch.full((rows, T, K, K), float(UNREACHABLE),
+                      dtype=torch.float32, device=route_dev.device)
+    full[:B, :T - 1] = route_dev
+    return full

@@ -11,7 +11,10 @@ host, decoded in one batched Viterbi per padding bucket on the card.
 A call runs three stages per chunk of traces. The calling thread runs
 host prep: by default one call into the native host runtime per chunk
 (``batchpad.prepare_batch``), or with ``native=False`` the numpy prep
-(``prepare_traces_numpy`` + ``pack_batches``). Two single-worker device
+(``prepare_traces_numpy`` + ``pack_batches``). With ``route_device=True``
+the native prep leaves the route costs to the device route kernel, whose
+route tensor stays on the device until the dispatch lane finalises the
+batch. Two single-worker device
 lanes take each prepared chunk in order: the dispatch lane uploads it,
 launches the decode (``ops.decode_batch``, the CUDA kernel on the card)
 and starts a non-blocking copy of the paths into pinned host memory,
@@ -44,6 +47,9 @@ from .. import ops
 from ..core.tracebatch import TraceBatch, as_trace_batch
 from ..graph.network import RoadNetwork
 from ..graph.route import RouteCache
+# the module, not its class: importing graph.route_device first imports
+# ops, whose viterbi imports this package
+from ..graph import route_device as device_routes
 from ..graph.spatial import SpatialGrid
 from ..native import NativeRuntime
 from ..service import wire
@@ -270,18 +276,30 @@ class SegmentMatcher:
     ``PREP_THREADS_MAX``); ``chunk`` the traces per prep call and decode
     launch (default 128 with the lanes on a multi-core host, where chunks
     are the overlap's grain, else 512). None of these changes a result.
+
+    ``route_device=True`` moves the native prep's route costs onto the
+    matcher's device (``graph.route_device.DeviceRouteKernel``, built
+    here: on the card its kernels compile now, and a failure raises); the
+    numpy prep keeps its host routes. ``prune_sigma`` > 0 prunes each
+    kept point's candidates beyond ``prune_sigma * effective_sigma``
+    meters of its best, on both preps; unlike the options above it
+    changes results.
     """
 
     def __init__(self, net: Optional[RoadNetwork] = None,
                  params: Optional[MatchParams] = None, device=None,
                  native: bool = True, pipeline: bool = True,
                  prep_threads: Optional[int] = None,
-                 chunk: Optional[int] = None):
+                 chunk: Optional[int] = None, route_device: bool = False,
+                 prune_sigma: float = 0.0):
         self.device = resolve_device(device)
         if net is None:
             raise ValueError("no network: pass net=")
+        if prune_sigma < 0:
+            raise ValueError(f"prune_sigma={prune_sigma} must be >= 0")
         self.net = net
         self.params = params if params is not None else MatchParams()
+        self.prune_sigma = float(prune_sigma)
         cores = os.cpu_count() or 1
         self.prep_threads = (prep_threads if prep_threads is not None
                              else min(PREP_THREADS_MAX, cores))
@@ -289,6 +307,9 @@ class SegmentMatcher:
             128 if pipeline and cores > 1 else 512)
         self.runtime = (NativeRuntime(net, cell_m=GRID_CELL_M) if native
                         else None)
+        self.route_kernel = (
+            device_routes.DeviceRouteKernel(net, self.device)
+            if route_device and native else None)
         #: wall seconds per stage, summed over calls (callers may reset).
         #: With the lanes on, the stages overlap and do not sum to the
         #: wall; "decode" is the dispatch lane's upload, launch and copy
@@ -311,6 +332,10 @@ class SegmentMatcher:
     def route_cache(self) -> RouteCache:
         return RouteCache(self.net)
 
+    def _prune_margin(self, params: MatchParams) -> float:
+        """Candidate pruning margin in meters for ``params`` (0: off)."""
+        return self.prune_sigma * float(params.effective_sigma)
+
     def _add_stage(self, name: str, t0: float) -> None:
         dt = time.perf_counter() - t0
         with self._stage_lock:
@@ -331,9 +356,10 @@ class SegmentMatcher:
                      ) -> List[PreparedTrace]:
         """Numpy host prep alone (candidates, kept points, route tensors)
         for a batch of traces, under one set of params."""
+        params = params if params is not None else self.params
         return prepare_traces_numpy(
-            self.net, self.grid, as_trace_batch(traces),
-            params if params is not None else self.params, self.route_cache)
+            self.net, self.grid, as_trace_batch(traces), params,
+            self.route_cache, self._prune_margin(params))
 
     def match_many(self, traces) -> list:
         """Match a batch of traces; returns one match per trace, in order:
@@ -462,9 +488,12 @@ class SegmentMatcher:
                         part = bucket[lo:lo + chunk]
                         rows = padded_batch_rows(len(part))
                         t0 = time.perf_counter()
-                        batch = prepare_batch(self.runtime, tb.gather(part),
-                                              params, T, pad_rows=rows,
-                                              n_threads=self.prep_threads)
+                        batch = prepare_batch(
+                            self.runtime, tb.gather(part), params, T,
+                            pad_rows=rows, n_threads=self.prep_threads,
+                            route_kernel=self.route_kernel,
+                            defer_routes=True,
+                            prune_margin_m=self._prune_margin(params))
                         self._add_stage("prep", t0)
                         tot = self.bucket_totals.setdefault(T, [0, 0])
                         tot[0] += kept_point_count(batch)
@@ -527,7 +556,7 @@ class SegmentMatcher:
                 t0 = time.perf_counter()
                 prepped = prepare_traces_numpy(
                     self.net, self.grid, tb.gather(part), params,
-                    self.route_cache)
+                    self.route_cache, self._prune_margin(params))
                 self._add_stage("prep", t0)
                 idx_of = {id(p): int(i) for p, i in zip(prepped, part)}
                 for batch in pack_batches(prepped):
@@ -535,30 +564,40 @@ class SegmentMatcher:
                            sigma, beta)
 
     def _dispatch_stage(self, batch: PaddedBatch, sigma, beta):
-        """Dispatch lane: upload one batch, launch the decode and, on the
-        card, start a non-blocking copy of the paths into pinned host
-        memory recorded on a CUDA event. Returns ``(paths on the host,
+        """Dispatch lane: settle deferred device routes
+        (``finalize_wire``), upload one batch, launch the decode and, on
+        the card, start a non-blocking copy of the paths into pinned host
+        memory recorded on a CUDA event, and one of the deferred route
+        tensor behind it. Returns ``(paths on the host,
         event or None, device paths)``; the device paths ride along so
         they stay alive until the drain lane has waited on the event.
         Everything runs on the device's current stream."""
         t0 = time.perf_counter()
-        arrays = (batch.dist_m, batch.valid, batch.route_m, batch.gc_m,
-                  batch.case)
+        batch.finalize_wire()
+        # numpy arrays, but for a device route tensor (already a tensor on
+        # this device)
+        arrays = tuple(a if isinstance(a, torch.Tensor)
+                       else torch.from_numpy(a)
+                       for a in (batch.dist_m, batch.valid, batch.route_m,
+                                 batch.gc_m, batch.case))
         if self.device.type == "cpu":
-            paths, _scores = ops.decode_batch(
-                *(torch.from_numpy(a) for a in arrays), sigma, beta)
+            paths, _scores = ops.decode_batch(*arrays, sigma, beta)
             self._add_stage("decode", t0)
             return paths, None, None
         with torch.cuda.device(self.device):
-            # whole arrays, filler rows included: each upload is a fresh
-            # allocation, which starts on 16 bytes as the kernel needs
-            x = tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+            # whole arrays, filler rows included: each upload (and the
+            # device route tensor) is a fresh allocation, which starts on
+            # 16 bytes as the kernel needs
+            x = tuple(a.to(self.device) for a in arrays)
             paths, _scores = ops.decode_batch(*x, sigma, beta)
             host = torch.empty(paths.shape, dtype=paths.dtype,
                                pin_memory=True)
             host.copy_(paths, non_blocking=True)
             event = torch.cuda.Event()
             event.record()
+            if batch.routes is not None:
+                # device routes: their copy back queues behind the decode
+                batch.routes.copy_back_async()
         self._add_stage("decode", t0)
         return host, event, paths
 
@@ -579,7 +618,9 @@ class SegmentMatcher:
         t0 = time.perf_counter()
         if batch.prep is not None:
             # native batched assembly: ONE call walks every path of the
-            # batch; the results are lazy views over one RunColumns
+            # batch; the results are lazy views over one RunColumns. It
+            # reads the route bytes, so deferred device routes land first
+            batch.routes_to_host()
             B = len(batch.traces)
             gp = per_trace_params[order[0]]
             runs = self.runtime.assemble_batch(

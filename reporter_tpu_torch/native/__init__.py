@@ -27,12 +27,16 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils import metrics
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "host_runtime.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 #: the C++ compiler the library is built with
 CXX = "g++"
 #: must equal host_runtime.cpp's rt_abi_version()
 ABI_VERSION = 14
+#: prepare_batch's phase_ns slots, counted as ``prep.phase.<name>_ns``
+PHASES = ("candidates", "select", "routes")
 
 _lock = threading.Lock()
 _lib = None
@@ -288,6 +292,8 @@ class NativeRuntime:
                       max_route_time_factor: float = 0.0,
                       min_time_bound_s: float = 15.0,
                       turn_penalty_factor: float = 0.0,
+                      prune_margin_m: float = 0.0,
+                      skip_routes: bool = False,
                       n_threads: int = 0, n_rows: int | None = None) -> dict:
         """Prepare B traces in one native call, straight into padded
         (rows, T, ...) tensors: candidates, jitter and no-candidate
@@ -296,6 +302,14 @@ class NativeRuntime:
         is (B+1,) int64 offsets into the flat lat/lon/times arrays;
         ``n_rows`` >= B adds all-SKIP filler rows.
 
+        ``prune_margin_m`` > 0 prunes candidates after kept selection:
+        each point's distance-sorted candidates are cut where dist >
+        dist[0] + margin (the best always survives). ``skip_routes``
+        skips only the route search: the device route kernel
+        (``graph/route_device.py``) then writes route rows [0, n-1) of
+        every live trace; every other tensor, ``dt`` included, is
+        computed as usual, and the rows from n-1 on keep their tail fill.
+
         Returns the filled tensors: edge_ids (rows,T,K) i32, dist_m and
         offset_m (rows,T,K) f32, route_m (rows,T,K,K) f32, gc_m (rows,T)
         f32, case (rows,T) i32, kept_idx (rows,T) i32 (-1 pad), num_kept
@@ -303,8 +317,9 @@ class NativeRuntime:
         deltas (-1 where the time bound does not arm), has_cands (points,)
         u8, max_finite (1,) f32 (the largest finite distance written) and
         phase_ns (3,) i64 (candidates, select, routes; summed over
-        threads). route_m and gc_m carry T time rows: the last is a dead
-        step, which the decode takes and ignores.
+        threads, and added to the ``prep.phase.<name>_ns`` counters).
+        route_m and gc_m carry T time rows: the last is a dead step,
+        which the decode takes and ignores.
         """
         self._check_owner()
         pt_off = np.ascontiguousarray(pt_off, dtype=np.int64)
@@ -353,11 +368,15 @@ class NativeRuntime:
             float(breakage_distance), float(max_route_distance_factor),
             float(min_bound_m), float(backward_tolerance_m),
             float(max_route_time_factor), float(min_time_bound_s),
-            float(turn_penalty_factor), 0.0, 0, int(n_threads),
+            float(turn_penalty_factor), float(prune_margin_m),
+            int(bool(skip_routes)), int(n_threads),
             out["edge_ids"], out["dist_m"], out["offset_m"],
             out["route_m"], out["gc_m"], out["case"], out["kept_idx"],
             out["num_kept"], out["dwell"], out["has_cands"],
             out["max_finite"], out["phase_ns"], out["dt"])
+        for name, ns in zip(PHASES, out["phase_ns"].tolist()):
+            if ns > 0:
+                metrics.count(f"prep.phase.{name}_ns", ns)
         return out
 
     def to_f16(self, arr: np.ndarray) -> np.ndarray:

@@ -1,16 +1,25 @@
-"""Device decode: the batched Viterbi, one contract, two implementations.
+"""Device ops: one contract each, two implementations.
 
-  kernel  ops/csrc/viterbi.cu, a hand-written CUDA kernel for Hopper
-          (ops/viterbi.py builds, binds and launches it)
-  plain   the PyTorch scan in matcher/hmm.py
+  decode      ops/csrc/viterbi.cu, the batched Viterbi (ops/viterbi.py
+              builds, binds and launches it); plain: the PyTorch scan in
+              matcher/hmm.py
+  relax       ops/csrc/route_relax.cu `relax_sweep`, one launch per sweep
+              of the bounded relaxation (ops/route_relax.py); plain:
+              ``route_relax.relax_csr``
+  pair costs  ops/csrc/route_relax.cu `pair_costs`, the route tensor from
+              relaxed node kernels; plain: ``route_relax.pair_costs_packed``
 
-:func:`decode_batch` picks by where the tensors lie: CUDA tensors go to
+Each dispatcher here picks by where the tensors lie: CUDA tensors go to
 the kernel, CPU tensors to the plain version. There is no fallback from
 one to the other.
 """
+from .route_relax import (pair_costs_cuda, pair_costs_packed, relax_csr,
+                          relax_cuda)
 from .viterbi import viterbi_cuda, viterbi_plain
 
-__all__ = ["decode_batch", "viterbi_cuda", "viterbi_plain"]
+__all__ = ["decode_batch", "relax_routes", "route_pair_costs",
+           "viterbi_cuda", "viterbi_plain", "relax_cuda", "relax_csr",
+           "pair_costs_cuda", "pair_costs_packed"]
 
 
 def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta):
@@ -22,3 +31,24 @@ def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta):
     if dist_m.device.type == "cpu":
         return viterbi_plain(dist_m, valid, route_m, gc_m, case, sigma, beta)
     return viterbi_cuda(dist_m, valid, route_m, gc_m, case, sigma, beta)
+
+
+def relax_routes(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,
+                 *, n_nodes: int, max_iters: int):
+    """Multi-source bounded relaxation (``route_relax.relax_csr``'s
+    contract) on the tensors' device: ``(dist, time, iters,
+    converged)``."""
+    fn = relax_csr if edge_len.device.type == "cpu" else relax_cuda
+    return fn(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,
+              n_nodes=n_nodes, max_iters=max_iters)
+
+
+def route_pair_costs(ints, f32s, dist_sn, time_sn, edge_start, edge_end,
+                     edge_len, edge_v, head_x, head_y, *, B, T, K, N):
+    """The (B, T-1, K, K) route tensor and its finite max from two packed
+    blobs (``route_relax.pair_costs_packed``'s contract) on the tensors'
+    device."""
+    fn = pair_costs_packed if dist_sn.device.type == "cpu" \
+        else pair_costs_cuda
+    return fn(ints, f32s, dist_sn, time_sn, edge_start, edge_end, edge_len,
+              edge_v, head_x, head_y, B=B, T=T, K=K, N=N)

@@ -3,7 +3,7 @@
 ``csrc/viterbi.cu`` is a hand-written CUDA C++ kernel for Hopper
 (``sm_90a``) with a plain C entry point. It is compiled with ``nvcc`` into
 ``reporter_tpu_torch/_build/`` at first use, never at import, and loaded
-with ``ctypes``. Its plain version is the PyTorch scan
+with ``ctypes`` (``ops.nvcc``). Its plain version is the PyTorch scan
 :func:`reporter_tpu_torch.matcher.hmm.viterbi_decode_batch`.
 
 :func:`viterbi_cuda` is the kernel's wrapper: it checks its tensors,
@@ -21,23 +21,15 @@ and launches what it is given.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
 
 from ..matcher.hmm import viterbi_decode_batch as viterbi_plain
+from . import nvcc
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "viterbi.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+SOURCE = nvcc.CSRC / "viterbi.cu"
 #: uint8 backpointers: one trace's (T-1)*K bytes at T=1024 fit one block
 MAX_K = 128
 #: shared memory one block may use on Hopper
@@ -131,39 +123,15 @@ _lock = threading.Lock()
 _kernel = None  # (ctypes function, build log) once built
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA decode kernel is built "
-                       "with the CUDA toolkit's nvcc")
-
-
 def build():
-    """Compile (once per source version) and load the kernel library.
-    Returns ``(entry point, compiler log)``; raises if the build fails."""
+    """Compile (once per source version) and load the kernel library
+    (``ops.nvcc``). Returns ``(entry point, compiler log)``; raises if the
+    build fails."""
     global _kernel
     with _lock:
         if _kernel is None:
-            src = SOURCE.read_bytes()
-            tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                                 ).hexdigest()[:16]
-            out = BUILD_DIR / f"libviterbi-{tag}.so"
-            log_path = out.with_suffix(".log")  # kept for a later process
-            if not out.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                    capture_output=True, text=True)
-                log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                       f"{log}")
-                log_path.write_text(log)
-                os.replace(tmp, out)
-            log = log_path.read_text() if log_path.exists() else ""
-            fn = ctypes.CDLL(str(out)).viterbi_decode
+            lib, log = nvcc.load(SOURCE, "viterbi")
+            fn = lib.viterbi_decode
             p, i = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
                            ctypes.c_float, i, i, i, p, p, p]
@@ -182,17 +150,8 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
     B, T, K = dist_m.shape
     plan = launch_plan(B, T, K)
     dev = dist_m.device
-    tensors = {"dist_m": dist_m, "valid": valid, "route_m": route_m,
-               "gc_m": gc_m, "case": case}
-    for name, x in tensors.items():
-        if x.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} must be on the CUDA device {dev}, "
-                             f"got {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must start on 16 bytes (a tensor of "
-                             f"its own does; a slice may not)")
+    nvcc.check_operands(dev, dist_m=dist_m, valid=valid, route_m=route_m,
+                        gc_m=gc_m, case=case)
     if dist_m.dtype not in (torch.float16, torch.float32) or \
             route_m.dtype != dist_m.dtype or gc_m.dtype != dist_m.dtype:
         raise TypeError("dist_m, route_m and gc_m must share one dtype, "

@@ -30,6 +30,8 @@ keys stand for the JAX package's environment knobs:
   native, pipeline,  REPORTER_TPU_NATIVE, _PIPELINE, (SegmentMatcher's
   chunk,             _DECODE_CHUNK,                  defaults)
   prep_threads       _PREP_THREADS
+  route_device       REPORTER_TPU_ROUTE_DEVICE      (false)
+  prune_sigma        REPORTER_TPU_ROUTE_PRUNE_SIGMA (0.0, off)
 
 The service decodes on ``cuda`` unless given ``--device cpu``, and exits
 non-zero when CUDA is missing. With ``--procs N`` the process forks N
@@ -74,7 +76,8 @@ POOL_SIZE = 64
 SERVICE_KEYS = ("threshold_sec", "max_batch", "max_wait_ms",
                 "idle_grace_ms", "queue_max", "queue_policy",
                 "latency_budget_ms")
-MATCHER_KEYS = ("native", "pipeline", "chunk", "prep_threads")
+MATCHER_KEYS = ("native", "pipeline", "chunk", "prep_threads",
+                "route_device", "prune_sigma")
 SERVER_KEYS = ("pool_size",)
 
 

@@ -163,6 +163,19 @@ def snapshot_rounded(registry: "Registry | None" = None,
     return snap
 
 
+#: the device route kernel's counters (graph/route_device.py): chunks
+#: routed, live candidate pairs and relaxation sources in them, node-kernel
+#: cache rows served and relaxed, chunks left on the device for the
+#: decode stage, chunks with nothing to route, relaxations that ran out of
+#: sweeps, chunks over the state budget, and relaxations and their sweeps
+ROUTE_DEVICE_COUNTERS = (
+    "route.device.chunks", "route.device.pairs", "route.device.sources",
+    "route.device.cache_hit_rows", "route.device.cache_miss_rows",
+    "route.device.deferred_chunks",
+    "route.device.empty_chunks", "route.device.nonconverged",
+    "route.device.budget_exceeded", "route.device.relaxes",
+    "route.device.sweeps")
+
 #: process-global registry used by the service
 default = Registry()
 count = default.count

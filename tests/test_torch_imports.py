@@ -45,6 +45,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 if m == "reporter_tpu" or m.startswith("reporter_tpu.")]
 
 
+@pytest.mark.parametrize("first", ["reporter_tpu_torch.graph.route_device",
+                                   "reporter_tpu_torch.ops.route_relax"])
+def test_a_module_imports_first(first):
+    """The port's modules import one another in a cycle (ops -> matcher
+    -> graph.route_device -> ops); each entry imports in a fresh process."""
+    subprocess.run([sys.executable, "-c", f"import {first}"], check=True,
+                   timeout=120)
+
+
 def test_default_device_is_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
