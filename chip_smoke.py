@@ -48,60 +48,75 @@ Phases, each fatal on failure:
             nodes, 39,600 edges) through the native matcher on the card:
             bodies byte-equal to the port's native CPU run, the kernel's
             launches in this phase, the route-pair memo's counters
-7. route-city  512 traces with route_device=True on a 40x40 grid city
-            (1,600 nodes, 6,240 edges), cold and warm: bodies byte-equal
-            to the native CPU run with host routes, launches held to the
-            chunking (the 100x100 city's chunks exceed the relaxation's
-            state budget, so with route_device=True it raises; city shows
-            it on its first chunk)
+7. route-city  device routes (route_device=True) on larger cities, bodies
+            byte-equal to the native CPU run with host routes and launches
+            held to the chunking: 512 traces on a 40x40 grid city (1,600
+            nodes, 6,240 edges), cold and warm; city's 512 on the 100x100
+            city (past the node-kernel cache: every chunk relaxes, S =
+            2,048), device and host routes once cold each, then ten warm
+            rounds in turns, beside city's host-route wall; 64 traces on a
+            125x125 grid city (15,625 nodes, past relax's shared-memory
+            limit: relax_sweep), cold
 8. timing   CUDA-event times of the decode kernel from CUDA graphs (the
             main path's batch, and batches and one trace at T=64/256/1024,
             twice in turns; the per-step slope and intercept; the main
             batch with the L2 flushed) and of the plain version, beside
             the least time the card could take and a model of the chain;
-            then of one relaxation sweep (the first, and the mean over the
-            main chunk's whole relaxation) and one pair_costs launch at
-            the main path's first chunk, and their plain versions, beside
-            their byte bounds
+            then of the route kernels, by CUDA graphs: one whole
+            relaxation by relax (one launch) and by relax_sweep's sweeps
+            at the main path's first chunk and at the 100x100 city's, a
+            relax_sweep sweep at the 125x125 city's first chunk, one
+            pair_costs launch at the main path's first chunk, and their
+            plain versions, beside their bounds
 
 After main come two phases of the device route costs (``route_device``):
 
-   verify-routes  relax_sweep against the plain relax_csr on the card (the
-            20x20 city's first main chunk, S=512, at its chunk bound; the
-            same with max_iters=1; the 100x100 city with 256 sources at
-            1,500 m): dist and time bit-equal, iters and converged equal;
-            pair_costs against its plain version at (128, 64, 8), cached
-            and uncached node kernels, turn penalty off and on, time caps
-            and backward pairs in the inputs: route bit-equal, max_finite
-            equal
+   verify-routes  relax against the plain relax_csr on the card at three
+            shapes (the 20x20 city's first main chunk, S=512, at its
+            chunk bound; the 40x40 city with 1,024 sources at 1,500 m;
+            the 100x100 city's first chunk, S=2,048, at its chunk bound),
+            each to convergence and capped at one sweep and at one sweep
+            short; relax_sweep the same way on the 125x125 city with 64
+            sources at 1,500 m: dist and time bit-equal, iters and
+            converged equal. pair_costs against its plain version at
+            (128, 64, 8), cached and uncached node kernels, turn penalty
+            off and on, time caps and backward pairs in the inputs: route
+            bit-equal, max_finite equal
    routes   match_many for main's 608 requests on the card, device
             routes (route_device=True) and host routes, each lanes on and
             inline: one cold run each, then ten warm rounds in turns;
             bodies byte-equal to the CPU runs with host routes and with
             route_device=True; launches (decode and pair_costs once per
             chunk, relax sweeps the sum of iters) and the route.device
-            counters; the prep stage's seconds and the wall, each
-            setting's warm median and range, with the host prep's own
-            route share (phase_ns); every chunk's device route tensor
-            equal to the host prep's
+            counters (relax: one launch and one host read per
+            relaxation; the cold lanes-on run's counters, sweeps
+            included, equal to the CPU run's); the prep stage's seconds
+            and the wall, each setting's warm median and range, with the
+            host prep's own route share (phase_ns); every chunk's device
+            route tensor equal to the host prep's
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (viterbi_decode: ``launches`` match_many's in the main phase,
-``launches_serve`` each timed serve window's, lanes on; relax_sweep and
+``launches_serve`` each timed serve window's, lanes on; relax and
 pair_costs: the routes phase's device lanes-on runs, cold and the first
-warm round), and as the
-last line {"ok": true, "device": {...}}. Exits non-zero,
+warm round; relax_sweep: route-city's 125x125 run, one launch a sweep),
+and as the last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
 
 With ``--against DIR`` (another checkout of the repo, such as a parent
 commit unpacked with ``git archive``) only the build runs, then both
-kernels decode the same inputs at (512,64,8) and (64,1024,8): their
-outputs must be equal, and each is timed by CUDA graphs and by launches
-from Python, in the order other, this, this, other. Then main's 608
-requests go through match_many with route_device=True and the lanes on,
-one matcher from each checkout, cold once and ten warm rounds in turns:
-bodies byte-equal to host routes, the prep stage's seconds and the wall
-of each run, and each side's warm median and range.
+decode kernels decode the same inputs at (512,64,8) and (64,1024,8):
+their outputs must be equal, and each is timed by CUDA graphs and by
+launches from Python, in the order other, this, this, other. Then the
+route kernels: the relaxation of the main path's first chunk and of the
+100x100 city's first chunk, this checkout's relax against the other's
+sweeps (by CUDA graphs, and as the matcher calls each, host reads
+included), and pair_costs at the main chunk, in the same order, outputs
+bit-equal. Then main's 608 requests go through match_many with
+route_device=True and the lanes on, one matcher from each checkout, cold
+once and ten warm rounds in turns: bodies byte-equal to host routes, the
+prep stage's seconds and the wall of each run, and each side's warm
+median and range.
 """
 import json
 import subprocess
@@ -131,6 +146,8 @@ K = 8                       # MatchParams.max_candidates default
 CITY = dict(rows=20, cols=20, spacing_m=200.0, seed=42)
 BIG_CITY = dict(rows=100, cols=100, spacing_m=200.0, seed=42)
 MID_CITY = dict(rows=40, cols=40, spacing_m=200.0, seed=42)
+# past relax's shared-memory limit (14,528 nodes): relax_sweep's graph
+HUGE_CITY = dict(rows=125, cols=125, spacing_m=200.0, seed=42)
 OPTS = {"mode": "auto", "report_levels": [0, 1, 2],
         "transition_levels": [0, 1, 2]}
 
@@ -654,16 +671,23 @@ def abs_err(a, b) -> float:
 
 
 def relax_against_plain(kernel, srcs, bound, max_iters, what):
-    """``srcs`` relaxed at ``bound`` on the card by the kernel
-    (``relax_cuda``) and by the plain version: dist and time bit-equal,
-    iters and converged equal. Returns (kernel dist, kernel time, iters,
-    converged, the largest absolute difference)."""
+    """``srcs`` relaxed at ``bound`` on the card by the kernel the graph
+    takes (``kernel.relax_kernel``: ``relax_cuda`` over its CSR arcs, or
+    ``relax_sweep_cuda``) and by the plain version: dist and time
+    bit-equal, iters and converged equal. Returns (kernel dist, kernel
+    time, iters, converged, the largest absolute difference)."""
     import torch
     from reporter_tpu_torch.ops import route_relax
     cols = (kernel._e_start, kernel._e_end, kernel._e_len, kernel._e_secs)
     src = torch.from_numpy(np.asarray(srcs, np.int32)).to(kernel.device)
-    k_out = route_relax.relax_cuda(*cols, src, bound, n_nodes=kernel.n_nodes,
-                                   max_iters=max_iters)
+    if kernel.relax_kernel == "relax":
+        k_out = route_relax.relax_cuda(kernel._arcs, src, bound,
+                                       n_nodes=kernel.n_nodes,
+                                       max_iters=max_iters)
+    else:
+        k_out = route_relax.relax_sweep_cuda(*cols, src, bound,
+                                             n_nodes=kernel.n_nodes,
+                                             max_iters=max_iters)
     torch.cuda.synchronize()
     p_out = route_relax.relax_csr(*cols, src, bound, n_nodes=kernel.n_nodes,
                                   max_iters=max_iters)
@@ -671,29 +695,66 @@ def relax_against_plain(kernel, srcs, bound, max_iters, what):
     for name, a, b in (("dist", k_out[0], p_out[0]),
                        ("time", k_out[1], p_out[1])):
         differ = bit_equal(a, b)
-        check(differ == 0, f"relax {name}: {differ} entries not bit-equal, "
-                           f"{what}")
-    check(k_out[2:] == p_out[2:], f"relax iters/converged {k_out[2:]} "
-                                  f"against the plain {p_out[2:]}, {what}")
+        check(differ == 0, f"{kernel.relax_kernel} {name}: {differ} entries "
+                           f"not bit-equal, {what}")
+    check(k_out[2:] == p_out[2:], f"{kernel.relax_kernel} iters/converged "
+                                  f"{k_out[2:]} against the plain "
+                                  f"{p_out[2:]}, {what}")
     return (*k_out, max(abs_err(k_out[0], p_out[0]),
                         abs_err(k_out[1], p_out[1])))
 
 
-def phase_verify_routes(dev, served):
-    """The two route kernels against their plain versions on the card, same
-    inputs. ``relax_sweep`` (through ``relax_cuda``): the 20x20 city with
-    the first main chunk's sources (S = 512 after padding) at its chunk
-    bound, the same with max_iters=1 (not converged), and the 100x100 city
-    with 256 seeded sources at 1,500 m: dist and time bit-equal, iters and
-    converged equal. ``pair_costs`` at the first main chunk's (128, 64, 8),
-    its first 16 traces given same-edge backward pairs, on the cached
-    (N, N) and the uncached (S, N) kernels, with the turn penalty off and
-    on (time caps are armed by the default params): route bit-equal and
+def chunk_sources(kernel, prep, params, B):
+    """The relaxation a chunk asks for: (its plan, its sources padded to a
+    power of two by repeating the first, as ``DeviceRouteKernel`` pads
+    them)."""
+    from reporter_tpu_torch.graph.route_device import _next_pow2
+    plan = kernel.plan(prep, params, B)
+    S = _next_pow2(len(plan.srcs))
+    return plan, np.concatenate([plan.srcs, np.full(S - len(plan.srcs),
+                                                    plan.srcs[0], np.int32)])
+
+
+def verify_relax(kernel, srcs, bound, label):
+    """``relax_against_plain`` run to convergence, then with a cap of one
+    sweep and a cap one short of the sweeps it needed: every run
+    bit-equal, the capped ones not converged. Returns (dist, time,
+    iters, the largest absolute difference)."""
+    dist, time_sn, iters, ok, err = relax_against_plain(
+        kernel, srcs, bound, kernel.n_nodes, label)
+    check(ok, f"{label}: the relaxation did not converge")
+    caps = sorted({1, max(iters - 1, 1)})
+    for cap in caps:
+        got = relax_against_plain(kernel, srcs, bound, cap,
+                                  f"{label}, max_iters={cap}")
+        check(got[2:4] == (cap, False), f"{label}, max_iters={cap}: "
+                                        f"gave {got[2:4]}")
+    log(f"[verify-routes] {kernel.relax_kernel}, {label} (N={kernel.n_nodes},"
+        f" E={kernel.n_edges}), S={len(srcs)} at {float(bound):.1f} m: "
+        f"{iters} sweeps, converged; and capped at {caps} sweeps, not "
+        f"converged: dist and time bit-equal to the plain version, iters "
+        f"and converged equal")
+    return dist, time_sn, iters, err
+
+
+def phase_verify_routes(dev, served, big, huge):
+    """The route kernels against their plain versions on the card, same
+    inputs. ``relax`` at three shapes: the 20x20 city with the first main
+    chunk's sources (S = 512 after padding) at its chunk bound, the 40x40
+    city with 1,024 seeded sources at 1,500 m, and the 100x100 city with
+    the first chunk of ``big``'s requests (S = 2,048) at its chunk bound;
+    each run to convergence and with caps of one sweep and of one sweep
+    short: dist and time bit-equal, iters and converged equal.
+    ``relax_sweep`` on ``huge``'s 125x125 grid (15,625 nodes, past
+    ``relax``'s shared-memory limit) with 64 seeded sources at 1,500 m,
+    the same way. ``pair_costs`` at the first main chunk's (128, 64, 8), its first
+    16 traces given same-edge backward pairs, on the cached (N, N) and
+    the uncached (S, N) kernels, with the turn penalty off and on (time
+    caps are armed by the default params): route bit-equal and
     max_finite equal. Returns each kernel's largest absolute difference
     from its plain version."""
     import torch
     from reporter_tpu_torch.graph.route_device import (DeviceRouteKernel,
-                                                       _next_pow2,
                                                        pack_blobs)
     from reporter_tpu_torch.matcher import SegmentMatcher
     from reporter_tpu_torch.ops import route_relax
@@ -701,36 +762,36 @@ def phase_verify_routes(dev, served):
     city, params = served["city"], served["params"]
     cpu = SegmentMatcher(city, params, device="cpu")
     kernel = DeviceRouteKernel(city, dev)
+    check(kernel.relax_kernel == "relax",
+          f"the 20x20 city takes {kernel.relax_kernel}")
     prep, B = first_chunk(cpu.runtime, params, served["reqs"], 128,
                           backward=True)
-    plan = kernel.plan(prep, params, B)
-    S = _next_pow2(len(plan.srcs))
-    srcs = np.concatenate([plan.srcs, np.full(S - len(plan.srcs),
-                                              plan.srcs[0], np.int32)])
-    check(S == 512, f"the first main chunk relaxes {S} sources, not 512")
-    dist, time_sn, iters, ok, relax_err = relax_against_plain(
-        kernel, srcs, plan.chunk_bound, kernel.n_nodes, "20x20 first chunk")
-    check(ok, "the first chunk's relaxation did not converge")
-    log(f"[verify-routes] relax_sweep, 20x20 city (N={kernel.n_nodes}, "
-        f"E={kernel.n_edges}), S={S} ({len(plan.srcs)} sources) at "
-        f"{float(plan.chunk_bound):.1f} m: {iters} sweeps, converged; dist "
-        f"and time bit-equal to the plain version")
-    it1 = relax_against_plain(kernel, srcs, plan.chunk_bound, 1,
-                              "max_iters=1")[2:4]
-    check(it1 == (1, False), f"max_iters=1 gave {it1}")
-    log("[verify-routes] relax_sweep, same sources, max_iters=1: 1 sweep, "
-        "not converged, bit-equal")
-    big = DeviceRouteKernel(build_grid_city(**BIG_CITY), dev)
-    big_srcs = np.random.default_rng(5).choice(big.n_nodes, 256,
-                                               replace=False)
-    *_, big_iters, big_ok, big_err = relax_against_plain(
-        big, big_srcs, np.float32(1500.0), big.n_nodes, "100x100 city")
-    relax_err = max(relax_err, big_err)
-    check(big_ok, "the 100x100 relaxation did not converge")
-    log(f"[verify-routes] relax_sweep, 100x100 city (N={big.n_nodes}, "
-        f"E={big.n_edges}), S=256 at 1500 m: {big_iters} sweeps, "
-        f"converged, bit-equal")
-    del big
+    plan, srcs = chunk_sources(kernel, prep, params, B)
+    check(len(srcs) == 512, f"the first main chunk relaxes {len(srcs)} "
+                            f"sources, not 512")
+    dist, time_sn, _iters, relax_err = verify_relax(
+        kernel, srcs, plan.chunk_bound, "20x20 city, first main chunk")
+    mid = DeviceRouteKernel(build_grid_city(**MID_CITY), dev)
+    relax_err = max(relax_err, verify_relax(
+        mid, np.random.default_rng(6).choice(mid.n_nodes, 1024,
+                                             replace=False),
+        np.float32(1500.0), "40x40 city")[3])
+    del mid
+    bk = DeviceRouteKernel(big["city"], dev)
+    big_plan, big_srcs = first_chunk_sources(bk, big)
+    check(len(big_srcs) == 2048, f"the 100x100 city's first chunk relaxes "
+                                 f"{len(big_srcs)} sources, not 2,048")
+    relax_err = max(relax_err, verify_relax(
+        bk, big_srcs, big_plan.chunk_bound,
+        "100x100 city, first chunk")[3])
+    del bk
+    hk = DeviceRouteKernel(huge["city"], dev)
+    check(hk.relax_kernel == "relax_sweep",
+          f"the 125x125 city takes {hk.relax_kernel}")
+    sweep_err = verify_relax(
+        hk, np.random.default_rng(7).choice(hk.n_nodes, 64, replace=False),
+        np.float32(1500.0), "125x125 city")[3]
+    del hk
 
     # node kernels on both layouts: rows of the relaxed sources (S, N), and
     # the cache's (N, N) with row i = node i
@@ -777,7 +838,8 @@ def phase_verify_routes(dev, served):
             log(f"[verify-routes] {what}: route bit-equal, max_finite "
                 f"{float(k_max):.3f} equal; {int(finite.sum())} finite of "
                 f"{k_route.numel()}, {n_back} free backward pairs")
-    return {"relax_err": relax_err, "pair_err": pair_max_err}
+    return {"relax_err": relax_err, "sweep_err": sweep_err,
+            "pair_err": pair_max_err}
 
 
 def counted_run(matcher, reqs):
@@ -787,28 +849,40 @@ def counted_run(matcher, reqs):
     seconds)."""
     from reporter_tpu_torch import ops
     from reporter_tpu_torch.utils import metrics
-    wrappers = {"viterbi_decode": ops.viterbi_cuda,
-                "relax_sweep": ops.relax_cuda,
-                "pair_costs": ops.pair_costs_cuda}
     for k in matcher.stage_seconds:
         matcher.stage_seconds[k] = 0.0
     metrics.default.reset()
-    for fn in wrappers.values():
+    for fn in kernel_wrappers().values():
         fn.launches = 0
+    ops.relax_cuda.reads = 0
     t0 = time.perf_counter()
     out = bodies(matcher.match_many(reqs), reqs)
     wall = time.perf_counter() - t0
-    return (out, wall, {k: fn.launches for k, fn in wrappers.items()},
-            metrics.snapshot()["counters"],
+    launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
+    launches["relax_reads"] = ops.relax_cuda.reads
+    return (out, wall, launches, metrics.snapshot()["counters"],
             {k: round(v, 4) for k, v in matcher.stage_seconds.items()})
 
 
-def check_route_launches(what, reqs, chunk, launches, counters):
+def kernel_wrappers():
+    """Each kernel's counted wrapper, by the name the ``kernels`` line
+    gives it (``relax_sweep``'s counts sweeps)."""
+    from reporter_tpu_torch import ops
+    return {"viterbi_decode": ops.viterbi_cuda, "relax": ops.relax_cuda,
+            "relax_sweep": ops.relax_sweep_cuda,
+            "pair_costs": ops.pair_costs_cuda}
+
+
+def check_route_launches(what, reqs, chunk, launches, counters, kernel):
     """The chunking's launch counts: the decode and ``pair_costs`` once per
-    chunk (every chunk here has live transitions), relax sweeps equal to
-    the sum of the relaxations' iters."""
+    chunk (every chunk here has live transitions); with ``relax`` one
+    launch and one host read (iters and converged) per relaxation, with
+    ``relax_sweep`` one launch per sweep (the sum of the relaxations'
+    iters), and never the other."""
     chunks = expected_launches(reqs, chunk)
     routed = counters.get("route.device.chunks", 0)
+    relaxes = counters.get("route.device.relaxes", 0)
+    sweeps = counters.get("route.device.sweeps", 0)
     check(launches["viterbi_decode"] == chunks,
           f"{what}: {launches['viterbi_decode']} decode launches, want "
           f"{chunks}")
@@ -816,9 +890,12 @@ def check_route_launches(what, reqs, chunk, launches, counters):
           and launches["pair_costs"] == routed == chunks,
           f"{what}: {launches['pair_costs']} pair_costs launches for "
           f"{routed} routed chunks, want {chunks}")
-    check(launches["relax_sweep"] == counters.get("route.device.sweeps", 0),
-          f"{what}: {launches['relax_sweep']} relax sweeps, the relaxations "
-          f"counted {counters.get('route.device.sweeps', 0)}")
+    want = ({"relax": relaxes, "relax_reads": relaxes, "relax_sweep": 0}
+            if kernel == "relax" else
+            {"relax": 0, "relax_reads": 0, "relax_sweep": sweeps})
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{what}: relaxation launches {got}, want {want} "
+                       f"({relaxes} relaxations of {sweeps} sweeps in all)")
 
 
 def route_counters(counters) -> dict:
@@ -855,14 +932,17 @@ def phase_routes(dev, served):
     from reporter_tpu_torch.matcher import SegmentMatcher
     city, params = served["city"], served["params"]
     reqs, want = served["reqs"], served["want"]
+    from reporter_tpu_torch.utils import metrics
     t0 = time.perf_counter()
     cpu_dev = SegmentMatcher(city, params, device="cpu", route_device=True)
+    metrics.default.reset()
     check(bodies(cpu_dev.match_many(reqs), reqs) == want,
           "the port's CPU run with route_device=True differs from host "
           "routes")
+    cpu_route = route_counters(metrics.snapshot()["counters"])
     log(f"[routes] the CPU run with route_device=True (plain versions): "
         f"all {len(reqs)} bodies byte-equal to host routes, "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; route.device {cpu_route}")
     matchers = {name: SegmentMatcher(city, params, route_device=device,
                                      pipeline=pipeline)
                 for name, (device, pipeline) in ROUTE_SETTINGS.items()}
@@ -871,7 +951,7 @@ def phase_routes(dev, served):
     for r in range(ROUTE_WARM_ROUNDS):
         order += [(name, f"warm {r + 1}")
                   for name in (names if r % 2 == 0 else names[::-1])]
-    runs, launches = {}, {"relax_sweep": 0, "pair_costs": 0}
+    runs, launches = {}, {"relax": 0, "pair_costs": 0}
     warm = {name: {"prep": [], "wall": []} for name in names}
     for name, run in order:
         m = matchers[name]
@@ -880,7 +960,15 @@ def phase_routes(dev, served):
         check(got == want, f"{what}: /report bodies differ from the native "
                            f"CPU run with host routes")
         if name.startswith("device"):
-            check_route_launches(what, reqs, m.chunk, n, ctr)
+            check_route_launches(what, reqs, m.chunk, n, ctr,
+                                 m.route_kernel.relax_kernel)
+        if name == "device, lanes on" and run == "cold":
+            # the same chunking as the CPU run: the same relaxations, so
+            # the same sources, cache rows and sweeps, the plain
+            # version's count
+            check(route_counters(ctr) == cpu_route,
+                  f"{what}: route.device {route_counters(ctr)}, the CPU "
+                  f"run's {cpu_route}")
         if name == "device, lanes on" and run in ("cold", "warm 1"):
             for k in launches:
                 launches[k] += n[k]
@@ -937,12 +1025,18 @@ def phase_routes(dev, served):
     return launches, runs
 
 
-def phase_route_city():
-    """512 traces of the T=64 bucket with ``route_device=True`` on a 40x40
-    grid city (1,600 nodes, 6,240 edges: the largest square grid whose
-    chunks all fit the relaxation's state budget, and its node kernels the
-    cache's), cold and warm: bodies byte-equal to the native CPU run with
-    host routes, launches held to the chunking."""
+def phase_route_city(big, huge):
+    """Device routes on larger cities, each against host routes. 512
+    traces of the T=64 bucket with ``route_device=True`` on a 40x40 grid
+    city (1,600 nodes, 6,240 edges, its node kernels cached), cold and
+    warm; ``big``'s 512 on the 100x100 city (10,000 nodes, past the
+    node-kernel cache: every chunk relaxes, S = 2,048), device routes and
+    host routes each once cold on a new matcher, then
+    ``ROUTE_WARM_ROUNDS`` warm rounds in turns; and ``huge``'s 64 traces
+    on the 125x125 city (15,625 nodes), whose relaxations
+    ``relax_sweep`` runs, cold. Every body byte-equal to the native CPU run with host routes,
+    launches held to the chunking. Returns the 125x125 run's
+    ``relax_sweep`` launches and the 100x100 runs' numbers."""
     from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
     from reporter_tpu_torch.synth import build_grid_city
     t0 = time.perf_counter()
@@ -957,19 +1051,77 @@ def phase_route_city():
     log(f"[route-city] {city.num_nodes} nodes / {city.num_edges} edges, "
         f"{len(reqs)} T={T_MAIN} requests and their CPU bodies in "
         f"{time.perf_counter() - t0:.2f} s")
-    out = {}
     for run in ("cold", "warm"):
         got, wall, n, ctr, stages = counted_run(gpu, reqs)
         check(got == want, f"40x40 city, {run}: /report bodies differ from "
                            f"the native CPU run with host routes")
-        check_route_launches(f"40x40 city, {run}", reqs, gpu.chunk, n, ctr)
-        out[run] = {"wall_s": wall, "stages": stages, "launches": n,
-                    "route": route_counters(ctr)}
-        log(f"[route-city] {run}: {N_TRACES / wall:.1f} traces/s "
-            f"({wall:.4f} s wall), stage seconds {stages} (overlapped); "
-            f"launches {n}; route.device {route_counters(ctr)}; bodies "
-            f"byte-equal to host routes")
-    return out
+        check_route_launches(f"40x40 city, {run}", reqs, gpu.chunk, n, ctr,
+                             "relax")
+        log(f"[route-city] 40x40 city, {run}: {N_TRACES / wall:.1f} "
+            f"traces/s ({wall:.4f} s wall), stage seconds {stages} "
+            f"(overlapped); launches {n}; route.device "
+            f"{route_counters(ctr)}; bodies byte-equal to host routes")
+
+    # the 100x100 city: device routes against host routes, in turns
+    city, params, reqs, want = (big[k] for k in ("city", "params", "reqs",
+                                                 "want"))
+    sides = {"device": SegmentMatcher(city, params, route_device=True),
+             "host": SegmentMatcher(city, params)}
+    check(not sides["device"].route_kernel._cache_ok
+          and sides["device"].route_kernel.relax_kernel == "relax",
+          "the 100x100 city is cached, or does not take relax")
+    order = [("device", "cold"), ("host", "cold")]
+    for r in range(ROUTE_WARM_ROUNDS):
+        pair = ["device", "host"] if r % 2 == 0 else ["host", "device"]
+        order += [(name, f"warm {r + 1}") for name in pair]
+    runs = {name: {"cold": None, "wall": [], "prep": []} for name in sides}
+    for name, run in order:
+        m = sides[name]
+        got, wall, n, ctr, stages = counted_run(m, reqs)
+        what = f"100x100 city, {name} routes, {run}"
+        check(got == want, f"{what}: /report bodies differ from the native "
+                           f"CPU run with host routes")
+        if name == "device":
+            check_route_launches(what, reqs, m.chunk, n, ctr, "relax")
+        if run == "cold":
+            runs[name]["cold"] = {"wall_s": wall, "stages": stages}
+        else:
+            runs[name]["wall"].append(wall)
+            runs[name]["prep"].append(stages["prep"])
+        log(f"[route-city] {what}: {len(reqs)} traces in {wall:.4f} s "
+            f"({len(reqs) / wall:.1f} traces/s), stage seconds {stages} "
+            f"(overlapped); launches {n}; route.device "
+            f"{route_counters(ctr)}")
+    for name in sides:
+        w, p = runs[name]["wall"], runs[name]["prep"]
+        log(f"[route-city] 100x100 city, {name} routes, {len(w)} warm "
+            f"rounds: wall median {float(np.median(w)):.6f} s (range "
+            f"{min(w):.6f}-{max(w):.6f}), prep median "
+            f"{float(np.median(p)):.6f} s (range {min(p):.6f}-{max(p):.6f})")
+    wins = sum(d < h for d, h in zip(runs["device"]["wall"],
+                                     runs["host"]["wall"]))
+    log(f"[route-city] 100x100 city: device routes shorter in wall in {wins} "
+        f"of {ROUTE_WARM_ROUNDS} warm pairs; cold {runs['device']['cold']} "
+        f"against host {runs['host']['cold']}; [city]'s host-route wall "
+        f"{big['host_wall_s']:.4f} s")
+
+    # relax_sweep on the main path: a graph past relax's limit
+    city, params, reqs = huge["city"], huge["params"], huge["reqs"]
+    want = bodies(SegmentMatcher(city, params, device="cpu").match_many(reqs),
+                  reqs)
+    gpu = SegmentMatcher(city, params, route_device=True)
+    check(gpu.route_kernel.relax_kernel == "relax_sweep",
+          f"the 125x125 city takes {gpu.route_kernel.relax_kernel}")
+    got, wall, n, ctr, stages = counted_run(gpu, reqs)
+    check(got == want, "125x125 city: /report bodies differ from the native "
+                       "CPU run with host routes")
+    check_route_launches("125x125 city", reqs, gpu.chunk, n, ctr,
+                         "relax_sweep")
+    log(f"[route-city] 125x125 city ({city.num_nodes} nodes / "
+        f"{city.num_edges} edges), {len(reqs)} traces, cold: {wall:.4f} s "
+        f"wall, stage seconds {stages}; launches {n}; route.device "
+        f"{route_counters(ctr)}; bodies byte-equal to host routes")
+    return n["relax_sweep"], runs
 
 
 def http(url, data=None):
@@ -1302,43 +1454,44 @@ def phase_prefork(served):
         f"CPU run; SIGTERM reaped both, parent rc 0")
 
 
-def phase_city():
-    """512 traces of the T=64 bucket on the 100x100 city through the
-    native matcher on the card, lanes on: bodies byte-equal to the port's
-    native CPU run, and the kernel's launches counted in this phase."""
-    from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
+def grid_inputs(shape, n, seed):
+    """A grid city of ``shape`` (a dict of build_grid_city's arguments),
+    its params and ``n`` requests of the T=64 bucket drawn from numpy
+    ``seed``."""
+    from reporter_tpu_torch.matcher import MatchParams
     from reporter_tpu_torch.synth import build_grid_city
-
     t0 = time.perf_counter()
-    city = build_grid_city(**BIG_CITY)
-    params = MatchParams(max_candidates=K)
+    city = build_grid_city(**shape)
+    reqs = draw_requests(city, np.random.default_rng(seed), n, [T_MAIN],
+                         max(4, T_MAIN // 12))
+    log(f"[inputs] {shape['rows']}x{shape['cols']} city: {city.num_nodes} "
+        f"nodes / {city.num_edges} edges, {len(reqs)} T={T_MAIN} requests "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return {"city": city, "params": MatchParams(max_candidates=K),
+            "reqs": reqs}
+
+
+def phase_city(big):
+    """``big``'s 512 traces on the 100x100 city through the native matcher
+    on the card, lanes on: bodies byte-equal to the port's native CPU run
+    (kept in ``big["want"]``, with the wall in ``big["host_wall_s"]``),
+    and the kernel's launches counted in this phase."""
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    city, params, reqs = big["city"], big["params"], big["reqs"]
     gpu = SegmentMatcher(city, params)
     cpu = SegmentMatcher(city, params, device="cpu")
-    reqs = draw_requests(city, np.random.default_rng(11), N_TRACES, [T_MAIN],
-                         max(4, T_MAIN // 12))
-    log(f"[city] {city.num_nodes} nodes / {city.num_edges} edges, "
-        f"{len(reqs)} T={T_MAIN} requests in "
-        f"{time.perf_counter() - t0:.2f} s")
     got, wall, launches, stages = timed_run(gpu, reqs)
     want = expected_launches(reqs, gpu.chunk)
     check(launches == want, f"{launches} kernel launches, want {want}")
-    check(got == bodies(cpu.match_many(reqs), reqs),
+    big["want"] = bodies(cpu.match_many(reqs), reqs)
+    big["host_wall_s"] = wall
+    check(got == big["want"],
           "/report bodies differ from the port's native CPU run")
     log(f"[city] {N_TRACES} traces, lanes on: {N_TRACES / wall:.1f} "
         f"traces/s ({wall:.4f} s wall, warm route memo), stage seconds "
         f"{stages} (overlapped), kernel launches {launches}; bodies "
         f"byte-equal to the native CPU run; route-pair memo "
         f"{gpu.runtime.route_memo_stats()}")
-    from reporter_tpu_torch.graph.route_device import DeviceRouteKernel
-    prep, B = first_chunk(cpu.runtime, params, reqs, gpu.chunk)
-    try:
-        DeviceRouteKernel(city, gpu.device).plan(prep, params, B)
-    except RuntimeError as e:
-        log(f"[city] this city stays on host routes: with route_device=True "
-            f"its first chunk raises ({e}; the state budget is "
-            f"sources x max(nodes, edges) x 2 <= 64M elements)")
-    else:
-        fail("the 100x100 city's first chunk fits the route state budget")
     return launches
 
 
@@ -1491,70 +1644,169 @@ def phase_timing(dev, main, scalars, sm_mhz):
     return out
 
 
-def phase_timing_routes(dev, served):
-    """The route kernels at the main path's first chunk (the 20x20 city,
-    128 T=64 traces: S = 512 relaxation sources, the (128, 64, 8) route
-    tensor from the cached (N, N) node kernels, default params), timed by
-    CUDA graphs: one sweep from the sources' start state, and the chunk's
-    whole relaxation (its state reset, then its sweeps back to back) per
-    sweep; one ``pair_costs`` launch; the plain versions' one sweep and one
-    assembly; each beside its bound. Returns {kernel: (ms, plain ms,
-    bound ms, bound by)}."""
+def first_chunk_sources(kernel, city_inputs, backward=False):
+    """(plan, padded sources, prep) of the first 128-trace chunk of
+    ``city_inputs``' requests (a dict of city, params and reqs, as
+    ``big_city`` gives)."""
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    params = city_inputs["params"]
+    runtime = SegmentMatcher(city_inputs["city"], params,
+                             device="cpu").runtime
+    prep, B = first_chunk(runtime, params, city_inputs["reqs"], 128,
+                          backward=backward)
+    plan, srcs = chunk_sources(kernel, prep, params, B)
+    return plan, srcs
+
+
+def bound_of(n_bytes, n_ops):
+    """(ms, "bytes" or "operations"): the larger of the two floors."""
+    t_b, t_o = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+
+def relax_bound(kernel, S, dist):
+    """``relax``'s least time for one relaxation: the (S, N) dist and time
+    planes written, the sources and the CSR arcs read once; two adds, a
+    compare and a min for every arc out of every node a row reached (this
+    run's data: each such arc is relaxed at least once)."""
+    import torch
+    N, E = kernel.n_nodes, kernel.n_edges
+    outdeg = torch.diff(kernel._arcs.offsets).to(torch.float32)
+    arcs = float((torch.isfinite(dist).to(torch.float32) @ outdeg).sum())
+    n_bytes = 8 * S * N + 4 * S + 4 * (N + 1) + 12 * E
+    return (*bound_of(n_bytes, 4 * arcs), n_bytes)
+
+
+def sweep_bound(S, N, E):
+    """``relax_sweep``'s least time for one sweep: S*N packed words read
+    and written, the E edge columns read; per (row, edge) two adds, a
+    compare and a min."""
+    n_bytes = 16 * S * N + 16 * E
+    return (*bound_of(n_bytes, 4 * S * E), n_bytes)
+
+
+def time_relaxations(dev, kernel, srcs, bound, label, other=None):
+    """One relaxation of ``srcs`` at ``bound`` timed by CUDA graphs:
+    ``relax`` in one launch where the graph takes it, ``relax_sweep``'s
+    sweeps back to back after a state reset, and with ``other`` (another
+    checkout's ``ops.route_relax``) its sweeps the same way; each result
+    bit-equal to the plain version's; then the plain version's time.
+    Returns {"relax"|"relax_sweep"|"other"|"plain": ms, "iters":
+    sweeps}."""
+    import torch
+    from reporter_tpu_torch.ops import route_relax
+    N = kernel.n_nodes
+    src = torch.from_numpy(np.asarray(srcs, np.int32)).to(dev)
+    cols = (kernel._e_start, kernel._e_end, kernel._e_len, kernel._e_secs)
+
+    def sweeps(mod, name):
+        """``mod``'s sweeps, timed, then their final state held bit-equal
+        to the plain version's."""
+        start = mod.pack_sources(src, N)
+        bufs = (start.clone(), torch.empty_like(start))
+        flag = torch.zeros(1, dtype=torch.int32, device=dev)
+
+        def run():
+            bufs[0].copy_(start)
+            for k in range(iters):
+                mod.launch_sweep(bufs[k % 2], bufs[1 - k % 2], *cols, bound,
+                                 flag)
+        out[name] = graph_ms(run, max(1, n // 4))
+        for got, want in zip(route_relax.unpack_state(bufs[iters % 2]),
+                             plain[:2]):
+            check(bit_equal(got, want) == 0,
+                  f"{label}: {name}'s relaxation differs from the plain "
+                  f"version")
+
+    plain = route_relax.relax_csr(*cols, src, bound, n_nodes=N, max_iters=N)
+    check(plain[3], f"{label}: the timed relaxation did not converge")
+    out = {"iters": plain[2]}
+    iters = plain[2]
+    n = max(2, min(50, int(2e7 // (len(srcs) * N))))
+    if kernel.relax_kernel == "relax":
+        planes = torch.empty((2, len(srcs), N), device=dev)
+        info = torch.zeros(3, dtype=torch.int32, device=dev)
+        out["relax"] = graph_ms(lambda: route_relax.launch_relax(
+            kernel._arcs, src, bound, N, planes[0], planes[1], info), n)
+        for got, want in zip(planes, plain[:2]):
+            check(bit_equal(got, want) == 0,
+                  f"{label}: relax differs from the plain version")
+    sweeps(route_relax, "relax_sweep")
+    if other is not None:
+        sweeps(other, "other")
+    del plain
+    out["plain"] = time_ms(lambda: route_relax.relax_csr(
+        *cols, src, bound, n_nodes=N, max_iters=N), 2)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_timing_routes(dev, served, big, huge):
+    """The route kernels at the main path's shapes, timed by CUDA graphs,
+    each beside its bound and its plain version. ``relax``: one
+    relaxation of the main path's first chunk (the 20x20 city, 128 T=64
+    traces: S = 512 sources) and of the 100x100 city's first chunk (S =
+    2,048), with ``relax_sweep``'s sweeps on the same inputs beside it
+    (the kernel it replaced on these graphs). ``relax_sweep``: a sweep of
+    the 125x125 city's first chunk, the graph past ``relax``'s limit.
+    ``pair_costs``: one launch at the main chunk's (128, 64, 8) from the
+    cached (N, N) node kernels, default params. Returns {kernel: (ms,
+    plain ms, bound ms, bound by)} and the 100x100 numbers."""
     import torch
     from reporter_tpu_torch.graph.route_device import (DeviceRouteKernel,
-                                                       _next_pow2,
                                                        pack_blobs)
-    from reporter_tpu_torch.matcher import SegmentMatcher
     from reporter_tpu_torch.ops import route_relax
     city, params = served["city"], served["params"]
-    kernel = DeviceRouteKernel(city, dev)
-    prep, B = first_chunk(SegmentMatcher(city, params, device="cpu").runtime,
-                          params, served["reqs"], 128)
-    plan = kernel.plan(prep, params, B)
-    N, E = kernel.n_nodes, kernel.n_edges
-    S = _next_pow2(len(plan.srcs))
-    pad = np.concatenate([plan.srcs, np.full(S - len(plan.srcs),
-                                             plan.srcs[0], np.int32)])
-    src = torch.from_numpy(pad).to(dev)
-    cols = (kernel._e_start, kernel._e_end, kernel._e_len, kernel._e_secs)
-    bound = float(plan.chunk_bound)
-    dist, time_sn, iters, ok = route_relax.relax_cuda(
-        *cols, src, bound, n_nodes=N, max_iters=N)
-    check(ok, "the timed relaxation did not converge")
-    start = route_relax.pack_sources(src, N)
-    bufs = (start.clone(), torch.empty_like(start))
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = {}
+    for name, inputs in (("20x20", {"city": city, "params": params,
+                                    "reqs": served["reqs"]}),
+                         ("100x100", big)):
+        kernel = DeviceRouteKernel(inputs["city"], dev)
+        plan, srcs = first_chunk_sources(kernel, inputs)
+        bound = float(plan.chunk_bound)
+        ms = time_relaxations(dev, kernel, srcs, bound, name)
+        dist = route_relax.relax_cuda(
+            kernel._arcs, torch.from_numpy(srcs).to(dev), bound,
+            n_nodes=kernel.n_nodes, max_iters=kernel.n_nodes)[0]
+        r_bound, r_by, r_bytes = relax_bound(kernel, len(srcs), dist)
+        log(f"[timing] relax, {name} city's first chunk (S={len(srcs)}, "
+            f"N={kernel.n_nodes}, E={kernel.n_edges}) at {bound:.1f} m, "
+            f"{ms['iters']} sweeps: {ms['relax']:.4f} ms in one launch; "
+            f"relax_sweep's sweeps on the same inputs {ms['relax_sweep']:.4f}"
+            f" ms ({ms['relax_sweep'] / ms['iters']:.4f} ms a sweep; "
+            f"{ms['relax_sweep'] / ms['relax']:.2f}x relax); plain "
+            f"{ms['plain']:.3f} ms; bound {r_bound:.5f} ms by {r_by} "
+            f"({r_bytes} bytes)")
+        out[f"relax {name}"] = (ms, r_bound, r_by)
+        if name == "20x20":
+            main_kernel, main_plan, main_srcs = kernel, plan, srcs
+        del dist
+        torch.cuda.empty_cache()
 
-    def first_sweep():
-        route_relax.launch_sweep(start, bufs[1], *cols, bound, flag)
-
-    def relaxation():
-        bufs[0].copy_(start)
-        for k in range(iters):
-            route_relax.launch_sweep(bufs[k % 2], bufs[1 - k % 2], *cols,
-                                     bound, flag)
-
-    first_ms = graph_ms(first_sweep, 50)
-    whole_ms = graph_ms(relaxation, 5)
-    sweep_ms = whole_ms / iters
-    d0, t0, _i, _ok = route_relax.relax_csr(*cols, src, bound, n_nodes=N,
-                                            max_iters=0)
-    e_start, e_end = cols[0].long(), cols[1].long()
-    bound_t = torch.tensor(bound, dtype=torch.float32, device=dev)
-    plain_sweep = time_ms(lambda: route_relax.relax_step(
-        d0, t0, e_start, e_end, cols[2], cols[3], bound_t), 5)
-    sweep_bytes = 16 * S * N + 16 * E
-    sweep_ops = 4 * S * E     # per (row, edge): two adds, a compare, a min
-    t_b, t_o = sweep_bytes / HBM_BYTES_PER_S, sweep_ops / F32_OPS_PER_S
-    sweep_bound = (max(t_b, t_o) * 1e3,
-                   "bytes" if t_b >= t_o else "operations")
-    log(f"[timing] relax_sweep S={S}, N={N}, E={E} at {bound:.1f} m: first "
-        f"sweep {first_ms:.4f} ms; the chunk's {iters} sweeps (state reset "
-        f"included) {whole_ms:.4f} ms = {sweep_ms:.4f} ms a sweep; plain "
-        f"sweep {plain_sweep:.3f} ms; bound {sweep_bound[0]:.5f} ms by "
-        f"{sweep_bound[1]} ({sweep_bytes} bytes, {sweep_ops} f32 ops)")
+    kernel = DeviceRouteKernel(huge["city"], dev)
+    plan, srcs = first_chunk_sources(kernel, huge)
+    ms = time_relaxations(dev, kernel, srcs, float(plan.chunk_bound),
+                          "125x125")
+    s_bound = sweep_bound(len(srcs), kernel.n_nodes, kernel.n_edges)
+    sweep_ms = ms["relax_sweep"] / ms["iters"]
+    plain_sweep = ms["plain"] / ms["iters"]
+    log(f"[timing] relax_sweep, 125x125 city's first chunk (S={len(srcs)}, "
+        f"N={kernel.n_nodes}, E={kernel.n_edges}) at "
+        f"{float(plan.chunk_bound):.1f} m: {ms['iters']} sweeps (state "
+        f"reset included) {ms['relax_sweep']:.4f} ms = {sweep_ms:.4f} ms a "
+        f"sweep; plain {ms['plain']:.3f} ms ({plain_sweep:.3f} a sweep); "
+        f"bound {s_bound[0]:.5f} ms a sweep by {s_bound[1]} ({s_bound[2]} "
+        f"bytes)")
+    out["relax_sweep"] = (sweep_ms, plain_sweep, s_bound[0], s_bound[1])
+    del kernel
+    torch.cuda.empty_cache()
 
     # the main path's assembly: the cached (N, N) node kernels
+    kernel, plan, srcs = main_kernel, main_plan, main_srcs
+    N = kernel.n_nodes
+    dist, time_sn, _i, _ok = route_relax.relax_cuda(
+        kernel._arcs, torch.from_numpy(srcs).to(dev), float(plan.chunk_bound),
+        n_nodes=N, max_iters=N)
     full = [torch.full((N, N), float("inf"), device=dev) for _ in range(2)]
     idx = torch.from_numpy(plan.srcs.astype(np.int64)).to(dev)
     for f, part in zip(full, (dist, time_sn)):
@@ -1574,17 +1826,17 @@ def phase_timing_routes(dev, served):
         ints, f32s, *full, *edges, B=Bc, T=T, K=Kc, N=N), 5)
     pair_bytes = route.numel() * 4 + ints.numel() * 4 + f32s.numel() * 4
     pair_ops = route.numel() * 25  # the emit ladder, about 25 f32 ops
-    t_b, t_o = pair_bytes / HBM_BYTES_PER_S, pair_ops / F32_OPS_PER_S
-    pair_bound = (max(t_b, t_o) * 1e3,
-                  "bytes" if t_b >= t_o else "operations")
+    pair_bound = bound_of(pair_bytes, pair_ops)
     log(f"[timing] pair_costs ({Bc},{T},{Kc}), cached (N, N) kernels: "
         f"{pair_ms:.4f} ms; plain {plain_pair:.3f} ms; bound "
         f"{pair_bound[0]:.5f} ms by {pair_bound[1]} ({pair_bytes} bytes: "
         f"the route tensor written, the blobs read; {pair_ops} f32 ops)")
     log("[timing] library: no single PyTorch call computes a bounded "
         "relaxation or the emit ladder")
-    return {"relax_sweep": (sweep_ms, plain_sweep, *sweep_bound),
-            "pair_costs": (pair_ms, plain_pair, *pair_bound)}
+    ms, r_bound, r_by = out.pop("relax 20x20")
+    out["relax"] = (ms["relax"], ms["plain"], r_bound, r_by)
+    out["pair_costs"] = (pair_ms, plain_pair, *pair_bound)
+    return out
 
 
 def load_other(path, module):
@@ -1647,6 +1899,112 @@ def phase_against(dev, path):
                 f"{by['this'][0]:.4f} / {by['this'][1]:.4f} ms; "
                 f"{path} takes {ratio:.2f}x as long")
         out[what] = ms
+    return out
+
+
+def host_ms(fn, n):
+    """Host-clock time of ``fn`` per call, ``n`` calls after one more,
+    ending in a synchronise: what a caller waits, host reads included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_against_route_kernels(dev, path):
+    """The route kernels of this checkout against the ones at ``path``, in
+    one process, on the same inputs: the relaxation of the main path's
+    first chunk (20x20 city, S = 512) and of the 100x100 city's first
+    chunk (S = 2,048), as ``relax`` (one launch) here and as ``path``'s
+    sweeps, timed by CUDA graphs (each result bit-equal to the plain
+    version) and as the matcher calls each, host reads included, on the
+    host's clock; then ``pair_costs`` at the main chunk's (128, 64, 8)
+    from the cached (N, N) kernels by CUDA graphs, outputs equal. Every
+    timing in the order other, this, this, other."""
+    import torch
+    from reporter_tpu_torch.graph.route_device import (DeviceRouteKernel,
+                                                       pack_blobs)
+    from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
+    from reporter_tpu_torch.ops import route_relax
+    from reporter_tpu_torch.synth import build_grid_city
+    other = load_other(path, "ops.route_relax")
+    other.build()
+    # the other checkout's sweep loop (its relax_cuda before this slice)
+    other_sweeps = getattr(other, "relax_sweep_cuda", other.relax_cuda)
+    city = build_grid_city(**CITY)
+    params = MatchParams(max_candidates=K)
+    main, _mixed = main_requests(
+        SegmentMatcher(city, params, device="cpu", native=False))
+    out = {}
+    for name, inputs in (("20x20", {"city": city, "params": params,
+                                    "reqs": main}),
+                         ("100x100", grid_inputs(BIG_CITY, 128, 11))):
+        kernel = DeviceRouteKernel(inputs["city"], dev)
+        plan, srcs = first_chunk_sources(kernel, inputs)
+        bound = float(plan.chunk_bound)
+        src = torch.from_numpy(srcs).to(dev)
+        N = kernel.n_nodes
+        cols = (kernel._e_start, kernel._e_end, kernel._e_len,
+                kernel._e_secs)
+        fns = {"this": lambda: route_relax.relax_cuda(
+                   kernel._arcs, src, bound, n_nodes=N, max_iters=N),
+               "other": lambda: other_sweeps(
+                   *cols, src, bound, n_nodes=N, max_iters=N)}
+        ms = {"graph": {"other": [], "this": []},
+              "host": {"other": [], "this": []}}
+        for side in ("other", "this", "this", "other"):
+            got = time_relaxations(dev, kernel, srcs, bound, name,
+                                   other if side == "other" else None)
+            ms["graph"][side].append(got["other" if side == "other"
+                                         else "relax"])
+            ms["host"][side].append(host_ms(fns[side], 20))
+        for method, by in ms.items():
+            log(f"[against] relaxation, {name} city's first chunk "
+                f"(S={len(srcs)}, N={N}, {got['iters']} sweeps), {method}: "
+                f"{path} {by['other'][0]:.4f} / {by['other'][1]:.4f} ms, "
+                f"this {by['this'][0]:.4f} / {by['this'][1]:.4f} ms; {path} "
+                f"takes {np.mean(by['other']) / np.mean(by['this']):.2f}x as "
+                f"long")
+        out[f"relax {name}"] = ms
+        if name == "20x20":
+            dist, time_sn = fns["this"]()[:2]
+            main_kernel, main_plan = kernel, plan
+
+    kernel, plan = main_kernel, main_plan
+    N = kernel.n_nodes
+    full = [torch.full((N, N), float("inf"), device=dev) for _ in range(2)]
+    idx = torch.from_numpy(plan.srcs.astype(np.int64)).to(dev)
+    for f, part in zip(full, (dist, time_sn)):
+        f.index_copy_(0, idx, part[:len(plan.srcs)])
+    node_row = np.full(N, -1, np.int32)
+    node_row[plan.srcs] = plan.srcs
+    ints, f32s = (torch.from_numpy(a).to(dev) for a in pack_blobs(
+        plan.edge, plan.offset, plan.nk, plan.bounds, plan.caps, node_row,
+        params.backward_tolerance_m, params.turn_penalty_factor))
+    Bc, T, Kc = plan.edge.shape
+    edges = kernel.edge_columns()
+    bufs = {side: (torch.empty((Bc, T - 1, Kc, Kc), device=dev),
+                   torch.zeros(1, dtype=torch.int32, device=dev))
+            for side in ("other", "this")}
+    mods = {"other": other, "this": route_relax}
+    ms = {"other": [], "this": []}
+    for side in ("other", "this", "this", "other"):
+        route, max_bits = bufs[side]
+        ms[side].append(graph_ms(lambda: mods[side].launch_pair_costs(
+            ints, f32s, *full, edges, Bc, T, Kc, N, route, max_bits), 100))
+    check(bit_equal(bufs["this"][0], bufs["other"][0]) == 0
+          and torch.equal(bufs["this"][1], bufs["other"][1]),
+          f"pair_costs differs from {path}'s")
+    log(f"[against] pair_costs ({Bc},{T},{Kc}), graph: {path} "
+        f"{ms['other'][0]:.4f} / {ms['other'][1]:.4f} ms, this "
+        f"{ms['this'][0]:.4f} / {ms['this'][1]:.4f} ms; {path} takes "
+        f"{np.mean(ms['other']) / np.mean(ms['this']):.2f}x as long; "
+        f"outputs equal")
+    out["pair_costs"] = ms
     return out
 
 
@@ -1744,20 +2102,24 @@ def main() -> int:
     spills = phase_build()
     if args.against:
         against = phase_against(dev, args.against)
+        kernels = phase_against_route_kernels(dev, args.against)
         routes = phase_against_routes(args.against)
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"against": args.against, "ms": against,
+                            "route_kernels_ms": kernels,
                             "routes_s": routes})
     phase_verify(dev)
     launches, main, max_err, scalars, served = phase_main(dev)
-    verified = phase_verify_routes(dev, served)
+    big = grid_inputs(BIG_CITY, N_TRACES, 11)
+    huge = grid_inputs(HUGE_CITY, 64, 17)
+    verified = phase_verify_routes(dev, served, big, huge)
     route_launches, _runs = phase_routes(dev, served)
     serving = phase_serve(dev, served)
     phase_prefork(served)
-    phase_city()
-    phase_route_city()
+    phase_city(big)
+    sweep_launches, _big_runs = phase_route_city(big, huge)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
-    route_times = phase_timing_routes(dev, served)
+    route_times = phase_timing_routes(dev, served, big, huge)
     check(not spills, f"ptxas reports spills: {spills}")
 
     ms, plain, bms, by = times["main"]
@@ -1784,20 +2146,23 @@ def main() -> int:
         "bound_ms_512_64_8": bms_512,
     }]
     source = "reporter_tpu_torch/ops/csrc/route_relax.cu"
-    for name, replaces, err in (
+    for name, replaces, err, n in (
+            # match_many with route_device=True, lanes on, cold and warm
+            # (phase_routes): one launch a relaxation
+            ("relax", "reporter_tpu/ops/route_relax.py:61",
+             verified["relax_err"], route_launches["relax"]),
+            # the 125x125 city with route_device=True (phase_route_city):
+            # one launch a sweep; "ms" is a sweep's
             ("relax_sweep", "reporter_tpu/ops/route_relax.py:61",
-             verified["relax_err"]),
+             verified["sweep_err"], sweep_launches),
             ("pair_costs", "reporter_tpu/ops/route_relax.py:120",
-             verified["pair_err"])):
+             verified["pair_err"], route_launches["pair_costs"])):
         r_ms, r_plain, r_bound, r_by = route_times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            # match_many with route_device=True, lanes on, cold and warm
-            # (phase_routes); relax_sweep counts sweeps
-            "launches": route_launches[name],
-            "max_abs_err": err, "ms": r_ms, "plain_ms": r_plain,
-            "bound_ms": r_bound, "bound_by": r_by, "library_ms": None})
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
+            "bound_by": r_by, "library_ms": None})
     return finish(smi, {"kernels": kernels})
 
 

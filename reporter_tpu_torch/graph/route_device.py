@@ -24,8 +24,12 @@ Per chunk the kernel
    sees the device-written values.
 
 A relaxation that does not converge within the sweep cap raises, and so
-does a chunk whose padded (sources x max(nodes, edges)) state would
-exceed ``_STATE_BUDGET_ELEMS``: nothing falls back to the host search.
+does a chunk whose relaxation would allocate more than its device's
+budget (:func:`over_budget`): nothing falls back to the host search. On
+the card the relaxation is ``relax`` (one launch, a block per source row
+with the row's state in shared memory) on a graph of at most
+``route_relax.relax_fits`` nodes, ``relax_sweep`` on a larger one, chosen
+by N when the kernel is built.
 
 On a graph whose ``2 * N * N`` float32 node kernels fit
 ``_CACHE_BUDGET_ELEMS`` the kernel keeps a node-kernel cache on the
@@ -54,10 +58,19 @@ from ..utils import metrics
 from .network import RoadNetwork
 from .route import UNREACHABLE
 
-#: ceiling on the padded relaxation state (sources x max(nodes, edges)
-#: float32 elements, two states): a chunk that would exceed it raises
-#: rather than run the card out of memory. 64M elements = 512 MB
+#: the CPU's ceiling, the reference's: the plain relaxation's two
+#: (sources x max(nodes, edges)) float32 gathers, in elements. A chunk over
+#: it raises (as the reference's budget check does before its breaker)
 _STATE_BUDGET_ELEMS = 64 * 1024 * 1024
+
+#: the card's ceiling on what one chunk's relaxation allocates, in bytes:
+#: 4 GiB, a twentieth of the H100's 80 GB, so that the relaxation never
+#: crowds the decode, the node-kernel cache and the caching allocator's
+#: other blocks of a serving process. The 100x100 city's chunks (2,048
+#: padded sources x 10,000 nodes, 164 MB of output planes) are well
+#: inside it; a chunk over it raises rather than run the card out of
+#: memory
+_CUDA_BUDGET_BYTES = 4 * 2**30
 
 #: ceiling on the dense (nodes x nodes) node-kernel cache (two float32
 #: states); graphs over it (N > ~2.8k nodes) serve uncached, per chunk
@@ -66,6 +79,29 @@ _CACHE_BUDGET_ELEMS = 16 * 1024 * 1024
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
+
+
+def relax_bytes(S: int, N: int, E: int, device_type: str,
+                kernel: str) -> int:
+    """Bytes one relaxation of ``S`` padded sources over ``N`` nodes and
+    ``E`` edges allocates. On the CPU the plain version's two (S, max(N,
+    E)) float32 gathers, the reference's count; on the card the (S, N)
+    dist and time planes ``relax`` writes, and for ``relax_sweep`` its
+    two packed (S, N) int64 states besides."""
+    if device_type == "cpu":
+        return 2 * 4 * S * max(N, E)
+    planes = 2 * 4 * S * N
+    return planes + (2 * 8 * S * N if kernel == "relax_sweep" else 0)
+
+
+def over_budget(S: int, N: int, E: int, device_type: str,
+                kernel: str) -> bool:
+    """Whether that relaxation exceeds its device's ceiling
+    (``_STATE_BUDGET_ELEMS`` float32 elements on the CPU,
+    ``_CUDA_BUDGET_BYTES`` on the card)."""
+    ceiling = (4 * _STATE_BUDGET_ELEMS if device_type == "cpu"
+               else _CUDA_BUDGET_BYTES)
+    return relax_bytes(S, N, E, device_type, kernel) > ceiling
 
 
 def pack_blobs(edge, offset, nk, bounds, caps, node_row, btol, tpen):
@@ -169,7 +205,8 @@ class DeviceRouteKernel:
 
     def __init__(self, net: RoadNetwork, device=None):
         self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda":
+        on_card = self.device.type == "cuda"
+        if on_card:
             route_relax.build()
         self.net = net
         self.n_nodes = int(net.num_nodes)
@@ -188,9 +225,18 @@ class DeviceRouteKernel:
         self._e_end = self._upload(net.edge_end).to(idx)
         self._e_len = self._upload(e_len)
         self._e_v = self._upload(v)
-        self._e_secs = self._upload(e_len / v)
+        secs = e_len / v
+        self._e_secs = self._upload(secs)
         self._head_x = self._upload(np.ascontiguousarray(heads[:, 0]))
         self._head_y = self._upload(np.ascontiguousarray(heads[:, 1]))
+        # the relaxation this graph takes: relax (over the CSR arcs,
+        # uploaded once) or relax_sweep on the card, by N alone; the plain
+        # version on the CPU
+        self.relax_kernel = (route_relax.relax_kernel_for(self.n_nodes)
+                             if on_card else "plain")
+        self._arcs = (route_relax.csr_arcs(*net.csr(), net.edge_end, e_len,
+                                           secs, self.device)
+                      if self.relax_kernel == "relax" else None)
         # host copy for gathering sources (no device round trip per chunk)
         self._end_np = np.asarray(net.edge_end, dtype=np.int32)
         # observed relaxation stats (stats())
@@ -254,7 +300,8 @@ class DeviceRouteKernel:
         flags[self._end_np[edge[:, :T - 1, :][ea_live]]] = True
         srcs = np.flatnonzero(flags).astype(np.int32)
         S = _next_pow2(len(srcs))
-        if S * max(self.n_nodes, self.n_edges) * 2 > _STATE_BUDGET_ELEMS:
+        if over_budget(S, self.n_nodes, self.n_edges, self.device.type,
+                       self.relax_kernel):
             metrics.count("route.device.budget_exceeded")
             raise RuntimeError(
                 f"route relax state over budget: {len(srcs)} sources x "
@@ -310,7 +357,7 @@ class DeviceRouteKernel:
         dist, time, iters, converged = ops.relax_routes(
             self._e_start, self._e_end, self._e_len, self._e_secs,
             self._upload(pad), np.float32(chunk_bound),
-            n_nodes=self.n_nodes, max_iters=cap)
+            n_nodes=self.n_nodes, max_iters=cap, arcs=self._arcs)
         metrics.count("route.device.relaxes")
         metrics.count("route.device.sweeps", iters)
         if not converged:

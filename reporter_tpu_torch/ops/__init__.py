@@ -3,9 +3,10 @@
   decode      ops/csrc/viterbi.cu, the batched Viterbi (ops/viterbi.py
               builds, binds and launches it); plain: the PyTorch scan in
               matcher/hmm.py
-  relax       ops/csrc/route_relax.cu `relax_sweep`, one launch per sweep
-              of the bounded relaxation (ops/route_relax.py); plain:
-              ``route_relax.relax_csr``
+  relax       ops/csrc/route_relax.cu `relax`, the whole bounded
+              relaxation in one launch, or past its shared-memory limit
+              `relax_sweep`, one launch per sweep (ops/route_relax.py);
+              plain: ``route_relax.relax_csr``
   pair costs  ops/csrc/route_relax.cu `pair_costs`, the route tensor from
               relaxed node kernels; plain: ``route_relax.pair_costs_packed``
 
@@ -14,12 +15,12 @@ the kernel, CPU tensors to the plain version. There is no fallback from
 one to the other.
 """
 from .route_relax import (pair_costs_cuda, pair_costs_packed, relax_csr,
-                          relax_cuda)
+                          relax_cuda, relax_fits, relax_sweep_cuda)
 from .viterbi import viterbi_cuda, viterbi_plain
 
 __all__ = ["decode_batch", "relax_routes", "route_pair_costs",
-           "viterbi_cuda", "viterbi_plain", "relax_cuda", "relax_csr",
-           "pair_costs_cuda", "pair_costs_packed"]
+           "viterbi_cuda", "viterbi_plain", "relax_cuda", "relax_sweep_cuda",
+           "relax_csr", "pair_costs_cuda", "pair_costs_packed"]
 
 
 def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta):
@@ -34,13 +35,24 @@ def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta):
 
 
 def relax_routes(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,
-                 *, n_nodes: int, max_iters: int):
+                 *, n_nodes: int, max_iters: int, arcs=None):
     """Multi-source bounded relaxation (``route_relax.relax_csr``'s
     contract) on the tensors' device: ``(dist, time, iters,
-    converged)``."""
-    fn = relax_csr if edge_len.device.type == "cpu" else relax_cuda
-    return fn(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,
-              n_nodes=n_nodes, max_iters=max_iters)
+    converged)``. On the card a graph that ``relax_fits`` takes ``relax``
+    over ``arcs`` (``route_relax.CsrArcs``, required there), a larger one
+    ``relax_sweep`` over the edge columns."""
+    if edge_len.device.type == "cpu":
+        return relax_csr(edge_start, edge_end, edge_len, edge_secs,
+                         src_nodes, bound, n_nodes=n_nodes,
+                         max_iters=max_iters)
+    if relax_fits(n_nodes):
+        if arcs is None:
+            raise ValueError("relax on the card needs the graph's CSR arcs")
+        return relax_cuda(arcs, src_nodes, bound, n_nodes=n_nodes,
+                          max_iters=max_iters)
+    return relax_sweep_cuda(edge_start, edge_end, edge_len, edge_secs,
+                            src_nodes, bound, n_nodes=n_nodes,
+                            max_iters=max_iters)
 
 
 def route_pair_costs(ints, f32s, dist_sn, time_sn, edge_start, edge_end,

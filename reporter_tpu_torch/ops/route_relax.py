@@ -18,27 +18,38 @@ card (``graph/route_device.py`` owns them):
 
 Each has a plain PyTorch version here, written step for step as the JAX
 package's ``reporter_tpu/ops/route_relax.py`` (the CPU path and the
-card's reference), and a hand-written CUDA kernel in
+card's reference), and hand-written CUDA kernels in
 ``csrc/route_relax.cu`` (``sm_90a``, built at first use by ``ops.nvcc``):
 
 ``relax_cuda``
-    launches ``relax_sweep`` once per sweep and reads its changed flag
-    after each one; ``relax_cuda.launches`` counts sweeps.
+    launches ``relax`` once for the whole relaxation (a block per source
+    row, its state in shared memory, over the graph's CSR arcs) and
+    reads ``iters`` and ``converged`` once; ``relax_cuda.launches``
+    counts launches and ``relax_cuda.reads`` the host reads. It takes
+    graphs whose row state fits a block's shared memory
+    (:func:`relax_fits`: N <= 14,528 nodes).
+``relax_sweep_cuda``
+    for larger graphs: launches ``relax_sweep`` once per sweep and reads
+    its changed flag after each one; ``relax_sweep_cuda.launches``
+    counts sweeps.
 ``pair_costs_cuda``
     launches ``pair_costs`` once on the two packed blobs;
     ``pair_costs_cuda.launches`` counts launches.
 
 ``ops.relax_routes`` and ``ops.route_pair_costs`` pick by where the
-tensors lie: CPU tensors go to the plain version, CUDA tensors to the
-kernel, with no fallback from one to the other. All arithmetic is IEEE
-float32 in the JAX program's order (the kernels are built with
-``--fmad=false``), so the card's bits equal the plain version's.
+tensors lie: CPU tensors go to the plain version, CUDA tensors to a
+kernel (the relaxation's by N alone), with no fallback from one to the
+other. All arithmetic is IEEE float32 in the JAX program's order (the
+kernels are built with ``--fmad=false``), so the card's bits equal the
+plain version's.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import nvcc
@@ -191,6 +202,13 @@ def pair_costs_packed(ints, f32s, dist_sn, time_sn, edge_start, edge_end,
 
 
 # -- the kernels --------------------------------------------------------------
+#: dynamic shared memory one block may take on Hopper (the H100's 227 KB)
+SMEM_LIMIT = 232_448
+#: shared memory of one Hopper SM (228 KB), 1 KB of it reserved per block
+SM_SMEM = 233_472
+#: shared bytes a node takes in ``relax``: two packed 8-byte words
+RELAX_NODE_BYTES = 16
+
 _lock = threading.Lock()
 _lib = None  # (ctypes.CDLL with argtypes set, build log) once built
 
@@ -203,6 +221,8 @@ def build():
         if _lib is None:
             lib, log = nvcc.load(SOURCE, "route_relax")
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.relax.argtypes = [p, i, p, p, p, p, i, f, i, i, p, p, p, p]
+            lib.relax.restype = i
             lib.relax_sweep.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
             lib.relax_sweep.restype = i
             lib.pair_costs.argtypes = [p, p, p, p, i, p, p, p, p, p, p,
@@ -226,6 +246,119 @@ def _check_edges(dev, edge_start, edge_end, *floats):
         raise ValueError("edge columns must share one (E,) shape")
     nvcc.check_operands(dev, edge_start=edge_start, edge_end=edge_end,
                         **{f"edge_float_{n}": x for n, x in enumerate(floats)})
+
+
+def _check_sources(dev, src_nodes):
+    nvcc.check_operands(dev, src_nodes=src_nodes)
+    if src_nodes.dim() != 1 or src_nodes.dtype not in (torch.int32,
+                                                       torch.int64):
+        raise TypeError("src_nodes must be a 1-D int32 or int64 tensor")
+
+
+def relax_fits(n_nodes: int) -> bool:
+    """Whether ``relax`` takes a graph of ``n_nodes``: one source row's two
+    packed states in one block's shared memory. Past it the card runs
+    ``relax_sweep``; the choice is by N alone."""
+    return 0 < RELAX_NODE_BYTES * n_nodes <= SMEM_LIMIT
+
+
+def relax_kernel_for(n_nodes: int) -> str:
+    """The relaxation kernel the card runs on a graph of ``n_nodes``."""
+    return "relax" if relax_fits(n_nodes) else "relax_sweep"
+
+
+def relax_threads(n_nodes: int) -> int:
+    """``relax``'s block size: about 2,048 resident threads an SM (a Hopper
+    SM holds 228 KB of shared memory, 1 KB of it reserved per block, and
+    32 blocks), so a small graph runs several narrow blocks an SM and a
+    large one a single block of 1,024; at least 128 threads, and enough
+    that a thread owns at most 64 nodes (its frontier bits are one 64-bit
+    register)."""
+    per_sm = min(32, SM_SMEM // (RELAX_NODE_BYTES * n_nodes + 1024))
+    threads = 1 << (2048 // max(per_sm, 1)).bit_length() - 1
+    threads = min(max(threads, 128), 1024)
+    while -(-n_nodes // threads) > 64:
+        threads *= 2
+    return threads
+
+
+class CsrArcs(NamedTuple):
+    """The graph's arcs grouped by start node (``RoadNetwork.csr()``'s
+    order), as ``relax`` reads them: ``offsets`` (N+1,) int32, arc
+    ``end`` (E,) int32, ``length`` and ``secs`` (E,) float32."""
+    offsets: torch.Tensor
+    end: torch.Tensor
+    length: torch.Tensor
+    secs: torch.Tensor
+
+
+def csr_arcs(offsets, order, edge_end, edge_len, edge_secs, device):
+    """:class:`CsrArcs` on ``device`` from the CSR adjacency (``offsets``
+    (N+1,), ``order`` (E,) edge ids grouped by start node) and the edge
+    columns, all numpy."""
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(
+            device)
+    return CsrArcs(up(offsets, np.int32), up(np.asarray(edge_end)[order],
+                                             np.int32),
+                   up(np.asarray(edge_len)[order], np.float32),
+                   up(np.asarray(edge_secs)[order], np.float32))
+
+
+def launch_relax(arcs: CsrArcs, src_nodes, bound, max_iters: int, dist,
+                 time, info) -> None:
+    """Enqueue one ``relax`` launch on the current stream, uncounted and
+    unchecked: ``src_nodes`` int32, ``dist``/``time`` (S, N) float32
+    outputs, ``info`` three zeroed int32. Timing loops call this
+    directly."""
+    S, N = dist.shape
+    lib, _log = build()
+    with torch.cuda.device(dist.device):
+        err = lib.relax(
+            src_nodes.data_ptr(), S, *(x.data_ptr() for x in arcs), N,
+            float(bound), int(max_iters), relax_threads(N), dist.data_ptr(),
+            time.data_ptr(), info.data_ptr(), _stream(dist.device))
+    if err != 0:
+        raise RuntimeError(f"relax launch failed: CUDA error {err}")
+
+
+def relax_cuda(arcs: CsrArcs, src_nodes, bound, *, n_nodes: int,
+               max_iters: int):
+    """:func:`relax_csr` on the card in one ``relax`` launch over the CSR
+    arcs; same contract and the same bits, ``iters`` and ``converged``
+    read back in one copy. Raises on a graph :func:`relax_fits` refuses
+    and on a source outside the graph."""
+    dev = arcs.length.device
+    if not relax_fits(n_nodes):
+        most = SMEM_LIMIT // RELAX_NODE_BYTES
+        raise ValueError(f"relax takes at most {most} nodes, got {n_nodes}")
+    if arcs.offsets.dtype != torch.int32 or arcs.end.dtype != torch.int32 \
+            or arcs.length.dtype != _F32 or arcs.secs.dtype != _F32:
+        raise TypeError("CSR offsets and ends must be int32, lengths and "
+                        "seconds float32")
+    E = arcs.end.shape[0]
+    if arcs.offsets.shape != (n_nodes + 1,) or \
+            arcs.length.shape != (E,) or arcs.secs.shape != (E,):
+        raise ValueError(f"CSR arcs do not fit {n_nodes} nodes: offsets "
+                         f"{tuple(arcs.offsets.shape)}, {E} ends")
+    nvcc.check_operands(dev, **arcs._asdict())
+    _check_sources(dev, src_nodes)
+    S = src_nodes.shape[0]
+    dist = torch.empty((S, n_nodes), dtype=_F32, device=dev)
+    time = torch.empty_like(dist)
+    info = torch.zeros(3, dtype=torch.int32, device=dev)
+    launch_relax(arcs, src_nodes.to(torch.int32), bound, max_iters, dist,
+                 time, info)
+    relax_cuda.launches += 1
+    iters, stuck, bad = info.tolist()
+    relax_cuda.reads += 1
+    if bad:
+        raise ValueError(f"{bad} source nodes outside 0..{n_nodes - 1}")
+    return dist, time, iters, stuck == 0
+
+
+relax_cuda.launches = 0
+relax_cuda.reads = 0
 
 
 def pack_sources(src_nodes, n_nodes: int):
@@ -262,19 +395,16 @@ def launch_sweep(old, new, edge_start, edge_end, edge_len, edge_secs,
         raise RuntimeError(f"relax_sweep launch failed: CUDA error {err}")
 
 
-def relax_cuda(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,
-               *, n_nodes: int, max_iters: int):
-    """:func:`relax_csr` on the card: one ``relax_sweep`` launch per sweep,
-    each followed by a read of its changed flag; same contract and the
-    same bits (``edge_start``/``edge_end`` int32 here). The state is
-    double-buffered, so every sweep reads only the previous one's state:
-    the sweep count and each tie equal the plain version's."""
+def relax_sweep_cuda(edge_start, edge_end, edge_len, edge_secs, src_nodes,
+                     bound, *, n_nodes: int, max_iters: int):
+    """:func:`relax_csr` on the card for any N: one ``relax_sweep`` launch
+    per sweep, each followed by a read of its changed flag; same contract
+    and the same bits (``edge_start``/``edge_end`` int32 here). The state
+    is double-buffered, so every sweep reads only the previous one's
+    state: the sweep count and each tie equal the plain version's."""
     dev = edge_len.device
     _check_edges(dev, edge_start, edge_end, edge_len, edge_secs)
-    nvcc.check_operands(dev, src_nodes=src_nodes)
-    if src_nodes.dim() != 1 or src_nodes.dtype not in (torch.int32,
-                                                       torch.int64):
-        raise TypeError("src_nodes must be a 1-D int32 or int64 tensor")
+    _check_sources(dev, src_nodes)
     bound = float(torch.as_tensor(bound, dtype=_F32))
     state = pack_sources(src_nodes, n_nodes)
     spare = torch.empty_like(state)
@@ -283,7 +413,7 @@ def relax_cuda(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,
     while changed and iters < max_iters:
         launch_sweep(state, spare, edge_start, edge_end, edge_len,
                      edge_secs, bound, flag)
-        relax_cuda.launches += 1
+        relax_sweep_cuda.launches += 1
         iters += 1
         changed = bool(flag.item())
         state, spare = spare, state
@@ -291,7 +421,7 @@ def relax_cuda(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,
     return dist, time, iters, not changed
 
 
-relax_cuda.launches = 0
+relax_sweep_cuda.launches = 0
 
 
 def launch_pair_costs(ints, f32s, dist_sn, time_sn, edges, B, T, K, N,

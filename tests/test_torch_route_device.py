@@ -219,11 +219,17 @@ def test_wrappers_refuse_cpu_tensors_and_cpu_takes_the_plain_versions(
     c = {k: torch.from_numpy(v) for k, v in _columns(city).items()}
     srcs = torch.tensor([0, 5], dtype=torch.int32)
     before = (route_relax.relax_cuda.launches,
+              route_relax.relax_sweep_cuda.launches,
               route_relax.pair_costs_cuda.launches)
+    arcs = route_relax.csr_arcs(*city.csr(), city.edge_end, c["len"].numpy(),
+                                c["secs"].numpy(), "cpu")
     with pytest.raises(ValueError, match="CUDA device"):
-        route_relax.relax_cuda(c["start"], c["end"], c["len"], c["secs"],
-                               srcs, 900.0, n_nodes=city.num_nodes,
+        route_relax.relax_cuda(arcs, srcs, 900.0, n_nodes=city.num_nodes,
                                max_iters=4)
+    with pytest.raises(ValueError, match="CUDA device"):
+        route_relax.relax_sweep_cuda(c["start"], c["end"], c["len"],
+                                     c["secs"], srcs, 900.0,
+                                     n_nodes=city.num_nodes, max_iters=4)
     with pytest.raises(ValueError, match="CUDA device"):
         route_relax.pair_costs_cuda(
             torch.zeros(8, dtype=torch.int32), torch.zeros(8),
@@ -235,7 +241,177 @@ def test_wrappers_refuse_cpu_tensors_and_cpu_takes_the_plain_versions(
         n_nodes=city.num_nodes, max_iters=64)
     assert ok and iters > 1 and dist.device.type == "cpu"
     assert (route_relax.relax_cuda.launches,
+            route_relax.relax_sweep_cuda.launches,
             route_relax.pair_costs_cuda.launches) == before
+
+
+# -- the card's relaxation: its frontier, its plan, its budget ---------------
+def _osm_town():
+    """The reference's generated OSM town through its importer, carried
+    into the port as a saved ``.npz``."""
+    import io
+    import tempfile
+    from reporter_tpu.graph.osm import network_from_osm_xml
+    from reporter_tpu.tools.osm_fixture import build_city_xml
+    from reporter_tpu_torch.graph.network import RoadNetwork
+    ref = network_from_osm_xml(io.BytesIO(build_city_xml().encode()))
+    with tempfile.TemporaryDirectory() as tmp:
+        ref.save(f"{tmp}/town.npz")
+        return RoadNetwork.load(f"{tmp}/town.npz")
+
+
+@pytest.fixture(scope="module")
+def relax_cities(cities):
+    return {"grid8": cities[1],
+            "grid20": build_grid_city(rows=20, cols=20, spacing_m=200.0,
+                                      seed=42),
+            "osm": _osm_town()}
+
+
+def _pack(d, t):
+    return (d.view(torch.int32).long() << 32) | t.view(torch.int32).long()
+
+
+def _unpack(w):
+    return ((w >> 32).to(torch.int32).view(torch.float32),
+            (w & 0xFFFFFFFF).to(torch.int32).view(torch.float32))
+
+
+def frontier_relax(net, cols, srcs, bound, max_iters):
+    """The ``relax`` kernel's algorithm in plain PyTorch, one source row at
+    a time: packed (dist, time) words, double-buffered; each sweep copies
+    the frontier (the words that differ between the buffers) into the
+    write buffer, relaxes only the frontier's out-arcs in ``csr()`` order
+    with a scatter-min, and stops on a sweep that lowers nothing.
+    Returns (dist, time, iters, converged) as ``relax_csr``."""
+    offsets, order = net.csr()
+    N = net.num_nodes
+    start = torch.from_numpy(np.repeat(np.arange(N), np.diff(offsets)))
+    end = torch.from_numpy(cols["end"][order].astype(np.int64))
+    length = torch.from_numpy(cols["len"][order])
+    secs = torch.from_numpy(cols["secs"][order])
+    bound = torch.tensor(np.float32(bound))
+    dist, time, iters, converged = [], [], 0, True
+    for src in srcs:
+        cur = torch.full((N,), route_relax.UNREACHED, dtype=torch.int64)
+        cur[int(src)] = 0
+        nxt = torch.full_like(cur, route_relax.UNREACHED)
+        k, quiet = 0, False
+        while k < max_iters:
+            front = cur != nxt
+            nxt = torch.where(front, cur, nxt)
+            arcs = front[start]
+            d, t = _unpack(cur[start[arcs]])
+            cd = d + length[arcs]
+            ok = cd <= bound
+            cand = _pack(cd[ok], (t + secs[arcs])[ok])
+            new = nxt.scatter_reduce(0, end[arcs][ok], cand, "amin",
+                                     include_self=True)
+            k += 1
+            lowered = bool((new < nxt).any())
+            nxt = new
+            if not lowered:
+                quiet = True
+                break
+            cur, nxt = nxt, cur
+        iters, converged = max(iters, k), converged and quiet
+        d, t = _unpack(cur)
+        dist.append(d)
+        time.append(t)
+    return torch.stack(dist), torch.stack(time), iters, converged
+
+
+@pytest.mark.parametrize("name", ["grid8", "grid20", "osm"])
+@pytest.mark.parametrize("bound,cap", [(250.0, None), (1500.0, None),
+                                       (6000.0, None), (1500.0, 2)])
+def test_frontier_relaxation_bit_equal_to_jax(relax_cities, name, bound,
+                                              cap):
+    """Relaxing only the frontier's arcs, a row at a time, gives the JAX
+    all-edges Jacobi loop's bits, sweep count and convergence, also with
+    a cap that stops it short (every row, and the largest count)."""
+    net = relax_cities[name]
+    c = _columns(net)
+    srcs = np.random.default_rng(9).choice(net.num_nodes, 12,
+                                           replace=False).astype(np.int32)
+    srcs[-1] = srcs[0]  # a repeated row, as the padding makes
+    max_iters = net.num_nodes if cap is None else cap
+    want = jax_relax.relax_csr(
+        jnp.asarray(c["start"]), jnp.asarray(c["end"]),
+        jnp.asarray(c["len"]), jnp.asarray(c["secs"]), jnp.asarray(srcs),
+        jnp.float32(bound), n_nodes=net.num_nodes, max_iters=max_iters)
+    got = frontier_relax(net, c, srcs, bound, max_iters)
+    assert np.array_equal(_bits(got[0]), _bits(want[0]))
+    assert np.array_equal(_bits(got[1]), _bits(want[1]))
+    assert (got[2], got[3]) == (int(want[2]), bool(want[3]))
+    assert got[3] == (cap is None) and got[2] > 1
+
+
+def test_relax_kernel_choice_by_n_and_its_block_plan():
+    """``relax`` takes a graph while a row's two packed states (16 bytes a
+    node) fit one Hopper block's 232,448 bytes of shared memory: 14,528
+    nodes, and ``relax_sweep`` from the node past it. The block plan
+    keeps a thread's nodes within its 64 frontier bits."""
+    most = route_relax.SMEM_LIMIT // route_relax.RELAX_NODE_BYTES
+    assert most == 14_528
+    assert route_relax.relax_fits(most) and not route_relax.relax_fits(
+        most + 1)
+    assert route_relax.relax_kernel_for(most) == "relax"
+    assert route_relax.relax_kernel_for(most + 1) == "relax_sweep"
+    assert route_relax.relax_kernel_for(100 * 100) == "relax"
+    assert route_relax.relax_kernel_for(125 * 125) == "relax_sweep"
+    plans = {n: route_relax.relax_threads(n)
+             for n in (1, 64, 400, 1600, 2000, 8192, 10_000, most)}
+    assert plans == {1: 128, 64: 128, 400: 128, 1600: 256, 2000: 256,
+                     8192: 1024, 10_000: 1024, most: 1024}
+    for n, threads in plans.items():
+        assert threads % 32 == 0 and -(-n // threads) <= 64
+    # the CPU takes the plain version whatever N; the card's choice is
+    # made once, from N, when the kernel is built
+    assert DeviceRouteKernel(build_grid_city(rows=3, cols=3, seed=1),
+                             "cpu").relax_kernel == "plain"
+
+
+def test_relaxation_budget_per_device_and_kernel():
+    """What a chunk's relaxation allocates, against its device's ceiling:
+    the reference's (S, max(N, E)) gathers on the CPU; on the card the
+    (S, N) f32 planes, and for relax_sweep its two packed states too."""
+    S, N, E = 2048, 10_000, 39_600
+    assert route_device.relax_bytes(S, N, E, "cpu", "plain") \
+        == 2 * 4 * S * E
+    assert route_device.relax_bytes(S, N, E, "cuda", "relax") \
+        == 8 * S * N == 163_840_000
+    assert route_device.relax_bytes(S, N, E, "cuda", "relax_sweep") \
+        == 24 * S * N
+    # the 100x100 city's chunk: over the CPU's ceiling, inside the card's
+    assert route_device.over_budget(S, N, E, "cpu", "plain")
+    assert not route_device.over_budget(S, N, E, "cuda", "relax")
+    assert not route_device.over_budget(S, N, E, "cuda", "relax_sweep")
+    # the CPU's ceiling is the reference's 64M-element check, exactly
+    edge = 64 * 1024 * 1024 // (2 * E)
+    assert not route_device.over_budget(edge, N, E, "cpu", "plain")
+    assert route_device.over_budget(edge + 1, N, E, "cpu", "plain")
+    # the card's is 4 GiB of what relax and relax_sweep allocate
+    edge = 4 * 2**30 // (8 * N)
+    assert not route_device.over_budget(edge, N, E, "cuda", "relax")
+    assert route_device.over_budget(edge + 1, N, E, "cuda", "relax")
+    assert route_device.over_budget(edge // 3 + 1, N, E, "cuda",
+                                    "relax_sweep")
+
+
+def test_relax_refuses_a_graph_past_shared_memory(cities):
+    city = cities[1]
+    c = _columns(city)
+    arcs = route_relax.csr_arcs(*city.csr(), c["end"], c["len"], c["secs"],
+                                "cpu")
+    assert arcs.offsets.dtype == torch.int32
+    assert np.array_equal(arcs.end.numpy(), c["end"][city.csr()[1]])
+    with pytest.raises(ValueError, match="at most 14528 nodes"):
+        route_relax.relax_cuda(arcs, torch.tensor([0], dtype=torch.int32),
+                               900.0, n_nodes=14_529, max_iters=4)
+    with pytest.raises(ValueError, match="CSR arcs do not fit"):
+        route_relax.relax_cuda(arcs, torch.tensor([0], dtype=torch.int32),
+                               900.0, n_nodes=city.num_nodes + 1,
+                               max_iters=4)
 
 
 def test_packed_state_orders_as_dist_then_time():
