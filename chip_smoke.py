@@ -6,16 +6,21 @@
 
 Phases, each fatal on failure:
 
-1. build    compile ops/csrc/viterbi.cu and ops/csrc/route_relax.cu with
-            nvcc for sm_90a and the host runtime (native/csrc/
-            host_runtime.cpp) with g++, all three at once, and load them,
-            printing ptxas's registers and spills (any spill fails the
-            run, after the timing)
+1. build    compile ops/csrc/viterbi.cu (the decode and the incremental
+            step) and ops/csrc/route_relax.cu with nvcc for sm_90a and the
+            host runtime (native/csrc/host_runtime.cpp) with g++, all
+            three at once, and load them, printing ptxas's registers and
+            spills (any spill fails the run, after the timing)
 2. verify   the kernel against its plain PyTorch version on the card at
             the main path's shapes, the native prep's layout (route and
             gc with T time rows) and shapes that reach every branch of
             the launch plan, f16 and f32 wire: paths equal, scores
-            bit-equal
+            bit-equal. Then ``verify-step``: the incremental step against
+            its plain version on the card and on the CPU at N of 1, 37,
+            512 and 4,096 rows and K of 4, 8, 16 and 128, with ties,
+            NORMAL, RESTART and SKIP rows, routes at 1e9 and +inf,
+            invalid candidates and signed zeros: scores bit-equal, bp and
+            prev_best equal
 3. main     SegmentMatcher.match_many (native prep, the two device lanes)
             + report_json() on the 20x20 synthetic city, 512 traces of
             the T=64 bucket and a mixed T=16/64/256 batch, on the card,
@@ -95,11 +100,34 @@ After main come two phases of the device route costs (``route_device``):
             host prep's own route share (phase_ns); every chunk's device
             route tensor equal to the host prep's
 
+After routes comes the incremental streaming decode:
+
+   stream   SegmentMatcher.match_incremental on the card. Parity: main's
+            512 uuids (every fourth under a second sigma_z), 4 raw points
+            appended a call until each trace ends; the served slots equal
+            a CPU run's, each served match and /report body byte-equal to
+            the card's match_many of the same window and to the CPU run,
+            the carried-state blobs and counters equal the CPU run's, and
+            incremental_step launched once per round and parameter group.
+            Fallback: a matcher with incremental_lag=2 behind a
+            ReporterService; report_incremental equal to report_many slot
+            for slot, viterbi_decode launches counted for the declined
+            slots. Streaming legs (BENCH_STREAM_r01.json's shape): windows
+            warmed to 64 and 256 raw points, lag 32, then 32 reports of
+            one more point each, with 1 uuid and with 512 uuids a call:
+            the incremental decode seconds and wall a call against
+            match_many's of the same windows, steps per point, commits;
+            served matches byte-equal to match_many's. The timing phase
+            then times incremental_step by CUDA graphs at (1,8) and
+            (512,8) beside its bound and the plain version
+
 Prints the card's name and power limit, one JSON line describing the
 kernels (viterbi_decode: ``launches`` match_many's in the main phase,
-``launches_serve`` each timed serve window's, lanes on; relax and
+``launches_serve`` each timed serve window's, lanes on,
+``launches_stream_fallback`` the stream phase's declined slots; relax and
 pair_costs: the routes phase's device lanes-on runs, cold and the first
-warm round; relax_sweep: route-city's 125x125 run, one launch a sweep),
+warm round; relax_sweep: route-city's 125x125 run, one launch a sweep;
+incremental_step: the stream phase's parity leg, one launch a round),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
 
@@ -150,6 +178,18 @@ MID_CITY = dict(rows=40, cols=40, spacing_m=200.0, seed=42)
 HUGE_CITY = dict(rows=125, cols=125, spacing_m=200.0, seed=42)
 OPTS = {"mode": "auto", "report_levels": [0, 1, 2],
         "transition_levels": [0, 1, 2]}
+# the stream phase: every fourth uuid of the parity leg in a second
+# parameter group; the streaming legs' windows (raw points), measured
+# reports and lag (BENCH_STREAM_r01.json's shape)
+OPTS_B = dict(OPTS, sigma_z=5.0)
+STREAM_WINDOWS = (64, 256)
+STREAM_MEASURE = 32
+STREAM_LAG = 32
+# the longest jump between two traces stitched into one stream
+SEAM_M = 800.0
+# the step's checked shapes: N rows by K candidates
+STEP_N = (1, 37, 512, 4096)
+STEP_K = (4, 8, 16, 128)
 
 
 def log(msg: str) -> None:
@@ -2067,6 +2107,376 @@ def phase_against_routes(path):
     return out
 
 
+# -- the incremental streaming decode ------------------------------------------
+def step_inputs(N, Kc, seed):
+    """Incremental-step rows with exact ties (a few distances, routes and
+    scores repeat), NORMAL, RESTART and SKIP rows, routes at 1e9 and
+    +inf, invalid candidates, on-edge points (em == -0.0) and carried
+    scores holding -0.0."""
+    from reporter_tpu_torch.matcher.hmm import NORMAL, RESTART, SKIP
+    rng = np.random.default_rng(seed)
+    dist = rng.choice(np.array([0.0, 0.0, 1.0, 2.5, 5.5, 10.0, 40.0],
+                               np.float32), (N, Kc))
+    valid = rng.random((N, Kc)) > 0.2
+    gc = rng.choice(np.array([0.0, 5.0, 10.0, 20.0], np.float32), N)
+    route = (gc[:, None, None] + rng.choice(
+        np.array([0.0, 0.0, 3.0, 6.0], np.float32), (N, Kc, Kc))
+             ).astype(np.float32)
+    route[rng.random(route.shape) < 0.1] = 1.0e9
+    route[rng.random(route.shape) < 0.1] = np.inf
+    case = rng.choice(np.array([NORMAL, RESTART, SKIP], np.int32), N)
+    prev = rng.choice(np.array([-0.0, 0.0, -1.0, -2.0, -1.0e30],
+                               np.float32), (N, Kc))
+    return dist, valid, route, gc.astype(np.float32), case, prev
+
+
+def step_equal(a, b):
+    """Whether two (new_scores, bp, prev_best) triples are equal, scores
+    bit for bit, and the scores' largest absolute difference."""
+    import torch
+    a = [t.cpu() for t in a]
+    b = [t.cpu() for t in b]
+    same = (bit_equal(a[0], b[0]) == 0 and torch.equal(a[1], b[1])
+            and torch.equal(a[2], b[2]))
+    return same, float((a[0] - b[0]).abs().max())
+
+
+def phase_verify_step(dev):
+    """``incremental_step`` against its plain version on the card and on
+    the CPU, same inputs (``step_inputs``) at every N of ``STEP_N`` and K
+    of ``STEP_K``: new_scores bit-equal, bp and prev_best equal; and the
+    kernel's first 37 rows of a 512-row launch equal to a launch of those
+    37 rows alone. Returns the scores' largest absolute difference."""
+    import itertools
+    import torch
+    from reporter_tpu_torch.ops import (incremental_step_cuda,
+                                        incremental_step_plain)
+    sigma, beta = np.float32(4.07), np.float32(3.0)
+    worst, zeros = 0.0, set()
+    for seed, (N, Kc) in enumerate(itertools.product(STEP_N, STEP_K)):
+        arrays = step_inputs(N, Kc, 500 + seed)
+        x = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        got = incremental_step_cuda(*x, sigma, beta)
+        torch.cuda.synchronize()
+        for where, want in (
+                ("card", incremental_step_plain(*x, sigma, beta)),
+                ("CPU", incremental_step_plain(
+                    *(torch.from_numpy(a) for a in arrays), sigma, beta))):
+            same, err = step_equal(got, want)
+            check(same, f"incremental_step differs from the plain version "
+                        f"on the {where} at N,K={N},{Kc}")
+            worst = max(worst, err)
+        sc = got[0].cpu()
+        zeros |= set(torch.signbit(sc[sc == 0]).tolist())
+        if N == 512 and Kc == K:
+            head = incremental_step_cuda(*(t[:37].contiguous() for t in x),
+                                         sigma, beta)
+            same, _err = step_equal(head, [t[:37] for t in got])
+            check(same, "37 rows alone differ from the same rows of 512")
+        del x, got
+    check(zeros == {False, True}, "the checked scores held no zeros of both "
+                                  "signs")
+    torch.cuda.empty_cache()
+    log(f"[verify-step] incremental_step bit-equal to the plain version on "
+        f"the card and on the CPU at N {STEP_N} x K {STEP_K} (ties, NORMAL/"
+        f"RESTART/SKIP rows, routes at 1e9 and +inf, invalid candidates, "
+        f"+0.0 and -0.0 in the scores); 37 rows alone equal the same rows "
+        f"of 512; largest |difference| {worst}")
+    return worst
+
+
+def match_json(match) -> str:
+    """Canonical JSON of a match: a dict, or a MatchRuns by its C
+    writer."""
+    from reporter_tpu_torch.matcher.matcher import (MatchRuns,
+                                                    render_segments_json)
+    if isinstance(match, MatchRuns):
+        match = json.loads(render_segments_json(match.cols, match.lo,
+                                                match.hi, match.mode))
+    return json.dumps(match, sort_keys=True)
+
+
+def counters(*names):
+    from reporter_tpu_torch.utils import metrics
+    got = metrics.snapshot()["counters"]
+    return [got.get(n, 0) for n in names]
+
+
+def timer_total(name) -> float:
+    from reporter_tpu_torch.utils import metrics
+    return metrics.snapshot()["timers"].get(name, {}).get("total_s", 0.0)
+
+
+def stream_parity(dev, served):
+    """match_incremental on the card for main's 512 uuids (every fourth in
+    the second parameter group, ``OPTS_B``), 4 raw points appended a call
+    until each trace ends: the served and declined slots equal a CPU
+    run's, every served match and /report body byte-equal to the card's
+    match_many of the same window and to the CPU run's match, the two
+    tables' blobs and counters equal. ``incremental_step`` is counted
+    from 0 over the run: one launch per round and parameter group, the
+    CPU run's rounds. Returns (launches, rounds by group)."""
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    city, params = served["city"], served["params"]
+    reqs0 = [dict(r, match_options=OPTS_B if i % 4 == 3 else OPTS)
+             for i, r in enumerate(served["reqs"][:N_TRACES])]
+    gpu = SegmentMatcher(city, params, device=dev)
+    cpu = SegmentMatcher(city, params, device="cpu")
+    n_served = n_windows = 0
+    walls = []
+    ops.incremental_step_cuda.launches = 0
+    for hi in range(4, T_MAIN + 1, 4):
+        reqs = [dict(r, trace=r["trace"][:hi]) for r in reqs0]
+        t0 = time.perf_counter()
+        got = gpu.match_incremental(reqs)
+        walls.append(time.perf_counter() - t0)
+        want = cpu.match_incremental(reqs)
+        batch = gpu.match_many(reqs)
+        check([g is None for g in got] == [w is None for w in want],
+              f"window {hi}: the card serves other slots than the CPU")
+        live = [i for i, g in enumerate(got) if g is not None]
+        n_windows += len(reqs)
+        n_served += len(live)
+        for i in live:
+            check(match_json(got[i]) == match_json(want[i])
+                  == match_json(batch[i]),
+                  f"window {hi}, {reqs[i]['uuid']}: the match differs")
+        sub = [reqs[i] for i in live]
+        check(bodies([got[i] for i in live], sub)
+              == bodies([batch[i] for i in live], sub),
+              f"window {hi}: a /report body differs from match_many's")
+    launches = ops.incremental_step_cuda.launches
+    rounds = dict(gpu.incremental_table.rounds)
+    check(rounds == cpu.incremental_table.rounds and len(rounds) == 2,
+          f"rounds {rounds} on the card, {cpu.incremental_table.rounds} on "
+          f"the CPU")
+    check(launches == sum(rounds.values()),
+          f"{launches} incremental_step launches for {rounds} rounds")
+    check(gpu.incremental_table.gauge() == cpu.incremental_table.gauge(),
+          "the card's table counters differ from the CPU run's")
+    check(dict(gpu.incremental_table.to_blobs())
+          == dict(cpu.incremental_table.to_blobs()),
+          "the card's carried-state blobs differ from the CPU run's")
+    check(n_served > n_windows // 2, f"only {n_served} of {n_windows} "
+                                     f"windows served")
+    log(f"[stream] parity: {N_TRACES} uuids, 4 raw points a call, "
+        f"{len(walls)} calls: {n_served} of {n_windows} windows served, "
+        f"each match and /report body byte-equal to the card's match_many "
+        f"and to the CPU run; blobs and counters equal the CPU run's "
+        f"({gpu.incremental_table.gauge()}); incremental_step launches "
+        f"{launches} = rounds by (sigma, beta, K) {rounds}; wall a call "
+        f"median {float(np.median(walls)):.4f} s (range "
+        f"{min(walls):.4f}-{max(walls):.4f})")
+    return launches, rounds
+
+
+def stream_fallback(dev, served):
+    """A matcher with ``incremental_lag=2`` behind a ReporterService:
+    report_incremental over 128 of main's requests (every eighth without
+    a uuid) at windows of 2, 16, 32, 48 and 64 raw points equals
+    report_many slot for slot. Two points need no commit, so the first
+    call serves the uuids; past them the lag forces fallbacks. The
+    declined slots go through the dispatcher's match_many, whose
+    ``viterbi_decode`` launches (counted from 0 around each
+    report_incremental) are returned."""
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.service.server import ReporterService
+    svc = ReporterService(SegmentMatcher(served["city"], served["params"],
+                                         device=dev, incremental_lag=2))
+    reqs0 = [dict(r, uuid=None) if i % 8 == 7 else r
+             for i, r in enumerate(served["reqs"][:128])]
+    launches = n_served = 0
+    try:
+        for hi in (2, 16, 32, 48, 64):
+            reqs = [dict(r, trace=r["trace"][:hi]) for r in reqs0]
+            n_served += sum(m is not None
+                            for m in svc.matcher.match_incremental(reqs))
+            ops.viterbi_cuda.launches = 0
+            got = svc.report_incremental(reqs)
+            launches += ops.viterbi_cuda.launches
+            check(got == svc.report_many(reqs) and None not in got,
+                  f"window {hi}: report_incremental differs from "
+                  f"report_many")
+        gauge = svc.matcher.incremental_table.gauge()
+    finally:
+        check(svc.dispatcher.close(), "the dispatcher did not stop")
+    check(gauge["fallbacks"] > 0 and n_served > 0 and launches > 0,
+          f"lag 2: {n_served} served, {gauge['fallbacks']} fallbacks, "
+          f"{launches} decode launches")
+    log(f"[stream] fallback: lag 2, 128 requests, 5 calls: "
+        f"report_incremental equal to report_many in every slot; "
+        f"{n_served} windows served, {gauge['fallbacks']} fallbacks; "
+        f"viterbi_decode launches for the declined slots {launches}")
+    return launches
+
+
+def long_streams(reqs, n, length):
+    """``n`` point streams of ``length`` points. Stream i starts with
+    request i's trace and goes on, each time it ends, with a trace whose
+    first point lies within ``SEAM_M`` of its last (the k-th such trace
+    at the k-th seam), after a gap of the jump at 10 m/s, at least 5 s:
+    a long session across coverage gaps. A jump of at most 800 m bounds
+    the route search at 4,000 m, so every window stays on the f16 wire,
+    as one batch of them does: ``match_many`` then decodes each window
+    as it would alone."""
+    from reporter_tpu_torch.core.geo import equirectangular_m
+    starts = np.array([[r["trace"][0]["lat"], r["trace"][0]["lon"]]
+                       for r in reqs])
+    out = []
+    for i in range(n):
+        pts = list(reqs[i]["trace"])
+        k = 0
+        while len(pts) < length:
+            end = pts[-1]
+            jump = equirectangular_m(end["lat"], end["lon"], starts[:, 0],
+                                     starts[:, 1])
+            near = np.flatnonzero(jump <= SEAM_M)
+            check(len(near) > 0, f"stream {i}: no trace starts within "
+                                 f"{SEAM_M} m of {end}")
+            j = int(near[k % len(near)])
+            seg = reqs[j]["trace"]
+            t_off = pts[-1]["time"] + max(5.0, float(jump[j]) / 10.0)
+            base = seg[0]["time"]
+            pts.extend(dict(p, time=p["time"] - base + t_off) for p in seg)
+            k += 1
+        out.append(pts[:length])
+    return out
+
+
+def pctl_ms(xs):
+    return (round(float(np.percentile(xs, 50)) * 1e3, 4),
+            round(float(np.percentile(xs, 99)) * 1e3, 4))
+
+
+def stream_leg(dev, served, T, n):
+    """One streaming leg: ``n`` uuids, each window warmed to ``T`` raw
+    points in one call, then ``STREAM_MEASURE`` reports of one more point
+    each through match_incremental and match_many of the same windows
+    (the collector off): per call, the incremental decode seconds (the
+    ``match.incremental.decode`` span: prep of the appended points, the
+    device rounds, the commits) and wall, match_many's decode stage
+    seconds and wall. Every served match is byte-equal to match_many's
+    or, where the native path's run times round otherwise
+    (``native_rounding``: ``RunColumns`` rounds with ``np.round``, the
+    Python assembly with ``round``), to the numpy prep's match_many of
+    the window."""
+    import gc
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    streams = long_streams(served["reqs"][:N_TRACES], n, T + STREAM_MEASURE)
+    m = SegmentMatcher(served["city"], served["params"], device=dev,
+                       incremental_lag=STREAM_LAG)
+
+    def reqs_at(hi):
+        return [{"uuid": f"s{i}", "trace": pts[:hi], "match_options": OPTS}
+                for i, pts in enumerate(streams)]
+
+    m.match_incremental(reqs_at(T))
+    m.match_many(reqs_at(T + STREAM_MEASURE))  # the batch path's buckets
+    steps0, commits0 = counters("match.incremental.steps",
+                                "match.incremental.commits")
+    inc_dec, inc_wall, mm_dec, mm_wall = [], [], [], []
+    launches0 = ops.incremental_step_cuda.launches
+    n_served = rounding = 0
+    numpy_m = SegmentMatcher(served["city"], served["params"], device=dev,
+                             native=False)
+    gc.collect()
+    gc.disable()
+    try:
+        for r in range(1, STREAM_MEASURE + 1):
+            reqs = reqs_at(T + r)
+            d0 = timer_total("match.incremental.decode")
+            t0 = time.perf_counter()
+            got = m.match_incremental(reqs)
+            inc_wall.append(time.perf_counter() - t0)
+            inc_dec.append(timer_total("match.incremental.decode") - d0)
+            s0 = m.stage_seconds["decode"]
+            t0 = time.perf_counter()
+            batch = m.match_many(reqs)
+            mm_wall.append(time.perf_counter() - t0)
+            mm_dec.append(m.stage_seconds["decode"] - s0)
+            for req, g, b in zip(reqs, got, batch):
+                if g is None:
+                    continue
+                n_served += 1
+                if match_json(g) != match_json(b):
+                    rounding += 1
+                    check(match_json(g) == match_json(
+                        numpy_m.match_many([req])[0]),
+                          f"T={T}, {n} uuids, report {r}, {req['uuid']}: "
+                          f"a served match differs from match_many's on "
+                          f"both preps")
+    finally:
+        gc.enable()
+    steps, commits = (a - b for a, b in zip(
+        counters("match.incremental.steps", "match.incremental.commits"),
+        (steps0, commits0)))
+    out = {"window": T, "uuids": n,
+           "dec_ms": pctl_ms(inc_dec), "wall_ms": pctl_ms(inc_wall),
+           "batch_dec_ms": pctl_ms(mm_dec), "batch_wall_ms": pctl_ms(mm_wall),
+           "steps_per_point": round(steps / (n * STREAM_MEASURE), 4),
+           "commits": commits, "served": n_served,
+           "windows": n * STREAM_MEASURE, "native_rounding": rounding,
+           "launches": ops.incremental_step_cuda.launches - launches0}
+    check(n_served > 0, f"T={T}, {n} uuids: nothing served")
+    log(f"[stream] leg {json.dumps(out)} (ms as [p50, p99] a call)")
+    return out
+
+
+def phase_stream(dev, served):
+    """The incremental streaming decode on the card: the parity leg, the
+    fallback leg and the streaming legs (``STREAM_WINDOWS`` x 1 and 512
+    uuids). Returns (incremental_step launches of the parity leg, rounds,
+    viterbi_decode launches of the fallback leg, the legs)."""
+    t0 = time.perf_counter()
+    launches, rounds = stream_parity(dev, served)
+    fallback_launches = stream_fallback(dev, served)
+    legs = [stream_leg(dev, served, T, n)
+            for T in STREAM_WINDOWS for n in (1, N_TRACES)]
+    log(f"[stream] {time.perf_counter() - t0:.1f} s")
+    return launches, rounds, fallback_launches, legs
+
+
+def step_bound_ms(N, Kc):
+    """The least time of one step of N rows: each input read once (dist,
+    valid, route, gc, case, prev) and each output written once (scores,
+    bp, prev_best) at the card's memory rate, against about 6 f32 ops
+    per (row, i, j) and 4 per (row, j) at its f32 rate."""
+    n_bytes = N * (Kc * 4 + Kc + Kc * Kc * 4 + 4 + 4 + Kc * 4) \
+        + N * (Kc * 8 + 4)
+    n_ops = N * Kc * Kc * 6 + N * Kc * 4
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes)
+
+
+def phase_timing_step(dev):
+    """incremental_step by CUDA graphs (100 launches a graph) at N=1 and
+    512 rows, K=8, beside its bound and the plain version's time on the
+    card. Returns {N: (ms, plain ms, bound ms, bound by)}."""
+    import torch
+    from reporter_tpu_torch.ops import incremental
+    sigma, beta = np.float32(4.07), np.float32(3.0)
+    out = {}
+    for N in (1, N_TRACES):
+        x = tuple(torch.from_numpy(a).to(dev)
+                  for a in step_inputs(N, K, 900 + N))
+        buf = torch.empty(incremental.output_words(N, K), dtype=torch.int32,
+                          device=dev)
+        ms = graph_ms(lambda: incremental.launch(x, sigma, beta, buf), 100)
+        plain = time_ms(
+            lambda: incremental.incremental_step_plain(*x, sigma, beta), 20)
+        bms, by, n_bytes = step_bound_ms(N, K)
+        out[N] = (ms, plain, bms, by)
+        log(f"[timing] incremental_step N,K={N},{K}: {ms:.5f} ms (CUDA "
+            f"graphs), plain {plain:.4f} ms, bound {bms:.6f} ms by {by} "
+            f"({n_bytes} bytes)")
+    log("[timing] library: no single PyTorch call computes a Viterbi step")
+    return out
+
+
 def max_sm_mhz() -> int:
     """The card's maximum SM clock, which the chain model runs at."""
     out = subprocess.run(
@@ -2109,17 +2519,21 @@ def main() -> int:
                             "route_kernels_ms": kernels,
                             "routes_s": routes})
     phase_verify(dev)
+    step_err = phase_verify_step(dev)
     launches, main, max_err, scalars, served = phase_main(dev)
     big = grid_inputs(BIG_CITY, N_TRACES, 11)
     huge = grid_inputs(HUGE_CITY, 64, 17)
     verified = phase_verify_routes(dev, served, big, huge)
     route_launches, _runs = phase_routes(dev, served)
+    step_launches, _rounds, fallback_launches, _legs = phase_stream(
+        dev, served)
     serving = phase_serve(dev, served)
     phase_prefork(served)
     phase_city(big)
     sweep_launches, _big_runs = phase_route_city(big, huge)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
     route_times = phase_timing_routes(dev, served, big, huge)
+    step_times = phase_timing_step(dev)
     check(not spills, f"ptxas reports spills: {spills}")
 
     ms, plain, bms, by = times["main"]
@@ -2134,6 +2548,9 @@ def main() -> int:
         # each timed window of the /report front door, lanes on
         # (phase_serve): the count follows how the dispatcher batched
         "launches_serve": [w["launches"] for w in serving["lanes on"]],
+        # the stream phase's fallback leg: report_incremental's declined
+        # slots through the dispatcher's match_many (phase_stream)
+        "launches_stream_fallback": fallback_launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,
@@ -2163,6 +2580,17 @@ def main() -> int:
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
             "bound_by": r_by, "library_ms": None})
+    ms, plain, bms, by = step_times[N_TRACES]
+    kernels.append({
+        "name": "incremental_step", "route": "cuda",
+        "source": "reporter_tpu_torch/ops/csrc/viterbi.cu",
+        "replaces": "reporter_tpu/ops/incremental.py:50",
+        # match_incremental's parity leg (phase_stream): one a round
+        "launches": step_launches, "max_abs_err": step_err,
+        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": None,
+        # one row, the one-uuid stream's step
+        "ms_1_8": step_times[1][0], "bound_ms_1_8": step_times[1][2]})
     return finish(smi, {"kernels": kernels})
 
 

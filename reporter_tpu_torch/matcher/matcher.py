@@ -29,6 +29,11 @@ chunk's run columns, which the C wire writer serialises directly; the
 numpy path returns plain dicts. Both give the same ``/report`` bytes. A
 decode, assembly or writer failure raises: nothing falls back to another
 implementation.
+
+``match_incremental`` is the streaming path: each trace with a uuid
+advances carried decode state by the points appended since its last
+report (``matcher/incremental.py``), and a window it cannot reproduce
+byte for byte is left to ``match_many``.
 """
 from __future__ import annotations
 
@@ -53,11 +58,14 @@ from ..graph import route_device as device_routes
 from ..graph.spatial import SpatialGrid
 from ..native import NativeRuntime
 from ..service import wire
+from ..utils import metrics
 from .assemble import assemble_segments
 from .batchpad import (LENGTH_BUCKETS, SPLIT_WASTE, PaddedBatch,
                        PreparedTrace, kept_point_count, pack_batches,
                        padded_batch_rows, prepare_batch,
                        prepare_traces_numpy)
+from .incremental import (DEFAULT_BUDGET_MB, DEFAULT_LAG,
+                          IncrementalTable)
 from .params import MatchParams
 
 #: spatial grid cell, ~1.5x the default 50 m search radius: reach stays 1
@@ -284,6 +292,12 @@ class SegmentMatcher:
     kept point's candidates beyond ``prune_sigma * effective_sigma``
     meters of its best, on both preps; unlike the options above it
     changes results.
+
+    ``incremental`` turns on :meth:`match_incremental`'s carried decode
+    state (``incremental_table``, built at first use); ``incremental_lag``
+    is the most uncommitted steps a trace carries (at least 2) and
+    ``incremental_mb`` the table's byte budget in MiB. They choose a
+    path, never a result.
     """
 
     def __init__(self, net: Optional[RoadNetwork] = None,
@@ -291,7 +305,9 @@ class SegmentMatcher:
                  native: bool = True, pipeline: bool = True,
                  prep_threads: Optional[int] = None,
                  chunk: Optional[int] = None, route_device: bool = False,
-                 prune_sigma: float = 0.0):
+                 prune_sigma: float = 0.0, incremental: bool = True,
+                 incremental_lag: int = DEFAULT_LAG,
+                 incremental_mb: float = DEFAULT_BUDGET_MB):
         self.device = resolve_device(device)
         if net is None:
             raise ValueError("no network: pass net=")
@@ -319,6 +335,11 @@ class SegmentMatcher:
         #: bucket T -> [kept points, padded point cells] over every native
         #: chunk decoded so far: the padding waste _split_bucket consults
         self.bucket_totals: dict[int, list] = {}
+        self.incremental = bool(incremental)
+        self.incremental_lag = int(incremental_lag)
+        self.incremental_mb = float(incremental_mb)
+        self._incremental_table: Optional[IncrementalTable] = None
+        self._incremental_lock = threading.Lock()
         # two single-worker FIFO lanes; their threads start on first submit
         self._lanes = ((ThreadPoolExecutor(1, "device-dispatch"),
                         ThreadPoolExecutor(1, "device-drain"))
@@ -331,6 +352,16 @@ class SegmentMatcher:
     @cached_property
     def route_cache(self) -> RouteCache:
         return RouteCache(self.net)
+
+    @property
+    def incremental_table(self) -> IncrementalTable:
+        """The carried per-trace decode state (built at first use)."""
+        with self._incremental_lock:
+            if self._incremental_table is None:
+                self._incremental_table = IncrementalTable(
+                    self, lag=self.incremental_lag,
+                    budget_mb=self.incremental_mb)
+            return self._incremental_table
 
     def _prune_margin(self, params: MatchParams) -> float:
         """Candidate pruning margin in meters for ``params`` (0: off)."""
@@ -373,15 +404,7 @@ class SegmentMatcher:
         """
         tb = as_trace_batch(traces)
         ntr = len(tb)
-        opts = tb.options
-        if opts is None:
-            per_trace_params = [self.params] * ntr
-        elif isinstance(opts, dict):
-            per_trace_params = [self.params.with_options(opts)] * ntr
-        else:
-            per_trace_params = [
-                self.params.with_options(o) if o else self.params
-                for o in opts]
+        per_trace_params = self._trace_params(tb)
 
         results: list = [None] * ntr
         futures = []
@@ -430,6 +453,45 @@ class SegmentMatcher:
         if first_err is not None:
             raise first_err
         return results
+
+    def match_incremental(self, traces) -> list:
+        """Match through carried per-trace decode state where it can.
+
+        Same input as :meth:`match_many`. Each trace with a uuid advances
+        its carried state (``incremental_table``) by the points appended
+        since its last report: O(K) device work per appended kept point
+        instead of a whole-window decode. Returns one match dict per trace,
+        in order, and None for each trace this path declines: no uuid,
+        ``incremental=False``, a window it cannot reproduce byte for byte
+        (past the largest bucket, out of the f16 wire's range, a lag window
+        that does not converge), or an evicted state. A caller sends those
+        through :meth:`match_many`, whose bytes are the same
+        (``tests/test_torch_incremental.py``). An error raises: there is
+        no breaker here and nothing degrades.
+        """
+        tb = as_trace_batch(traces)
+        ntr = len(tb)
+        results: list = [None] * ntr
+        if ntr == 0:
+            return results
+        if not self.incremental:
+            return results
+        with metrics.timer("match.incremental.advance"):
+            self.incremental_table.match_many(tb, self._trace_params(tb),
+                                              results)
+        return results
+
+    def _trace_params(self, tb: TraceBatch) -> list:
+        """Each trace's MatchParams: the matcher's, with its own
+        match_options applied (one shared options dict resolves once)."""
+        ntr = len(tb)
+        opts = tb.options
+        if opts is None:
+            return [self.params] * ntr
+        if isinstance(opts, dict):
+            return [self.params.with_options(opts)] * ntr
+        return [self.params.with_options(o) if o else self.params
+                for o in opts]
 
     # every param that shapes the prepared tensors or the assembly: traces
     # may only share one prep chunk (and one device batch) when all of

@@ -2,7 +2,9 @@
 
 The runtime does the matcher's host work in native code: the whole-chunk
 batched prep (candidates, kept points, case codes and route tensors, fanned
-out over C++ threads), the batched assembly of decoded paths into segment
+out over C++ threads), the candidate lookup and route rows of the points
+a trace appends to its incremental decode (``candidates``,
+``route_matrices``), the batched assembly of decoded paths into segment
 run columns, and the ``/report`` wire writer over those columns.
 
 The library is compiled with g++ into ``reporter_tpu_torch/_build/`` at
@@ -116,6 +118,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_cache_size.restype = i64
     lib.rt_route_memo_stats.argtypes = [vp, i64p]
     lib.rt_f32_to_f16.argtypes = [f32p, u16p, i64]
+    lib.rt_candidates.argtypes = [vp, i64, f64p, f64p, i32, f64, i32p, f32p,
+                                  f32p, f32p, f32p]
+    # dt is nullable (no time bound), so it binds as a raw pointer
+    lib.rt_route_matrices.argtypes = [
+        vp, i64, i32, i32p, f32p, f32p, ctypes.POINTER(f64), f64, f64, f64,
+        f64, f64, f64, f32p]
     lib.rt_prepare_batch.argtypes = [
         vp, i64, i64p, f64p, f64p, f64p, f64, f64, i32, i32,
         f64, f64, f64, f64, f64, f64, f64, f64, f64, f64, i32, i32,
@@ -282,6 +290,64 @@ class NativeRuntime:
                 "NativeRuntime used across fork (its C++ worker-pool "
                 "threads did not survive); build a new SegmentMatcher in "
                 "the child process")
+
+    def candidates(self, lat, lon, k: int, search_radius_m: float = 50.0):
+        """The K nearest edges within ``search_radius_m`` of each point, as
+        a ``graph.spatial.CandidateSet`` (the semantics of
+        ``SpatialGrid.candidates``), in one native call."""
+        from ..graph.spatial import CandidateSet
+
+        self._check_owner()
+        to_xy, _ = self.net.projection()
+        px, py = to_xy(np.asarray(lat, dtype=np.float64),
+                       np.asarray(lon, dtype=np.float64))
+        px = np.ascontiguousarray(np.atleast_1d(px), dtype=np.float64)
+        py = np.ascontiguousarray(np.atleast_1d(py), dtype=np.float64)
+        T = len(px)
+        edge = np.empty((T, k), dtype=np.int32)
+        dist = np.empty((T, k), dtype=np.float32)
+        off = np.empty((T, k), dtype=np.float32)
+        qx = np.empty((T, k), dtype=np.float32)
+        qy = np.empty((T, k), dtype=np.float32)
+        self._lib.rt_candidates(self._handle, T, px, py, k,
+                                float(search_radius_m), edge, dist, off, qx,
+                                qy)
+        return CandidateSet(edge, dist, off, qx, qy)
+
+    def route_matrices(self, cands, gc_dist,
+                       max_route_distance_factor: float = 5.0,
+                       min_bound_m: float = 500.0,
+                       backward_tolerance_m: float = 0.0,
+                       dt=None,
+                       max_route_time_factor: float = 0.0,
+                       min_time_bound_s: float = 15.0,
+                       turn_penalty_factor: float = 0.0) -> np.ndarray:
+        """(T-1, K, K) route distances between consecutive candidate rows
+        of ``cands``, the semantics of ``graph.route.
+        candidate_route_matrices``. ``gc_dist`` is the (T-1,) great-circle
+        distances, ``dt`` the (T-1,) probe time deltas in seconds or None
+        (no time bound)."""
+        self._check_owner()
+        T, K = cands.edge_ids.shape
+        out = np.empty((max(T - 1, 0), K, K), dtype=np.float32)
+        if T < 2:
+            return out
+        edge = np.ascontiguousarray(cands.edge_ids, dtype=np.int32)
+        off = np.ascontiguousarray(cands.offset_m, dtype=np.float32)
+        gc = np.ascontiguousarray(gc_dist, dtype=np.float32)
+        dt_ptr = None
+        if dt is not None:
+            dt_arr = np.ascontiguousarray(dt, dtype=np.float64)
+            if dt_arr.shape != (T - 1,):
+                raise ValueError(f"dt must be (T-1,)={T - 1}, got "
+                                 f"{dt_arr.shape}")
+            dt_ptr = dt_arr.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+        self._lib.rt_route_matrices(
+            self._handle, T, K, edge, off, gc, dt_ptr,
+            float(max_route_distance_factor), float(min_bound_m),
+            float(backward_tolerance_m), float(max_route_time_factor),
+            float(min_time_bound_s), float(turn_penalty_factor), out)
+        return out
 
     def prepare_batch(self, pt_off, lat, lon, times, T: int, K: int,
                       search_radius: float, interpolation_distance: float,

@@ -9,18 +9,24 @@
               plain: ``route_relax.relax_csr``
   pair costs  ops/csrc/route_relax.cu `pair_costs`, the route tensor from
               relaxed node kernels; plain: ``route_relax.pair_costs_packed``
+  step        ops/csrc/viterbi.cu `incremental_step`, one decode step for N
+              carried traces (ops/incremental.py); plain:
+              ``incremental.incremental_step_plain``
 
 Each dispatcher here picks by where the tensors lie: CUDA tensors go to
 the kernel, CPU tensors to the plain version. There is no fallback from
 one to the other.
 """
+from .incremental import incremental_step_cuda, incremental_step_plain
 from .route_relax import (pair_costs_cuda, pair_costs_packed, relax_csr,
                           relax_cuda, relax_fits, relax_sweep_cuda)
 from .viterbi import viterbi_cuda, viterbi_plain
 
-__all__ = ["decode_batch", "relax_routes", "route_pair_costs",
-           "viterbi_cuda", "viterbi_plain", "relax_cuda", "relax_sweep_cuda",
-           "relax_csr", "pair_costs_cuda", "pair_costs_packed"]
+__all__ = ["decode_batch", "incremental_step_batch", "relax_routes",
+           "route_pair_costs", "viterbi_cuda", "viterbi_plain",
+           "incremental_step_cuda", "incremental_step_plain", "relax_cuda",
+           "relax_sweep_cuda", "relax_csr", "pair_costs_cuda",
+           "pair_costs_packed"]
 
 
 def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta):
@@ -32,6 +38,25 @@ def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta):
     if dist_m.device.type == "cpu":
         return viterbi_plain(dist_m, valid, route_m, gc_m, case, sigma, beta)
     return viterbi_cuda(dist_m, valid, route_m, gc_m, case, sigma, beta)
+
+
+def incremental_step_batch(dist_m, valid, route_m, gc_m, case, prev_scores,
+                           sigma, beta, out=None):
+    """One decode step for N carried traces (the contract of the JAX
+    package's ``ops.incremental.incremental_step_batch``): dist_m (N,K),
+    valid (N,K) bool, route_m (N,K,K), gc_m (N,), case (N,) int32,
+    prev_scores (N,K) f32, sigma and beta scalars. Returns (new_scores
+    (N,K) f32, bp (N,K) int32, prev_best (N,) int32) on the tensors'
+    device. ``out``, on the card only, is the kernel's one output buffer
+    (``incremental.incremental_step_cuda``)."""
+    if dist_m.device.type == "cpu":
+        if out is not None:
+            raise ValueError("out is the CUDA kernel's buffer; the CPU "
+                             "path allocates its own outputs")
+        return incremental_step_plain(dist_m, valid, route_m, gc_m, case,
+                                      prev_scores, sigma, beta)
+    return incremental_step_cuda(dist_m, valid, route_m, gc_m, case,
+                                 prev_scores, sigma, beta, out=out)
 
 
 def relax_routes(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,

@@ -90,6 +90,10 @@
 //    (ops/viterbi.py `launch_plan`); the entry point refuses shared bytes
 //    that differ from `layout` below and launches what it is given.
 //
+// The file's second entry point, `incremental_step` (end of the file), is
+// one step of this decode for N carried traces: the incremental streaming
+// decode's kernel (ops/incremental.py).
+//
 // Numerics. Every float op gives the IEEE round-to-nearest f32 result in
 // the reference's order (the __f*_rn intrinsics cannot contract into FMA,
 // the build also passes --fmad=false, and div_rn rounds as division does),
@@ -655,6 +659,82 @@ cudaError_t launch_g(int G, const void* dist, const void* valid,
   }
 }
 
+// ---- incremental_step ------------------------------------------------------
+//
+// Replaces the JAX package's XLA program
+// reporter_tpu/ops/incremental.py `incremental_step_batch` (:50): one step
+// of the decode above for N carried traces, each advanced by the one kept
+// point appended to it. Per row n, for candidates i (previous point) and j
+// (appended point):
+//
+//   cand[i, j]    = prev[i] + tr[i, j]
+//   bp[j]         = argmax_i cand[i, j]        (first maximal index)
+//   new_scores[j] = case == RESTART ? max(prev) + em[j]
+//                                   : max_i cand[i, j] + em[j]
+//   prev_best     = argmax_i prev[i]           (first maximal index)
+//
+// with em and tr scored by `emission` and `transition` above. The maxima
+// are the JAX step's, which the plain version (ops/incremental.py)
+// repeats: its reduction keeps the later of equal values, which shows only
+// in a zero's sign (an on-edge point scores em == -0.0, so carried scores
+// hold signed zeros). Inputs are f32: the host has already round-tripped
+// the wire values through f16.
+//
+// Bound. A row reads K*K*4 + K*9 + 8 bytes and writes K*8 + 4: at N=512,
+// K=8, 172,032 bytes in and 34,816 out, 0.062 us at 3.35 TB/s. The
+// operations (about 6 f32 ops per (i, j)) bound nothing. What a launch
+// costs is its fixed part: the launch itself and one dependent pass over K
+// previous candidates per thread (3.1 us at N=512, K=8 on the H100,
+// PERF.md).
+//
+// Design: the simple one. A block per row and a thread per candidate j
+// (blockDim = K rounded up to a warp), prev staged once in shared memory;
+// each thread walks i in ascending order, so ties keep the lowest index as
+// a strict '>' does, and reads route[i, j] coalesced with its neighbours.
+// Every thread also walks prev for max(prev) and prev_best (shared-memory
+// broadcasts), so no second barrier is needed.
+
+// m = max(m, v) with i its first maximal index, as the JAX step reduces:
+// an equal v takes m's place but not its index (+0.0 == -0.0, so only a
+// zero's sign can change).
+__device__ __forceinline__ void max_step(float v, int i, float& m, int& arg) {
+  if (v > m) arg = i;
+  if (v >= m) m = v;
+}
+
+__global__ void incremental_step_kernel(
+    const float* __restrict__ dist, const uint8_t* __restrict__ valid,
+    const float* __restrict__ route, const float* __restrict__ gc,
+    const int32_t* __restrict__ cases, const float* __restrict__ prev,
+    int K, double inv_sigma, double inv_beta,
+    float* __restrict__ new_scores, int32_t* __restrict__ bp,
+    int32_t* __restrict__ prev_best) {
+  __shared__ float sp[128];
+  const int n = blockIdx.x;
+  const int j = threadIdx.x;
+  const long long row = (long long)n * K;
+  if (j < K) sp[j] = prev[row + j];
+  __syncthreads();
+  if (j >= K) return;
+  const int c = cases[n];
+  const float g = gc[n];
+  const float e = emission(dist[row + j], valid[row + j] != 0, c, inv_sigma);
+  const float* r = route + row * K + j;  // column j of row n's K x K
+  float best = __fadd_rn(sp[0], transition(r[0], g, c, 0 == j, inv_beta));
+  int arg = 0;
+  float mp = sp[0];
+  int pb = 0;
+  for (int i = 1; i < K; ++i) {
+    max_step(__fadd_rn(sp[i], transition(r[(long long)i * K], g, c, i == j,
+                                           inv_beta)),
+              i, best, arg);
+    max_step(sp[i], i, mp, pb);
+  }
+  new_scores[row + j] = __fadd_rn(c == RESTART ? mp : best, e);
+  bp[row + j] = arg;
+  if (j == 0) prev_best[n] = pb;
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes. Launches the plan it is given
@@ -685,4 +765,27 @@ extern "C" int viterbi_decode(const void* dist, const void* valid,
                                sigma, beta, chunk, smem, grid, paths, scores,
                                s);
   return (int)err;
+}
+
+// Plain C entry point of the incremental step, loaded with ctypes: one
+// launch of a block per row on `stream`, the caller's buffers, the
+// cudaError_t of the launch returned (0 on success). K is 1..128.
+extern "C" int incremental_step(const void* dist, const void* valid,
+                                const void* route, const void* gc,
+                                const void* cases, const void* prev, int N,
+                                int K, float sigma, float beta,
+                                void* new_scores, void* bp, void* prev_best,
+                                void* stream) {
+  if (N <= 0) return 0;
+  if (K <= 0 || K > 128) return (int)cudaErrorInvalidValue;
+  const int threads = (K + 31) / 32 * 32;
+  incremental_step_kernel<<<N, threads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dist), static_cast<const uint8_t*>(valid),
+      static_cast<const float*>(route), static_cast<const float*>(gc),
+      static_cast<const int32_t*>(cases), static_cast<const float*>(prev), K,
+      1.0 / (double)sigma, 1.0 / (double)beta,
+      static_cast<float*>(new_scores), static_cast<int32_t*>(bp),
+      static_cast<int32_t*>(prev_best));
+  return (int)cudaGetLastError();
 }

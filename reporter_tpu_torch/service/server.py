@@ -32,6 +32,9 @@ keys stand for the JAX package's environment knobs:
   prep_threads       _PREP_THREADS
   route_device       REPORTER_TPU_ROUTE_DEVICE      (false)
   prune_sigma        REPORTER_TPU_ROUTE_PRUNE_SIGMA (0.0, off)
+  incremental        REPORTER_TPU_INCREMENTAL       (true)
+  incremental_lag    REPORTER_TPU_INCREMENTAL_LAG   (32)
+  incremental_mb     REPORTER_TPU_INCREMENTAL_MB    (64.0)
 
 The service decodes on ``cuda`` unless given ``--device cpu``, and exits
 non-zero when CUDA is missing. With ``--procs N`` the process forks N
@@ -51,7 +54,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
-from ..core.tracebatch import points_to_columns
+from ..core.tracebatch import as_trace_batch, points_to_columns
 from ..graph.network import RoadNetwork
 from ..graph.version import map_version
 from ..matcher.matcher import MATCH_BATCH_DEFAULT, SegmentMatcher
@@ -77,7 +80,8 @@ SERVICE_KEYS = ("threshold_sec", "max_batch", "max_wait_ms",
                 "idle_grace_ms", "queue_max", "queue_policy",
                 "latency_budget_ms")
 MATCHER_KEYS = ("native", "pipeline", "chunk", "prep_threads",
-                "route_device", "prune_sigma")
+                "route_device", "prune_sigma", "incremental",
+                "incremental_lag", "incremental_mb")
 SERVER_KEYS = ("pool_size",)
 
 
@@ -149,8 +153,11 @@ class ReporterService:
     def health(self) -> tuple[int, str]:
         """Liveness probe; (200, JSON body): the graph (nodes, edges, its
         content-derived ``map_version``), the host runtime ("native", or
-        "fallback" for the numpy prep), admission control (not armed) and
-        the datastore (absent)."""
+        "fallback" for the numpy prep), the incremental decode
+        (``enabled``, and once its table exists the table's gauge:
+        traces, state bytes against the budget, lag, evictions,
+        fallbacks, resets), admission control (not armed) and the
+        datastore (absent)."""
         m = self.matcher
         body = {
             "graph": {"loaded": True,
@@ -159,11 +166,35 @@ class ReporterService:
                       "map_version": map_version(m.net)},
             "native": {"status": "native" if m.runtime is not None
                        else "fallback"},
+            "incremental": {"enabled": m.incremental},
             "admission": {"armed": False},
             "datastore": {"status": "absent"},
             "status": "ok",
         }
+        table = m._incremental_table
+        if table is not None:
+            body["incremental"].update(table.gauge())
         return 200, json.dumps(body, separators=(",", ":"))
+
+    def report_incremental(self, traces) -> list:
+        """:meth:`report_many` through the carried-state decode: the
+        traces ``SegmentMatcher.match_incremental`` serves are reported
+        from its matches, and every slot it declines goes through ONE
+        :meth:`report_many` call. A slot's report is the same either way;
+        only the latency and the ``match.incremental.*`` counters tell
+        the paths apart. An error from ``match_incremental`` raises."""
+        tb = as_trace_batch(traces)
+        matches = self.matcher.match_incremental(tb)
+        unserved = [i for i, mt in enumerate(matches) if mt is None]
+        out: list = [None] * len(tb)
+        if unserved:
+            for i, rep in zip(unserved,
+                              self.report_many(tb.gather(unserved))):
+                out[i] = rep
+        for i, mt in enumerate(matches):
+            if mt is not None:
+                out[i] = self._report(mt, tb[i])
+        return out
 
     def report_many(self, traces) -> list:
         """Match + report a whole list — or a columnar
@@ -181,16 +212,21 @@ class ReporterService:
                           trace.get("uuid"), match)
                 out.append(None)
                 continue
-            try:
-                opts = trace["match_options"]
-                out.append(report(match, trace, self.threshold_sec,
-                                  set(opts["report_levels"]),
-                                  set(opts["transition_levels"])))
-            except Exception as e:
-                logger.error("report build failed for %s: %s",
-                          trace.get("uuid"), e)
-                out.append(None)
+            out.append(self._report(match, trace))
         return out
+
+    def _report(self, match, trace):
+        """One trace's parsed report, or None (logged) when it cannot be
+        built, as from a trace without report levels."""
+        try:
+            opts = trace["match_options"]
+            return report(match, trace, self.threshold_sec,
+                          set(opts["report_levels"]),
+                          set(opts["transition_levels"]))
+        except Exception as e:
+            logger.error("report build failed for %s: %s",
+                         trace.get("uuid"), e)
+            return None
 
 
 def make_handler(service: ReporterService):

@@ -37,6 +37,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         reporter_tpu_torch.__path__, "reporter_tpu_torch.")}
     assert set(got["imported"]) == expected
     assert {"reporter_tpu_torch.ops.viterbi",
+            "reporter_tpu_torch.ops.incremental",
+            "reporter_tpu_torch.matcher.incremental",
             "reporter_tpu_torch.native"} <= expected
     assert not got["native_loaded"]
     mods = got["modules"]
@@ -46,7 +48,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 @pytest.mark.parametrize("first", ["reporter_tpu_torch.graph.route_device",
-                                   "reporter_tpu_torch.ops.route_relax"])
+                                   "reporter_tpu_torch.ops.route_relax",
+                                   "reporter_tpu_torch.ops.incremental",
+                                   "reporter_tpu_torch.matcher.incremental"])
 def test_a_module_imports_first(first):
     """The port's modules import one another in a cycle (ops -> matcher
     -> graph.route_device -> ops); each entry imports in a fresh process."""

@@ -260,10 +260,11 @@ def test_health(servers, cities):
     assert got["graph"]["map_version"] == jax_map_version(ref_city)
     assert got["graph"]["nodes"] == city.num_nodes == 100
     assert got["graph"]["edges"] == city.num_edges
-    for key in ("graph", "native", "admission", "datastore", "status"):
+    for key in ("graph", "native", "incremental", "admission",
+                "datastore", "status"):
         assert got[key] == want[key], key
-    assert list(got) == ["graph", "native", "admission", "datastore",
-                         "status"]
+    assert list(got) == ["graph", "native", "incremental", "admission",
+                         "datastore", "status"]
 
 
 def test_map_version_survives_a_save_and_load(cities, tmp_path):
