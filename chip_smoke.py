@@ -45,6 +45,26 @@ Phases, each fatal on failure:
             requests/s, p50/p99 latency, batches, mean batch size,
             launches and the service's own timers, then each setting's
             median and range
+   obs      the observability layer through ReporterService and the
+            threaded server, from a config file with shadow_sample 1.0:
+            main's 608 requests from 64 client threads, every eighth with
+            ?trace=1: bodies (a traced answer's report member) byte-equal
+            to the native CPU run, each span tree well formed and holding
+            every stage (the median split printed), every chunk
+            re-decoded by the plain scan on the CPU with no mismatch while
+            the kernel launched once a chunk, then the split again with
+            the shadow off; /profile's chunk events the
+            dispatched chunks, no build after the build phase; /metrics
+            scrape-clean; /health 200, and 503 naming the breach from a
+            second service with slo_ms "service.handle=0.001"; the
+            incremental shadow over a 64-uuid stream; a flight-recorder
+            dump with the last wide events. Then torch.profiler
+            (metrics.device_trace, Chrome traces under
+            reporter_tpu_torch/_build/obs/) over one warm match_many of
+            512 traces, lanes on and inline, and over one serving window:
+            the device's busy and idle shares and kernel time by name;
+            then requests/s of the window in turns disarmed, traced and
+            shadowed (every chunk re-decoded, trace off)
 5. prefork  python3 -m reporter_tpu_torch.service.server ... --procs 2 as
             a subprocess on the card: both workers answer 64 requests
             with the CPU run's bytes, SIGTERM reaps them and the parent
@@ -124,6 +144,7 @@ After routes comes the incremental streaming decode:
 Prints the card's name and power limit, one JSON line describing the
 kernels (viterbi_decode: ``launches`` match_many's in the main phase,
 ``launches_serve`` each timed serve window's, lanes on,
+``launches_obs`` the obs phase's parity window's,
 ``launches_stream_fallback`` the stream phase's declined slots; relax and
 pair_costs: the routes phase's device lanes-on runs, cold and the first
 warm round; relax_sweep: route-city's 125x125 run, one launch a sweep;
@@ -144,9 +165,13 @@ bit-equal. Then main's 608 requests go through match_many with
 route_device=True and the lanes on, one matcher from each checkout, cold
 once and ten warm rounds in turns: bodies byte-equal to host routes, the
 prep stage's seconds and the wall of each run, and each side's warm
-median and range.
+median and range. Last, one front door from each checkout, observability
+at its defaults: match_many of main's 512 traces and a serving window of
+the 608 requests, ten rounds in turns, bodies byte-equal to the native
+CPU run: what the always-on instrumentation costs.
 """
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1178,11 +1203,14 @@ def http(url, data=None):
         return e.code, e.headers, e.read()
 
 
-def post_all(url, reqs, clients):
+def post_all(url, reqs, clients, trace_every=0, span=False):
     """POST every request to ``url``/report from a pool of ``clients``
     threads in a child process (so the load does not share the
-    service's GIL): ([(status, X-Reporter-Proc, body)] in request order,
-    per-request seconds, wall seconds)."""
+    service's GIL), every ``trace_every``-th (from the first) to
+    ``/report?trace=1``: ([(status, X-Reporter-Proc, body)] in request
+    order, per-request seconds, wall seconds), and with ``span`` the
+    epoch nanoseconds at which the child's first request started and its
+    last ended."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         with open(f"{tmp}/reqs.json", "w") as f:
@@ -1190,36 +1218,43 @@ def post_all(url, reqs, clients):
         subprocess.run(
             [sys.executable, "-c", "import sys, chip_smoke; "
              "chip_smoke.client_main(*sys.argv[1:])", url,
-             f"{tmp}/reqs.json", f"{tmp}/out.json", str(clients)],
+             f"{tmp}/reqs.json", f"{tmp}/out.json", str(clients),
+             str(trace_every)],
             cwd=ROOT, check=True, timeout=600)
         with open(f"{tmp}/out.json") as f:
             out = json.load(f)
-    return ([(st, tag, body.encode()) for st, tag, body in out["answers"]],
-            out["seconds"], out["wall"])
+    got = ([(st, tag, body.encode()) for st, tag, body in out["answers"]],
+           out["seconds"], out["wall"])
+    return got + ((out["t0_ns"], out["t1_ns"]),) if span else got
 
 
-def client_main(url, reqs_path, out_path, clients):
+def client_main(url, reqs_path, out_path, clients, trace_every="0"):
     """The load generator :func:`post_all` runs in its own process."""
     from concurrent.futures import ThreadPoolExecutor
     with open(reqs_path) as f:
         reqs = json.load(f)
+    every = int(trace_every)
     # urllib's first use in 64 threads at once races its lazy set-up
     # (seconds on a loaded host): one GET from this thread first
     http(url + "/health")
 
-    def one(req):
+    def one(i):
+        path = "/report?trace=1" if every and i % every == 0 else "/report"
         t0 = time.perf_counter()
-        st, h, body = http(url + "/report", json.dumps(req).encode())
+        st, h, body = http(url + path, json.dumps(reqs[i]).encode())
         return ((st, h["X-Reporter-Proc"], body.decode()),
                 time.perf_counter() - t0)
 
+    t0_ns = time.time_ns()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(int(clients)) as pool:
-        done = list(pool.map(one, reqs))
+        done = list(pool.map(one, range(len(reqs))))
     wall = time.perf_counter() - t0
+    t1_ns = time.time_ns()
     with open(out_path, "w") as f:
         json.dump({"answers": [a for a, _ in done],
-                   "seconds": [t for _, t in done], "wall": wall}, f)
+                   "seconds": [t for _, t in done], "wall": wall,
+                   "t0_ns": t0_ns, "t1_ns": t1_ns}, f)
 
 
 def error_requests(req):
@@ -1492,6 +1527,480 @@ def phase_prefork(served):
         f"on the card; both answered {len(reqs)} requests from "
         f"{SERVE_CLIENTS} client threads, bodies byte-equal to the native "
         f"CPU run; SIGTERM reaped both, parent rc 0")
+
+
+OBS_STAGES = ("service.request", "service.parse", "service.handle",
+              "dispatch.batch", "dispatch.match_many", "matcher.chunk",
+              "matcher.prep", "prep.candidates", "prep.select",
+              "prep.routes", "matcher.decode_dispatch",
+              "matcher.decode_wait", "matcher.assemble", "report.serialise")
+OBS_TRACE_EVERY = 8         # every eighth request of the parity window
+#: the overhead turns: disarmed (trace and shadow off), traced (every
+#: request's spans recorded, none exported), shadowed (every chunk
+#: re-decoded by the plain scan on the CPU)
+OBS_ORDER = ("disarmed", "traced", "shadowed", "shadowed", "traced",
+             "disarmed")
+OBS_STREAM_UUIDS = 64
+_SAMPLE_RE = r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{le="[^"]+"\})? [0-9eE.+-]+$'
+_META_RE = r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* (counter|histogram)$"
+
+
+def span_split(events, what):
+    """Check one ?trace=1 answer's span tree (one trace id, one root
+    ``service.request``, every parent in the tree, each span inside its
+    parent's interval, every stage of ``OBS_STAGES`` present) and return
+    its milliseconds per span name (spans of a name summed)."""
+    check(events and all(e["ph"] == "X" for e in events),
+          f"{what}: an empty tree or an open span in it")
+    check(len({e["args"]["trace_id"] for e in events}) == 1,
+          f"{what}: more than one trace id")
+    by_id = {e["args"]["span_id"]: e for e in events}
+    check(len(by_id) == len(events), f"{what}: a span id twice")
+    roots = [e["name"] for e in events if e["args"]["parent_id"] == 0]
+    check(roots == ["service.request"], f"{what}: roots {roots}")
+    for e in events:
+        if e["args"]["parent_id"] == 0:
+            continue
+        p = by_id.get(e["args"]["parent_id"])
+        check(p is not None, f"{what}: the parent of {e['name']} is not in "
+                             f"the tree")
+        # 0.01 us of slack for the ns -> us float division
+        check(e["ts"] >= p["ts"] - 0.01
+              and e["ts"] + e["dur"] <= p["ts"] + p["dur"] + 0.01,
+              f"{what}: {e['name']} [{e['ts']:.3f} +{e['dur']:.3f} us] lies "
+              f"outside its parent {p['name']} [{p['ts']:.3f} "
+              f"+{p['dur']:.3f} us]")
+    missing = set(OBS_STAGES) - {e["name"] for e in events}
+    check(not missing, f"{what}: no {sorted(missing)} span")
+    split = {}
+    for e in events:
+        split[e["name"]] = split.get(e["name"], 0.0) + e["dur"] / 1e3
+    return split
+
+
+def scrape_clean(text, what):
+    """Every line of a /metrics body a TYPE line or a sample, each
+    histogram's buckets monotone and its +Inf bucket equal to its
+    count."""
+    import re
+    check(text.endswith("\n"), f"{what}: no final newline")
+    buckets, counts = {}, {}
+    for line in text.splitlines():
+        check(re.match(_META_RE, line) or re.match(_SAMPLE_RE, line),
+              f"{what}: not scrape-clean: {line!r}")
+        m = re.match(r'^(\S+)_bucket\{le="([^"]+)"\} (\d+)$', line)
+        if m:
+            buckets.setdefault(m.group(1), []).append(
+                (m.group(2), int(m.group(3))))
+        m = re.match(r"^(\S+)_count (\d+)$", line)
+        if m:
+            counts[m.group(1)] = int(m.group(2))
+    check(set(buckets) == set(counts) and buckets,
+          f"{what}: histograms without counts")
+    for base, bs in buckets.items():
+        vals = [n for _le, n in bs]
+        check(vals == sorted(vals) and bs[-1] == ("+Inf", counts[base]),
+              f"{what}: {base}: buckets not monotone or +Inf != count")
+    return len(buckets), len(text.splitlines())
+
+
+def device_busy(dt, window, lo=None, hi=None):
+    """From a ``metrics.device_trace``: (wall s, busy share, the device's
+    kernel time by name [(ms, name, launches)]) over the interval of the
+    record_function ``window`` (or [lo, hi] in the profiler's
+    microseconds): busy is the union of the CUDA kernel, memcpy and
+    memset intervals in it."""
+    from torch.autograd import DeviceType
+    evs = dt.profile.events()
+    # the profiler mirrors a host annotation with kernels under it onto
+    # the device's timeline: those copies are annotations, not activity
+    notes = {e.name for e in evs if e.device_type == DeviceType.CPU}
+    win = [e for e in evs
+           if e.name == window and e.device_type == DeviceType.CPU]
+    check(len(win) == 1, f"the device trace holds {len(win)} {window} "
+                         f"regions")
+    if lo is None:
+        lo, hi = win[0].time_range.start, win[0].time_range.end
+    spans = sorted((max(lo, e.time_range.start), min(hi, e.time_range.end))
+                   for e in evs if e.device_type == DeviceType.CUDA
+                   and e.name not in notes
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.end > lo and e.time_range.start < hi)
+    check(spans, f"{window}: no CUDA activity in the window")
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += cur[1] - cur[0]
+    kernels = []
+    for a in dt.profile.key_averages():
+        if getattr(a, "device_type", None) != DeviceType.CUDA \
+                or a.key in notes:
+            continue
+        us = getattr(a, "self_device_time_total", None)
+        if us is None:
+            us = a.self_cuda_time_total
+        if us > 0:
+            kernels.append((us / 1e3, a.key, a.count))
+    kernels.sort(reverse=True)
+    return (hi - lo) / 1e6, busy / (hi - lo), kernels
+
+
+def log_busy(what, wall, busy, kernels, smi):
+    log(f"[obs] device trace, {what}: wall {wall:.4f} s, device busy "
+        f"{busy:.2%}, idle {1 - busy:.2%} (union of CUDA kernel and memcpy "
+        f"intervals; {smi})")
+    for ms, name, n in kernels[:8]:
+        log(f"[obs]   {ms:10.3f} ms  {n:6d} x  {name[:90]}")
+
+
+def phase_obs(dev, served, smi):
+    """The observability layer on the card, through ``ReporterService``
+    and the threaded server built from a config file with
+    ``shadow_sample`` 1.0 and a flight-recorder directory: main's 608
+    requests from 64 client threads, every eighth with ``?trace=1``,
+    bodies byte-equal to the native CPU run (a traced answer's ``report``
+    member), every traced span tree well formed and holding every stage
+    of ``OBS_STAGES`` (the median split printed), every chunk shadowed by
+    the plain scan on the CPU with no mismatch and no error while the
+    kernel launched once a chunk; the same window with the shadow off,
+    for the split without it; ``/profile``'s chunk events the chunks
+    the matcher dispatched and no build after the build phase;
+    ``/metrics`` scrape-clean; ``/health`` 200, and 503 naming the breach
+    from a second service with ``slo_ms`` "service.handle=0.001"; the
+    incremental shadow over a 64-uuid stream through
+    ``report_incremental``; a flight-recorder dump with the last wide
+    events. Then ``metrics.device_trace`` over one warm ``match_many``
+    of main's 512 traces (lanes on and inline) and over one 608-request
+    serving window: busy and idle shares and kernel time by name. Then
+    the serving window in turns disarmed, traced and shadowed, for
+    requests/s.
+    Returns {"launches": the parity window's kernel launches, ...}."""
+    import tempfile
+    import torch
+    from torch.profiler import record_function
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.obs import flightrec, profiler
+    from reporter_tpu_torch.service.server import (ReporterService,
+                                                   configure_obs,
+                                                   matcher_from_config,
+                                                   read_config, serve)
+    from reporter_tpu_torch.utils import metrics
+    city, params = served["city"], served["params"]
+    reqs, want = served["reqs"], served["want"]
+    main = reqs[:N_TRACES]
+    out_dir = ROOT / "reporter_tpu_torch" / "_build" / "obs"
+    rec_dir = out_dir / "flightrec"
+    t_phase = time.perf_counter()
+    up = []        # (service, server) to stop
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        city.save(f"{tmp}/city.npz")
+
+        def config(name, **keys):
+            with open(f"{tmp}/{name}.json", "w") as f:
+                json.dump({"graph": f"{tmp}/city.npz",
+                           "matcher": {"max_candidates": K},
+                           "service": keys}, f)
+            conf = read_config(f"{tmp}/{name}.json")
+            configure_obs(conf["obs"])
+            return conf
+
+        try:
+            conf = config("obs", shadow_sample=1.0,
+                          flightrec_dir=str(rec_dir))
+            matcher = matcher_from_config(conf, "cuda")
+            check(matcher.device.type == dev.type and matcher._lanes
+                  is not None and matcher.runtime is not None,
+                  "the [obs] matcher is not native on the card, lanes on")
+            svc = ReporterService(matcher, **conf["service"])
+            httpd = serve(svc, "127.0.0.1", 0)
+            up.append((svc, httpd))
+            url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            chunks = []   # (T, K, traces, rows) of every drained chunk
+            drain = matcher._drain_stage
+
+            def drain_counted(batch, order, *rest):
+                rows, T, Kb = batch.dist_m.shape
+                chunks.append((T, Kb, len(order), rows))
+                return drain(batch, order, *rest)
+
+            matcher._drain_stage = drain_counted  # bound at each submit
+            answers_match(post_all(url, reqs, SERVE_CLIENTS)[0], want,
+                          "[obs] warm window")
+            check(profiler.drain_shadow(120.0), "the shadow did not drain")
+
+            def traced_window(what):
+                """608 requests, every 8th ?trace=1: (wall, launches,
+                each traced answer's split); every body checked."""
+                ops.viterbi_cuda.launches = 0
+                answers, _secs, wall = post_all(
+                    url, reqs, SERVE_CLIENTS, trace_every=OBS_TRACE_EVERY)
+                launches = ops.viterbi_cuda.launches
+                splits = []
+                for i, (st, _tag, body) in enumerate(answers):
+                    check(st == 200, f"[obs] {what}: request {i} answered "
+                                     f"{st}")
+                    if i % OBS_TRACE_EVERY:
+                        check(body.decode() == want[i],
+                              f"[obs] {what}: body {i} differs from the "
+                              f"native CPU run")
+                        continue
+                    head = ('{"report":' + want[i] + ',"trace":').encode()
+                    check(body.startswith(head) and body.endswith(b"}"),
+                          f"[obs] {what}: traced answer {i}: its report "
+                          f"member differs from the native CPU run's body")
+                    trace = json.loads(body[len(head):-1])
+                    splits.append(span_split(trace["traceEvents"],
+                                             f"{what}: traced answer {i}"))
+                return wall, launches, splits
+
+            def median_split(splits):
+                """Median ms per stage, and of the dispatcher queue."""
+                med = {k: float(np.median([s.get(k, 0.0) for s in splits]))
+                       for k in OBS_STAGES}
+                queue = float(np.median([
+                    s["service.handle"] - s["dispatch.batch"]
+                    - s["report.serialise"] for s in splits]))
+                return med, queue
+
+            # -- parity: the shadow on every chunk, ?trace=1 on every 8th
+            profiler.reset()
+            metrics.default.reset()
+            chunks.clear()
+            wall, launches, splits = traced_window("parity")
+            behind = profiler.shadow_stats()["pending"]
+            t0 = time.perf_counter()
+            check(profiler.drain_shadow(120.0), "the shadow did not drain")
+            lag = time.perf_counter() - t0
+            n_traced = len(splits)
+            ctr = metrics.snapshot()["counters"]
+            shadow = profiler.shadow_stats()
+            check(len(chunks) == launches == ctr.get("profile.chunks", 0)
+                  == ctr.get("decode.shadow.chunks", 0),
+                  f"[obs] {launches} launches, {len(chunks)} chunks drained, "
+                  f"{ctr.get('profile.chunks', 0)} chunk events, "
+                  f"{ctr.get('decode.shadow.chunks', 0)} chunks shadowed")
+            check(shadow["sampled"] == ctr.get("decode.shadow.sampled", 0)
+                  == sum(c[2] for c in chunks) == len(reqs),
+                  f"[obs] the shadow sampled {shadow['sampled']} traces of "
+                  f"{len(reqs)}")
+            check(shadow["mismatch"] == 0
+                  and ctr.get("decode.shadow.errors", 0) == 0
+                  and ctr.get("decode.shadow.dropped", 0) == 0,
+                  f"[obs] shadow {shadow}, counters {ctr}")
+            med, queue = median_split(splits)
+            log(f"[obs] parity: {len(reqs)} requests from {SERVE_CLIENTS} "
+                f"client threads, every {OBS_TRACE_EVERY}th traced, in "
+                f"{wall:.4f} s: bodies byte-equal to the native CPU run (the "
+                f"report member of {n_traced} traced answers); {len(chunks)} "
+                f"chunks, {launches} kernel launches; the shadow re-decoded "
+                f"{ctr['decode.shadow.chunks']} chunks, {shadow['sampled']} "
+                f"traces, by the plain scan on the CPU: 0 mismatches, 0 "
+                f"errors, 0 dropped; {behind} chunks still waiting at the "
+                f"window's end, drained {lag:.2f} s later")
+            log(f"[obs] {n_traced} span trees well formed (one trace id, "
+                f"parents resolve, children inside their parents, all "
+                f"{len(OBS_STAGES)} stages); median ms per traced request, "
+                f"the shadow on every chunk: "
+                + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+                + f"; in the dispatcher queue (handle - batch - serialise) "
+                f"{queue:.3f}")
+            result.update(launches=launches, traced=n_traced,
+                          split_ms=med, queue_ms=queue)
+
+            # -- the same split with the shadow off
+            configure_obs({"shadow_sample": 0.0})
+            before = counters("decode.shadow.chunks")
+            wall_off, _n, splits = traced_window("shadow off")
+            check(counters("decode.shadow.chunks") == before,
+                  "[obs] the shadow ran with shadow_sample 0")
+            med_off, queue_off = median_split(splits)
+            log(f"[obs] {len(splits)} span trees well formed; median ms per "
+                f"traced request, the shadow off ({wall_off:.4f} s for the "
+                f"window, against {wall:.4f} s with it): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in med_off.items())
+                + f"; in the dispatcher queue {queue_off:.3f}")
+            result.update(split_ms_shadow_off=med_off,
+                          queue_ms_shadow_off=queue_off)
+            configure_obs({"shadow_sample": 1.0})
+
+            # -- the endpoints
+            st, _h, raw = http(url + "/profile")
+            prof = json.loads(raw)
+            # /profile shows the last 64 events; the one dispatcher thread
+            # records them in the order the FIFO drain lane drains
+            got = [(e["bucket_T"], e["K"], e["traces"], e["rows"])
+                   for e in prof["events"]]
+            check(st == 200 and len(got) == min(64, len(chunks))
+                  and got == chunks[len(chunks) - len(got):],
+                  f"/profile {st}: its chunk events {got} are not the last "
+                  f"of the dispatched chunks {chunks}")
+            # holds by construction: the build phase loaded every
+            # library, and ops/nvcc.py loads a library once per process
+            check(prof["compile_episodes"] == 0
+                  and all(sh["compiles"] == 0 for sh in prof["shapes"])
+                  and ctr.get("decode.compile.recompiles", 0) == 0,
+                  f"kernel builds after the build phase: {prof['shapes']}")
+            for sh in prof["shapes"]:
+                lat = sh["launch_latency"]
+                log(f"[obs] /profile shape (B={sh['B']}, T={sh['T']}, "
+                    f"K={sh['K']}, {sh['backend']}): {sh['dispatches']} "
+                    f"dispatches, steady mean {sh['steady']['mean_s']} s; "
+                    f"{lat['n']} launches, launch latency (event pair: "
+                    f"submission and kernel) mean "
+                    f"{lat['mean_s'] * 1e3:.4f} ms, max "
+                    f"{lat['max_s'] * 1e3:.4f} ms")
+            st, h, raw = http(url + "/metrics")
+            check(st == 200 and h["Content-type"].startswith("text/plain"),
+                  f"/metrics {st} {h['Content-type']}")
+            n_hist, n_lines = scrape_clean(raw.decode(), "/metrics")
+            st, _h, raw = http(url + "/health")
+            check(st == 200 and json.loads(raw)["status"] == "ok",
+                  f"/health {st} {raw[:200]!r}")
+            log(f"[obs] /profile: its {len(got)} chunk events = the last "
+                f"{len(got)} dispatched (T, K, traces, rows) of "
+                f"{len(chunks)}, 0 builds after the build phase (by "
+                f"construction); "
+                f"/metrics: {n_lines} lines, {n_hist} histograms, "
+                f"scrape-clean, each +Inf bucket its count; /health 200")
+
+            # -- the incremental shadow: a 64-uuid stream
+            names = ("match.incremental.matches",
+                     "match.incremental.shadow_checks",
+                     "match.incremental.shadow_mismatches",
+                     "match.incremental.shadow_errors")
+            before = counters(*names)
+            for hi in (16, 32, 48, 64):
+                window = [dict(r, trace=r["trace"][:hi])
+                          for r in main[:OBS_STREAM_UUIDS]]
+                check(None not in svc.report_incremental(window),
+                      f"report_incremental: a slot failed at {hi} points")
+            n_match, n_check, n_mis, n_err = (
+                a - b for a, b in zip(counters(*names), before))
+            check(n_match > 0 and n_check == n_match and n_mis == 0
+                  and n_err == 0,
+                  f"incremental shadow: {n_match} windows served, {n_check} "
+                  f"checked, {n_mis} mismatches, {n_err} errors")
+            log(f"[obs] incremental shadow: {OBS_STREAM_UUIDS} uuids, 4 "
+                f"calls: {n_match} windows served, {n_check} re-matched by "
+                f"the batch path on the host, 0 mismatches, 0 errors")
+
+            # -- SLO breach on a second service
+            conf2 = config("slo", slo_ms="service.handle=0.001")
+            svc2 = ReporterService(matcher, **conf2["service"])
+            httpd2 = serve(svc2, "127.0.0.1", 0)
+            up.append((svc2, httpd2))
+            st, _h, raw = http(f"http://127.0.0.1:{httpd2.server_address[1]}"
+                               "/health")
+            body = json.loads(raw)
+            check(st == 503 and body["status"] == "degraded"
+                  and [b["stage"] for b in body["slo"]["breaches"]]
+                  == ["service.handle"],
+                  f"slo_ms service.handle=0.001: /health {st} {body}")
+            configure_obs({"slo_ms": None, "shadow_sample": 0.0})
+            check(http(url + "/health")[0] == 200, "/health after the SLO")
+            log(f"[obs] slo_ms service.handle=0.001: /health 503, breach "
+                f"{body['slo']['breaches']}")
+
+            # -- the flight recorder
+            path = flightrec.dump("chip_smoke")
+            check(path is not None and os.path.exists(path),
+                  f"flightrec.dump wrote {path}")
+            with open(path) as f:
+                post = json.load(f)
+            check(post["wide_events"] and post["wide_events"]
+                  == profiler.recent_events(16),
+                  "the dump does not hold the last wide events")
+            log(f"[obs] flightrec.dump: {os.path.relpath(path, ROOT)}, "
+                f"{len(post['wide_events'])} wide events, "
+                f"{len(post['spans'])} spans")
+
+            # -- the device's idle share, from torch.profiler
+            inline = SegmentMatcher(city, params, pipeline=False)
+            for what, m in (("lanes on", matcher), ("inline", inline)):
+                m.match_many(main)   # warm
+                with metrics.device_trace(str(out_dir), dev) as dt:
+                    with record_function("obs.match_many"):
+                        m.match_many(main)
+                wall_s, busy, kern = device_busy(dt, "obs.match_many")
+                log_busy(f"one warm match_many of {N_TRACES} traces, "
+                         f"{what} ({os.path.relpath(dt.path, ROOT)})",
+                         wall_s, busy, kern, smi)
+                result[f"match_many_{what.replace(' ', '_')}"] = {
+                    "wall_s": wall_s, "busy": busy}
+            with metrics.device_trace(str(out_dir), dev) as dt:
+                anchor_us = time.time_ns() / 1e3
+                with record_function("obs.serve_window"):
+                    answers, _secs, wall, (t0_ns, t1_ns) = post_all(
+                        url, reqs, SERVE_CLIENTS, span=True)
+            answers_match(answers, want, "[obs] traced serving window")
+            ev = next(e for e in dt.profile.events()
+                      if e.name == "obs.serve_window")
+            off = anchor_us - ev.time_range.start
+            wall_s, busy, kern = device_busy(
+                dt, "obs.serve_window", t0_ns / 1e3 - off,
+                t1_ns / 1e3 - off)
+            log_busy(f"one serving window of {len(reqs)} requests, lanes on "
+                     f"({os.path.relpath(dt.path, ROOT)}; client wall "
+                     f"{wall:.4f} s)", wall_s, busy, kern, smi)
+            result["serve_window"] = {"wall_s": wall_s, "busy": busy}
+
+            # -- what tracing and the shadow cost: the window in turns
+            rates = {mode: [] for mode in OBS_ORDER}
+            for mode in OBS_ORDER:
+                configure_obs({"trace": mode == "traced",
+                               "shadow_sample":
+                               1.0 if mode == "shadowed" else 0.0})
+                before = counters("decode.shadow.chunks",
+                                  "decode.shadow.dropped",
+                                  "decode.shadow.mismatch",
+                                  "decode.shadow.errors")
+                answers, _secs, wall = post_all(url, reqs, SERVE_CLIENTS)
+                t0 = time.perf_counter()
+                check(profiler.drain_shadow(120.0),
+                      "the shadow did not drain")
+                lag = time.perf_counter() - t0
+                answers_match(answers, want, f"[obs] {mode} window")
+                n_chunks, dropped, n_mis, n_err = (
+                    a - b for a, b in zip(counters(
+                        "decode.shadow.chunks", "decode.shadow.dropped",
+                        "decode.shadow.mismatch", "decode.shadow.errors"),
+                        before))
+                check((n_chunks > 0) == (mode == "shadowed")
+                      and n_mis == 0 and n_err == 0,
+                      f"[obs] {mode} window: {n_chunks} chunks shadowed, "
+                      f"{n_mis} mismatches, {n_err} errors")
+                rates[mode].append(len(reqs) / wall)
+                log(f"[obs] overhead, {mode}: {len(reqs) / wall:.1f} "
+                    f"requests/s ({wall:.4f} s)"
+                    + (f"; {n_chunks} chunks shadowed, {dropped} dropped, "
+                       f"drained {lag:.2f} s after the window"
+                       if mode == "shadowed" else ""))
+            configure_obs({"trace": False, "shadow_sample": 0.0})
+            log("[obs] overhead, requests/s, medians of two windows each: "
+                + ", ".join(f"{m} {np.median(r):.1f}"
+                            for m, r in rates.items())
+                + f" (order {' '.join(OBS_ORDER)}; informational; {smi})")
+            result["rates"] = rates
+        finally:
+            configure_obs({"trace": False, "slo_ms": None,
+                           "shadow_sample": 0.0, "flightrec_dir": None})
+            for s_, h_ in up:
+                h_.shutdown()
+                h_.server_close()
+            for s_, _h in up:
+                check(s_.dispatcher.close(), "an [obs] dispatcher did not "
+                                             "stop")
+            check(profiler.shutdown_shadow_pool(), "the shadow pool did not "
+                                                   "stop")
+    log(f"[obs] phase took {time.perf_counter() - t_phase:.1f} s")
+    return result
 
 
 def grid_inputs(shape, n, seed):
@@ -2107,6 +2616,97 @@ def phase_against_routes(path):
     return out
 
 
+AGAINST_SERVE_ROUNDS = 10  # rounds of two turns, one a checkout
+
+
+def phase_against_serve(dev, path):
+    """What this checkout's always-on instrumentation costs against the
+    checkout at ``path`` (a parent without it): one front door from each
+    checkout, each from its own package (config file, native matcher on
+    ``dev`` with the lanes on, ``ReporterService``, threaded server),
+    every observability key at its default (trace disarmed, the shadow
+    off). A warm window of main's 608 requests each, then
+    ``AGAINST_SERVE_ROUNDS`` rounds in turns (other, this, this, other,
+    ...), a turn being the median of five warm ``match_many`` +
+    report calls of main's 512 traces and one window of the 608 requests
+    from 64 client threads; every body byte-equal to this checkout's
+    native CPU run. Returns {"other"|"this": {"match_many_s": [...],
+    "requests_per_s": [...]}}, one entry a turn."""
+    import tempfile
+    from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
+    from reporter_tpu_torch.service import server as this_server
+    from reporter_tpu_torch.synth import build_grid_city
+    city = build_grid_city(**CITY)
+    params = MatchParams(max_candidates=K)
+    main, mixed = main_requests(
+        SegmentMatcher(city, params, device="cpu", native=False))
+    reqs = main + mixed
+    want = bodies(SegmentMatcher(city, params, device="cpu").match_many(reqs),
+                  reqs)
+    mods = {"other": (load_other(path, "service.server"),
+                      load_other(path, "service.report").report_json),
+            "this": (this_server, None)}
+    sides = {}     # name -> (matcher, writer, service, server, url)
+    out = {name: {"match_many_s": [], "requests_per_s": []} for name in mods}
+    with tempfile.TemporaryDirectory() as tmp:
+        city.save(f"{tmp}/city.npz")
+        with open(f"{tmp}/cfg.json", "w") as f:
+            json.dump({"graph": f"{tmp}/city.npz",
+                       "matcher": {"max_candidates": K}, "service": {}}, f)
+        try:
+            for name, (srv, writer) in mods.items():
+                conf = srv.read_config(f"{tmp}/cfg.json")
+                m = srv.matcher_from_config(conf, dev.type)
+                check(m.device.type == dev.type and m._lanes is not None
+                      and m.runtime is not None,
+                      f"[against-serve] {name}: the matcher is not native "
+                      f"on {dev.type} with the lanes on")
+                svc = srv.ReporterService(m, **conf["service"])
+                httpd = srv.serve(svc, "127.0.0.1", 0)
+                url = f"http://127.0.0.1:{httpd.server_address[1]}"
+                sides[name] = (m, writer, svc, httpd, url)
+                answers_match(post_all(url, reqs, SERVE_CLIENTS)[0], want,
+                              f"[against-serve] {name}, warm window")
+            order = []
+            for r in range(AGAINST_SERVE_ROUNDS):
+                order += ["this", "other"] if r % 2 else ["other", "this"]
+            for name in order:
+                m, writer, _svc, _httpd, url = sides[name]
+                walls = []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    got = bodies(m.match_many(main), main, writer)
+                    walls.append(time.perf_counter() - t0)
+                    check(got == want[:N_TRACES],
+                          f"[against-serve] {name}: match_many bodies "
+                          f"differ from the native CPU run")
+                answers, _secs, wall = post_all(url, reqs, SERVE_CLIENTS)
+                answers_match(answers, want, f"[against-serve] {name}")
+                out[name]["match_many_s"].append(float(np.median(walls)))
+                out[name]["requests_per_s"].append(len(reqs) / wall)
+                log(f"[against-serve] {name} "
+                    f"({path if name == 'other' else '.'}): match_many of "
+                    f"{N_TRACES} traces {np.median(walls):.6f} s (median "
+                    f"of 5); serving {len(reqs) / wall:.1f} requests/s "
+                    f"({wall:.4f} s)")
+        finally:
+            for _m, _w, svc, httpd, _u in sides.values():
+                httpd.shutdown()
+                httpd.server_close()
+                check(svc.dispatcher.close(), "an [against-serve] "
+                                              "dispatcher did not stop")
+    for what, unit in (("match_many_s", "s"), ("requests_per_s", "/s")):
+        o, t = out["other"][what], out["this"][what]
+        better = (lambda a, b: a > b) if unit == "s" else \
+            (lambda a, b: a < b)
+        wins = sum(better(a, b) for a, b in zip(o, t))
+        log(f"[against-serve] {what}, {len(t)} turns each: {path} median "
+            f"{np.median(o):.6f} (range {min(o):.6f}-{max(o):.6f}), this "
+            f"median {np.median(t):.6f} (range {min(t):.6f}-{max(t):.6f}); "
+            f"this better in {wins} of {len(t)} pairs")
+    return out
+
+
 # -- the incremental streaming decode ------------------------------------------
 def step_inputs(N, Kc, seed):
     """Incremental-step rows with exact ties (a few distances, routes and
@@ -2491,8 +3091,9 @@ def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", metavar="DIR",
-                    help="time this kernel, and device-route prep, "
-                         "against the checkout at DIR; nothing else runs")
+                    help="time this kernel, device-route prep and the "
+                         "front door against the checkout at DIR; nothing "
+                         "else runs")
     args = ap.parse_args()
     if not (ROOT / "reporter_tpu_torch" / "ops" / "csrc" / "viterbi.cu").is_file():
         fail("reporter_tpu_torch is not beside this script")
@@ -2514,10 +3115,11 @@ def main() -> int:
         against = phase_against(dev, args.against)
         kernels = phase_against_route_kernels(dev, args.against)
         routes = phase_against_routes(args.against)
+        serving = phase_against_serve(dev, args.against)
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"against": args.against, "ms": against,
                             "route_kernels_ms": kernels,
-                            "routes_s": routes})
+                            "routes_s": routes, "serve": serving})
     phase_verify(dev)
     step_err = phase_verify_step(dev)
     launches, main, max_err, scalars, served = phase_main(dev)
@@ -2528,6 +3130,7 @@ def main() -> int:
     step_launches, _rounds, fallback_launches, _legs = phase_stream(
         dev, served)
     serving = phase_serve(dev, served)
+    obs = phase_obs(dev, served, smi[0] if smi else "nvidia-smi: no output")
     phase_prefork(served)
     phase_city(big)
     sweep_launches, _big_runs = phase_route_city(big, huge)
@@ -2551,6 +3154,9 @@ def main() -> int:
         # the stream phase's fallback leg: report_incremental's declined
         # slots through the dispatcher's match_many (phase_stream)
         "launches_stream_fallback": fallback_launches,
+        # the obs phase's parity window (phase_obs): every chunk shadowed
+        # by the plain scan on the CPU, every eighth request traced
+        "launches_obs": obs["launches"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,

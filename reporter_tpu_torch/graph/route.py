@@ -129,7 +129,8 @@ class RouteCache:
     sampling-gap buckets.
 
     Both levels are LRU-bounded so a long-running service cannot grow
-    without bound.
+    without bound. Hits and misses of each level publish as the
+    ``route.cache.*`` counters through :meth:`flush_metrics`.
 
     Concurrency: shared across threads under CPython's GIL. Each dict
     operation is atomic, but a get can race a concurrent eviction, so
@@ -143,6 +144,8 @@ class RouteCache:
         self.net = net
         self._cache: "OrderedDict[int, tuple]" = OrderedDict()
         self._pairs: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self.hits = self.misses = self.pair_hits = self.pair_misses = 0
+        self._flushed = (0, 0, 0, 0)
 
     @staticmethod
     def _bump(lru: OrderedDict, key) -> None:
@@ -162,8 +165,10 @@ class RouteCache:
     def distances_from(self, node: int, max_dist: float) -> Dict[int, tuple]:
         entry = self._cache.get(node)
         if entry is not None and entry[0] >= max_dist:
+            self.hits += 1
             self._bump(self._cache, node)
             return entry[1]
+        self.misses += 1
         dist = _dijkstra_bounded(self.net, node, max_dist)
         self._cache[node] = (max_dist, dist)
         self._bump(self._cache, node)
@@ -177,13 +182,30 @@ class RouteCache:
         is inf when the pair was unreachable within bound_m."""
         got = self._pairs.get((edge_a, edge_b))
         if got is not None:
+            self.pair_hits += 1
             self._bump(self._pairs, (edge_a, edge_b))
+        else:
+            self.pair_misses += 1
         return got
 
     def pair_put(self, edge_a: int, edge_b: int,
                  bound: float, node_dist: float, node_secs: float) -> None:
         self._pairs[(edge_a, edge_b)] = (bound, node_dist, node_secs)
         self._evict(self._pairs, PAIR_CAP)
+
+    def flush_metrics(self) -> None:
+        """Publish the counts since the last flush as the
+        ``route.cache.*`` counters (once per route tensor: a counter per
+        pair would take the registry lock per (t, i, j))."""
+        from ..utils import metrics
+
+        now = (self.hits, self.misses, self.pair_hits, self.pair_misses)
+        names = ("route.cache.node_hits", "route.cache.node_misses",
+                 "route.cache.pair_hits", "route.cache.pair_misses")
+        for name, cur, old in zip(names, now, self._flushed):
+            if cur > old:
+                metrics.count(name, cur - old)
+        self._flushed = now
 
 
 def route_distance(net: RoadNetwork, edge_a: int, offset_a: float,
@@ -313,4 +335,5 @@ def candidate_route_matrices(net: RoadNetwork, cands: CandidateSet,
                     net, ea, oa, eb, ob, bound, cache,
                     backward_tolerance_m=backward_tolerance_m,
                     time_cap_s=time_cap, turn_penalty_m=penalty)
+    cache.flush_metrics()
     return out

@@ -31,6 +31,7 @@ from ..core.tracebatch import TraceBatch
 from ..graph.network import RoadNetwork
 from ..graph.route import RouteCache, candidate_route_matrices, UNREACHABLE
 from ..graph.spatial import CandidateSet, SpatialGrid, PAD_EDGE, PAD_DIST
+from ..obs import trace as obs_trace
 from .hmm import NORMAL, RESTART, SKIP, UNREACHABLE_THRESHOLD, WIRE_MAX_M
 from .params import MatchParams
 
@@ -52,6 +53,17 @@ def kept_point_count(batch: "PaddedBatch") -> int:
     """Kept (non-SKIP) probe points across a padded batch: filler rows
     and padding tails are all-SKIP."""
     return int(np.count_nonzero(np.asarray(batch.case) != SKIP))
+
+
+def occupancy_stats(kept_points: int, rows: int, T: int
+                    ) -> "tuple[int, float, float]":
+    """(padded point cells, occupancy, padding-waste ratio) for a batch
+    padded to ``rows`` traces of bucket length ``T``: the waste is the
+    fraction of decoded point slots that carry no real probe (the
+    candidate width K scales both sides, so it cancels)."""
+    cells = rows * T
+    occ = kept_points / cells if cells else 0.0
+    return cells, occ, 1.0 - occ
 
 
 def padded_batch_rows(B: int) -> int:
@@ -424,7 +436,9 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
         n_threads=n_threads, n_rows=pad_rows)
     pending = None
     if route_kernel is not None:
-        pending = route_kernel.fill_prep(out, params, B, defer=defer_routes)
+        with obs_trace.span("prep.routes_device"):
+            pending = route_kernel.fill_prep(out, params, B,
+                                             defer=defer_routes)
 
     def build_views() -> List[PreparedTrace]:
         if pending is not None:

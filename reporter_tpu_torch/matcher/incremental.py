@@ -28,6 +28,13 @@ over the same window:
   breakage RESTARTs, the trailing-jitter dwell), and assembly runs the
   same ``assemble_segments`` over a synthesised ``PreparedTrace``.
 
+With the profiler's ``shadow_sample`` > 0, that fraction of the served
+windows is re-matched through the windowed batch path on the host
+(``_oracle_match``: numpy prep, pack, the plain scan on the CPU,
+assembly) and the two matches compared byte for byte
+(``match.incremental.shadow_checks``, ``_mismatches``, ``_errors``); the
+shadow checks and never serves.
+
 What the incremental path cannot reproduce byte for byte (a window past
 the largest bucket, a wire-dtype flip, a lag window that does not
 converge, an evicted state) is a *fallback to the batch path for that
@@ -41,6 +48,7 @@ blob (``CarriedState.to_bytes``) is byte-equal to the JAX package's.
 """
 from __future__ import annotations
 
+import json
 import logging
 import struct
 import threading
@@ -52,13 +60,16 @@ import torch
 
 from .. import ops
 from ..core.geo import equirectangular_m
+from ..core.tracebatch import TraceBatch
 from ..graph.route import UNREACHABLE, candidate_route_matrices
 from ..graph.spatial import PAD_EDGE, CandidateSet
 from ..graph.version import map_version
-from ..utils import metrics
+from ..utils import locks, metrics
 from .assemble import assemble_segments
-from .batchpad import LENGTH_BUCKETS, PreparedTrace, _prune_candidates
-from .hmm import NORMAL, RESTART, UNREACHABLE_THRESHOLD, WIRE_MAX_M
+from .batchpad import (LENGTH_BUCKETS, PreparedTrace, _prune_candidates,
+                       pack_batches)
+from .hmm import (NORMAL, RESTART, UNREACHABLE_THRESHOLD, WIRE_MAX_M,
+                  viterbi_decode_batch)
 
 logger = logging.getLogger("reporter_tpu_torch.matcher.incremental")
 
@@ -452,6 +463,13 @@ class IncrementalTable:
             if delta:
                 metrics.count("match.incremental.state_bytes", delta)
             self._enforce_budget(keep=jobs[-1][1] if jobs else None)
+        # the shadow runs outside the lock: it re-preps and re-decodes the
+        # whole window
+        for i, _uuid, _state, _steps, params, alive in jobs:
+            if alive and results[i] is not None:
+                lat, lon, times = tb.trace_columns(i)
+                _maybe_shadow(self.matcher, lat, lon, times, params,
+                              results[i])
 
     def _fall_back(self, uuid: str, fb: _Fallback) -> None:
         """Count a fallback and drop the trace's state (lock held)."""
@@ -811,6 +829,65 @@ class IncrementalTable:
             interpolation_distance_m=params.interpolation_distance,
             backward_tolerance_m=params.backward_tolerance_m,
             turn_penalty_factor=params.turn_penalty_factor)
+
+
+
+# -- the shadow: the served window against the batch path ---------------------
+
+_shadow_lock = locks.new_lock("incremental.shadow")
+_shadow_acc = 0.0
+
+
+def _maybe_shadow(matcher, lat, lon, times, params, match) -> None:
+    """Deterministic-accumulator sampling at the profiler's
+    ``shadow_sample`` fraction (shared with the decode shadow): re-match
+    this trace's whole window through :func:`_oracle_match` and compare
+    the match bytes. A mismatch is a parity fault, counted and logged;
+    the served match stands."""
+    from ..obs import profiler  # lazy: obs.profiler imports this package
+    frac = profiler.shadow_fraction()
+    if frac <= 0.0:
+        return
+    global _shadow_acc
+    with _shadow_lock:
+        _shadow_acc += min(frac, 1.0)
+        if _shadow_acc < 1.0:
+            return
+        _shadow_acc -= 1.0
+    try:
+        oracle = _oracle_match(matcher, lat, lon, times, params)
+        a = json.dumps(match, sort_keys=True)
+        b = json.dumps(oracle, sort_keys=True)
+        metrics.count("match.incremental.shadow_checks")
+        if a != b:
+            metrics.count("match.incremental.shadow_mismatches")
+            logger.warning(
+                "incremental/batch parity mismatch on a %d-point window "
+                "(incremental %d bytes, batch %d bytes)", len(times),
+                len(a), len(b))
+    except Exception as e:  # the shadow never takes serving down
+        metrics.count("match.incremental.shadow_errors")
+        logger.warning("incremental shadow check failed: %s", e)
+
+
+def _oracle_match(matcher, lat, lon, times, params) -> dict:
+    """The windowed batch path for one trace on the host: numpy prep ->
+    pack (the wire dtype decision included) -> the plain scan on the CPU
+    -> assembly. This is the parity the incremental path is held to."""
+    tb = TraceBatch.concat([(None, lat, lon, times, None, None)])
+    prep = matcher.prepare_many(tb, params)[0]
+    batch = pack_batches([prep])[0]
+    path, _score = viterbi_decode_batch(
+        *(torch.from_numpy(a) for a in (batch.dist_m, batch.valid,
+                                        batch.route_m, batch.gc_m,
+                                        batch.case)),
+        np.float32(params.effective_sigma), np.float32(params.beta))
+    return assemble_segments(
+        matcher.net, prep, path[0].numpy(), mode=params.mode,
+        queue_threshold_kph=params.queue_speed_threshold_kph,
+        interpolation_distance_m=params.interpolation_distance,
+        backward_tolerance_m=params.backward_tolerance_m,
+        turn_penalty_factor=params.turn_penalty_factor)
 
 
 __all__ = ["IncrementalTable", "CarriedState", "DEFAULT_LAG",

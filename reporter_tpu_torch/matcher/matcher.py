@@ -37,6 +37,7 @@ byte for byte is left to ``match_many``.
 """
 from __future__ import annotations
 
+import collections
 import json
 import os
 import threading
@@ -57,6 +58,8 @@ from ..graph.route import RouteCache
 from ..graph import route_device as device_routes
 from ..graph.spatial import SpatialGrid
 from ..native import NativeRuntime
+from ..obs import profiler
+from ..obs import trace as obs_trace
 from ..service import wire
 from ..utils import metrics
 from .assemble import assemble_segments
@@ -79,6 +82,16 @@ PREP_THREADS_MAX = 32
 #: flight while the drain lane assembles the first. One device per
 #: matcher; a decode mesh would scale it
 MATCH_BATCH_DEFAULT = 256
+
+
+def _route_cache_counters() -> dict:
+    """The numpy prep's route-cache counters for a chunk's wide event
+    (the twin of the native route-pair memo's)."""
+    c = metrics.default.counter
+    return {"pair_hits": c("route.cache.pair_hits"),
+            "pair_misses": c("route.cache.pair_misses"),
+            "node_hits": c("route.cache.node_hits"),
+            "node_misses": c("route.cache.node_misses")}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -344,6 +357,10 @@ class SegmentMatcher:
         self._lanes = ((ThreadPoolExecutor(1, "device-dispatch"),
                         ThreadPoolExecutor(1, "device-drain"))
                        if pipeline else None)
+        # free timing-event pairs: the dispatch lane takes one a launch
+        # and the drain lane gives it back once read, so a pair is made
+        # (and first recorded) once per launch in flight, not per launch
+        self._timing_free: collections.deque = collections.deque()
 
     @cached_property
     def grid(self) -> SpatialGrid:
@@ -407,21 +424,25 @@ class SegmentMatcher:
         per_trace_params = self._trace_params(tb)
 
         results: list = [None] * ntr
-        futures = []
+        futures = []   # (dispatch future, drain future, chunk span)
         if self._lanes is not None:
             dispatch_lane, drain_lane = self._lanes
 
-            def submit(batch, order, sigma, beta):
-                d_fut = dispatch_lane.submit(self._dispatch_stage, batch,
+            def submit(batch, order, sigma, beta, span=None):
+                # the lanes run on their own threads: carry the chunk's
+                # trace context over the hop (None when disarmed)
+                ctx = obs_trace.current()
+                d_fut = dispatch_lane.submit(self._lane_stage, ctx,
+                                             self._dispatch_stage, batch,
                                              sigma, beta)
                 futures.append((d_fut, drain_lane.submit(
-                    self._drain_stage, batch, order, d_fut,
-                    per_trace_params, results)))
+                    self._lane_stage, ctx, self._drain_stage, batch, order,
+                    d_fut, per_trace_params, results, span), span))
         else:
-            def submit(batch, order, sigma, beta):
+            def submit(batch, order, sigma, beta, span=None):
                 self._drain_stage(batch, order,
                                   self._dispatch_stage(batch, sigma, beta),
-                                  per_trace_params, results)
+                                  per_trace_params, results, span)
 
         try:
             if self.runtime is not None:
@@ -432,9 +453,16 @@ class SegmentMatcher:
             # a prep failure quiesces the lanes before it propagates, so
             # later chunks do not go on decoding discarded work: cancel
             # everything still queued first (waiting pair by pair would
-            # let the lanes dequeue later chunks), then wait out the rest
-            running = [f for pair in futures for f in reversed(pair)
-                       if not f.cancel()]
+            # let the lanes dequeue later chunks), then wait out the rest;
+            # a cancelled drain closes its chunk's span here
+            running = []
+            for d_fut, a_fut, span in futures:
+                if not a_fut.cancel():
+                    running.append(a_fut)
+                elif span is not None:
+                    span.close()
+                if not d_fut.cancel():
+                    running.append(d_fut)
             for f in running:
                 try:
                     f.result()
@@ -444,7 +472,7 @@ class SegmentMatcher:
         # drain every chunk, then raise the first failure in submission
         # order; a dispatch failure re-raises out of its drain future
         first_err = None
-        for _d_fut, a_fut in futures:
+        for _d_fut, a_fut, _span in futures:
             try:
                 a_fut.result()
             except BaseException as e:
@@ -539,6 +567,7 @@ class SegmentMatcher:
         Ts = buckets[np.minimum(
             np.searchsorted(buckets, np.maximum(raw_counts, 1)),
             len(buckets) - 1)]
+        ci = 0  # chunk index across the call, a span attribute
         for params, idxs in self._param_groups(per_trace_params):
             sigma = np.float32(params.effective_sigma)
             beta = np.float32(params.beta)
@@ -549,18 +578,36 @@ class SegmentMatcher:
                     for lo in range(0, len(bucket), chunk):
                         part = bucket[lo:lo + chunk]
                         rows = padded_batch_rows(len(part))
-                        t0 = time.perf_counter()
-                        batch = prepare_batch(
-                            self.runtime, tb.gather(part), params, T,
-                            pad_rows=rows, n_threads=self.prep_threads,
-                            route_kernel=self.route_kernel,
-                            defer_routes=True,
-                            prune_margin_m=self._prune_margin(params))
-                        self._add_stage("prep", t0)
-                        tot = self.bucket_totals.setdefault(T, [0, 0])
-                        tot[0] += kept_point_count(batch)
-                        tot[1] += rows * T
-                        submit(batch, part, sigma, beta)
+                        # the chunk's span stays open until its drain
+                        # ends, so the lanes' spans lie inside it
+                        span = obs_trace.span("matcher.chunk", chunk=ci,
+                                              traces=len(part), T=int(T))
+                        ci += 1
+                        with obs_trace.hold(span):
+                            t0 = time.perf_counter()
+                            with metrics.timer("matcher.prep"):
+                                batch = prepare_batch(
+                                    self.runtime, tb.gather(part), params,
+                                    T, pad_rows=rows,
+                                    n_threads=self.prep_threads,
+                                    route_kernel=self.route_kernel,
+                                    defer_routes=True,
+                                    prune_margin_m=self._prune_margin(
+                                        params))
+                            self._add_stage("prep", t0)
+                            kept = kept_point_count(batch)
+                            tot = self.bucket_totals.setdefault(T, [0, 0])
+                            tot[0] += kept
+                            tot[1] += rows * T
+                            # the chunk's wide event: one call a chunk
+                            profiler.chunk_event(
+                                bucket_T=int(T), K=params.max_candidates,
+                                traces=len(part), rows=rows,
+                                kept_points=kept,
+                                raw_points=int(raw_counts[part].sum()),
+                                cache=self.runtime.route_memo_stats(),
+                                path="native")
+                            submit(batch, part, sigma, beta, span)
 
     def _padded_cells(self, n: int, T: int) -> int:
         """Point cells ``n`` traces of bucket ``T`` decode as, chunked as
@@ -610,30 +657,64 @@ class SegmentMatcher:
         tensors per trace through the shared route cache, then
         ``pack_batches`` (one batch per bucket, exactly its traces)."""
         chunk = self.chunk
+        ci = 0
         for params, idxs in self._param_groups(per_trace_params):
             sigma = np.float32(params.effective_sigma)
             beta = np.float32(params.beta)
             for lo in range(0, len(idxs), chunk):
                 part = idxs[lo:lo + chunk]
-                t0 = time.perf_counter()
-                prepped = prepare_traces_numpy(
-                    self.net, self.grid, tb.gather(part), params,
-                    self.route_cache, self._prune_margin(params))
-                self._add_stage("prep", t0)
-                idx_of = {id(p): int(i) for p, i in zip(prepped, part)}
-                for batch in pack_batches(prepped):
-                    submit(batch, [idx_of[id(p)] for p in batch.traces],
-                           sigma, beta)
+                span = obs_trace.span("matcher.chunk", chunk=ci,
+                                      traces=len(part))
+                ci += 1
+                with obs_trace.hold(span):
+                    t0 = time.perf_counter()
+                    with metrics.timer("matcher.prep"):
+                        prepped = prepare_traces_numpy(
+                            self.net, self.grid, tb.gather(part), params,
+                            self.route_cache, self._prune_margin(params))
+                    self._add_stage("prep", t0)
+                    idx_of = {id(p): int(i) for p, i in zip(prepped, part)}
+                    batches = pack_batches(prepped)
+                    for n, batch in enumerate(batches, 1):
+                        order = [idx_of[id(p)] for p in batch.traces]
+                        profiler.chunk_event(
+                            bucket_T=int(batch.case.shape[1]),
+                            K=params.max_candidates, traces=len(order),
+                            rows=int(batch.case.shape[0]),
+                            kept_points=kept_point_count(batch),
+                            raw_points=int(sum(p.num_raw
+                                               for p in batch.traces)),
+                            cache=_route_cache_counters(), path="numpy")
+                        # the drain lane is FIFO: the chunk's last batch
+                        # drains last and closes the span
+                        submit(batch, order, sigma, beta,
+                               span if n == len(batches) else None)
+
+    @staticmethod
+    def _lane_stage(ctx, fn, *args):
+        """Run one device-lane stage under a captured trace context (the
+        executor hop drops the submitter's contextvars)."""
+        with obs_trace.attach(ctx):
+            return fn(*args)
 
     def _dispatch_stage(self, batch: PaddedBatch, sigma, beta):
         """Dispatch lane: settle deferred device routes
         (``finalize_wire``), upload one batch, launch the decode and, on
         the card, start a non-blocking copy of the paths into pinned host
         memory recorded on a CUDA event, and one of the deferred route
-        tensor behind it. Returns ``(paths on the host,
-        event or None, device paths)``; the device paths ride along so
-        they stay alive until the drain lane has waited on the event.
-        Everything runs on the device's current stream."""
+        tensor behind it. Returns ``(paths on the host, event or None,
+        device paths, (start, end) timing events or None)``; the device
+        paths ride along so they stay alive until the drain lane has
+        waited on the event, and the timing pair brackets the launch
+        (its submission and the kernel). Everything runs on the device's
+        current stream. The profiler's span credits a kernel build this
+        dispatch pays to the batch's (B, T, K)."""
+        B, T, K = batch.dist_m.shape
+        with metrics.timer("matcher.decode_dispatch"), \
+                profiler.dispatch_span(B, T, K, self.device.type):
+            return self._dispatch_timed(batch, sigma, beta)
+
+    def _dispatch_timed(self, batch: PaddedBatch, sigma, beta):
         t0 = time.perf_counter()
         batch.finalize_wire()
         # numpy arrays, but for a device route tensor (already a tensor on
@@ -645,13 +726,19 @@ class SegmentMatcher:
         if self.device.type == "cpu":
             paths, _scores = ops.decode_batch(*arrays, sigma, beta)
             self._add_stage("decode", t0)
-            return paths, None, None
+            return paths, None, None, None
         with torch.cuda.device(self.device):
             # whole arrays, filler rows included: each upload (and the
             # device route tensor) is a fresh allocation, which starts on
             # 16 bytes as the kernel needs
             x = tuple(a.to(self.device) for a in arrays)
-            paths, _scores = ops.decode_batch(*x, sigma, beta)
+            # recorded by the kernel's launcher around the launch
+            try:
+                timing = self._timing_free.pop()
+            except IndexError:
+                timing = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            paths, _scores = ops.decode_batch(*x, sigma, beta, timing)
             host = torch.empty(paths.shape, dtype=paths.dtype,
                                pin_memory=True)
             host.copy_(paths, non_blocking=True)
@@ -661,23 +748,50 @@ class SegmentMatcher:
                 # device routes: their copy back queues behind the decode
                 batch.routes.copy_back_async()
         self._add_stage("decode", t0)
-        return host, event, paths
+        return host, event, paths, timing
 
     def _drain_stage(self, batch: PaddedBatch, order, decoded,
-                     per_trace_params, results) -> None:
+                     per_trace_params, results, span=None) -> None:
         """Drain lane: wait for one batch's paths, then assemble them into
         the ``results`` slots named by ``order`` (row b is trace
         ``order[b]``). ``decoded`` is the dispatch stage's return, or a
-        future of it on the lanes."""
+        future of it on the lanes. Closes the chunk's ``span`` when
+        given."""
+        try:
+            self._drain(batch, order, decoded, per_trace_params, results)
+        finally:
+            if span is not None:
+                span.close()
+
+    def _drain(self, batch: PaddedBatch, order, decoded, per_trace_params,
+               results) -> None:
         if hasattr(decoded, "result"):
             decoded = decoded.result()
-        host, event, _dev_paths = decoded
-        if event is not None:
-            t0 = time.perf_counter()
-            event.synchronize()
-            self._add_stage("decode", t0)
+        host, event, _dev_paths, timing = decoded
+        with metrics.timer("matcher.decode_wait"):
+            if event is not None:
+                t0 = time.perf_counter()
+                event.synchronize()
+                self._add_stage("decode", t0)
+        if timing is not None:
+            # both events precede the waited one: no further wait here
+            B, T, K = batch.dist_m.shape
+            profiler.note_launch(B, T, K, "cuda",
+                                 timing[0].elapsed_time(timing[1]) / 1e3)
+            self._timing_free.append(timing)
         paths = host.numpy()
+        p0 = per_trace_params[order[0]]
+        # the decode shadow: maybe re-decode this chunk by the plain scan
+        # on the profiler's background thread (one flag load when off)
+        profiler.maybe_shadow(batch, paths, len(order), p0.effective_sigma,
+                              p0.beta)
         t0 = time.perf_counter()
+        with metrics.timer("matcher.assemble"):
+            self._assemble(batch, order, paths, per_trace_params, results)
+        self._add_stage("assemble", t0)
+
+    def _assemble(self, batch: PaddedBatch, order, paths, per_trace_params,
+                  results) -> None:
         if batch.prep is not None:
             # native batched assembly: ONE call walks every path of the
             # batch; the results are lazy views over one RunColumns. It
@@ -711,4 +825,3 @@ class SegmentMatcher:
                     interpolation_distance_m=q.interpolation_distance,
                     backward_tolerance_m=q.backward_tolerance_m,
                     turn_penalty_factor=q.turn_penalty_factor)
-        self._add_stage("assemble", t0)

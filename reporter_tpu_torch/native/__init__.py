@@ -29,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..obs import trace as obs_trace
 from ..utils import metrics
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "host_runtime.cpp"
@@ -440,9 +441,14 @@ class NativeRuntime:
             out["route_m"], out["gc_m"], out["case"], out["kept_idx"],
             out["num_kept"], out["dwell"], out["has_cands"],
             out["max_finite"], out["phase_ns"], out["dt"])
-        for name, ns in zip(PHASES, out["phase_ns"].tolist()):
+        phase_ns = out["phase_ns"].tolist()
+        for name, ns in zip(PHASES, phase_ns):
             if ns > 0:
                 metrics.count(f"prep.phase.{name}_ns", ns)
+        # the same split as child spans of the enclosing matcher.prep span
+        # (nothing unless request tracing is armed)
+        obs_trace.phase_spans(
+            ("prep.candidates", "prep.select", "prep.routes"), phase_ns)
         return out
 
     def to_f16(self, arr: np.ndarray) -> np.ndarray:

@@ -29,15 +29,21 @@ __all__ = ["decode_batch", "incremental_step_batch", "relax_routes",
            "pair_costs_packed"]
 
 
-def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta):
+def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta,
+                 events=None):
     """Batched Viterbi decode; same contract as
     ``matcher.hmm.viterbi_decode_batch``: dist_m (B,T,K) f16 or f32, valid
     (B,T,K) bool, route_m (B,T-1|T,K,K), gc_m (B,T-1|T), case (B,T) int32,
     sigma and beta scalars. Returns (paths (B,T) int32, scores (B,) f32)
-    on the tensors' device."""
+    on the tensors' device. ``events``, on the card only, is a (start,
+    end) pair of timing CUDA events recorded around the kernel."""
     if dist_m.device.type == "cpu":
+        if events is not None:
+            raise ValueError("events time the CUDA kernel; the CPU path "
+                             "has none")
         return viterbi_plain(dist_m, valid, route_m, gc_m, case, sigma, beta)
-    return viterbi_cuda(dist_m, valid, route_m, gc_m, case, sigma, beta)
+    return viterbi_cuda(dist_m, valid, route_m, gc_m, case, sigma, beta,
+                        events)
 
 
 def incremental_step_batch(dist_m, valid, route_m, gc_m, case, prev_scores,

@@ -741,13 +741,17 @@ __global__ void incremental_step_kernel(
 // (chunk steps, dynamic shared bytes, a grid of one block per trace),
 // refusing shared bytes that differ from this file's layout, and returns
 // the cudaError_t of the launch (0 on success). The caller allocates
-// every buffer; the launch is asynchronous on `stream`.
+// every buffer; the launch is asynchronous on `stream`. Non-null
+// `ev_start`/`ev_end` (cudaEvent_t) are recorded on `stream` right
+// before and after the launch, with no host code between them: their
+// elapsed time is the launch latency (on an idle stream the start event
+// completes while the launch is still being submitted).
 extern "C" int viterbi_decode(const void* dist, const void* valid,
                               const void* route, const void* gc,
                               const void* cases, int B, int T, int Tr, int K,
                               int is_f16, float sigma, float beta, int chunk,
                               int smem, int grid, void* paths, void* scores,
-                              void* stream) {
+                              void* stream, void* ev_start, void* ev_end) {
   if (B <= 0) return 0;
   // the first two bounds keep `layout`'s int arithmetic from overflowing
   if (T <= 0 || K <= 0 || K > 255 || (Tr != T - 1 && Tr != T) ||
@@ -757,6 +761,10 @@ extern "C" int viterbi_decode(const void* dist, const void* valid,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = group_width(K);
+  if (ev_start) {
+    cudaError_t e = cudaEventRecord(static_cast<cudaEvent_t>(ev_start), s);
+    if (e != cudaSuccess) return (int)e;
+  }
   cudaError_t err =
       is_f16 ? launch_g<__half>(G, dist, valid, route, gc, cases, B, T, Tr, K,
                                 sigma, beta, chunk, smem, grid, paths, scores,
@@ -764,6 +772,8 @@ extern "C" int viterbi_decode(const void* dist, const void* valid,
              : launch_g<float>(G, dist, valid, route, gc, cases, B, T, Tr, K,
                                sigma, beta, chunk, smem, grid, paths, scores,
                                s);
+  if (err == cudaSuccess && ev_end)
+    err = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), s);
   return (int)err;
 }
 

@@ -9,7 +9,8 @@ never at import, and loaded with ``ctypes``. ptxas's report (``-Xptxas
 later process that finds the library built still has it. Several
 processes may build at once: each compiles to a name of its own and
 moves the result into place. A missing ``nvcc`` or a failed build
-raises.
+raises. :func:`add_listener` hears of each build and load (the
+profiler's build telemetry).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -32,6 +34,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _locks: dict = {}   # source path -> its lock: two sources build at once
 _loaded: dict = {}  # source path -> (ctypes.CDLL, build log)
+_listeners: list = []
+
+
+def add_listener(fn) -> None:
+    """Call ``fn(event, seconds, stem)`` on the loading thread each time
+    :func:`load` builds a library (``"build"``: nvcc and the load) or
+    loads one already built (``"load"``)."""
+    with _lock:
+        if fn not in _listeners:
+            _listeners.append(fn)
 
 
 def nvcc() -> str:
@@ -57,9 +69,12 @@ def load(source: Path, stem: str):
     with lock:
         got = _loaded.get(source)
         if got is None:
+            t0 = time.perf_counter()
+            event = "load"
             out = library_path(source, stem)
             log_path = out.with_suffix(".log")
             if not out.exists():
+                event = "build"
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
                 proc = subprocess.run(
@@ -74,6 +89,8 @@ def load(source: Path, stem: str):
                 os.replace(tmp, out)
             log = log_path.read_text() if log_path.exists() else ""
             got = _loaded[source] = (ctypes.CDLL(str(out)), log)
+            for fn in list(_listeners):
+                fn(event, time.perf_counter() - t0, stem)
         return got
 
 

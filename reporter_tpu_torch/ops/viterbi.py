@@ -134,7 +134,7 @@ def build():
             fn = lib.viterbi_decode
             p, i = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float,
-                           ctypes.c_float, i, i, i, p, p, p]
+                           ctypes.c_float, i, i, i, p, p, p, p, p]
             fn.restype = i
             _kernel = (fn, log)
         return _kernel
@@ -142,9 +142,11 @@ def build():
 
 def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
                  route_m: torch.Tensor, gc_m: torch.Tensor,
-                 case: torch.Tensor, sigma, beta):
+                 case: torch.Tensor, sigma, beta, events=None):
     """Launch the CUDA kernel on CUDA tensors; same contract as the plain
-    version. Raises on any input the kernel does not take."""
+    version. Raises on any input the kernel does not take. ``events``, a
+    (start, end) pair of timing ``torch.cuda.Event``, is recorded around
+    the launch (see :func:`launch`)."""
     if dist_m.dim() != 3:
         raise ValueError(f"dist_m must be (B, T, K), got {tuple(dist_m.shape)}")
     B, T, K = dist_m.shape
@@ -168,7 +170,8 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
             f"{tuple(gc_m.shape)} case {tuple(case.shape)}")
     out = (torch.empty((B, T), dtype=torch.int32, device=dev),
            torch.empty((B,), dtype=torch.float32, device=dev))
-    launch((dist_m, valid, route_m, gc_m, case), sigma, beta, out, plan)
+    launch((dist_m, valid, route_m, gc_m, case), sigma, beta, out, plan,
+           events)
     viterbi_cuda.launches += 1
     return out
 
@@ -176,21 +179,34 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
 viterbi_cuda.launches = 0
 
 
-def launch(inputs, sigma, beta, out, plan: LaunchPlan) -> None:
+def launch(inputs, sigma, beta, out, plan: LaunchPlan,
+           events=None) -> None:
     """Enqueue one kernel launch of ``plan`` on the current stream,
     uncounted and unchecked: ``inputs`` as :func:`viterbi_cuda` has
     validated them, ``out`` the (paths, scores) buffers. Timing loops call
-    this with buffers allocated once."""
+    this with buffers allocated once. ``events`` (start, end), timing
+    ``torch.cuda.Event``, are recorded by the C launcher just before and
+    after the kernel's launch, so ``start.elapsed_time(end)`` is the
+    launch latency: on an idle stream the start event completes at once
+    and the pair also holds the launch's submission, on a busy one the
+    kernel alone. An event is made at its first record, so a caller
+    reuses its pairs."""
     dist_m, valid, route_m, gc_m, case = inputs
     paths, scores = out
     B, T, K = dist_m.shape
     fn, _log = build()
     with torch.cuda.device(dist_m.device):
         stream = torch.cuda.current_stream(dist_m.device).cuda_stream
+        handles = (None, None)
+        if events is not None:
+            for ev in events:  # torch makes an event at its first record
+                if not ev.cuda_event:
+                    ev.record()
+            handles = tuple(ev.cuda_event for ev in events)
         err = fn(dist_m.data_ptr(), valid.data_ptr(), route_m.data_ptr(),
                  gc_m.data_ptr(), case.data_ptr(), B, T, route_m.shape[1], K,
                  int(dist_m.dtype == torch.float16), float(sigma),
                  float(beta), plan.chunk_steps, plan.smem_bytes, plan.grid,
-                 paths.data_ptr(), scores.data_ptr(), stream)
+                 paths.data_ptr(), scores.data_ptr(), stream, *handles)
     if err != 0:
         raise RuntimeError(f"viterbi kernel launch failed: CUDA error {err}")

@@ -15,6 +15,8 @@ import time
 from typing import Callable, List, Optional, Sequence
 
 from ..core.tracebatch import TraceBatch
+from ..obs import profiler
+from ..obs import trace as obs_trace
 from ..utils import metrics
 from .admission import Overload, retry_after_s
 
@@ -35,9 +37,8 @@ _EWMA_ALPHA = 0.2
 #: exits — shutdown is a drain, not an abandonment
 _STOP = object()
 
-
 class _Slot:
-    __slots__ = ("trace", "columns", "event", "result", "error")
+    __slots__ = ("trace", "columns", "event", "result", "error", "ctx")
 
     def __init__(self, trace, columns: Optional[tuple] = None):
         self.trace = trace
@@ -50,6 +51,9 @@ class _Slot:
         self.event = threading.Event()
         self.result: Optional[dict] = None
         self.error: Optional[Exception] = None
+        # the submitter's trace context (None when tracing is disarmed):
+        # the batch's spans parent to one submitter's
+        self.ctx = obs_trace.current()
 
 
 class BatchDispatcher:
@@ -85,6 +89,7 @@ class BatchDispatcher:
         # latency without adding batch — max_wait stays the hard bound
         # for a steady trickle of arrivals
         self.idle_grace = min(idle_grace_ms / 1000.0, self.max_wait)
+        self._batches = 0
         self.queue_max = queue_max
         self.queue_policy = queue_policy
         self._queue: "queue.Queue[_Slot]" = queue.Queue(
@@ -287,24 +292,41 @@ class BatchDispatcher:
             slots = self._drain_batch()
             if not slots:
                 continue  # woke on the close() sentinel alone
+            self._batches += 1
             metrics.count("dispatch.batches")
             metrics.count("dispatch.traces", len(slots))
+            # the backlog left behind: the queue depth at dispatch that
+            # the profiler stamps into its wide events
+            profiler.note_queue_depth(self._queue.qsize())
+            # the batch's spans parent to one submitter: a request whose
+            # tree will be exported when there is one; every other such
+            # request gets a link to the batch's subtree
+            ctxs = [s.ctx for s in slots if s.ctx is not None]
+            ctx = next((c for c in ctxs if obs_trace.watched(c)),
+                       ctxs[0] if ctxs else None)
             self._in_service = len(slots)
             try:
-                # a batch of columnar slots concatenates into ONE
-                # TraceBatch (flat arrays, no per-point Python); plain
-                # dict submissions go as the request dicts
-                if all(s.columns is not None for s in slots):
-                    batch = TraceBatch.concat([s.columns for s in slots])
-                else:
-                    batch = [s.trace for s in slots]
-                t_match = time.monotonic()
-                with metrics.timer("dispatch.match_many"):
-                    results = self._match_many(batch)
-                self._note_service_time(
-                    time.monotonic() - t_match, len(slots))
-                for slot, res in zip(slots, results):
-                    slot.result = res
+                with obs_trace.attach(ctx), \
+                        obs_trace.span("dispatch.batch",
+                                       batch=self._batches,
+                                       traces=len(slots)) as bspan:
+                    for c in {c[0]: c for c in ctxs}.values():
+                        obs_trace.link(c, bspan)
+                    # a batch of columnar slots concatenates into ONE
+                    # TraceBatch (flat arrays, no per-point Python); plain
+                    # dict submissions go as the request dicts
+                    if all(s.columns is not None for s in slots):
+                        batch = TraceBatch.concat(
+                            [s.columns for s in slots])
+                    else:
+                        batch = [s.trace for s in slots]
+                    t_match = time.monotonic()
+                    with metrics.timer("dispatch.match_many"):
+                        results = self._match_many(batch)
+                    self._note_service_time(
+                        time.monotonic() - t_match, len(slots))
+                    for slot, res in zip(slots, results):
+                        slot.result = res
             except Exception as e:  # propagate to every waiter in the batch
                 metrics.count("dispatch.errors")
                 for slot in slots:

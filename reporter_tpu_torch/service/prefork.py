@@ -25,16 +25,22 @@ Supervision: the parent is a waitpid loop — restart a dead worker in the
 same slot, with exponential backoff against crash loops, within an
 optional restart budget. An rc-137 exit (SIGKILL) is logged as such.
 SIGTERM / SIGINT to the parent TERMs every worker and reaps them; worker
-exits during shutdown do not restart.
+exits during shutdown do not restart. With a flight-recorder dump
+directory (the config's ``flightrec_dir``) each slot dumps into its own
+``p<slot>`` directory under it, and the parent lists a dead worker's
+postmortems (``flightrec-<pid>-*``) when it logs the death.
 """
 from __future__ import annotations
 
 import errno
+import glob
 import logging
 import os
 import signal
 import time
 from typing import Callable, Dict, Optional
+
+from ..obs import flightrec
 
 logger = logging.getLogger("reporter_tpu_torch.prefork")
 
@@ -73,6 +79,9 @@ def worker_main(slot: int, make_service: Callable[[int, int], object],
 
     signal.signal(signal.SIGTERM, _term)
     signal.signal(signal.SIGINT, signal.SIG_IGN)  # parent owns ^C
+    root = flightrec.dump_dir()
+    if root:
+        flightrec.set_dump_dir(slot_dump_dir(root, slot))
 
     from ..utils import metrics
     from .server import make_server
@@ -94,6 +103,20 @@ def worker_main(slot: int, make_service: Callable[[int, int], object],
         except Exception:
             pass
     return 0
+
+
+def slot_dump_dir(root: str, slot: int) -> str:
+    """The flight-recorder directory of worker ``slot`` under ``root``."""
+    return os.path.join(root, f"p{slot}")
+
+
+def _flightrec_dumps(slot: int, pid: int) -> list:
+    """A dead worker's postmortems: its slot's directory, its pid."""
+    root = flightrec.dump_dir()
+    if not root:
+        return []
+    return sorted(glob.glob(os.path.join(slot_dump_dir(root, slot),
+                                         f"flightrec-{pid}-*")))
 
 
 def _exit_code(status: int) -> int:
@@ -189,13 +212,16 @@ def serve_prefork(make_service: Callable[[int, int], object], host: str,
                             "during shutdown", slot, pid, code)
                 continue
             metrics.count("service.procs.deaths")
+            dumps = _flightrec_dumps(slot, pid)
             if code == 137:
                 # SIGKILL-grade: OOM killer, chaos harness, operator
                 logger.error("prefork: worker p%d (pid %d) SIGKILLed "
-                             "(rc 137) after %.1fs", slot, pid, age)
+                             "(rc 137) after %.1fs; flight-recorder dumps "
+                             "%s", slot, pid, age, dumps)
             else:
                 logger.error("prefork: worker p%d (pid %d) exited rc %d "
-                             "after %.1fs", slot, pid, code, age)
+                             "after %.1fs; flight-recorder dumps %s", slot,
+                             pid, code, age, dumps)
             if max_total_restarts is not None \
                     and restarts >= max_total_restarts:
                 logger.error("prefork: restart budget exhausted; "

@@ -35,6 +35,18 @@ keys stand for the JAX package's environment knobs:
   incremental        REPORTER_TPU_INCREMENTAL       (true)
   incremental_lag    REPORTER_TPU_INCREMENTAL_LAG   (32)
   incremental_mb     REPORTER_TPU_INCREMENTAL_MB    (64.0)
+  trace              REPORTER_TPU_TRACE             (false)
+  slo_ms             REPORTER_TPU_SLO_MS            ("", no targets)
+  shadow_sample      REPORTER_TPU_SHADOW_SAMPLE     (0.0, off)
+  profile_events     REPORTER_TPU_PROFILE_EVENTS    (512)
+  flightrec_dir      REPORTER_TPU_FLIGHTREC         (none: no dumps)
+  lockcheck          REPORTER_TPU_LOCKCHECK         (false)
+
+The last six are process-wide (``configure_obs``). Besides ``/report``,
+``/stats`` and ``/health`` the server answers ``/metrics`` (Prometheus
+text), ``/profile`` (the device profiler's snapshot) and
+``/report?trace=1`` (the report wrapped as ``{"report": ..., "trace":
+<Chrome trace events of the request's spans>}``).
 
 The service decodes on ``cuda`` unless given ``--device cpu``, and exits
 non-zero when CUDA is missing. With ``--procs N`` the process forks N
@@ -59,7 +71,9 @@ from ..graph.network import RoadNetwork
 from ..graph.version import map_version
 from ..matcher.matcher import MATCH_BATCH_DEFAULT, SegmentMatcher
 from ..matcher.params import MatchParams
-from ..utils import metrics
+from ..obs import flightrec
+from ..obs import trace as obs_trace
+from ..utils import locks, metrics
 from .admission import Overload
 from .dispatch import DEFAULT_QUEUE_MAX, BatchDispatcher
 from .report import report, report_wire
@@ -67,9 +81,11 @@ from .report import report, report_wire
 logger = logging.getLogger("reporter_tpu_torch.service")
 
 #: /report is the reference service's action; /stats is a metrics
-#: snapshot (counters + stage-timer histograms), /health the liveness
-#: probe
-ACTIONS = {"report", "stats", "health"}
+#: snapshot (counters + stage-timer histograms), /metrics the same
+#: registry as Prometheus text, /profile the device profiler's snapshot
+#: (per-shape build and launch telemetry, wide events, shadow verdicts),
+#: /health the liveness probe
+ACTIONS = {"report", "stats", "metrics", "health", "profile"}
 
 #: handler threads per process: they parse JSON and then wait on the
 #: dispatcher, so they are IO-bound and the pool is not sized by cores
@@ -83,6 +99,44 @@ MATCHER_KEYS = ("native", "pipeline", "chunk", "prep_threads",
                 "route_device", "prune_sigma", "incremental",
                 "incremental_lag", "incremental_mb")
 SERVER_KEYS = ("pool_size",)
+#: process-wide observability settings (configure_obs)
+OBS_KEYS = ("trace", "slo_ms", "shadow_sample", "profile_events",
+            "flightrec_dir", "lockcheck")
+
+#: the spellings of "off" of a trace flag (the JAX package's)
+_FALSY = ("", "0", "off", "false")
+
+
+def _on(value) -> bool:
+    """A config flag or ``?trace=`` value: a bool, or a string that is
+    not one of the falsy spellings."""
+    if isinstance(value, str):
+        return value.strip().lower() not in _FALSY
+    return bool(value)
+
+
+def configure_obs(keys: dict) -> None:
+    """Apply the config's observability keys (``OBS_KEYS``) to the
+    process: ``trace`` -> ``obs.trace.configure``, ``slo_ms`` ->
+    ``obs.slo.configure``, ``shadow_sample`` and ``profile_events`` ->
+    ``obs.profiler.configure``, ``flightrec_dir`` ->
+    ``obs.flightrec.set_dump_dir``, ``lockcheck`` -> ``utils.locks.arm``.
+    A key left out keeps its current setting."""
+    from ..obs import profiler, slo
+    if "trace" in keys:
+        obs_trace.configure(_on(keys["trace"]))
+    if "slo_ms" in keys:
+        slo.configure(keys["slo_ms"])
+    if "shadow_sample" in keys or "profile_events" in keys:
+        profiler.configure(shadow_sample=keys.get("shadow_sample"),
+                           events=keys.get("profile_events"))
+    if "flightrec_dir" in keys:
+        flightrec.set_dump_dir(keys["flightrec_dir"])
+    if "lockcheck" in keys:
+        if _on(keys["lockcheck"]):
+            locks.arm()
+        else:
+            locks.disarm()
 
 
 class ReporterService:
@@ -138,8 +192,9 @@ class ReporterService:
             match = self.dispatcher.submit(
                 trace, columns=(trace.get("uuid"), lat, lon, tm, acc,
                                 trace.get("match_options")))
-            return 200, report_wire(match, trace, self.threshold_sec,
-                                    report_levels, transition_levels)
+            with obs_trace.span("report.serialise"):
+                return 200, report_wire(match, trace, self.threshold_sec,
+                                        report_levels, transition_levels)
         except Overload as e:
             # the bounded dispatcher queue shed this request: 429, with
             # the computed back-off in the body — the HTTP handler lifts
@@ -151,13 +206,16 @@ class ReporterService:
             return 500, json.dumps({"error": str(e)})
 
     def health(self) -> tuple[int, str]:
-        """Liveness probe; (200, JSON body): the graph (nodes, edges, its
-        content-derived ``map_version``), the host runtime ("native", or
-        "fallback" for the numpy prep), the incremental decode
-        (``enabled``, and once its table exists the table's gauge:
-        traces, state bytes against the budget, lag, evictions,
-        fallbacks, resets), admission control (not armed) and the
-        datastore (absent)."""
+        """Liveness and latency probe; (status, JSON body): the graph
+        (nodes, edges, its content-derived ``map_version``), the host
+        runtime ("native", or "fallback" for the numpy prep), the decode
+        shadow's verdicts, the incremental decode (``enabled``, and once
+        its table exists the table's gauge: traces, state bytes against
+        the budget, lag, evictions, fallbacks, resets), admission control
+        (not armed), the datastore (absent) and the SLO targets with
+        their breaches. A breach answers 503, "degraded": a stage over
+        its p99 budget is one a load balancer should rotate away from."""
+        from ..obs import profiler, slo
         m = self.matcher
         body = {
             "graph": {"loaded": True,
@@ -166,15 +224,22 @@ class ReporterService:
                       "map_version": map_version(m.net)},
             "native": {"status": "native" if m.runtime is not None
                        else "fallback"},
+            "shadow": profiler.shadow_stats(),
             "incremental": {"enabled": m.incremental},
             "admission": {"armed": False},
             "datastore": {"status": "absent"},
-            "status": "ok",
         }
         table = m._incremental_table
         if table is not None:
             body["incremental"].update(table.gauge())
-        return 200, json.dumps(body, separators=(",", ":"))
+        slo_check = slo.check()
+        body["slo"] = {"targets": {k: round(v * 1000.0, 3) for k, v
+                                   in slo_check["targets"].items()},
+                       "breaches": slo_check["breaches"]}
+        healthy = not slo_check["breaches"]
+        body["status"] = "ok" if healthy else "degraded"
+        return (200 if healthy else 503,
+                json.dumps(body, separators=(",", ":")))
 
     def report_incremental(self, traces) -> list:
         """:meth:`report_many` through the carried-state decode: the
@@ -245,7 +310,8 @@ def make_handler(service: ReporterService):
                 return json.loads(params["json"][0])
             raise ValueError("No json provided")
 
-        def _respond(self, code: int, body, headers=None):
+        def _respond(self, code: int, body, headers=None,
+                     content_type="application/json;charset=utf-8"):
             # str bodies encode here; bytes/memoryview bodies (the C
             # writer's buffer) go to the socket as they are
             raw = body.encode("utf-8") if isinstance(body, str) else body
@@ -258,7 +324,7 @@ def make_handler(service: ReporterService):
                 self.send_header("X-Reporter-Proc", service.proc_tag)
             for key, value in (headers or {}).items():
                 self.send_header(key, value)
-            self.send_header("Content-type", "application/json;charset=utf-8")
+            self.send_header("Content-type", content_type)
             self.send_header("Content-length", str(len(raw)))
             self.end_headers()
             self.wfile.write(raw)
@@ -272,22 +338,60 @@ def make_handler(service: ReporterService):
             self._respond(code, body, headers=headers)
 
         def _do(self, post: bool):
-            action = urllib.parse.urlsplit(self.path).path.split("/")[-1]
+            split = urllib.parse.urlsplit(self.path)
+            action = split.path.split("/")[-1]
             if action == "stats":
                 self._respond(200, json.dumps(metrics.snapshot_rounded()))
                 return
+            if action == "metrics":
+                from ..obs import prom
+                self._respond(200, prom.render(),
+                              content_type=prom.CONTENT_TYPE)
+                return
+            if action == "profile":
+                from ..obs import profiler
+                self._respond(200, json.dumps(profiler.snapshot(),
+                                              separators=(",", ":")))
+                return
             if action == "health":
                 code, body = service.health()
+                if code != 200:
+                    metrics.count(f"service.errors.{code}")
                 self._respond(code, body)
                 return
+            # ?trace=1: arm tracing for this request and answer with its
+            # span tree (Chrome/Perfetto trace events) beside the report
+            want_trace = _on(urllib.parse.parse_qs(split.query).get(
+                "trace", ["0"])[0])
+            if want_trace:
+                obs_trace.force_begin()
+            root = None
             try:
-                trace = self._parse(post)
-            except Exception as e:
-                self._respond(400, json.dumps({"error": str(e)}))
-                return
-            metrics.count("service.requests")
-            with metrics.timer("service.handle"):
-                code, body = service.handle(trace)
+                # the root span: one per /report request, parse ->
+                # dispatch -> match -> serialisation, so every stage span
+                # below it shares the request's trace id
+                with obs_trace.span("service.request") as root:
+                    if want_trace:
+                        obs_trace.watch(root)
+                    try:
+                        with obs_trace.span("service.parse"):
+                            trace = self._parse(post)
+                    except Exception as e:
+                        self._respond(400, json.dumps({"error": str(e)}))
+                        return
+                    metrics.count("service.requests")
+                    with metrics.timer("service.handle"):
+                        code, body = service.handle(trace)
+                if want_trace and code == 200:
+                    if not isinstance(body, str):  # the C writer's bytes
+                        body = bytes(body).decode("utf-8")
+                    body = ('{"report":' + body + ',"trace":'
+                            + json.dumps(obs_trace.export_trace(root),
+                                         separators=(",", ":")) + "}")
+            finally:
+                if want_trace:
+                    obs_trace.unwatch(root)
+                    obs_trace.force_end()
             if code != 200:
                 metrics.count(f"service.errors.{code}")
             if code == 429:
@@ -375,8 +479,9 @@ def slot_device(device: torch.device, slot: int,
 
 def read_config(path: str) -> dict:
     """The config file as {"graph": path, "params": MatchParams,
-    "service": {...}, "matcher": {...}, "server": {...}}, each of the
-    last three holding the ``service`` keys that go to one constructor.
+    "service": {...}, "matcher": {...}, "server": {...}, "obs": {...}},
+    each of the last four holding the ``service`` keys that go to one
+    constructor (``obs``: to :func:`configure_obs`).
     Raises on a missing graph or an unknown key (this service has no
     datastore and no city registry)."""
     with open(path) as f:
@@ -387,7 +492,8 @@ def read_config(path: str) -> dict:
     if unknown:
         raise ValueError(f"unknown keys {sorted(unknown)}")
     given = dict(conf.get("service") or {})
-    unknown = set(given) - set(SERVICE_KEYS + MATCHER_KEYS + SERVER_KEYS)
+    unknown = set(given) - set(SERVICE_KEYS + MATCHER_KEYS + SERVER_KEYS
+                               + OBS_KEYS)
     if unknown:
         raise ValueError(f"unknown service keys {sorted(unknown)}")
     return {"graph": conf["graph"],
@@ -395,7 +501,8 @@ def read_config(path: str) -> dict:
             **{name: {k: given[k] for k in keys if k in given}
                for name, keys in (("service", SERVICE_KEYS),
                                   ("matcher", MATCHER_KEYS),
-                                  ("server", SERVER_KEYS))}}
+                                  ("server", SERVER_KEYS),
+                                  ("obs", OBS_KEYS))}}
 
 
 def matcher_from_config(conf: dict, device) -> SegmentMatcher:
@@ -409,7 +516,8 @@ def matcher_from_config(conf: dict, device) -> SegmentMatcher:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m reporter_tpu_torch.service.server",
-        description="Serve /report, /stats and /health.")
+        description="Serve /report, /stats, /metrics, /profile and "
+                    "/health.")
     ap.add_argument("config", help="JSON config file")
     ap.add_argument("address", help="host:port to listen on")
     ap.add_argument("--procs", type=int, default=1,
@@ -425,6 +533,7 @@ def main(argv=None) -> int:
         sys.stderr.write(f"Problem with config file: {e}\n")
         return 1
     pool_size = conf["server"].get("pool_size", POOL_SIZE)
+    configure_obs(conf["obs"])
 
     def make_service(slot: int, procs: int) -> ReporterService:
         """Everything heavy — the device, the graph load, the native

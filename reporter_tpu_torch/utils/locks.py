@@ -1,0 +1,249 @@
+"""Instrumented locking: the runtime concurrency-analysis substrate.
+
+Every lock of the observability layer (and the metrics registry's) comes
+from :func:`new_lock`, a :class:`TrackedLock`. When the witness is armed
+(:func:`arm`, the service config's ``lockcheck`` key) each acquire and
+release feeds the runtime held-before graph in
+:mod:`reporter_tpu_torch.analysis.racecheck`, which reports lock-order
+inversions (RC001, potential deadlock) and long holds (RC002) with the
+acquisition stacks.
+
+- :class:`TrackedLock`: a named ``threading.Lock`` wrapper. Disarmed,
+  it costs one module-flag load per acquire and per release.
+- :class:`Guarded` / :func:`thread_affine`: the shared-state audit.
+  ``Guarded(obj, lock, name)`` proxies a mutable object and, armed,
+  asserts the owning :class:`TrackedLock` is held by the calling thread
+  on every access (RC003). ``@thread_affine`` marks methods of
+  single-thread-owned objects: the first armed call binds the instance
+  to its thread, any other thread's call is RC004.
+"""
+from __future__ import annotations
+
+import functools
+import sys
+import threading
+import weakref
+from typing import Optional
+
+#: default RC002 long-hold threshold: generous enough that a loaded host
+#: holding the metrics lock through a GC pause stays silent, small enough
+#: that a lock held across an HTTP round trip or a subprocess does not
+DEFAULT_HOLD_MS = 200.0
+
+_ENABLED = False      # the one flag every disarmed lock site loads
+_witness = None       # reporter_tpu_torch.analysis.racecheck, set by arm()
+#: every live TrackedLock, for the post-fork sweep (a WeakSet: a lock
+#: lives as long as its owner)
+_instances: "weakref.WeakSet[TrackedLock]" = weakref.WeakSet()
+
+
+class TrackedLock:
+    """A named lock the runtime witness can observe. Same contract as
+    ``threading.Lock`` (non-reentrant; ``with`` support; ``locked()``)
+    plus a stable ``name``: the node in the held-before graph (instances
+    sharing a name share a node; same-name edges are skipped).
+    """
+
+    __slots__ = ("_lock", "name", "_owner", "__weakref__")
+
+    def __init__(self, name: str):
+        self._lock = threading.Lock()
+        self.name = name
+        self._owner = 0  # acquiring thread id, kept only when armed
+        _instances.add(self)
+
+    def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        got = self._lock.acquire(blocking, timeout)
+        if got and _ENABLED:
+            self._owner = threading.get_ident()
+            _witness.note_acquired(self)
+        return got
+
+    def release(self) -> None:
+        if _ENABLED:
+            # clear ownership, drop the lock, then tell the witness: an
+            # RC002 finding's recording takes the metrics and flightrec
+            # locks, and this lock may be one of them
+            self._owner = 0
+            self._lock.release()
+            _witness.note_released(self)
+        else:
+            self._lock.release()
+
+    def __enter__(self) -> "TrackedLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.release()
+        return False
+
+    def locked(self) -> bool:
+        return self._lock.locked()
+
+    def held_by_me(self) -> bool:
+        """Armed only: is this lock held by the calling thread? Owners are
+        kept from arming on, so a lock taken before :func:`arm` reads as
+        not held."""
+        return self._lock.locked() \
+            and self._owner == threading.get_ident()
+
+
+def new_lock(name: str) -> TrackedLock:
+    """The package lock factory."""
+    return TrackedLock(name)
+
+
+# ---- guarded shared state --------------------------------------------------
+
+class Guarded:
+    """Audit proxy around a shared mutable (dict, deque, ...): armed, every
+    access asserts the owning lock is held by the calling thread (RC003).
+    Disarmed, each access costs one flag check plus the forward."""
+
+    __slots__ = ("_gd_obj", "_gd_lock", "_gd_name")
+
+    def __init__(self, obj, lock, name: str):
+        object.__setattr__(self, "_gd_obj", obj)
+        object.__setattr__(self, "_gd_lock", lock)
+        object.__setattr__(self, "_gd_name", name)
+
+    def _gd_check(self) -> None:
+        lock = self._gd_lock
+        if not (isinstance(lock, TrackedLock) and lock.held_by_me()):
+            _witness.note_guard_violation(self._gd_name,
+                                          getattr(lock, "name", "?"))
+
+    def unwrap(self):
+        """The raw object, unaudited."""
+        return self._gd_obj
+
+    def __getattr__(self, attr):
+        if _ENABLED:
+            self._gd_check()
+        return getattr(self._gd_obj, attr)
+
+    def __getitem__(self, key):
+        if _ENABLED:
+            self._gd_check()
+        return self._gd_obj[key]
+
+    def __setitem__(self, key, value):
+        if _ENABLED:
+            self._gd_check()
+        self._gd_obj[key] = value
+
+    def __delitem__(self, key):
+        if _ENABLED:
+            self._gd_check()
+        del self._gd_obj[key]
+
+    def __contains__(self, key):
+        if _ENABLED:
+            self._gd_check()
+        return key in self._gd_obj
+
+    def __iter__(self):
+        if _ENABLED:
+            self._gd_check()
+        return iter(self._gd_obj)
+
+    def __len__(self):
+        if _ENABLED:
+            self._gd_check()
+        return len(self._gd_obj)
+
+    def __bool__(self):
+        if _ENABLED:
+            self._gd_check()
+        return bool(self._gd_obj)
+
+
+_AFFINE_ATTR = "_thread_affinity_tid"
+
+
+def thread_affine(method):
+    """Mark a method of a single-thread-owned object: the first armed
+    call binds the instance to its thread; a call from another thread is
+    an RC004 finding. All ``@thread_affine`` methods of one instance share
+    the binding; :func:`reset_affinity` unbinds."""
+
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        if _ENABLED:
+            tid = threading.get_ident()
+            bound = getattr(self, _AFFINE_ATTR, None)
+            if bound is None:
+                try:
+                    setattr(self, _AFFINE_ATTR, tid)
+                except AttributeError:  # a __slots__ class cannot bind
+                    pass
+            elif bound != tid:
+                _witness.note_affinity_violation(
+                    f"{type(self).__name__}.{method.__name__}")
+        return method(self, *args, **kwargs)
+
+    return wrapper
+
+
+def reset_affinity(obj) -> None:
+    """Drop an instance's thread binding (an object legitimately handed
+    to a new owner thread)."""
+    try:
+        delattr(obj, _AFFINE_ATTR)
+    except AttributeError:
+        pass
+
+
+# ---- arming ----------------------------------------------------------------
+
+def armed() -> bool:
+    return _ENABLED
+
+
+def arm(hold_ms: Optional[float] = None) -> None:
+    """Arm the witness and the audit; ``hold_ms`` is the RC002 long-hold
+    threshold (default ``DEFAULT_HOLD_MS``)."""
+    global _ENABLED, _witness
+    from ..analysis import racecheck
+    racecheck.enable(DEFAULT_HOLD_MS if hold_ms is None else hold_ms)
+    _witness = racecheck
+    _ENABLED = True
+
+
+def disarm() -> None:
+    global _ENABLED
+    _ENABLED = False
+
+
+# ---- fork safety -----------------------------------------------------------
+
+def _fork_reset() -> None:
+    """Post-fork child-side sweep: a lock another parent thread held at
+    the fork stays locked forever in the child, so its inner lock is
+    replaced. Armed, the surviving thread's own holds are kept (owners
+    are known); disarmed, any locked lock is presumed orphaned. Runs
+    first among the forksafe hooks (this module registers at import,
+    before any user of :func:`new_lock`)."""
+    me = threading.get_ident()
+    for lk in list(_instances):
+        try:
+            if lk._lock.locked() and lk._owner != me:
+                lk._lock = threading.Lock()
+                lk._owner = 0
+        except Exception:  # a dying referent mid-sweep must not poison it
+            pass
+    rc = sys.modules.get("reporter_tpu_torch.analysis.racecheck")
+    if rc is not None:
+        try:
+            rc.fork_reset()
+        except Exception:
+            pass
+
+
+from . import forksafe as _forksafe  # noqa: E402
+
+_forksafe.register(_fork_reset)
+
+__all__ = ["TrackedLock", "Guarded", "new_lock", "thread_affine",
+           "reset_affinity", "arm", "disarm", "armed", "DEFAULT_HOLD_MS"]

@@ -1,11 +1,15 @@
-"""Lightweight metrics: counters and histogram stage timers.
+"""Lightweight metrics: counters, histogram stage timers, device traces.
 
 - ``Registry``: named monotonically-increasing counters and stage
   timers. A timer is a fixed log-bucketed histogram (power-of-2 bounds,
   one numpy bucket increment per observation) plus count/total/max, so
   ``snapshot()`` reports p50/p95/p99 per stage — count/total/max alone
   cannot distinguish "steady 10 ms" from "9 ms with a 2 s tail".
-- ``timer(name)``: context manager recording a stage duration.
+- ``timer(name)``: context manager recording a stage duration. When
+  request tracing is armed (``obs.trace``) every timer site doubles as a
+  span site: the stage timers are the span tree.
+- ``device_trace(out_dir, device)``: ``torch.profiler`` over a region,
+  CPU and CUDA activity, exported as a Chrome trace into ``out_dir``.
 
 Snapshots report raw floats; ``/stats`` serialises through
 :func:`snapshot_rounded` (9 decimals, nanosecond resolution), so
@@ -19,14 +23,17 @@ registry starts empty (``utils.forksafe``).
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
-import threading
+import os
 import time
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
+from ..obs import trace as _trace
 from . import forksafe
+from . import locks as _locks
 
 #: histogram bucket upper bounds in seconds: powers of two from ~1 µs
 #: (2^-20) to 128 s (2^7). Log-spaced buckets keep relative error
@@ -92,7 +99,7 @@ class _Timer:
 
 class Registry:
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = _locks.new_lock("metrics.registry")
         self._counters: Dict[str, int] = {}
         self._timers: Dict[str, _Timer] = {}
 
@@ -103,11 +110,18 @@ class Registry:
             self._counters[name] = v
             return v
 
+    def counter(self, name: str) -> int:
+        """One counter's current value (0 when never incremented)."""
+        with self._lock:
+            return self._counters.get(name, 0)
+
     @contextlib.contextmanager
     def timer(self, name: str) -> Iterator[None]:
+        sp = _trace.span(name)  # the shared no-op unless tracing is armed
         t0 = time.perf_counter()
         try:
-            yield
+            with sp:
+                yield
         finally:
             self.observe(name, time.perf_counter() - t0)
 
@@ -138,6 +152,19 @@ class Registry:
             }
         return {"counters": counters, "timers": timers}
 
+    def export_state(self) -> Tuple[Dict[str, int],
+                                    Dict[str, Tuple[int, float, float,
+                                                    List[int]]]]:
+        """One atomic copy for exposition writers: (counters, {timer:
+        (count, total_s, max_s, bucket counts)}). Bucket counts align
+        with ``BUCKET_BOUNDS_S`` plus one trailing overflow."""
+        with self._lock:
+            counters = dict(self._counters)
+            timers = {name: (t.count, t.total_s, t.max_s,
+                             t.buckets.tolist())
+                      for name, t in self._timers.items()}
+        return counters, timers
+
     def reset(self) -> None:
         with self._lock:
             self._counters.clear()
@@ -146,7 +173,7 @@ class Registry:
     def reset_after_fork(self) -> None:
         """The child's reset: a parent thread may have held the lock at
         the fork, and it would stay held forever here."""
-        self._lock = threading.Lock()
+        self._lock = _locks.new_lock("metrics.registry")
         self.reset()
 
 
@@ -179,6 +206,7 @@ ROUTE_DEVICE_COUNTERS = (
 #: process-global registry used by the service
 default = Registry()
 count = default.count
+counter = default.counter
 timer = default.timer
 observe = default.observe
 snapshot = default.snapshot
@@ -186,3 +214,58 @@ snapshot = default.snapshot
 # a forked worker's /stats must report ITS work, not a copy-on-write
 # snapshot of the parent's: the child's default registry starts empty
 forksafe.register(default.reset_after_fork)
+
+
+class DeviceTrace:
+    """What :func:`device_trace` recorded: ``profile`` (the finished
+    ``torch.profiler.profile``) and ``path`` (its Chrome trace)."""
+
+    __slots__ = ("profile", "path")
+
+    def __init__(self):
+        self.profile = None
+        self.path = None
+
+
+_trace_seq = itertools.count(1)
+
+
+@contextlib.contextmanager
+def device_trace(out_dir: str, device="cuda") -> Iterator[DeviceTrace]:
+    """Profile the region with ``torch.profiler`` (CPU activity, and CUDA
+    activity on a CUDA ``device``) and export a Chrome trace into
+    ``out_dir`` (view it in Perfetto or ``chrome://tracing``). When
+    request tracing is armed, the region runs under a
+    ``record_function("reporter_tpu_torch.trace:<trace id>")`` marker
+    that lines the host spans up with the device timeline. On a CUDA
+    device a trace with no CUDA activity raises: a quiet CPU-only
+    profile would read as an idle card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    cuda = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    out = DeviceTrace()
+    with _trace.span("device_trace", out_dir=out_dir):
+        ctx = _trace.current()
+        with profile(activities=activities) as prof:
+            try:
+                if ctx is not None:
+                    with record_function(
+                            f"reporter_tpu_torch.trace:{ctx[0]}"):
+                        yield out
+                else:
+                    yield out
+            finally:
+                if cuda:  # the region's kernels end inside the trace
+                    torch.cuda.synchronize(device)
+    out.profile = prof
+    os.makedirs(out_dir, exist_ok=True)
+    out.path = os.path.join(
+        out_dir, f"device-trace-{os.getpid()}-{next(_trace_seq):04d}.json")
+    prof.export_chrome_trace(out.path)
+    if cuda and not any(e.device_type == torch.autograd.DeviceType.CUDA
+                        for e in prof.events()):
+        raise RuntimeError(
+            f"device_trace on {device} recorded no CUDA activity: the "
+            "profiler did not trace the card")

@@ -230,9 +230,11 @@ def test_bad_action_lists_the_ports_actions(servers):
     st_ref, _h, _b = call(u_ref, "/nope?json={}")
     st, _h, body = call(u_port, "/nope?json={}")
     assert st == st_ref == 400
-    assert sorted(ACTIONS) == ["health", "report", "stats"]
+    assert sorted(ACTIONS) == ["health", "metrics", "profile", "report",
+                               "stats"]
     assert json.loads(body) == {
-        "error": "Try a valid action: ['health', 'report', 'stats']"}
+        "error": "Try a valid action: ['health', 'metrics', 'profile', "
+                 "'report', 'stats']"}
 
 
 # -- /stats and /health ----------------------------------------------------------
@@ -261,10 +263,11 @@ def test_health(servers, cities):
     assert got["graph"]["nodes"] == city.num_nodes == 100
     assert got["graph"]["edges"] == city.num_edges
     for key in ("graph", "native", "incremental", "admission",
-                "datastore", "status"):
+                "datastore", "slo", "status"):
         assert got[key] == want[key], key
-    assert list(got) == ["graph", "native", "incremental", "admission",
-                         "datastore", "status"]
+    assert set(got["shadow"]) == set(want["shadow"])
+    assert list(got) == ["graph", "native", "shadow", "incremental",
+                         "admission", "datastore", "slo", "status"]
 
 
 def test_map_version_survives_a_save_and_load(cities, tmp_path):
