@@ -65,6 +65,29 @@ Phases, each fatal on failure:
             the device's busy and idle shares and kernel time by name;
             then requests/s of the window in turns disarmed, traced and
             shadowed (every chunk re-decoded, trace off)
+   faults   the failure domains and overload control on the card, each
+            leg a front door from a config file on the 20x20 city with
+            main's 608 requests: native.prep, matcher.assemble (one
+            poisoned trace, quarantined into the spool) and wire.native
+            each armed with a bounded storm that opens its breaker at
+            threshold 2 (/health 503 naming the domain; the writer's
+            breaker is not a /health domain), a window while open with
+            every body byte-equal, then a probe after the cooldown that
+            closes it; decode.dispatch, route.device and native.prep on
+            a route_device door (threshold 1): 500, then 503 with
+            Retry-After and no kernel launch, then the probe's launches
+            (relax and pair_costs with device routes), bytes and closed
+            breaker, and no chunk through the numpy prep;
+            match.incremental.commit on the stream parity input: every
+            slot declined and report_incremental equal to report_many;
+            admission with an in-flight bound of 8: windows from 256
+            client threads until the ladder reaches shed_trace (every
+            answer 200 or 429, every 429 with Retry-After in [1, 30],
+            every 200 byte-equal; requests/s, shed share and served p99
+            printed), the ladder back at normal within two holds a rung,
+            then rung 4 forced: the decode stays on the card (launches
+            equal the chunks). Launches equal the chunks
+            dispatched in every leg; the plain scan runs 0 times
 5. prefork  python3 -m reporter_tpu_torch.service.server ... --procs 2 as
             a subprocess on the card: both workers answer 64 requests
             with the CPU run's bytes, SIGTERM reaps them and the parent
@@ -82,7 +105,9 @@ Phases, each fatal on failure:
             rounds in turns, beside city's host-route wall; 64 traces on a
             125x125 grid city (15,625 nodes, past relax's shared-memory
             limit: relax_sweep), cold
-8. timing   CUDA-event times of the decode kernel from CUDA graphs (the
+8. timing   the launch floor (an empty kernel with the kernels' C launch
+            interface, built beside them, by CUDA graphs and back to back);
+            CUDA-event times of the decode kernel from CUDA graphs (the
             main path's batch, and batches and one trace at T=64/256/1024,
             twice in turns; the per-step slope and intercept; the main
             batch with the L2 flushed) and of the plain version, beside
@@ -145,10 +170,12 @@ Prints the card's name and power limit, one JSON line describing the
 kernels (viterbi_decode: ``launches`` match_many's in the main phase,
 ``launches_serve`` each timed serve window's, lanes on,
 ``launches_obs`` the obs phase's parity window's,
-``launches_stream_fallback`` the stream phase's declined slots; relax and
+``launches_stream_fallback`` the stream phase's declined slots,
+``launches_faults`` the faults phase's legs; relax and
 pair_costs: the routes phase's device lanes-on runs, cold and the first
 warm round; relax_sweep: route-city's 125x125 run, one launch a sweep;
-incremental_step: the stream phase's parity leg, one launch a round),
+incremental_step: the stream phase's parity leg, one launch a round;
+each kernel also its ``launches_faults`` and the ``launch_floor_ms``),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
 
@@ -212,6 +239,24 @@ STREAM_MEASURE = 32
 STREAM_LAG = 32
 # the longest jump between two traces stitched into one stream
 SEAM_M = 800.0
+# the faults phase: every breaker's cooldown, and the admission leg's
+# client threads, in-flight bound, ladder hold and most windows
+FAULT_COOLDOWN_S = 3.0
+ADMIT_CLIENTS = 256
+ADMIT_INFLIGHT = 8
+ADMIT_HOLD_S = 0.25
+ADMIT_WINDOWS = 6
+# an empty kernel with the kernels' C launch interface: the launch floor
+# every kernel time is set against (built beside the kernels, timed the
+# same way); measurement only, on no path
+LAUNCH_FLOOR_CU = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int launch_floor(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
 # the step's checked shapes: N rows by K candidates
 STEP_N = (1, 37, 512, 4096)
 STEP_K = (4, 8, 16, 128)
@@ -357,12 +402,19 @@ def phase_build():
         out = fn()
         return out, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    from reporter_tpu_torch.ops import nvcc
+    floor_src = nvcc.BUILD_DIR / "launch_floor.cu"
+    floor_src.parent.mkdir(parents=True, exist_ok=True)
+    floor_src.write_text(LAUNCH_FLOOR_CU)
+    with ThreadPoolExecutor(4) as pool:
         jobs = [(mod.SOURCE, pool.submit(timed, mod.build))
                 for mod in (viterbi, route_relax)]
         host = pool.submit(timed, native.load)
+        floor = pool.submit(timed, lambda: nvcc.load(floor_src,
+                                                     "launch_floor"))
         built = [(src, job.result()) for src, job in jobs]
         _lib, host_secs = host.result()
+        _floor, floor_secs = floor.result()
     spills = []
     for src, ((_fn, build_log), secs) in built:
         log(f"[build] {src.relative_to(ROOT)} -> sm_90a in {secs:.2f} s")
@@ -378,8 +430,28 @@ def phase_build():
               f"nvcc printed no ptxas -v report for {src.name}")
     log(f"[build] {native.SOURCE.relative_to(ROOT)} -> g++ "
         f"{' '.join(native.cxx_flags())} in {host_secs:.2f} s (beside the "
-        f"nvcc builds)")
+        f"nvcc builds); the empty launch-floor kernel in {floor_secs:.2f} s")
     return spills
+
+
+def launch_floor_ms(dev):
+    """Device time of one launch of an empty kernel through a C launcher,
+    as the kernels are launched: by CUDA graphs (``graph_ms``, 100 a
+    graph) and back to back from Python (``time_ms``)."""
+    import ctypes
+    import torch
+    from reporter_tpu_torch.ops import nvcc
+    lib, _log = nvcc.load(nvcc.BUILD_DIR / "launch_floor.cu", "launch_floor")
+    fn = lib.launch_floor
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+
+    def launch():
+        check(fn(torch.cuda.current_stream(dev).cuda_stream) == 0,
+              "the empty kernel did not launch")
+    graphed, eager = graph_ms(launch, 100), time_ms(launch, 200)
+    log(f"[timing] launch floor: an empty kernel {graphed:.5f} ms a launch "
+        f"by CUDA graphs, {eager:.5f} ms back to back from Python")
+    return graphed
 
 
 def bit_equal(a, b):
@@ -1203,14 +1275,15 @@ def http(url, data=None):
         return e.code, e.headers, e.read()
 
 
-def post_all(url, reqs, clients, trace_every=0, span=False):
+def post_all(url, reqs, clients, trace_every=0, span=False, retry=False):
     """POST every request to ``url``/report from a pool of ``clients``
     threads in a child process (so the load does not share the
     service's GIL), every ``trace_every``-th (from the first) to
     ``/report?trace=1``: ([(status, X-Reporter-Proc, body)] in request
-    order, per-request seconds, wall seconds), and with ``span`` the
-    epoch nanoseconds at which the child's first request started and its
-    last ended."""
+    order, per-request seconds, wall seconds), with ``span`` the epoch
+    nanoseconds at which the child's first request started and its last
+    ended, and with ``retry`` each answer's Retry-After header (None
+    where it has none)."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         with open(f"{tmp}/reqs.json", "w") as f:
@@ -1225,7 +1298,9 @@ def post_all(url, reqs, clients, trace_every=0, span=False):
             out = json.load(f)
     got = ([(st, tag, body.encode()) for st, tag, body in out["answers"]],
            out["seconds"], out["wall"])
-    return got + ((out["t0_ns"], out["t1_ns"]),) if span else got
+    if span:
+        got += ((out["t0_ns"], out["t1_ns"]),)
+    return got + (out["retry"],) if retry else got
 
 
 def client_main(url, reqs_path, out_path, clients, trace_every="0"):
@@ -1243,7 +1318,7 @@ def client_main(url, reqs_path, out_path, clients, trace_every="0"):
         t0 = time.perf_counter()
         st, h, body = http(url + path, json.dumps(reqs[i]).encode())
         return ((st, h["X-Reporter-Proc"], body.decode()),
-                time.perf_counter() - t0)
+                time.perf_counter() - t0, h["Retry-After"])
 
     t0_ns = time.time_ns()
     t0 = time.perf_counter()
@@ -1252,8 +1327,9 @@ def client_main(url, reqs_path, out_path, clients, trace_every="0"):
     wall = time.perf_counter() - t0
     t1_ns = time.time_ns()
     with open(out_path, "w") as f:
-        json.dump({"answers": [a for a, _ in done],
-                   "seconds": [t for _, t in done], "wall": wall,
+        json.dump({"answers": [a for a, _t, _r in done],
+                   "seconds": [t for _a, t, _r in done], "wall": wall,
+                   "retry": [r for _a, _t, r in done],
                    "t0_ns": t0_ns, "t1_ns": t1_ns}, f)
 
 
@@ -2001,6 +2077,454 @@ def phase_obs(dev, served, smi):
                                                    "stop")
     log(f"[obs] phase took {time.perf_counter() - t_phase:.1f} s")
     return result
+
+
+def phase_faults(dev, served):
+    """Failure domains and overload control on the card, each leg through
+    a front door built from a config file (``read_config``,
+    ``configure_faults``, ``matcher_from_config``), the 20x20 city and
+    main's 608 requests, with every breaker at threshold 2 (1 for the
+    card's domains) and ``FAULT_COOLDOWN_S``:
+
+    - ``native.prep``, ``matcher.assemble`` and ``wire.native``, the
+      host-to-host sites: a bounded storm (``#limit``) fired by two
+      requests opens the breaker at its threshold, /health answers 503
+      naming the domain (the writer's breaker is not a /health domain, as
+      in the JAX package: its state and counters are read instead), a
+      window of the 608 requests from 64 client threads runs while it is
+      open, then a probe after the cooldown closes it and /health answers
+      200. Every 200 body is byte-equal to the native CPU run's but the
+      one poisoned trace's, which holds the empty match and whose
+      quarantine file is in the spool. viterbi_decode's launches equal
+      the chunks dispatched;
+    - ``decode.dispatch``, ``route.device`` (on a ``route_device``
+      matcher) and ``native.prep`` on a ``route_device`` matcher, whose
+      numpy prep would search the routes on the host: the failing chunk
+      answers 500, then requests answer 503 with Retry-After and no
+      kernel launches, and after the cooldown the probe launches (the
+      decode, and relax and pair_costs with device routes), answers the
+      CPU run's bytes and closes the breaker; no chunk takes the numpy
+      prep;
+    - ``match.incremental.commit`` on the stream phase's parity input:
+      the failing call declines every slot, and report_incremental equals
+      report_many;
+    - admission armed with ``ADMIT_INFLIGHT`` in flight: windows of the
+      608 requests from ``ADMIT_CLIENTS`` client threads until the ladder
+      reaches ``shed_trace``: every answer 200 or 429, every 429 with
+      Retry-After in [1, 30], every 200 body byte-equal; the ladder back
+      at ``normal`` within two holds a rung once the load stops. Then
+      rung 4 forced: a window with the launches equal to the chunks (and
+      ``pressure.oracle_chunks`` 0, which the port never counts: the
+      launches are the evidence).
+
+    The plain scan is counted throughout and must stay at 0. Returns
+    {kernel: {leg: launches}}."""
+    import tempfile
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.matcher import matcher as matcher_mod
+    from reporter_tpu_torch.service import admission, wire
+    from reporter_tpu_torch.service.report import report_json
+    from reporter_tpu_torch.service.server import (ReporterService,
+                                                   configure_faults,
+                                                   configure_obs,
+                                                   matcher_from_config,
+                                                   read_config, serve)
+    from reporter_tpu_torch.utils import faults, metrics
+    city, params = served["city"], served["params"]
+    reqs, want = served["reqs"], served["want"]
+    t_phase = time.perf_counter()
+    plain_calls = [0]
+    plain = ops.viterbi_plain
+
+    def counted_plain(*args, **kw):
+        plain_calls[0] += 1
+        return plain(*args, **kw)
+
+    ops.viterbi_plain = counted_plain   # ops.decode_batch reads it here
+    launches = {name: {} for name in kernel_wrappers()}
+    launches["incremental_step"] = {}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    city.save(f"{tmp}/city.npz")
+    spool_dir = f"{tmp}/spool"
+
+    def door(name, pool_size=64, **keys):
+        """(matcher, service, server, url, dispatched batches) of one
+        front door from a config file."""
+        keys = {"circuit_threshold": 2,
+                "circuit_cooldown_s": FAULT_COOLDOWN_S,
+                "deadletter_dir": spool_dir, "shadow_sample": 0.0,
+                "trace": False, **keys}
+        with open(f"{tmp}/{name}.json", "w") as f:
+            json.dump({"graph": f"{tmp}/city.npz",
+                       "matcher": {"max_candidates": K}, "service": keys}, f)
+        conf = read_config(f"{tmp}/{name}.json")
+        configure_obs(conf["obs"])
+        configure_faults(conf["faults"])
+        matcher = matcher_from_config(conf, "cuda")
+        svc = ReporterService(matcher, **conf["service"])
+        httpd = serve(svc, "127.0.0.1", 0, pool_size)
+        dispatched = [0]
+        stage = matcher._dispatch_stage
+
+        def counted_stage(*args):
+            out = stage(*args)
+            dispatched[0] += 1   # a batch that reached its launch
+            return out
+
+        matcher._dispatch_stage = counted_stage  # bound at each submit
+        return (matcher, svc, httpd,
+                f"http://127.0.0.1:{httpd.server_address[1]}", dispatched)
+
+    def close(svc, httpd):
+        httpd.shutdown()
+        httpd.server_close()
+        check(svc.dispatcher.close(), "a [faults] dispatcher did not stop")
+
+    def post(url, i):
+        return http(url + "/report", json.dumps(reqs[i]).encode())
+
+    def health(url):
+        st, _h, body = http(url + "/health")
+        return st, json.loads(body)
+
+    def wait_cooldown(breaker):
+        time.sleep(breaker.snapshot()["cooldown_remaining_s"] + 0.05)
+
+    def host_leg(site, spec, breaker_of, opened_name):
+        matcher, svc, httpd, url, dispatched = door(site.replace(".", "_"))
+        what = f"[faults] {site}"
+        try:
+            metrics.default.reset()
+            ops.viterbi_cuda.launches = dispatched[0] = 0
+            faults.configure(spec)
+            storm = [post(url, i) for i in (0, 1)]
+            breaker = breaker_of(matcher)
+            check(breaker.snapshot()["state"] == "open"
+                  and metrics.counter(f"{opened_name}.opened") == 1,
+                  f"{what}: the breaker did not open at its threshold: "
+                  f"{breaker.snapshot()}")
+            st, body = health(url)
+            if site == "wire.native":
+                check(st == 200 and body["degraded"]["open"] == [],
+                      f"{what}: /health {st} {body['degraded']}")
+            else:
+                check(st == 503 and body["degraded"]["open"] == [site],
+                      f"{what}: /health {st} {body['degraded']} while open")
+            answers, _secs, wall = post_all(url, reqs, SERVE_CLIENTS)
+            wait_cooldown(breaker)
+            probe = post(url, 2)
+            st_after, body_after = health(url)
+            check(st_after == 200 and body_after["degraded"]["open"] == []
+                  and breaker.snapshot()["state"] == "closed"
+                  and metrics.counter(f"{opened_name}.closed") == 1,
+                  f"{what}: the probe did not close the breaker: "
+                  f"{breaker.snapshot()}")
+            poisoned = None
+            if site == "matcher.assemble":
+                poisoned = 0
+                empty = report_json({"segments": [], "mode": "auto"},
+                                    reqs[0], 15, {0, 1, 2}, {0, 1, 2})
+                check(storm[0][0] == 200 and storm[0][2].decode() == empty,
+                      f"{what}: the poisoned trace's answer {storm[0][0]} "
+                      f"is not the empty match")
+                path = f"{spool_dir}/poison.{reqs[0]['uuid']}.json"
+                check(os.path.exists(path),
+                      f"{what}: no quarantine file {path}")
+                with open(path) as f:
+                    spooled = json.load(f)
+                check([(p["lat"], p["lon"]) for p in spooled["trace"]]
+                      == [(p["lat"], p["lon"]) for p in reqs[0]["trace"]],
+                      f"{what}: the quarantine file holds another trace")
+                check(metrics.counter("matcher.assemble.quarantined") == 1,
+                      f"{what}: quarantined "
+                      f"{metrics.counter('matcher.assemble.quarantined')}")
+            for i, (st, _h, body) in ((0, storm[0]), (1, storm[1]),
+                                      (2, probe)):
+                if i != poisoned:
+                    check(st == 200 and body.decode() == want[i],
+                          f"{what}: request {i} answered {st} or other "
+                          f"bytes")
+            answers_match(answers, want, f"{what}: window while open")
+            n = ops.viterbi_cuda.launches
+            check(n == dispatched[0],
+                  f"{what}: {n} launches for {dispatched[0]} chunks")
+            counts = {k: v for k, v in metrics.snapshot()["counters"]
+                      .items() if "circuit" in k or k.startswith(
+                          ("wire.", "matcher.assemble"))}
+            log(f"[faults] {site}: spec {spec}; the breaker opened at its "
+                f"threshold and the probe closed it after "
+                f"{FAULT_COOLDOWN_S} s; /health {'200 (not a /health '
+                'domain)' if site == 'wire.native' else '503 naming it'} "
+                f"while open, 200 after; {len(reqs)} requests while open "
+                f"in {wall:.4f} s ({len(reqs) / wall:.1f} requests/s), "
+                f"every 200 body byte-equal"
+                + (", the poisoned trace empty and quarantined"
+                   if poisoned is not None else "")
+                + f"; viterbi_decode launches {n} = chunks {dispatched[0]}; "
+                f"counters {counts}")
+            return n
+        finally:
+            faults.clear()
+            close(svc, httpd)
+
+    host_preps = [0]
+    numpy_prep = matcher_mod.prepare_traces_numpy
+
+    def counted_numpy_prep(*args):
+        host_preps[0] += 1
+        return numpy_prep(*args)
+
+    def card_leg(leg, domain, route_device, breaker_of, errors):
+        matcher, svc, httpd, url, dispatched = door(
+            leg.replace(".", "_").replace("+", "_"), circuit_threshold=1,
+            route_device=route_device)
+        breaker = breaker_of(matcher)
+        spec = f"{domain}=error#1"
+        what = f"[faults] {leg}"
+        host_preps[0] = 0
+        # the matcher's degraded prep: with device routes it would search
+        # the routes on the host, so it must not run in these legs
+        matcher_mod.prepare_traces_numpy = counted_numpy_prep
+        try:
+            metrics.default.reset()
+            for fn in kernel_wrappers().values():
+                fn.launches = 0
+            dispatched[0] = 0
+            faults.configure(spec)
+            st, _h, body = post(url, 0)
+            check(st == 500 and b"injected error" in body,
+                  f"{what}: the failing chunk answered {st} {body[:200]!r}")
+            st, hbody = health(url)
+            check(st == 503 and hbody["degraded"]["open"] == [domain],
+                  f"{what}: /health {st} {hbody['degraded']} while open")
+            before = {k: fn.launches for k, fn in kernel_wrappers().items()}
+            refused, refused_ms = [], []
+            for i in range(1, 9):
+                t0 = time.perf_counter()
+                st, h, body = post(url, i)
+                refused_ms.append((time.perf_counter() - t0) * 1e3)
+                retry = h["Retry-After"]
+                check(st == 503 and retry is not None
+                      and 1 <= int(retry) <= np.ceil(FAULT_COOLDOWN_S)
+                      and json.loads(body)["domain"] == domain,
+                      f"{what}: request {i} answered {st} Retry-After "
+                      f"{retry} while open")
+                refused.append(int(retry))
+            after = {k: fn.launches for k, fn in kernel_wrappers().items()}
+            check(after == before,
+                  f"{what}: launches while open: {before} -> {after}")
+            wait_cooldown(breaker)
+            st, _h, body = post(url, 9)
+            check(st == 200 and body.decode() == want[9],
+                  f"{what}: the probe answered {st} or other bytes")
+            probe = {k: fn.launches - after[k]
+                     for k, fn in kernel_wrappers().items()}
+            check(probe["viterbi_decode"] == 1
+                  and (not route_device or (probe["pair_costs"] >= 1
+                                            and probe["relax"] >= 1)),
+                  f"{what}: the probe launched {probe}")
+            st, hbody = health(url)
+            check(st == 200 and breaker.snapshot()["state"] == "closed",
+                  f"{what}: /health {st} after the probe, "
+                  f"{breaker.snapshot()}")
+            check(metrics.counter(errors) == 1,
+                  f"{what}: {errors} {metrics.counter(errors)}")
+            check(host_preps[0] == 0,
+                  f"{what}: {host_preps[0]} chunks took the numpy prep")
+            log(f"[faults] {leg}: spec {spec}; the failing chunk "
+                f"answered 500 and opened the breaker (threshold 1); "
+                f"/health 503 naming it; 8 requests answered 503 with "
+                f"Retry-After {sorted(set(refused))} s and no launch "
+                f"({before}) in {np.median(refused_ms):.2f} ms each "
+                f"(median; most {max(refused_ms):.2f}); after "
+                f"{FAULT_COOLDOWN_S} s the probe "
+                f"launched {probe}, answered the CPU run's bytes and "
+                f"closed the breaker; the numpy prep ran 0 times")
+            return {k: v for k, v in probe.items() if v}
+        finally:
+            matcher_mod.prepare_traces_numpy = numpy_prep
+            faults.clear()
+            close(svc, httpd)
+
+    def commit_leg():
+        svc = ReporterService(SegmentMatcher(city, params, device=dev))
+        reqs0 = [dict(r, match_options=OPTS_B if i % 4 == 3 else OPTS)
+                 for i, r in enumerate(reqs[:N_TRACES])]
+
+        def window(hi):
+            return [dict(r, trace=r["trace"][:hi]) for r in reqs0]
+        try:
+            check(None not in svc.report_incremental(window(40)),
+                  "[faults] commit: a warm report failed")
+            served_before = sum(m is not None for m in
+                                svc.matcher.match_incremental(window(44)))
+            metrics.default.reset()
+            ops.incremental_step_cuda.launches = 0
+            faults.configure("match.incremental.commit=error#1")
+            got = svc.report_incremental(window(48))
+            fired = faults.fired_counts()
+            faults.clear()
+            steps = ops.incremental_step_cuda.launches
+            check(fired == {"match.incremental.commit": 1}
+                  and metrics.counter("matcher.circuit.incremental.failures")
+                  == 1 and metrics.counter("match.incremental.matches") == 0,
+                  f"[faults] commit: fired {fired}, counters "
+                  f"{metrics.snapshot()['counters']}")
+            check(got == svc.report_many(window(48)) and None not in got,
+                  "[faults] commit: report_incremental differs from "
+                  "report_many")
+            again = sum(m is not None for m in
+                        svc.matcher.match_incremental(window(52)))
+        finally:
+            faults.clear()
+            check(svc.dispatcher.close(), "the commit dispatcher did not "
+                                          "stop")
+        log(f"[faults] match.incremental.commit: {len(reqs0)} uuids, "
+            f"{served_before} windows served before; the armed call "
+            f"declined all {len(got)} slots (incremental_step launches "
+            f"{steps} before the fault), report_incremental equal to "
+            f"report_many; {again} served on the next call")
+        return steps
+
+    def admission_leg():
+        admission._reset_module()
+        matcher, svc, httpd, url, dispatched = door(
+            "admission", pool_size=ADMIT_CLIENTS, admission=True,
+            inflight_max=ADMIT_INFLIGHT, pressure_hold_s=ADMIT_HOLD_S)
+        what = "[faults] admission"
+        try:
+            check(svc.admission is not None
+                  and svc.admission.inflight_max == ADMIT_INFLIGHT,
+                  f"{what}: the gate is not armed")
+            metrics.default.reset()
+            ops.viterbi_cuda.launches = dispatched[0] = 0
+            windows = []
+            for w in range(ADMIT_WINDOWS):
+                answers, secs, wall, retry = post_all(
+                    url, reqs, ADMIT_CLIENTS, retry=True)
+                n429 = 0
+                ok_s = []
+                for i, (st, _h, body) in enumerate(answers):
+                    check(st in (200, 429),
+                          f"{what}: window {w} request {i} answered {st}")
+                    if st == 429:
+                        n429 += 1
+                        check(retry[i] is not None
+                              and 1 <= int(retry[i]) <= 30,
+                              f"{what}: a 429 with Retry-After {retry[i]}")
+                    else:
+                        ok_s.append(secs[i])
+                        check(body.decode() == want[i],
+                              f"{what}: window {w} body {i} differs")
+                windows.append({
+                    "requests_per_s": len(reqs) / wall, "wall_s": wall,
+                    "shed_share": n429 / len(reqs),
+                    "served_p99_ms": float(np.percentile(ok_s, 99)) * 1e3
+                    if ok_s else None,
+                    "level": admission.current_level()})
+                if metrics.counter("pressure.enter.shed_trace"):
+                    break
+            peak = max(w["level"] for w in windows)
+            check(metrics.counter("pressure.enter.shed_trace") >= 1,
+                  f"{what}: the ladder did not reach shed_trace in "
+                  f"{len(windows)} windows: {windows}")
+            n = ops.viterbi_cuda.launches
+            check(n == dispatched[0],
+                  f"{what}: {n} launches for {dispatched[0]} chunks")
+            # the last window's sheds may still step the ladder down one
+            # rung at the first sample after the load; from there each
+            # rung needs two holds of calm
+            level = admission.current_level()
+            bound = 2 * ADMIT_HOLD_S * (level + 1) + 1.0
+            t0 = time.perf_counter()
+            while health(url)[1]["pressure"]["level"]:
+                check(time.perf_counter() - t0 < bound,
+                      f"{what}: the ladder stayed above normal for "
+                      f"{bound:.2f} s after the load stopped")
+                time.sleep(0.02)
+            recovered = time.perf_counter() - t0
+            for w, row in enumerate(windows):
+                log(f"[faults] admission window {w}: {len(reqs)} requests "
+                    f"from {ADMIT_CLIENTS} client threads, in-flight bound "
+                    f"{ADMIT_INFLIGHT}: {row['requests_per_s']:.1f} "
+                    f"requests/s ({row['wall_s']:.4f} s), shed share "
+                    f"{row['shed_share']:.4f}, served p99 "
+                    f"{row['served_p99_ms']} ms, ladder level "
+                    f"{row['level']} after it")
+            log(f"[faults] admission: every answer 200 or 429, every 429 "
+                f"with Retry-After in [1, 30], every 200 body byte-equal; "
+                f"sheds {metrics.counter('admission.shed.inflight')} "
+                f"(inflight), ladder peak {peak} "
+                f"({admission.RUNGS[peak]}), transitions "
+                f"{metrics.counter('pressure.transitions')}; back at normal "
+                f"{recovered:.3f} s after the load stopped (level {level} "
+                f"then, hold {ADMIT_HOLD_S} s, bound {bound:.2f} s); "
+                f"viterbi_decode launches {n} = chunks {dispatched[0]}")
+            # rung 4 forced: the gate off, the ladder made with no hold
+            svc.admission = None
+            admission._reset_module()
+            lad = admission.ladder(hold_s=0.0)
+            for _ in range(4):
+                lad.observe(True)
+            st, body = health(url)
+            check(body["pressure"]["state"] == "oracle_decode",
+                  f"{what}: rung 4 not reported: {body['pressure']}")
+            metrics.default.reset()
+            ops.viterbi_cuda.launches = dispatched[0] = 0
+            answers, _secs, wall = post_all(url, reqs, SERVE_CLIENTS)
+            answers_match(answers, want, f"{what}: rung 4 window")
+            n4 = ops.viterbi_cuda.launches
+            check(n4 == dispatched[0] and n4 > 0
+                  and metrics.counter("pressure.oracle_chunks") == 0,
+                  f"{what}: rung 4: {n4} launches for {dispatched[0]} "
+                  f"chunks, oracle_chunks "
+                  f"{metrics.counter('pressure.oracle_chunks')}")
+            log(f"[faults] rung 4 (oracle_decode) forced and reported: "
+                f"{len(reqs)} requests in {wall:.4f} s, bodies byte-equal, "
+                f"viterbi_decode launches {n4} = chunks {dispatched[0]} "
+                f"(pressure.oracle_chunks 0 too, which the port never "
+                f"counts)")
+            return {"admission": n, "oracle_decode": n4}
+        finally:
+            admission._reset_module()
+            close(svc, httpd)
+
+    try:
+        decode = launches["viterbi_decode"]
+        for site, spec, breaker_of, name in (
+                ("native.prep", "native.prep=error#2",
+                 lambda m: m.circuit, "matcher.circuit"),
+                ("matcher.assemble", "matcher.assemble=error#3",
+                 lambda m: m.circuit_assemble, "matcher.circuit.assemble"),
+                ("wire.native", "wire.native=error#2",
+                 lambda m: wire.circuit, "wire.circuit")):
+            decode[site] = host_leg(site, spec, breaker_of, name)
+        for leg, domain, route_device, breaker_of, errors in (
+                ("decode.dispatch", "decode.dispatch", False,
+                 lambda m: m.circuit_decode,
+                 "matcher.circuit.decode.errors"),
+                ("route.device", "route.device", True,
+                 lambda m: m.circuit_route, "route.device.errors"),
+                ("native.prep+route_device", "native.prep", True,
+                 lambda m: m.circuit, "matcher.circuit.native_errors")):
+            for kernel, n in card_leg(leg, domain, route_device, breaker_of,
+                                      errors).items():
+                launches[kernel][leg] = n
+        launches["incremental_step"]["match.incremental.commit"] = \
+            commit_leg()
+        decode.update(admission_leg())
+    finally:
+        ops.viterbi_plain = plain
+        configure_faults({"faults": None, "deadletter_dir": None,
+                          "circuit_threshold": 5, "circuit_cooldown_s": 30.0})
+        tmp_dir.cleanup()
+    check(plain_calls[0] == 0,
+          f"[faults] the plain scan ran {plain_calls[0]} times")
+    log(f"[faults] the plain scan ran 0 times; phase took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def grid_inputs(shape, n, seed):
@@ -3131,9 +3655,11 @@ def main() -> int:
         dev, served)
     serving = phase_serve(dev, served)
     obs = phase_obs(dev, served, smi[0] if smi else "nvidia-smi: no output")
+    fault_launches = phase_faults(dev, served)
     phase_prefork(served)
     phase_city(big)
     sweep_launches, _big_runs = phase_route_city(big, huge)
+    floor = launch_floor_ms(dev)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
     route_times = phase_timing_routes(dev, served, big, huge)
     step_times = phase_timing_step(dev)
@@ -3157,6 +3683,9 @@ def main() -> int:
         # the obs phase's parity window (phase_obs): every chunk shadowed
         # by the plain scan on the CPU, every eighth request traced
         "launches_obs": obs["launches"],
+        # the faults phase (phase_faults): each leg's launches, equal to
+        # the chunks it dispatched (the card domains' legs: the probe's)
+        "launches_faults": fault_launches["viterbi_decode"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,
@@ -3185,7 +3714,9 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": err,
             "ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
-            "bound_by": r_by, "library_ms": None})
+            "bound_by": r_by, "library_ms": None,
+            # the faults phase's route.device leg (the probe)
+            "launches_faults": fault_launches[name]})
     ms, plain, bms, by = step_times[N_TRACES]
     kernels.append({
         "name": "incremental_step", "route": "cuda",
@@ -3195,8 +3726,13 @@ def main() -> int:
         "launches": step_launches, "max_abs_err": step_err,
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": None,
+        # the faults phase's match.incremental.commit leg
+        "launches_faults": fault_launches["incremental_step"],
         # one row, the one-uuid stream's step
         "ms_1_8": step_times[1][0], "bound_ms_1_8": step_times[1][2]})
+    for k in kernels:
+        # an empty kernel's launch by CUDA graphs, as "ms" is timed
+        k["launch_floor_ms"] = floor
     return finish(smi, {"kernels": kernels})
 
 

@@ -107,6 +107,17 @@ class TraceView:
     def __contains__(self, key) -> bool:
         return self.get(key, _MISSING) is not _MISSING
 
+    def to_request(self) -> dict:
+        """The plain request dict (a quarantined trace's spool body)."""
+        out = {"trace": list(self["trace"])}
+        u = self.get("uuid")
+        if u is not None:
+            out["uuid"] = u
+        o = self.get("match_options")
+        if o is not None:
+            out["match_options"] = o
+        return out
+
 
 _MISSING = object()
 

@@ -54,7 +54,7 @@ import torch
 
 from .. import ops
 from ..ops import route_relax
-from ..utils import metrics
+from ..utils import faults, metrics
 from .network import RoadNetwork
 from .route import UNREACHABLE
 
@@ -320,7 +320,9 @@ class DeviceRouteKernel:
 
         ``defer=True`` leaves the route tensor on the device and returns a
         :class:`DeferredRoutes` (None when the chunk had nothing to route
-        and the prep dict is already complete)."""
+        and the prep dict is already complete). The ``route.device``
+        failpoint sits before any work."""
+        faults.failpoint("route.device")
         if out["edge_ids"].shape[1] < 2:
             return None
         p = self.plan(out, params, B, min_bound_m)

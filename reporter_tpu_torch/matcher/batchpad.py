@@ -32,6 +32,7 @@ from ..graph.network import RoadNetwork
 from ..graph.route import RouteCache, candidate_route_matrices, UNREACHABLE
 from ..graph.spatial import CandidateSet, SpatialGrid, PAD_EDGE, PAD_DIST
 from ..obs import trace as obs_trace
+from ..utils import metrics
 from .hmm import NORMAL, RESTART, SKIP, UNREACHABLE_THRESHOLD, WIRE_MAX_M
 from .params import MatchParams
 
@@ -41,6 +42,30 @@ LENGTH_BUCKETS = (16, 64, 256, 1024)
 #: (``SegmentMatcher._split_bucket``): a 17-point trace padded to T=64
 #: (waste ~0.73) splits, an exactly filled bucket never does
 SPLIT_WASTE = 0.35
+
+#: the pressure ladder's ``coarse_buckets`` rung (service/admission.py):
+#: under sustained overload the adaptive splitter is off, so fewer,
+#: larger decode shapes and no split dispatches. One global load where
+#: the splitter reads it
+_pressure_coarse = False
+
+
+def set_pressure_coarse(on: bool) -> None:
+    global _pressure_coarse
+    _pressure_coarse = bool(on)
+
+
+class DeviceRouteError(RuntimeError):
+    """The device route kernel failed on a chunk (the ``route.device``
+    failure domain). Raised out of :func:`prepare_batch` as its own type,
+    so the native prep's breaker does not take it for a native prep
+    failure and re-prep the chunk's routes on the host."""
+
+
+def split_threshold() -> float:
+    """The padding waste above which a bucket splits: ``SPLIT_WASTE``, or
+    1.0 (never split) while the ``coarse_buckets`` rung holds."""
+    return 1.0 if _pressure_coarse else SPLIT_WASTE
 
 
 def bucket_length(n: int) -> int:
@@ -387,7 +412,7 @@ def pack_batches(prepared: Sequence[PreparedTrace]) -> List[PaddedBatch]:
 def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
                   pad_rows: int | None = None,
                   n_threads: int = 0, route_kernel=None,
-                  defer_routes: bool = False,
+                  route_circuit=None, defer_routes: bool = False,
                   prune_margin_m: float = 0.0) -> PaddedBatch:
     """Whole-chunk host prep through ONE native call
     (``NativeRuntime.prepare_batch``), with the per-trace semantics of
@@ -406,14 +431,21 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
     ``route_kernel`` (``graph.route_device.DeviceRouteKernel``) moves the
     route costs to its device: the native call skips its route search
     and the kernel fills ``route_m`` from one batched relaxation. A
-    device failure raises. With ``defer_routes=True`` the route tensor
-    stays on the device: ``route_m`` is None and the batch carries a
-    ``finalize`` that the decode stage runs (:meth:`PaddedBatch.
-    finalize_wire`), which installs the padded (rows, T, K, K) tensor on
-    the device and decides the wire dtype from the same folded
-    ``max_finite`` the synchronous path reads. The route bytes reach the
-    prep dict through ``routes`` (:meth:`PaddedBatch.routes_to_host`),
-    which the assembly and the per-trace views wait on.
+    device failure raises :class:`DeviceRouteError` and counts a failure
+    on ``route_circuit`` (the ``route.device`` failure domain) when one
+    is given; while that breaker is open the chunk is refused after the
+    native call and before any launch
+    (:class:`~..utils.circuit.CircuitOpen`), so a half-open probe is
+    taken only where its outcome is recorded. Nothing re-preps the chunk
+    with host routes: that would move the card's work to the host. With
+    ``defer_routes=True`` the route tensor stays on the device:
+    ``route_m`` is None and the batch carries a ``finalize`` that the
+    decode stage runs (:meth:`PaddedBatch.finalize_wire`), which installs
+    the padded (rows, T, K, K) tensor on the device and decides the wire
+    dtype from the same folded ``max_finite`` the synchronous path reads.
+    The route bytes reach the prep dict through ``routes``
+    (:meth:`PaddedBatch.routes_to_host`), which the assembly and the
+    per-trace views wait on.
 
     The batch's ``traces`` are PreparedTrace views over rows of the f32
     tensors, built on first access.
@@ -436,9 +468,21 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
         n_threads=n_threads, n_rows=pad_rows)
     pending = None
     if route_kernel is not None:
-        with obs_trace.span("prep.routes_device"):
-            pending = route_kernel.fill_prep(out, params, B,
-                                             defer=defer_routes)
+        if route_circuit is not None and not route_circuit.allow():
+            metrics.count("route.device.refused_chunks")
+            raise route_circuit.refuse("route.device")
+        try:
+            with obs_trace.span("prep.routes_device"):
+                pending = route_kernel.fill_prep(out, params, B,
+                                                 defer=defer_routes)
+        except Exception as e:
+            metrics.count("route.device.errors")
+            if route_circuit is not None:
+                route_circuit.record_failure()
+            raise DeviceRouteError(f"device route kernel failed: {e}") \
+                from e
+        if route_circuit is not None:
+            route_circuit.record_success()
 
     def build_views() -> List[PreparedTrace]:
         if pending is not None:

@@ -64,7 +64,7 @@ from ..core.tracebatch import TraceBatch
 from ..graph.route import UNREACHABLE, candidate_route_matrices
 from ..graph.spatial import PAD_EDGE, CandidateSet
 from ..graph.version import map_version
-from ..utils import locks, metrics
+from ..utils import faults, locks, metrics
 from .assemble import assemble_segments
 from .batchpad import (LENGTH_BUCKETS, PreparedTrace, _prune_candidates,
                        pack_batches)
@@ -82,6 +82,20 @@ DEFAULT_BUDGET_MB = 64.0
 #: the batch path ships f16 wherever the data fits it, so every carried
 #: state quantises through the f16 wire
 WIRE_F16 = True
+
+#: the pressure ladder's ``shed_trace`` rung (service/admission.py): the
+#: incremental path steps aside and every slot rides the batch path. One
+#: global load on the hot path, set only on ladder transitions
+_pressure_shed = False
+
+
+def set_pressure_shed(on: bool) -> None:
+    global _pressure_shed
+    _pressure_shed = bool(on)
+
+
+def pressure_shed() -> bool:
+    return _pressure_shed
 
 
 class _Fallback(Exception):
@@ -753,6 +767,7 @@ class IncrementalTable:
         c = int(cur[0])
         if not bool((cur == c).all()):
             raise _Fallback("lag window did not converge")
+        faults.failpoint("match.incremental.commit")
         e0 = st.ring.pop(0)
         if st.c_kept and e0.route_in is not None:
             # the transition INTO this step, at the now-known pair of

@@ -26,9 +26,24 @@ With ``pipeline=False`` both lanes run inline on the calling thread.
 
 The native path returns :class:`MatchRuns`, lazy mapping views over one
 chunk's run columns, which the C wire writer serialises directly; the
-numpy path returns plain dicts. Both give the same ``/report`` bytes. A
-decode, assembly or writer failure raises: nothing falls back to another
-implementation.
+numpy path returns plain dicts. Both give the same ``/report`` bytes.
+
+Failure domains (``CIRCUIT_DOMAINS``), one breaker a stage, with the JAX
+package's names. Where the JAX package degrades from host to host, the
+port does too, with the same bytes: a native prep failure serves that
+chunk through the numpy prep (``circuit``, failpoint ``native.prep``),
+but for a matcher with device routes, where it raises as below; a
+native batched assembly failure assembles the chunk trace by trace, and a
+trace that fails alone is quarantined into the trace spool with an empty
+match in its slot (``circuit_assemble``, ``matcher.assemble``); a failed
+incremental advance declines every slot to ``match_many``
+(``circuit_incremental``). Where it would move the card's work to the
+host, the port refuses: a decode failure (``circuit_decode``,
+``decode.dispatch``) or a device route failure (``circuit_route``,
+``route.device``) raises and counts, and while either breaker is open a
+chunk is refused before its launch with
+:class:`~..utils.circuit.CircuitOpen`. The decode always runs on the
+matcher's device.
 
 ``match_incremental`` is the streaming path: each trace with a uuid
 advances carried decode state by the points appended since its last
@@ -39,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import json
+import logging
 import os
 import threading
 import time
@@ -61,15 +77,20 @@ from ..native import NativeRuntime
 from ..obs import profiler
 from ..obs import trace as obs_trace
 from ..service import wire
-from ..utils import metrics
+from ..utils import faults, metrics, spool
+from ..utils.circuit import (DEFAULT_COOLDOWN_S, DEFAULT_THRESHOLD,
+                             CircuitBreaker, CircuitOpen)
+from . import incremental as _inc
 from .assemble import assemble_segments
-from .batchpad import (LENGTH_BUCKETS, SPLIT_WASTE, PaddedBatch,
+from .batchpad import (LENGTH_BUCKETS, DeviceRouteError, PaddedBatch,
                        PreparedTrace, kept_point_count, pack_batches,
                        padded_batch_rows, prepare_batch,
-                       prepare_traces_numpy)
+                       prepare_traces_numpy, split_threshold)
 from .incremental import (DEFAULT_BUDGET_MB, DEFAULT_LAG,
                           IncrementalTable)
 from .params import MatchParams
+
+logger = logging.getLogger("reporter_tpu_torch.matcher")
 
 #: spatial grid cell, ~1.5x the default 50 m search radius: reach stays 1
 #: (a 3x3 cell scan) while each cell holds few edges
@@ -82,6 +103,15 @@ PREP_THREADS_MAX = 32
 #: flight while the drain lane assembles the first. One device per
 #: matcher; a decode mesh would scale it
 MATCH_BATCH_DEFAULT = 256
+
+
+# the pressure ladder's last rung (``oracle_decode``,
+# service/admission.py). In the JAX package it sends every chunk to the
+# numpy oracle on the host; the port keeps every decode on its device,
+# so the rung is reached and reported but changes nothing here (the port
+# never counts ``pressure.oracle_chunks``)
+def set_pressure_oracle(on: bool) -> None:
+    """The ``oracle_decode`` rung's hook: a no-op in the port."""
 
 
 def _route_cache_counters() -> dict:
@@ -162,10 +192,13 @@ def _jnum(x) -> str:
 def render_segments_json(cols: RunColumns, lo: int, hi: int,
                          mode: str) -> str:
     """Run columns [lo, hi) as the reference-schema
-    ``{"segments":[...],"mode":...}`` JSON, from the C writer; byte-equal
-    to :func:`render_segments_json_py`."""
-    return bytes(wire.native_segments(cols.arrays, lo, hi, mode)
-                 ).decode("utf-8")
+    ``{"segments":[...],"mode":...}`` JSON, from the C writer, or from
+    :func:`render_segments_json_py` (byte-equal) when the writer's
+    failure domain declines (``service/wire.py``)."""
+    out = wire.maybe_native_segments(cols.arrays, lo, hi, mode)
+    if out is None:
+        return render_segments_json_py(cols, lo, hi, mode)
+    return bytes(out).decode("utf-8")
 
 
 def render_segments_json_py(cols: RunColumns, lo: int, hi: int,
@@ -311,7 +344,20 @@ class SegmentMatcher:
     is the most uncommitted steps a trace carries (at least 2) and
     ``incremental_mb`` the table's byte budget in MiB. They choose a
     path, never a result.
+
+    ``circuit_threshold`` and ``circuit_cooldown_s`` set every breaker of
+    the matcher's failure domains (``CIRCUIT_DOMAINS``). A poisoned
+    trace's request lands in the spool's trace directory
+    (``utils.spool.set_trace_dir``).
     """
+
+    #: domain name -> breaker attribute; ``/health``'s ``degraded`` block
+    #: reads this map
+    CIRCUIT_DOMAINS = (("native.prep", "circuit"),
+                       ("decode.dispatch", "circuit_decode"),
+                       ("matcher.assemble", "circuit_assemble"),
+                       ("route.device", "circuit_route"),
+                       ("match.incremental", "circuit_incremental"))
 
     def __init__(self, net: Optional[RoadNetwork] = None,
                  params: Optional[MatchParams] = None, device=None,
@@ -320,7 +366,9 @@ class SegmentMatcher:
                  chunk: Optional[int] = None, route_device: bool = False,
                  prune_sigma: float = 0.0, incremental: bool = True,
                  incremental_lag: int = DEFAULT_LAG,
-                 incremental_mb: float = DEFAULT_BUDGET_MB):
+                 incremental_mb: float = DEFAULT_BUDGET_MB,
+                 circuit_threshold: int = DEFAULT_THRESHOLD,
+                 circuit_cooldown_s: float = DEFAULT_COOLDOWN_S):
         self.device = resolve_device(device)
         if net is None:
             raise ValueError("no network: pass net=")
@@ -357,6 +405,16 @@ class SegmentMatcher:
         self._lanes = ((ThreadPoolExecutor(1, "device-dispatch"),
                         ThreadPoolExecutor(1, "device-drain"))
                        if pipeline else None)
+        # the failure domains' breakers; they exist whatever the matcher's
+        # paths, so /health always reports every domain
+        def breaker(name):
+            return CircuitBreaker(name, threshold=circuit_threshold,
+                                  cooldown_s=circuit_cooldown_s)
+        self.circuit = breaker("matcher.circuit")
+        self.circuit_decode = breaker("matcher.circuit.decode")
+        self.circuit_assemble = breaker("matcher.circuit.assemble")
+        self.circuit_route = breaker("matcher.circuit.route")
+        self.circuit_incremental = breaker("matcher.circuit.incremental")
         # free timing-event pairs: the dispatch lane takes one a launch
         # and the drain lane gives it back once read, so a pair is made
         # (and first recorded) once per launch in flight, not per launch
@@ -379,6 +437,17 @@ class SegmentMatcher:
                     self, lag=self.incremental_lag,
                     budget_mb=self.incremental_mb)
             return self._incremental_table
+
+    # -- failure domains ---------------------------------------------------
+    def circuit_snapshots(self) -> dict:
+        """{domain: breaker snapshot} for every failure domain."""
+        return {domain: getattr(self, attr).snapshot()
+                for domain, attr in self.CIRCUIT_DOMAINS}
+
+    def open_domains(self) -> List[str]:
+        """The domains whose breaker is open ([] when healthy)."""
+        return [domain for domain, attr in self.CIRCUIT_DOMAINS
+                if getattr(self, attr).snapshot()["state"] == "open"]
 
     def _prune_margin(self, params: MatchParams) -> float:
         """Candidate pruning margin in meters for ``params`` (0: off)."""
@@ -437,12 +506,12 @@ class SegmentMatcher:
                                              sigma, beta)
                 futures.append((d_fut, drain_lane.submit(
                     self._lane_stage, ctx, self._drain_stage, batch, order,
-                    d_fut, per_trace_params, results, span), span))
+                    d_fut, per_trace_params, results, tb, span), span))
         else:
             def submit(batch, order, sigma, beta, span=None):
                 self._drain_stage(batch, order,
                                   self._dispatch_stage(batch, sigma, beta),
-                                  per_trace_params, results, span)
+                                  per_trace_params, results, tb, span)
 
         try:
             if self.runtime is not None:
@@ -490,23 +559,37 @@ class SegmentMatcher:
         since its last report: O(K) device work per appended kept point
         instead of a whole-window decode. Returns one match dict per trace,
         in order, and None for each trace this path declines: no uuid,
-        ``incremental=False``, a window it cannot reproduce byte for byte
-        (past the largest bucket, out of the f16 wire's range, a lag window
-        that does not converge), or an evicted state. A caller sends those
-        through :meth:`match_many`, whose bytes are the same
-        (``tests/test_torch_incremental.py``). An error raises: there is
-        no breaker here and nothing degrades.
+        ``incremental=False`` or the pressure ladder's ``shed_trace`` rung,
+        an open ``match.incremental`` breaker, a window it cannot reproduce
+        byte for byte (past the largest bucket, out of the f16 wire's range,
+        a lag window that does not converge), or an evicted state. A caller
+        sends those through :meth:`match_many`, whose bytes are the same
+        (``tests/test_torch_incremental.py``). An error in the advance
+        (the ``match.incremental.commit`` failpoint among them) counts a
+        breaker failure and declines every slot of the call.
         """
         tb = as_trace_batch(traces)
         ntr = len(tb)
         results: list = [None] * ntr
         if ntr == 0:
             return results
-        if not self.incremental:
+        if not self.incremental or _inc.pressure_shed():
+            if self._incremental_table is not None:
+                self._incremental_table.clear()
             return results
-        with metrics.timer("match.incremental.advance"):
-            self.incremental_table.match_many(tb, self._trace_params(tb),
-                                              results)
+        if not self.circuit_incremental.allow():
+            metrics.count("match.incremental.circuit_skips")
+            return results
+        try:
+            with metrics.timer("match.incremental.advance"):
+                self.incremental_table.match_many(
+                    tb, self._trace_params(tb), results)
+        except Exception as e:
+            self.circuit_incremental.record_failure()
+            logger.warning("incremental match failed (%s); the batch "
+                           "path serves this report", e)
+            return [None] * ntr
+        self.circuit_incremental.record_success()
         return results
 
     def _trace_params(self, tb: TraceBatch) -> list:
@@ -560,7 +643,17 @@ class SegmentMatcher:
         this thread, each prepared chunk handed to ``submit``. Raw length
         bounds the kept length, so a jitter-heavy trace may decode in a
         larger bucket than on the numpy path: same path, the SKIP tail is
-        inert."""
+        inert.
+
+        Failure domain ``native.prep``: a native prep failure serves that
+        chunk through the numpy prep (the same bytes) and counts a breaker
+        failure; while the breaker is open every chunk takes the numpy
+        prep, until a half-open probe succeeds. With device routes the
+        numpy prep would search the routes on the host, so there a
+        failure raises and an open breaker refuses the chunk
+        (:class:`CircuitOpen`). A device route failure or refusal is the
+        ``route.device`` domain's and raises; the native call before it
+        succeeded, and counts so."""
         chunk = self.chunk
         buckets = np.asarray(LENGTH_BUCKETS, dtype=np.int64)
         raw_counts = tb.lengths()
@@ -584,16 +677,49 @@ class SegmentMatcher:
                                               traces=len(part), T=int(T))
                         ci += 1
                         with obs_trace.hold(span):
+                            if not self.circuit.allow():
+                                if self.route_kernel is not None:
+                                    metrics.count(
+                                        "matcher.circuit.refused_chunks")
+                                    raise self.circuit.refuse("native.prep")
+                                metrics.count(
+                                    "matcher.circuit.fallback_chunks")
+                                self._submit_numpy_chunk(
+                                    tb, part, params, submit, sigma, beta,
+                                    span)
+                                continue
                             t0 = time.perf_counter()
-                            with metrics.timer("matcher.prep"):
-                                batch = prepare_batch(
-                                    self.runtime, tb.gather(part), params,
-                                    T, pad_rows=rows,
-                                    n_threads=self.prep_threads,
-                                    route_kernel=self.route_kernel,
-                                    defer_routes=True,
-                                    prune_margin_m=self._prune_margin(
-                                        params))
+                            try:
+                                with metrics.timer("matcher.prep"):
+                                    faults.failpoint("native.prep")
+                                    batch = prepare_batch(
+                                        self.runtime, tb.gather(part),
+                                        params, T, pad_rows=rows,
+                                        n_threads=self.prep_threads,
+                                        route_kernel=self.route_kernel,
+                                        route_circuit=self.circuit_route,
+                                        defer_routes=True,
+                                        prune_margin_m=self._prune_margin(
+                                            params))
+                            except (CircuitOpen, DeviceRouteError):
+                                self.circuit.record_success()
+                                raise
+                            except Exception as e:
+                                self._add_stage("prep", t0)
+                                self.circuit.record_failure()
+                                metrics.count(
+                                    "matcher.circuit.native_errors")
+                                if self.route_kernel is not None:
+                                    raise
+                                logger.warning(
+                                    "native prep failed for a %d-trace "
+                                    "chunk (%s); serving it through the "
+                                    "numpy prep", len(part), e)
+                                self._submit_numpy_chunk(
+                                    tb, part, params, submit, sigma, beta,
+                                    span)
+                                continue
+                            self.circuit.record_success()
                             self._add_stage("prep", t0)
                             kept = kept_point_count(batch)
                             tot = self.bucket_totals.setdefault(T, [0, 0])
@@ -628,8 +754,10 @@ class SegmentMatcher:
         raw lengths (kept <= raw, so it never over-splits) and the waste
         recorded for T in ``bucket_totals`` (which sees jitter drops),
         and a split must cut the padded cells, pow2 row padding
-        included."""
-        if len(group) < 2 or T <= LENGTH_BUCKETS[0]:
+        included. Under the ``coarse_buckets`` pressure rung nothing
+        splits (``batchpad.split_threshold``)."""
+        thresh = split_threshold()
+        if thresh >= 1.0 or len(group) < 2 or T <= LENGTH_BUCKETS[0]:
             return [(T, group)]
         raws = np.minimum(raw_counts[group], T)
         cells_unsplit = self._padded_cells(len(group), T)
@@ -637,7 +765,7 @@ class SegmentMatcher:
         tot = self.bucket_totals.get(T)
         if tot is not None and tot[1]:
             waste = max(waste, 1.0 - tot[0] / tot[1])
-        if waste <= SPLIT_WASTE:
+        if waste <= thresh:
             return [(T, group)]
         subTs = np.minimum(np.maximum(
             np.exp2(np.ceil(np.log2(np.maximum(raws, 1))))
@@ -667,28 +795,35 @@ class SegmentMatcher:
                                       traces=len(part))
                 ci += 1
                 with obs_trace.hold(span):
-                    t0 = time.perf_counter()
-                    with metrics.timer("matcher.prep"):
-                        prepped = prepare_traces_numpy(
-                            self.net, self.grid, tb.gather(part), params,
-                            self.route_cache, self._prune_margin(params))
-                    self._add_stage("prep", t0)
-                    idx_of = {id(p): int(i) for p, i in zip(prepped, part)}
-                    batches = pack_batches(prepped)
-                    for n, batch in enumerate(batches, 1):
-                        order = [idx_of[id(p)] for p in batch.traces]
-                        profiler.chunk_event(
-                            bucket_T=int(batch.case.shape[1]),
-                            K=params.max_candidates, traces=len(order),
-                            rows=int(batch.case.shape[0]),
-                            kept_points=kept_point_count(batch),
-                            raw_points=int(sum(p.num_raw
-                                               for p in batch.traces)),
-                            cache=_route_cache_counters(), path="numpy")
-                        # the drain lane is FIFO: the chunk's last batch
-                        # drains last and closes the span
-                        submit(batch, order, sigma, beta,
-                               span if n == len(batches) else None)
+                    self._submit_numpy_chunk(tb, part, params, submit,
+                                             sigma, beta, span)
+
+    def _submit_numpy_chunk(self, tb: TraceBatch, part, params, submit,
+                            sigma, beta, span) -> None:
+        """Prep one chunk through the numpy prep and hand its packed
+        batches (one per bucket) to ``submit``: the numpy path's step, and
+        the ``native.prep`` domain's degraded path."""
+        t0 = time.perf_counter()
+        with metrics.timer("matcher.prep"):
+            prepped = prepare_traces_numpy(
+                self.net, self.grid, tb.gather(part), params,
+                self.route_cache, self._prune_margin(params))
+        self._add_stage("prep", t0)
+        idx_of = {id(p): int(i) for p, i in zip(prepped, part)}
+        batches = pack_batches(prepped)
+        for n, batch in enumerate(batches, 1):
+            order = [idx_of[id(p)] for p in batch.traces]
+            profiler.chunk_event(
+                bucket_T=int(batch.case.shape[1]),
+                K=params.max_candidates, traces=len(order),
+                rows=int(batch.case.shape[0]),
+                kept_points=kept_point_count(batch),
+                raw_points=int(sum(p.num_raw for p in batch.traces)),
+                cache=_route_cache_counters(), path="numpy")
+            # the drain lane is FIFO: the chunk's last batch drains last
+            # and closes the span
+            submit(batch, order, sigma, beta,
+                   span if n == len(batches) else None)
 
     @staticmethod
     def _lane_stage(ctx, fn, *args):
@@ -708,11 +843,27 @@ class SegmentMatcher:
         waited on the event, and the timing pair brackets the launch
         (its submission and the kernel). Everything runs on the device's
         current stream. The profiler's span credits a kernel build this
-        dispatch pays to the batch's (B, T, K)."""
+        dispatch pays to the batch's (B, T, K).
+
+        Failure domain ``decode.dispatch``: a failure counts
+        ``matcher.circuit.decode.errors`` and a breaker failure and
+        raises; while the breaker is open the batch is refused before its
+        launch (:class:`CircuitOpen`). Nothing decodes it elsewhere."""
         B, T, K = batch.dist_m.shape
         with metrics.timer("matcher.decode_dispatch"), \
                 profiler.dispatch_span(B, T, K, self.device.type):
-            return self._dispatch_timed(batch, sigma, beta)
+            if not self.circuit_decode.allow():
+                metrics.count("matcher.circuit.decode.refused_chunks")
+                raise self.circuit_decode.refuse("decode.dispatch")
+            try:
+                faults.failpoint("decode.dispatch")
+                out = self._dispatch_timed(batch, sigma, beta)
+            except Exception:
+                self.circuit_decode.record_failure()
+                metrics.count("matcher.circuit.decode.errors")
+                raise
+            self.circuit_decode.record_success()
+            return out
 
     def _dispatch_timed(self, batch: PaddedBatch, sigma, beta):
         t0 = time.perf_counter()
@@ -751,20 +902,23 @@ class SegmentMatcher:
         return host, event, paths, timing
 
     def _drain_stage(self, batch: PaddedBatch, order, decoded,
-                     per_trace_params, results, span=None) -> None:
+                     per_trace_params, results, tb=None,
+                     span=None) -> None:
         """Drain lane: wait for one batch's paths, then assemble them into
         the ``results`` slots named by ``order`` (row b is trace
         ``order[b]``). ``decoded`` is the dispatch stage's return, or a
-        future of it on the lanes. Closes the chunk's ``span`` when
-        given."""
+        future of it on the lanes; ``tb`` the call's TraceBatch, from
+        which a quarantined trace's request is rebuilt. Closes the chunk's
+        ``span`` when given."""
         try:
-            self._drain(batch, order, decoded, per_trace_params, results)
+            self._drain(batch, order, decoded, per_trace_params, results,
+                        tb)
         finally:
             if span is not None:
                 span.close()
 
     def _drain(self, batch: PaddedBatch, order, decoded, per_trace_params,
-               results) -> None:
+               results, tb) -> None:
         if hasattr(decoded, "result"):
             decoded = decoded.result()
         host, event, _dev_paths, timing = decoded
@@ -787,41 +941,95 @@ class SegmentMatcher:
                               p0.beta)
         t0 = time.perf_counter()
         with metrics.timer("matcher.assemble"):
-            self._assemble(batch, order, paths, per_trace_params, results)
+            self._assemble(batch, order, paths, per_trace_params, results,
+                           tb)
         self._add_stage("assemble", t0)
 
     def _assemble(self, batch: PaddedBatch, order, paths, per_trace_params,
-                  results) -> None:
+                  results, tb) -> None:
+        """Assemble one batch's paths. Failure domain
+        ``matcher.assemble``: a native batched assembly failure counts a
+        breaker failure and the batch assembles trace by trace (the numpy
+        path's way, the same bytes); while the breaker is open every batch
+        does. A trace whose own assembly fails is quarantined
+        (:meth:`_quarantine_trace`) and its slot holds an empty match;
+        every other trace's bytes are unchanged."""
         if batch.prep is not None:
-            # native batched assembly: ONE call walks every path of the
-            # batch; the results are lazy views over one RunColumns. It
-            # reads the route bytes, so deferred device routes land first
+            # the assembly reads the route bytes, so deferred device
+            # routes land first
             batch.routes_to_host()
-            B = len(batch.traces)
-            gp = per_trace_params[order[0]]
-            runs = self.runtime.assemble_batch(
-                paths[:B], batch.prep, batch.pt_off, batch.times_flat,
-                queue_threshold_kph=gp.queue_speed_threshold_kph,
-                interpolation_distance_m=gp.interpolation_distance,
-                backward_tolerance_m=gp.backward_tolerance_m,
-                turn_penalty_factor=gp.turn_penalty_factor)
-            ro = runs["run_off"].tolist()
-            cols = RunColumns(runs)
-            # the chunk's layout for the batch writer: per-trace run spans
-            # and last point times, so the first /report body of this
-            # chunk emits every trace's body in one C call
-            cols.arrays["_run_off"] = runs["run_off"]
-            cols.arrays["_trace_end"] = np.ascontiguousarray(
-                batch.times_flat[batch.pt_off[1:] - 1])
-            for b, i in enumerate(order):
-                results[i] = MatchRuns(cols, ro[b], ro[b + 1],
-                                       per_trace_params[i].mode)
-        else:
-            for b, i in enumerate(order):
-                q = per_trace_params[i]
+            if self.circuit_assemble.allow():
+                try:
+                    faults.failpoint("matcher.assemble")
+                    self._assemble_native(batch, order, paths,
+                                          per_trace_params, results)
+                except Exception as e:
+                    self.circuit_assemble.record_failure()
+                    metrics.count("matcher.circuit.assemble.native_errors")
+                    logger.warning(
+                        "batched assembly failed for a %d-trace chunk "
+                        "(%s); assembling it trace by trace", len(order), e)
+                else:
+                    self.circuit_assemble.record_success()
+                    return
+            else:
+                metrics.count("matcher.circuit.assemble.fallback_chunks")
+        for b, i in enumerate(order):
+            q = per_trace_params[i]
+            try:
+                faults.failpoint("matcher.assemble")
                 results[i] = assemble_segments(
                     self.net, batch.traces[b], paths[b], mode=q.mode,
                     queue_threshold_kph=q.queue_speed_threshold_kph,
                     interpolation_distance_m=q.interpolation_distance,
                     backward_tolerance_m=q.backward_tolerance_m,
                     turn_penalty_factor=q.turn_penalty_factor)
+            except Exception as e:
+                self._quarantine_trace(tb, int(i), e)
+                results[i] = {"segments": [], "mode": q.mode}
+
+    def _assemble_native(self, batch: PaddedBatch, order, paths,
+                         per_trace_params, results) -> None:
+        """Native batched assembly: ONE call walks every path of the
+        batch; the results are lazy views over one RunColumns."""
+        B = len(batch.traces)
+        gp = per_trace_params[order[0]]
+        runs = self.runtime.assemble_batch(
+            paths[:B], batch.prep, batch.pt_off, batch.times_flat,
+            queue_threshold_kph=gp.queue_speed_threshold_kph,
+            interpolation_distance_m=gp.interpolation_distance,
+            backward_tolerance_m=gp.backward_tolerance_m,
+            turn_penalty_factor=gp.turn_penalty_factor)
+        ro = runs["run_off"].tolist()
+        cols = RunColumns(runs)
+        # the chunk's layout for the batch writer: per-trace run spans and
+        # last point times, so the first /report body of this chunk emits
+        # every trace's body in one C call
+        cols.arrays["_run_off"] = runs["run_off"]
+        cols.arrays["_trace_end"] = np.ascontiguousarray(
+            batch.times_flat[batch.pt_off[1:] - 1])
+        for b, i in enumerate(order):
+            results[i] = MatchRuns(cols, ro[b], ro[b + 1],
+                                   per_trace_params[i].mode)
+
+    def _quarantine_trace(self, tb, i: int, err: Exception) -> None:
+        """Spool a poisoned trace's request JSON (ready to POST to
+        ``/report`` again) into the spool's trace directory;
+        best-effort, counted either way. The name is
+        per uuid, so a replay that poisons again overwrites its entry."""
+        metrics.count("matcher.assemble.quarantined")
+        root = spool.trace_dir()
+        uuid = tb.uuid(i) if tb is not None else None
+        if root is None or tb is None:
+            logger.error("quarantined poisoned trace %s (%s) with no "
+                         "dead-letter spool configured", uuid, err)
+            return
+        try:
+            path = spool.write(root, f"poison.{uuid or 'anon'}.json",
+                               json.dumps(tb[i].to_request(),
+                                          separators=(",", ":")))
+            logger.warning("quarantined poisoned trace %s -> %s (%s)",
+                           uuid, path, err)
+        except Exception as spool_err:  # never fail the chunk for this
+            logger.error("poisoned-trace quarantine failed for %s: %s "
+                         "(original error: %s)", uuid, spool_err, err)

@@ -17,9 +17,12 @@ Fork discipline — everything heavy happens after the fork:
   since neither the CUDA driver nor a started OpenMP pool survives a
   fork. Each worker runs the thunk after the fork, and a worker that
   cannot open its card exits non-zero, logged;
-- module singletons that do predate the fork (the metrics registry) are
-  reset in the child by the :mod:`..utils.forksafe` hooks, so each
-  worker's ``/stats`` counts its own work.
+- module singletons that do predate the fork are reset in the child by
+  the :mod:`..utils.forksafe` hooks: the metrics registry (each worker's
+  ``/stats`` counts its own work), the armed fault spec (each worker
+  replays it from its first call), the dead-letter spool's byte
+  estimates and the pressure ladder (each worker starts at ``normal``
+  and builds its own admission gate with its service).
 
 Supervision: the parent is a waitpid loop — restart a dead worker in the
 same slot, with exponential backoff against crash loops, within an
@@ -41,6 +44,9 @@ import time
 from typing import Callable, Dict, Optional
 
 from ..obs import flightrec
+# imported here so their fork resets are registered before any fork
+from ..utils import faults, spool  # noqa: F401
+from . import admission  # noqa: F401
 
 logger = logging.getLogger("reporter_tpu_torch.prefork")
 

@@ -32,6 +32,7 @@ import math
 from typing import Iterable, List, Optional, Tuple
 
 from ..matcher import matcher as _matcher
+from ..utils import metrics
 from . import wire
 
 
@@ -242,7 +243,8 @@ def report_wire(match, trace: dict, threshold_sec: float,
                 transition_levels: Iterable[int]):
     """The ``/report`` response body as bytes: for a MatchRuns, the C
     writer's buffer (a memoryview, no re-encode), or the Python columnar
-    writer's where the level sets are not a bitmask; for a dict, the
+    writer's (counted ``wire.fallback``) where the level sets are not a
+    bitmask or the writer's failure domain declines; for a dict, the
     encoded :func:`report_json`. Stamps ``match["mode"] = "auto"``."""
     if not isinstance(match, _matcher.MatchRuns):
         return report_json(match, trace, threshold_sec, report_levels,
@@ -251,6 +253,7 @@ def report_wire(match, trace: dict, threshold_sec: float,
         match.cols.arrays, match.lo, match.hi, trace["trace"][-1]["time"],
         threshold_sec, report_levels, transition_levels)
     if out is None:
+        metrics.count("wire.fallback")
         return _report_json_py(match, trace, threshold_sec, report_levels,
                                transition_levels).encode("utf-8")
     match["mode"] = "auto"  # the same side effect as report()

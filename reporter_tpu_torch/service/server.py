@@ -41,12 +41,28 @@ keys stand for the JAX package's environment knobs:
   profile_events     REPORTER_TPU_PROFILE_EVENTS    (512)
   flightrec_dir      REPORTER_TPU_FLIGHTREC         (none: no dumps)
   lockcheck          REPORTER_TPU_LOCKCHECK         (false)
+  faults             REPORTER_TPU_FAULTS            (none: disarmed)
+  deadletter_dir     (the worker's trace spool)     (none)
+  deadletter_max_mb  REPORTER_TPU_DEADLETTER_MAX_MB (0, unbounded)
+  circuit_threshold  REPORTER_TPU_CIRCUIT_THRESHOLD (5)
+  circuit_cooldown_s REPORTER_TPU_CIRCUIT_COOLDOWN_S (30.0)
+  admission          REPORTER_TPU_ADMISSION         (false)
+  inflight_max       REPORTER_TPU_INFLIGHT_MAX      (0: 4 x max_batch)
+  pressure_hold_s    REPORTER_TPU_PRESSURE_HOLD_S   (2.0)
 
-The last six are process-wide (``configure_obs``). Besides ``/report``,
+``trace`` to ``lockcheck`` are process-wide (``configure_obs``), and so
+are ``faults`` to ``circuit_cooldown_s`` (``configure_faults``; the two
+circuit keys also set the matcher's breakers). Besides ``/report``,
 ``/stats`` and ``/health`` the server answers ``/metrics`` (Prometheus
-text), ``/profile`` (the device profiler's snapshot) and
-``/report?trace=1`` (the report wrapped as ``{"report": ..., "trace":
-<Chrome trace events of the request's spans>}``).
+text), ``/profile`` (the device profiler's snapshot, with the
+``pressure`` and ``admission`` blocks) and ``/report?trace=1`` (the
+report wrapped as ``{"report": ..., "trace": <Chrome trace events of the
+request's spans>}``).
+
+Failure answers: a decode or device route failure is a 500; while its
+breaker is open a request is refused with 503 and a ``Retry-After`` of
+the cooldown left, and nothing is launched for it. With ``admission``
+the gate sheds before the body is read: 429 with ``Retry-After``.
 
 The service decodes on ``cuda`` unless given ``--device cpu``, and exits
 non-zero when CUDA is missing. With ``--procs N`` the process forks N
@@ -73,8 +89,12 @@ from ..matcher.matcher import MATCH_BATCH_DEFAULT, SegmentMatcher
 from ..matcher.params import MatchParams
 from ..obs import flightrec
 from ..obs import trace as obs_trace
-from ..utils import locks, metrics
-from .admission import Overload
+from ..utils import faults, locks, metrics, spool
+from ..utils.circuit import (DEFAULT_COOLDOWN_S, DEFAULT_THRESHOLD,
+                             CircuitOpen)
+from . import wire
+from .admission import (DEFAULT_HOLD_S, AdmissionGate, Overload,
+                        allow_request_trace, pressure_snapshot)
 from .dispatch import DEFAULT_QUEUE_MAX, BatchDispatcher
 from .report import report, report_wire
 
@@ -94,14 +114,20 @@ POOL_SIZE = 64
 #: the config's "service" keys, by the constructor each one goes to
 SERVICE_KEYS = ("threshold_sec", "max_batch", "max_wait_ms",
                 "idle_grace_ms", "queue_max", "queue_policy",
-                "latency_budget_ms")
+                "latency_budget_ms", "admission", "inflight_max",
+                "pressure_hold_s")
 MATCHER_KEYS = ("native", "pipeline", "chunk", "prep_threads",
                 "route_device", "prune_sigma", "incremental",
-                "incremental_lag", "incremental_mb")
+                "incremental_lag", "incremental_mb", "circuit_threshold",
+                "circuit_cooldown_s")
 SERVER_KEYS = ("pool_size",)
 #: process-wide observability settings (configure_obs)
 OBS_KEYS = ("trace", "slo_ms", "shadow_sample", "profile_events",
             "flightrec_dir", "lockcheck")
+#: process-wide failure-domain settings (configure_faults); the circuit
+#: keys go to the matcher too
+FAULT_KEYS = ("faults", "deadletter_dir", "deadletter_max_mb",
+              "circuit_threshold", "circuit_cooldown_s")
 
 #: the spellings of "off" of a trace flag (the JAX package's)
 _FALSY = ("", "0", "off", "false")
@@ -139,15 +165,42 @@ def configure_obs(keys: dict) -> None:
             locks.disarm()
 
 
+def configure_faults(keys: dict) -> None:
+    """Apply the config's failure-domain keys (``FAULT_KEYS``) to the
+    process: ``faults`` -> ``utils.faults.configure`` (the spec string;
+    a malformed one raises), ``deadletter_dir`` ->
+    ``utils.spool.set_trace_dir`` (where quarantined traces land),
+    ``deadletter_max_mb`` -> ``utils.spool.set_cap_mb``, and the circuit
+    keys -> the wire writer's breaker (``service.wire``). A key left out
+    keeps its current setting."""
+    if "faults" in keys:
+        faults.configure(keys["faults"] or None)
+    if "deadletter_dir" in keys:
+        spool.set_trace_dir(keys["deadletter_dir"])
+    if "deadletter_max_mb" in keys:
+        spool.set_cap_mb(float(keys["deadletter_max_mb"]))
+    if "circuit_threshold" in keys or "circuit_cooldown_s" in keys:
+        wire.circuit.configure(
+            keys.get("circuit_threshold", DEFAULT_THRESHOLD),
+            keys.get("circuit_cooldown_s", DEFAULT_COOLDOWN_S))
+
+
 class ReporterService:
-    """Owns the matcher + dispatcher; shared by all handler threads."""
+    """Owns the matcher + dispatcher; shared by all handler threads.
+
+    ``admission`` arms the admission gate (``service/admission.py``) with
+    ``inflight_max`` (0: four dispatcher batches) and the process-wide
+    pressure ladder's ``pressure_hold_s``; off, every request is admitted
+    and the bounded dispatcher queue is the only shed."""
 
     def __init__(self, matcher: SegmentMatcher, threshold_sec: int = 15,
                  max_batch: int = MATCH_BATCH_DEFAULT,
                  max_wait_ms: float = 20.0, idle_grace_ms: float = 2.0,
                  queue_max: int = DEFAULT_QUEUE_MAX,
                  queue_policy: str = "reject",
-                 latency_budget_ms: float = 0.0):
+                 latency_budget_ms: float = 0.0, admission: bool = False,
+                 inflight_max: int = 0,
+                 pressure_hold_s: float = DEFAULT_HOLD_S):
         self.matcher = matcher
         self.threshold_sec = threshold_sec
         self.dispatcher = BatchDispatcher(
@@ -159,6 +212,10 @@ class ReporterService:
         # stamped on responses as X-Reporter-Proc so load tests can see
         # which worker answered; None (one process) adds no header
         self.proc_tag: str | None = None
+        self.admission = (AdmissionGate(self.dispatcher,
+                                        inflight_max=inflight_max,
+                                        hold_s=pressure_hold_s)
+                          if admission else None)
 
     def handle(self, trace: dict) -> "tuple[int, str | bytes | memoryview]":
         """Validate + match + report; (status, body). The 200 body is
@@ -202,21 +259,33 @@ class ReporterService:
             return 429, json.dumps({"error": "overloaded",
                                     "reason": e.reason,
                                     "retry_after_s": e.retry_after_s})
+        except CircuitOpen as e:
+            # an open decode or device-route breaker refused this
+            # request's chunk before its launch: 503, with the cooldown
+            # left in the body (and the Retry-After header)
+            return 503, json.dumps({"error": str(e), "domain": e.domain,
+                                    "retry_after_s": e.retry_after_s})
         except Exception as e:
             return 500, json.dumps({"error": str(e)})
 
     def health(self) -> tuple[int, str]:
-        """Liveness and latency probe; (status, JSON body): the graph
-        (nodes, edges, its content-derived ``map_version``), the host
-        runtime ("native", or "fallback" for the numpy prep), the decode
-        shadow's verdicts, the incremental decode (``enabled``, and once
-        its table exists the table's gauge: traces, state bytes against
-        the budget, lag, evictions, fallbacks, resets), admission control
-        (not armed), the datastore (absent) and the SLO targets with
-        their breaches. A breach answers 503, "degraded": a stage over
-        its p99 budget is one a load balancer should rotate away from."""
+        """Liveness and degradation probe; (status, JSON body), with the
+        JAX package's blocks in its order: the graph (nodes, edges, its
+        content-derived ``map_version``), the host runtime ("native", or
+        "fallback" for the numpy prep), the native prep's breaker
+        (``circuit``), every failure domain's breaker and the open ones
+        (``degraded``), the dead-letter backlog, the armed fault spec, the
+        decode shadow's verdicts, the incremental decode (``enabled``, and
+        once its table exists the table's gauge), the pressure ladder, the
+        admission gate, the SLO targets with their breaches and the
+        datastore (absent). An open domain or an SLO breach answers 503,
+        "degraded": a load balancer should rotate away. A shedding gate
+        is doing its job and stays 200. The call also ticks the gate, so
+        an idle service's ladder steps back up."""
+        from ..matcher import incremental as _inc
         from ..obs import profiler, slo
         m = self.matcher
+        open_domains = m.open_domains()
         body = {
             "graph": {"loaded": True,
                       "nodes": int(m.net.num_nodes),
@@ -224,19 +293,30 @@ class ReporterService:
                       "map_version": map_version(m.net)},
             "native": {"status": "native" if m.runtime is not None
                        else "fallback"},
+            "circuit": m.circuit.snapshot(),
+            "degraded": {"open": open_domains,
+                         "domains": m.circuit_snapshots()},
+            "deadletter": spool.backlog_snapshot(),
+            "faults": faults.active_spec(),
             "shadow": profiler.shadow_stats(),
-            "incremental": {"enabled": m.incremental},
-            "admission": {"armed": False},
-            "datastore": {"status": "absent"},
+            "incremental": {"enabled": m.incremental
+                            and not _inc.pressure_shed()},
         }
         table = m._incremental_table
         if table is not None:
             body["incremental"].update(table.gauge())
+        if self.admission is not None:
+            self.admission.tick()
+        body["pressure"] = pressure_snapshot()
+        body["admission"] = (self.admission.snapshot()
+                             if self.admission is not None
+                             else {"armed": False})
         slo_check = slo.check()
         body["slo"] = {"targets": {k: round(v * 1000.0, 3) for k, v
                                    in slo_check["targets"].items()},
                        "breaches": slo_check["breaches"]}
-        healthy = not slo_check["breaches"]
+        body["datastore"] = {"status": "absent"}
+        healthy = not open_domains and not slo_check["breaches"]
         body["status"] = "ok" if healthy else "degraded"
         return (200 if healthy else 503,
                 json.dumps(body, separators=(",", ":")))
@@ -329,10 +409,16 @@ def make_handler(service: ReporterService):
             self.end_headers()
             self.wfile.write(raw)
 
-        def _respond_shed(self, code: int, body):
-            """A load-shed response: every 429 carries its body's
-            ``retry_after_s`` as the ``Retry-After`` header."""
-            retry = json.loads(body).get("retry_after_s")
+        def _respond_shed(self, code: int, body, retry_after_s=None):
+            """A shed or refused response: every 429, and every 503 of an
+            open breaker, carries ``Retry-After``: ``retry_after_s`` when
+            the caller holds it, else its body's."""
+            retry = retry_after_s
+            if retry is None:
+                try:
+                    retry = json.loads(body).get("retry_after_s")
+                except Exception:
+                    pass
             headers = {"Retry-After": str(int(retry))} \
                 if retry is not None else None
             self._respond(code, body, headers=headers)
@@ -350,8 +436,13 @@ def make_handler(service: ReporterService):
                 return
             if action == "profile":
                 from ..obs import profiler
-                self._respond(200, json.dumps(profiler.snapshot(),
-                                              separators=(",", ":")))
+                prof = profiler.snapshot()
+                # the load-management view: the ladder, and the gate's
+                # sensors and sheds when it is armed
+                prof["pressure"] = pressure_snapshot()
+                if service.admission is not None:
+                    prof["admission"] = service.admission.snapshot()
+                self._respond(200, json.dumps(prof, separators=(",", ":")))
                 return
             if action == "health":
                 code, body = service.health()
@@ -359,10 +450,30 @@ def make_handler(service: ReporterService):
                     metrics.count(f"service.errors.{code}")
                 self._respond(code, body)
                 return
+            # the admission gate sheds before the body is read: a 429
+            # costs headers, not work. An admitted request's in-flight
+            # slot is released when its answer is written, whatever its
+            # status
+            gate = service.admission
+            if gate is not None:
+                shed = gate.admit()
+                if shed is not None:
+                    metrics.count("service.errors.429")
+                    self._respond_shed(
+                        429, json.dumps({"error": "overloaded",
+                                         "reason": shed.reason,
+                                         "retry_after_s":
+                                             shed.retry_after_s}),
+                        retry_after_s=shed.retry_after_s)
+                    return
             # ?trace=1: arm tracing for this request and answer with its
-            # span tree (Chrome/Perfetto trace events) beside the report
+            # span tree (Chrome/Perfetto trace events) beside the report.
+            # The shed_trace rung refuses the flag (the report serves)
             want_trace = _on(urllib.parse.parse_qs(split.query).get(
                 "trace", ["0"])[0])
+            if want_trace and not allow_request_trace():
+                metrics.count("pressure.trace_suppressed")
+                want_trace = False
             if want_trace:
                 obs_trace.force_begin()
             root = None
@@ -392,9 +503,11 @@ def make_handler(service: ReporterService):
                 if want_trace:
                     obs_trace.unwatch(root)
                     obs_trace.force_end()
+                if gate is not None:
+                    gate.release()
             if code != 200:
                 metrics.count(f"service.errors.{code}")
-            if code == 429:
+            if code in (429, 503):
                 self._respond_shed(code, body)
             else:
                 self._respond(code, body)
@@ -479,9 +592,10 @@ def slot_device(device: torch.device, slot: int,
 
 def read_config(path: str) -> dict:
     """The config file as {"graph": path, "params": MatchParams,
-    "service": {...}, "matcher": {...}, "server": {...}, "obs": {...}},
-    each of the last four holding the ``service`` keys that go to one
-    constructor (``obs``: to :func:`configure_obs`).
+    "service": {...}, "matcher": {...}, "server": {...}, "obs": {...},
+    "faults": {...}}, each of the last five holding the ``service`` keys
+    that go to one constructor (``obs``: to :func:`configure_obs`,
+    ``faults``: to :func:`configure_faults`).
     Raises on a missing graph or an unknown key (this service has no
     datastore and no city registry)."""
     with open(path) as f:
@@ -493,7 +607,7 @@ def read_config(path: str) -> dict:
         raise ValueError(f"unknown keys {sorted(unknown)}")
     given = dict(conf.get("service") or {})
     unknown = set(given) - set(SERVICE_KEYS + MATCHER_KEYS + SERVER_KEYS
-                               + OBS_KEYS)
+                               + OBS_KEYS + FAULT_KEYS)
     if unknown:
         raise ValueError(f"unknown service keys {sorted(unknown)}")
     return {"graph": conf["graph"],
@@ -502,7 +616,8 @@ def read_config(path: str) -> dict:
                for name, keys in (("service", SERVICE_KEYS),
                                   ("matcher", MATCHER_KEYS),
                                   ("server", SERVER_KEYS),
-                                  ("obs", OBS_KEYS))}}
+                                  ("obs", OBS_KEYS),
+                                  ("faults", FAULT_KEYS))}}
 
 
 def matcher_from_config(conf: dict, device) -> SegmentMatcher:
@@ -534,6 +649,11 @@ def main(argv=None) -> int:
         return 1
     pool_size = conf["server"].get("pool_size", POOL_SIZE)
     configure_obs(conf["obs"])
+    try:
+        configure_faults(conf["faults"])
+    except ValueError as e:
+        sys.stderr.write(f"Problem with config file: {e}\n")
+        return 1
 
     def make_service(slot: int, procs: int) -> ReporterService:
         """Everything heavy — the device, the graph load, the native

@@ -35,6 +35,7 @@ from reporter_tpu.ops.incremental import \
     incremental_step_batch as jax_step
 from reporter_tpu.synth import build_grid_city as jax_city
 from reporter_tpu_torch import ops
+from reporter_tpu_torch.core.tracebatch import TraceBatch
 from reporter_tpu_torch.graph.route import candidate_route_matrices
 from reporter_tpu_torch.matcher import SegmentMatcher
 from reporter_tpu_torch.matcher import incremental as inc
@@ -42,6 +43,7 @@ from reporter_tpu_torch.matcher.hmm import NORMAL, RESTART, SKIP
 from reporter_tpu_torch.matcher.matcher import render_segments_json
 from reporter_tpu_torch.service.server import ReporterService
 from reporter_tpu_torch.synth import build_grid_city, generate_trace
+from reporter_tpu_torch.utils import metrics
 
 CITY = dict(rows=12, cols=12, spacing_m=200.0, seed=2,
             service_road_fraction=0.0, internal_fraction=0.0)
@@ -395,9 +397,10 @@ def test_the_kill_switch_serves_nothing(cities, monkeypatch, prep):
 
 
 def test_an_error_raises_and_drops_the_states_it_touched(cities):
-    """A failure mid-call raises (no breaker, no decline) and drops the
-    state of every trace the call reached, the failing one included; the
-    next report replays their windows byte-exact."""
+    """A failure mid-call raises out of the table and drops the state of
+    every trace the call reached, the failing one included; the matcher
+    counts it on the ``match.incremental`` breaker and declines every
+    slot of the call. The next report replays their windows byte-exact."""
     _ref_city, city = cities
     m = SegmentMatcher(city, device="cpu")
     a, b = make_trace(city, 23), make_trace(city, 24)
@@ -416,8 +419,16 @@ def test_an_error_raises_and_drops_the_states_it_touched(cities):
         return lookup(*args, **kw)
 
     m.runtime.candidates = failing_second
+    failures = metrics.counter("matcher.circuit.incremental.failures")
+    assert m.match_incremental(reqs(14)) == [None, None]
+    assert metrics.counter("matcher.circuit.incremental.failures") \
+        == failures + 1
+    assert m.incremental_table.gauge()["traces"] == 0
+    assert None not in m.match_incremental(reqs(10))
+    calls.clear()
     with pytest.raises(RuntimeError, match="lookup failed"):
-        m.match_incremental(reqs(14))
+        m.incremental_table.match_many(
+            TraceBatch.from_requests(reqs(14)), [m.params] * 2, [None] * 2)
     del m.runtime.candidates
     assert m.incremental_table.gauge()["traces"] == 0
     for got, req in zip(m.match_incremental(reqs(14)), reqs(14)):

@@ -28,9 +28,11 @@ from reporter_tpu_torch.matcher.matcher import (GRID_CELL_M, MatchRuns,
                                                 RunColumns, _jnum,
                                                 render_segments_json,
                                                 render_segments_json_py)
+from reporter_tpu_torch.service import wire
 from reporter_tpu_torch.service.report import (_report_json_py, report,
                                                report_json, report_wire)
 from reporter_tpu_torch.synth import build_grid_city, generate_trace
+from reporter_tpu_torch.utils import metrics
 
 CITY = dict(rows=8, cols=8, spacing_m=200.0, seed=3)
 PARAMS = MatchParams()
@@ -277,7 +279,9 @@ def test_binding_raises_and_never_falls_back(cities, tmp_path, monkeypatch,
 
 
 def test_writer_fault_raises(cities, monkeypatch):
-    """A C writer fault reaches the caller: no Python-writer fallback."""
+    """A C writer fault raises inside the writer's failure domain
+    (``wire.circuit``): it is counted, and the response is the Python
+    writer's, byte for byte the same; it never reaches the caller."""
     rng = np.random.default_rng(4)
     tr = None
     while tr is None:
@@ -291,9 +295,12 @@ def test_writer_fault_raises(cities, monkeypatch):
     def fault(*_args):
         raise OSError("writer fault")
 
+    want = _report_json_py(match, req, 15, {0, 1, 2}, {0, 1, 2})
     monkeypatch.setattr(native, "write_report_json_batch", fault)
-    with pytest.raises(OSError, match="writer fault"):
-        report_json(match, req, 15, {0, 1, 2}, {0, 1, 2})
+    errors = metrics.counter("wire.errors")
+    assert report_json(match, req, 15, {0, 1, 2}, {0, 1, 2}) == want
+    assert metrics.counter("wire.errors") == errors + 1
+    wire.circuit.record_success()  # the process-wide breaker, closed again
 
 
 def test_runtime_counters_and_fork_guard(cities):

@@ -262,12 +262,12 @@ def test_health(servers, cities):
     assert got["graph"]["map_version"] == jax_map_version(ref_city)
     assert got["graph"]["nodes"] == city.num_nodes == 100
     assert got["graph"]["edges"] == city.num_edges
-    for key in ("graph", "native", "incremental", "admission",
+    for key in ("graph", "native", "circuit", "degraded", "deadletter",
+                "faults", "incremental", "pressure", "admission",
                 "datastore", "slo", "status"):
         assert got[key] == want[key], key
     assert set(got["shadow"]) == set(want["shadow"])
-    assert list(got) == ["graph", "native", "shadow", "incremental",
-                         "admission", "datastore", "slo", "status"]
+    assert list(got) == list(want)
 
 
 def test_map_version_survives_a_save_and_load(cities, tmp_path):
