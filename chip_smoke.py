@@ -20,7 +20,9 @@ Phases, each fatal on failure:
             512 and 4,096 rows and K of 4, 8, 16 and 128, with ties,
             NORMAL, RESTART and SKIP rows, routes at 1e9 and +inf,
             invalid candidates and signed zeros: scores bit-equal, bp and
-            prev_best equal
+            prev_best equal; and R rounds in one launch (ragged step
+            counts) at (N, K, R) of (512, 8, 4), (1, 8, 4), (37, 32, 3)
+            and (37, 128, 3)
 3. main     SegmentMatcher.match_many (native prep, the two device lanes)
             + report_json() on the 20x20 synthetic city, 512 traces of
             the T=64 bucket and a mixed T=16/64/256 batch, on the card,
@@ -104,7 +106,9 @@ Phases, each fatal on failure:
             2,048), device and host routes once cold each, then ten warm
             rounds in turns, beside city's host-route wall; 64 traces on a
             125x125 grid city (15,625 nodes, past relax's shared-memory
-            limit: relax_sweep), cold
+            limit: relax_cluster, one launch and one read a relaxation)
+            the same way; 8 traces on a 341x341 grid city (116,281 nodes,
+            past a cluster's reach: relax_sweep), cold
 8. timing   the launch floor (an empty kernel with the kernels' C launch
             interface, built beside them, by CUDA graphs and back to back);
             CUDA-event times of the decode kernel from CUDA graphs (the
@@ -114,10 +118,11 @@ Phases, each fatal on failure:
             the least time the card could take and a model of the chain;
             then of the route kernels, by CUDA graphs: one whole
             relaxation by relax (one launch) and by relax_sweep's sweeps
-            at the main path's first chunk and at the 100x100 city's, a
-            relax_sweep sweep at the 125x125 city's first chunk, one
-            pair_costs launch at the main path's first chunk, and their
-            plain versions, beside their bounds
+            at the main path's first chunk and at the 100x100 city's, and
+            by relax_cluster (one launch) and relax_sweep's sweeps at the
+            125x125 city's first chunk, one pair_costs launch at the main
+            path's first chunk, and their plain versions, beside their
+            bounds
 
 After main come two phases of the device route costs (``route_device``):
 
@@ -126,9 +131,12 @@ After main come two phases of the device route costs (``route_device``):
             chunk bound; the 40x40 city with 1,024 sources at 1,500 m;
             the 100x100 city's first chunk, S=2,048, at its chunk bound),
             each to convergence and capped at one sweep and at one sweep
-            short; relax_sweep the same way on the 125x125 city with 64
-            sources at 1,500 m: dist and time bit-equal, iters and
-            converged equal. pair_costs against its plain version at
+            short; relax_cluster the same way on the 125x125 city (2
+            blocks a cluster) with its first chunk's 1,024 sources at the
+            chunk bound and with 64 sources at 1,500 m, and on a 200x200
+            city (3 blocks) with 64 sources; relax_sweep by a direct call
+            on the 125x125 city with the 64 sources: dist and time
+            bit-equal, iters and converged equal. pair_costs against its plain version at
             (128, 64, 8), cached and uncached node kernels, turn penalty
             off and on, time caps and backward pairs in the inputs: route
             bit-equal, max_finite equal
@@ -153,7 +161,8 @@ After routes comes the incremental streaming decode:
             a CPU run's, each served match and /report body byte-equal to
             the card's match_many of the same window and to the CPU run,
             the carried-state blobs and counters equal the CPU run's, and
-            incremental_step launched once per round and parameter group.
+            incremental_step launched once per call and parameter group
+            (every round of the call in one launch).
             Fallback: a matcher with incremental_lag=2 behind a
             ReporterService; report_incremental equal to report_many slot
             for slot, viterbi_decode launches counted for the declined
@@ -163,8 +172,9 @@ After routes comes the incremental streaming decode:
             the incremental decode seconds and wall a call against
             match_many's of the same windows, steps per point, commits;
             served matches byte-equal to match_many's. The timing phase
-            then times incremental_step by CUDA graphs at (1,8) and
-            (512,8) beside its bound and the plain version
+            then times incremental_step by CUDA graphs at (1,8), (512,8)
+            and (512,8) for 4 rounds beside its bound and the plain
+            version
 
 Prints the card's name and power limit, one JSON line describing the
 kernels (viterbi_decode: ``launches`` match_many's in the main phase,
@@ -173,8 +183,10 @@ kernels (viterbi_decode: ``launches`` match_many's in the main phase,
 ``launches_stream_fallback`` the stream phase's declined slots,
 ``launches_faults`` the faults phase's legs; relax and
 pair_costs: the routes phase's device lanes-on runs, cold and the first
-warm round; relax_sweep: route-city's 125x125 run, one launch a sweep;
-incremental_step: the stream phase's parity leg, one launch a round;
+warm round; relax_cluster: route-city's 125x125 device runs, cold and
+the first warm round; relax_sweep: route-city's 341x341 run, one launch
+a sweep; incremental_step: the stream phase's parity leg, one launch a
+call and parameter group;
 each kernel also its ``launches_faults`` and the ``launch_floor_ms``),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
@@ -184,8 +196,11 @@ commit unpacked with ``git archive``) only the build runs, then both
 decode kernels decode the same inputs at (512,64,8) and (64,1024,8):
 their outputs must be equal, and each is timed by CUDA graphs and by
 launches from Python, in the order other, this, this, other. Then the
-route kernels: the relaxation of the main path's first chunk and of the
-100x100 city's first chunk, this checkout's relax against the other's
+incremental steps at (1,8), (512,8) and 4 rounds of (512,8), outputs
+equal, each timed by CUDA graphs the same way (a checkout without the
+multi-round kernel launches once a round). Then the route kernels: the
+relaxation of the main path's first chunk and of the 100x100 city's
+first chunk, this checkout's relax against the other's
 sweeps (by CUDA graphs, and as the matcher calls each, host reads
 included), and pair_costs at the main chunk, in the same order, outputs
 bit-equal. Then main's 608 requests go through match_many with
@@ -226,8 +241,22 @@ K = 8                       # MatchParams.max_candidates default
 CITY = dict(rows=20, cols=20, spacing_m=200.0, seed=42)
 BIG_CITY = dict(rows=100, cols=100, spacing_m=200.0, seed=42)
 MID_CITY = dict(rows=40, cols=40, spacing_m=200.0, seed=42)
-# past relax's shared-memory limit (14,528 nodes): relax_sweep's graph
+# past relax's shared-memory limit (14,528 nodes): relax_cluster's graph,
+# 2 blocks a cluster
 HUGE_CITY = dict(rows=125, cols=125, spacing_m=200.0, seed=42)
+# relax_cluster at 3 blocks a cluster (verify-routes)
+WIDE_CITY = dict(rows=200, cols=200, spacing_m=200.0, seed=42)
+# past relax_cluster's 116,216 nodes: relax_sweep on the main path
+PAST_CITY = dict(rows=341, cols=341, spacing_m=200.0, seed=42)
+#: grid cities that relax_cluster runs at clusters of 4 blocks (48,400
+#: nodes) and of 8 (108,900 nodes), checked directly in verify-routes
+CLUSTER_CITIES = {4: dict(rows=220, cols=220, spacing_m=200.0, seed=42),
+                  8: dict(rows=330, cols=330, spacing_m=200.0, seed=42)}
+#: the widths relax_cluster is also held at on the 125x125 city, forced
+FORCED_WIDTHS = (2, 3, 4, 5, 6, 7, 8)
+#: seeds of the random sources every width check repeats over
+WIDTH_SEEDS = (8, 9, 10)
+PAST_TRACES = 8
 OPTS = {"mode": "auto", "report_levels": [0, 1, 2],
         "transition_levels": [0, 1, 2]}
 # the stream phase: every fourth uuid of the parity leg in a second
@@ -260,6 +289,8 @@ extern "C" int launch_floor(void* stream) {
 # the step's checked shapes: N rows by K candidates
 STEP_N = (1, 37, 512, 4096)
 STEP_K = (4, 8, 16, 128)
+# (N, K, R): the rounds of one launch checked in verify-step
+STEP_ROUNDS = ((512, 8, 4), (1, 8, 4), (37, 32, 3), (37, 128, 3))
 
 
 def log(msg: str) -> None:
@@ -807,20 +838,48 @@ def abs_err(a, b) -> float:
                              ).max())
 
 
-def relax_against_plain(kernel, srcs, bound, max_iters, what):
-    """``srcs`` relaxed at ``bound`` on the card by the kernel the graph
-    takes (``kernel.relax_kernel``: ``relax_cuda`` over its CSR arcs, or
-    ``relax_sweep_cuda``) and by the plain version: dist and time
-    bit-equal, iters and converged equal. Returns (kernel dist, kernel
-    time, iters, converged, the largest absolute difference)."""
+def cluster_at_width(kernel, src, bound, max_iters, width):
+    """``relax_cluster`` launched directly at clusters of ``width`` blocks
+    (uncounted: a check, not the main path), after the occupancy query
+    for that plan: (dist, time, iters, converged)."""
     import torch
     from reporter_tpu_torch.ops import route_relax
+    N = kernel.n_nodes
+    route_relax.check_cluster(N, kernel.device, width)
+    planes = torch.empty((2, len(src), N), device=kernel.device)
+    info = torch.zeros(3, dtype=torch.int32, device=kernel.device)
+    route_relax.launch_relax_cluster(kernel._arcs, src, bound, max_iters,
+                                     planes[0], planes[1], info, width)
+    iters, stuck, bad = info.tolist()
+    check(bad == 0, f"relax_cluster at width {width}: {bad} bad sources")
+    return planes[0], planes[1], iters, stuck == 0
+
+
+def relax_against_plain(kernel, srcs, bound, max_iters, what, which=None,
+                        width=None):
+    """``srcs`` relaxed at ``bound`` on the card by ``which`` (default the
+    kernel the graph takes, ``kernel.relax_kernel``: ``relax_cuda`` or
+    ``relax_cluster_cuda`` over its CSR arcs, or ``relax_sweep_cuda``;
+    with ``width``, ``relax_cluster`` at clusters of that many blocks)
+    and by the plain version:
+    dist and time bit-equal, iters and converged equal. Returns (kernel
+    dist, kernel time, iters, converged, the largest absolute
+    difference)."""
+    import torch
+    from reporter_tpu_torch.ops import route_relax
+    which = which or kernel.relax_kernel
     cols = (kernel._e_start, kernel._e_end, kernel._e_len, kernel._e_secs)
     src = torch.from_numpy(np.asarray(srcs, np.int32)).to(kernel.device)
-    if kernel.relax_kernel == "relax":
+    if which == "relax":
         k_out = route_relax.relax_cuda(kernel._arcs, src, bound,
                                        n_nodes=kernel.n_nodes,
                                        max_iters=max_iters)
+    elif which == "relax_cluster" and width:
+        k_out = cluster_at_width(kernel, src, bound, max_iters, width)
+    elif which == "relax_cluster":
+        k_out = route_relax.relax_cluster_cuda(
+            kernel._arcs, src, bound, n_nodes=kernel.n_nodes,
+            max_iters=max_iters)
     else:
         k_out = route_relax.relax_sweep_cuda(*cols, src, bound,
                                              n_nodes=kernel.n_nodes,
@@ -832,11 +891,10 @@ def relax_against_plain(kernel, srcs, bound, max_iters, what):
     for name, a, b in (("dist", k_out[0], p_out[0]),
                        ("time", k_out[1], p_out[1])):
         differ = bit_equal(a, b)
-        check(differ == 0, f"{kernel.relax_kernel} {name}: {differ} entries "
-                           f"not bit-equal, {what}")
-    check(k_out[2:] == p_out[2:], f"{kernel.relax_kernel} iters/converged "
-                                  f"{k_out[2:]} against the plain "
-                                  f"{p_out[2:]}, {what}")
+        check(differ == 0, f"{which} {name}: {differ} entries not "
+                           f"bit-equal, {what}")
+    check(k_out[2:] == p_out[2:], f"{which} iters/converged {k_out[2:]} "
+                                  f"against the plain {p_out[2:]}, {what}")
     return (*k_out, max(abs_err(k_out[0], p_out[0]),
                         abs_err(k_out[1], p_out[1])))
 
@@ -852,29 +910,36 @@ def chunk_sources(kernel, prep, params, B):
                                                     plan.srcs[0], np.int32)])
 
 
-def verify_relax(kernel, srcs, bound, label):
+def verify_relax(kernel, srcs, bound, label, which=None, width=None):
     """``relax_against_plain`` run to convergence, then with a cap of one
     sweep and a cap one short of the sweeps it needed: every run
     bit-equal, the capped ones not converged. Returns (dist, time,
     iters, the largest absolute difference)."""
+    from reporter_tpu_torch.ops import route_relax
+    which = which or kernel.relax_kernel
     dist, time_sn, iters, ok, err = relax_against_plain(
-        kernel, srcs, bound, kernel.n_nodes, label)
+        kernel, srcs, bound, kernel.n_nodes, label, which, width)
     check(ok, f"{label}: the relaxation did not converge")
     caps = sorted({1, max(iters - 1, 1)})
     for cap in caps:
         got = relax_against_plain(kernel, srcs, bound, cap,
-                                  f"{label}, max_iters={cap}")
+                                  f"{label}, max_iters={cap}", which, width)
         check(got[2:4] == (cap, False), f"{label}, max_iters={cap}: "
                                         f"gave {got[2:4]}")
-    log(f"[verify-routes] {kernel.relax_kernel}, {label} (N={kernel.n_nodes},"
-        f" E={kernel.n_edges}), S={len(srcs)} at {float(bound):.1f} m: "
-        f"{iters} sweeps, converged; and capped at {caps} sweeps, not "
+    blocks = ""
+    if which == "relax_cluster":
+        blocks = (f", clusters of "
+                  f"{width or route_relax.cluster_width(kernel.n_nodes)} "
+                  f"blocks{' (forced)' if width else ''}")
+    log(f"[verify-routes] {which}, {label} (N={kernel.n_nodes}, "
+        f"E={kernel.n_edges}{blocks}), S={len(srcs)} at {float(bound):.1f} "
+        f"m: {iters} sweeps, converged; and capped at {caps} sweeps, not "
         f"converged: dist and time bit-equal to the plain version, iters "
         f"and converged equal")
     return dist, time_sn, iters, err
 
 
-def phase_verify_routes(dev, served, big, huge):
+def phase_verify_routes(dev, served, big, huge, past):
     """The route kernels against their plain versions on the card, same
     inputs. ``relax`` at three shapes: the 20x20 city with the first main
     chunk's sources (S = 512 after padding) at its chunk bound, the 40x40
@@ -882,9 +947,19 @@ def phase_verify_routes(dev, served, big, huge):
     the first chunk of ``big``'s requests (S = 2,048) at its chunk bound;
     each run to convergence and with caps of one sweep and of one sweep
     short: dist and time bit-equal, iters and converged equal.
-    ``relax_sweep`` on ``huge``'s 125x125 grid (15,625 nodes, past
-    ``relax``'s shared-memory limit) with 64 seeded sources at 1,500 m,
-    the same way. ``pair_costs`` at the first main chunk's (128, 64, 8), its first
+    ``relax_cluster`` on ``huge``'s 125x125 grid (15,625 nodes, past
+    ``relax``'s shared-memory limit: clusters of 2 blocks) with its first
+    chunk's sources (S = 1,024) at its chunk bound and with 64 seeded
+    sources at 1,500 m; then on the same grid at every width of
+    ``FORCED_WIDTHS`` (launched directly), the first chunk and 256
+    sources of each of ``WIDTH_SEEDS``; on a 200x200 grid (40,000
+    nodes, 3 blocks) and ``CLUSTER_CITIES`` (4 and 8 blocks) with 64
+    sources of each seed at 1,500 m; ``relax_sweep`` by a direct call on
+    the 125x125 grid with the 64 sources, and on ``past``'s 341x341 grid
+    (116,281 nodes, past a cluster's reach) with its first chunk's
+    sources at its chunk bound, the shapes the main path gives it; the
+    same way each.
+    ``pair_costs`` at the first main chunk's (128, 64, 8), its first
     16 traces given same-edge backward pairs, on the cached (N, N) and
     the uncached (S, N) kernels, with the turn penalty off and on (time
     caps are armed by the default params): route bit-equal and
@@ -923,12 +998,62 @@ def phase_verify_routes(dev, served, big, huge):
         "100x100 city, first chunk")[3])
     del bk
     hk = DeviceRouteKernel(huge["city"], dev)
-    check(hk.relax_kernel == "relax_sweep",
+    check(hk.relax_kernel == "relax_cluster"
+          and route_relax.cluster_width(hk.n_nodes) == 2,
           f"the 125x125 city takes {hk.relax_kernel}")
-    sweep_err = verify_relax(
-        hk, np.random.default_rng(7).choice(hk.n_nodes, 64, replace=False),
-        np.float32(1500.0), "125x125 city")[3]
+    huge_plan, huge_srcs = first_chunk_sources(hk, huge)
+    check(len(huge_srcs) == 1024, f"the 125x125 city's first chunk relaxes "
+                                  f"{len(huge_srcs)} sources, not 1,024")
+    some = np.random.default_rng(7).choice(hk.n_nodes, 64, replace=False)
+    cluster_err = max(
+        verify_relax(hk, huge_srcs, huge_plan.chunk_bound,
+                     "125x125 city, first chunk")[3],
+        verify_relax(hk, some, np.float32(1500.0), "125x125 city")[3])
+    # every cluster width on the same graph, forced: the first chunk and
+    # 256 sources of each seed at 1,500 m, so that a lost minimum at any
+    # width, even an intermittent one, fails the run
+    for width in FORCED_WIDTHS:
+        cluster_err = max(cluster_err, verify_relax(
+            hk, huge_srcs, huge_plan.chunk_bound,
+            "125x125 city, first chunk", width=width)[3])
+        for seed in WIDTH_SEEDS:
+            cluster_err = max(cluster_err, verify_relax(
+                hk, np.random.default_rng(seed).choice(hk.n_nodes, 256,
+                                                       replace=False),
+                np.float32(1500.0), f"125x125 city, seed {seed}",
+                width=width)[3])
+    # relax_sweep serves graphs past a cluster's reach; held here by a
+    # direct call on the same graph too
+    sweep_err = verify_relax(hk, some, np.float32(1500.0), "125x125 city",
+                             which="relax_sweep")[3]
     del hk
+    torch.cuda.empty_cache()
+    for width, shape in ((3, WIDE_CITY), *CLUSTER_CITIES.items()):
+        wide = DeviceRouteKernel(build_grid_city(**shape), dev)
+        name = f"{shape['rows']}x{shape['cols']} city"
+        check(wide.relax_kernel == "relax_cluster"
+              and route_relax.cluster_width(wide.n_nodes) == width,
+              f"the {name} takes {wide.relax_kernel} at "
+              f"{route_relax.cluster_width(wide.n_nodes)} blocks a cluster")
+        for seed in WIDTH_SEEDS:
+            cluster_err = max(cluster_err, verify_relax(
+                wide, np.random.default_rng(seed).choice(wide.n_nodes, 64,
+                                                         replace=False),
+                np.float32(1500.0), f"{name}, seed {seed}")[3])
+        del wide
+        torch.cuda.empty_cache()
+    # relax_sweep at the shapes the main path gives it: the 341x341
+    # city's first chunk at its chunk bound
+    pk = DeviceRouteKernel(past["city"], dev)
+    check(pk.relax_kernel == "relax_sweep",
+          f"the {PAST_CITY['rows']}x{PAST_CITY['cols']} city takes "
+          f"{pk.relax_kernel}")
+    past_plan, past_srcs = first_chunk_sources(pk, past)
+    sweep_err = max(sweep_err, verify_relax(
+        pk, past_srcs, past_plan.chunk_bound,
+        f"{PAST_CITY['rows']}x{PAST_CITY['cols']} city, first chunk")[3])
+    del pk
+    torch.cuda.empty_cache()
 
     # node kernels on both layouts: rows of the relaxed sources (S, N), and
     # the cache's (N, N) with row i = node i
@@ -975,8 +1100,8 @@ def phase_verify_routes(dev, served, big, huge):
             log(f"[verify-routes] {what}: route bit-equal, max_finite "
                 f"{float(k_max):.3f} equal; {int(finite.sum())} finite of "
                 f"{k_route.numel()}, {n_back} free backward pairs")
-    return {"relax_err": relax_err, "sweep_err": sweep_err,
-            "pair_err": pair_max_err}
+    return {"relax_err": relax_err, "cluster_err": cluster_err,
+            "sweep_err": sweep_err, "pair_err": pair_max_err}
 
 
 def counted_run(matcher, reqs):
@@ -991,12 +1116,13 @@ def counted_run(matcher, reqs):
     metrics.default.reset()
     for fn in kernel_wrappers().values():
         fn.launches = 0
-    ops.relax_cuda.reads = 0
+    ops.relax_cuda.reads = ops.relax_cluster_cuda.reads = 0
     t0 = time.perf_counter()
     out = bodies(matcher.match_many(reqs), reqs)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
     launches["relax_reads"] = ops.relax_cuda.reads
+    launches["relax_cluster_reads"] = ops.relax_cluster_cuda.reads
     return (out, wall, launches, metrics.snapshot()["counters"],
             {k: round(v, 4) for k, v in matcher.stage_seconds.items()})
 
@@ -1006,16 +1132,17 @@ def kernel_wrappers():
     gives it (``relax_sweep``'s counts sweeps)."""
     from reporter_tpu_torch import ops
     return {"viterbi_decode": ops.viterbi_cuda, "relax": ops.relax_cuda,
+            "relax_cluster": ops.relax_cluster_cuda,
             "relax_sweep": ops.relax_sweep_cuda,
             "pair_costs": ops.pair_costs_cuda}
 
 
 def check_route_launches(what, reqs, chunk, launches, counters, kernel):
     """The chunking's launch counts: the decode and ``pair_costs`` once per
-    chunk (every chunk here has live transitions); with ``relax`` one
-    launch and one host read (iters and converged) per relaxation, with
-    ``relax_sweep`` one launch per sweep (the sum of the relaxations'
-    iters), and never the other."""
+    chunk (every chunk here has live transitions); with ``relax`` or
+    ``relax_cluster`` (``kernel``) one launch and one host read (iters and
+    converged) per relaxation, with ``relax_sweep`` one launch per sweep
+    (the sum of the relaxations' iters), and never another."""
     chunks = expected_launches(reqs, chunk)
     routed = counters.get("route.device.chunks", 0)
     relaxes = counters.get("route.device.relaxes", 0)
@@ -1027,9 +1154,12 @@ def check_route_launches(what, reqs, chunk, launches, counters, kernel):
           and launches["pair_costs"] == routed == chunks,
           f"{what}: {launches['pair_costs']} pair_costs launches for "
           f"{routed} routed chunks, want {chunks}")
-    want = ({"relax": relaxes, "relax_reads": relaxes, "relax_sweep": 0}
-            if kernel == "relax" else
-            {"relax": 0, "relax_reads": 0, "relax_sweep": sweeps})
+    want = {"relax": 0, "relax_reads": 0, "relax_cluster": 0,
+            "relax_cluster_reads": 0, "relax_sweep": 0}
+    if kernel == "relax_sweep":
+        want["relax_sweep"] = sweeps
+    else:
+        want[kernel] = want[f"{kernel}_reads"] = relaxes
     got = {k: launches[k] for k in want}
     check(got == want, f"{what}: relaxation launches {got}, want {want} "
                        f"({relaxes} relaxations of {sweeps} sweeps in all)")
@@ -1162,18 +1292,22 @@ def phase_routes(dev, served):
     return launches, runs
 
 
-def phase_route_city(big, huge):
+def phase_route_city(big, huge, past):
     """Device routes on larger cities, each against host routes. 512
     traces of the T=64 bucket with ``route_device=True`` on a 40x40 grid
     city (1,600 nodes, 6,240 edges, its node kernels cached), cold and
     warm; ``big``'s 512 on the 100x100 city (10,000 nodes, past the
     node-kernel cache: every chunk relaxes, S = 2,048), device routes and
     host routes each once cold on a new matcher, then
-    ``ROUTE_WARM_ROUNDS`` warm rounds in turns; and ``huge``'s 64 traces
-    on the 125x125 city (15,625 nodes), whose relaxations
-    ``relax_sweep`` runs, cold. Every body byte-equal to the native CPU run with host routes,
-    launches held to the chunking. Returns the 125x125 run's
-    ``relax_sweep`` launches and the 100x100 runs' numbers."""
+    ``ROUTE_WARM_ROUNDS`` warm rounds in turns; ``huge``'s 64 traces on
+    the 125x125 city (15,625 nodes), whose relaxations ``relax_cluster``
+    runs, the same way; and ``past``'s ``PAST_TRACES`` traces on a
+    341x341 city (116,281 nodes, past a cluster's reach), whose
+    relaxations ``relax_sweep`` runs, cold. Every body byte-equal to the
+    native CPU run with host routes, launches held to the chunking. Returns the
+    launches of ``relax_cluster`` (the 125x125 city's device runs, cold
+    and the first warm round) and ``relax_sweep`` (the 341x341 run), and
+    the 100x100 and 125x125 runs' numbers."""
     from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
     from reporter_tpu_torch.synth import build_grid_city
     t0 = time.perf_counter()
@@ -1242,23 +1376,70 @@ def phase_route_city(big, huge):
         f"against host {runs['host']['cold']}; [city]'s host-route wall "
         f"{big['host_wall_s']:.4f} s")
 
-    # relax_sweep on the main path: a graph past relax's limit
+    # relax_cluster on the main path: the 125x125 city, past relax's limit,
+    # device routes against host routes, in turns
     city, params, reqs = huge["city"], huge["params"], huge["reqs"]
+    want = bodies(SegmentMatcher(city, params, device="cpu").match_many(reqs),
+                  reqs)
+    sides = {"device": SegmentMatcher(city, params, route_device=True),
+             "host": SegmentMatcher(city, params)}
+    check(sides["device"].route_kernel.relax_kernel == "relax_cluster",
+          f"the 125x125 city takes "
+          f"{sides['device'].route_kernel.relax_kernel}")
+    huge_runs = {name: {"cold": None, "wall": []} for name in sides}
+    cluster_launches = 0
+    for name, run in order:
+        got, wall, n, ctr, stages = counted_run(sides[name], reqs)
+        what = f"125x125 city, {name} routes, {run}"
+        check(got == want, f"{what}: /report bodies differ from the native "
+                           f"CPU run with host routes")
+        if name == "device":
+            check_route_launches(what, reqs, sides[name].chunk, n, ctr,
+                                 "relax_cluster")
+            if run in ("cold", "warm 1"):
+                cluster_launches += n["relax_cluster"]
+        if run == "cold":
+            huge_runs[name]["cold"] = {"wall_s": wall, "stages": stages}
+        else:
+            huge_runs[name]["wall"].append(wall)
+        log(f"[route-city] {what}: {len(reqs)} traces in {wall:.4f} s, "
+            f"stage seconds {stages}; launches {n}; route.device "
+            f"{route_counters(ctr)}")
+    for name in sides:
+        w = huge_runs[name]["wall"]
+        log(f"[route-city] 125x125 city ({city.num_nodes} nodes / "
+            f"{city.num_edges} edges), {name} routes, {len(w)} warm rounds: "
+            f"wall median {float(np.median(w)):.6f} s (range "
+            f"{min(w):.6f}-{max(w):.6f})")
+    wins = sum(d < h for d, h in zip(huge_runs["device"]["wall"],
+                                     huge_runs["host"]["wall"]))
+    log(f"[route-city] 125x125 city: device routes (relax_cluster) shorter "
+        f"in wall in {wins} of {ROUTE_WARM_ROUNDS} warm pairs; cold "
+        f"{huge_runs['device']['cold']} against host "
+        f"{huge_runs['host']['cold']}")
+    del sides
+
+    # relax_sweep on the main path: a graph past a cluster's reach
+    city, params, reqs = past["city"], past["params"], past["reqs"]
     want = bodies(SegmentMatcher(city, params, device="cpu").match_many(reqs),
                   reqs)
     gpu = SegmentMatcher(city, params, route_device=True)
     check(gpu.route_kernel.relax_kernel == "relax_sweep",
-          f"the 125x125 city takes {gpu.route_kernel.relax_kernel}")
+          f"the {PAST_CITY['rows']}x{PAST_CITY['cols']} city takes "
+          f"{gpu.route_kernel.relax_kernel}")
     got, wall, n, ctr, stages = counted_run(gpu, reqs)
-    check(got == want, "125x125 city: /report bodies differ from the native "
-                       "CPU run with host routes")
-    check_route_launches("125x125 city", reqs, gpu.chunk, n, ctr,
-                         "relax_sweep")
-    log(f"[route-city] 125x125 city ({city.num_nodes} nodes / "
-        f"{city.num_edges} edges), {len(reqs)} traces, cold: {wall:.4f} s "
-        f"wall, stage seconds {stages}; launches {n}; route.device "
-        f"{route_counters(ctr)}; bodies byte-equal to host routes")
-    return n["relax_sweep"], runs
+    what = f"{PAST_CITY['rows']}x{PAST_CITY['cols']} city"
+    check(got == want, f"{what}: /report bodies differ from the native CPU "
+                       f"run with host routes")
+    check_route_launches(what, reqs, gpu.chunk, n, ctr, "relax_sweep")
+    log(f"[route-city] {what} ({city.num_nodes} nodes / {city.num_edges} "
+        f"edges, past relax_cluster's reach), {len(reqs)} traces, cold: "
+        f"{wall:.4f} s wall, stage seconds {stages}; launches {n}; "
+        f"route.device {route_counters(ctr)}; bodies byte-equal to host "
+        f"routes")
+    return ({"relax_cluster": cluster_launches,
+             "relax_sweep": n["relax_sweep"]},
+            {"100x100": runs, "125x125": huge_runs})
 
 
 def http(url, data=None):
@@ -2361,12 +2542,12 @@ def phase_faults(dev, served):
             served_before = sum(m is not None for m in
                                 svc.matcher.match_incremental(window(44)))
             metrics.default.reset()
-            ops.incremental_step_cuda.launches = 0
+            ops.incremental_steps_cuda.launches = 0
             faults.configure("match.incremental.commit=error#1")
             got = svc.report_incremental(window(48))
             fired = faults.fired_counts()
             faults.clear()
-            steps = ops.incremental_step_cuda.launches
+            steps = ops.incremental_steps_cuda.launches
             check(fired == {"match.incremental.commit": 1}
                   and metrics.counter("matcher.circuit.incremental.failures")
                   == 1 and metrics.counter("match.incremental.matches") == 0,
@@ -2760,12 +2941,12 @@ def sweep_bound(S, N, E):
 
 def time_relaxations(dev, kernel, srcs, bound, label, other=None):
     """One relaxation of ``srcs`` at ``bound`` timed by CUDA graphs:
-    ``relax`` in one launch where the graph takes it, ``relax_sweep``'s
-    sweeps back to back after a state reset, and with ``other`` (another
-    checkout's ``ops.route_relax``) its sweeps the same way; each result
-    bit-equal to the plain version's; then the plain version's time.
-    Returns {"relax"|"relax_sweep"|"other"|"plain": ms, "iters":
-    sweeps}."""
+    ``relax`` or ``relax_cluster`` in one launch where the graph takes
+    it, ``relax_sweep``'s sweeps back to back after a state reset, and
+    with ``other`` (another checkout's ``ops.route_relax``) its sweeps the
+    same way; each result bit-equal to the plain version's; then the
+    plain version's time. Returns {"relax"|"relax_cluster"|"relax_sweep"
+    |"other"|"plain": ms, "iters": sweeps}."""
     import torch
     from reporter_tpu_torch.ops import route_relax
     N = kernel.n_nodes
@@ -2796,14 +2977,24 @@ def time_relaxations(dev, kernel, srcs, bound, label, other=None):
     out = {"iters": plain[2]}
     iters = plain[2]
     n = max(2, min(50, int(2e7 // (len(srcs) * N))))
-    if kernel.relax_kernel == "relax":
+    if kernel.relax_kernel in ("relax", "relax_cluster"):
         planes = torch.empty((2, len(srcs), N), device=dev)
         info = torch.zeros(3, dtype=torch.int32, device=dev)
-        out["relax"] = graph_ms(lambda: route_relax.launch_relax(
-            kernel._arcs, src, bound, N, planes[0], planes[1], info), n)
+        if kernel.relax_kernel == "relax":
+            def one():
+                route_relax.launch_relax(kernel._arcs, src, bound, N,
+                                         planes[0], planes[1], info)
+        else:
+            route_relax.check_cluster(N, dev)
+
+            def one():
+                route_relax.launch_relax_cluster(
+                    kernel._arcs, src, bound, N, planes[0], planes[1], info)
+        out[kernel.relax_kernel] = graph_ms(one, n)
         for got, want in zip(planes, plain[:2]):
             check(bit_equal(got, want) == 0,
-                  f"{label}: relax differs from the plain version")
+                  f"{label}: {kernel.relax_kernel} differs from the plain "
+                  f"version")
     sweeps(route_relax, "relax_sweep")
     if other is not None:
         sweeps(other, "other")
@@ -2814,14 +3005,18 @@ def time_relaxations(dev, kernel, srcs, bound, label, other=None):
     return out
 
 
-def phase_timing_routes(dev, served, big, huge):
+def phase_timing_routes(dev, served, big, huge, past):
     """The route kernels at the main path's shapes, timed by CUDA graphs,
     each beside its bound and its plain version. ``relax``: one
     relaxation of the main path's first chunk (the 20x20 city, 128 T=64
     traces: S = 512 sources) and of the 100x100 city's first chunk (S =
     2,048), with ``relax_sweep``'s sweeps on the same inputs beside it
-    (the kernel it replaced on these graphs). ``relax_sweep``: a sweep of
-    the 125x125 city's first chunk, the graph past ``relax``'s limit.
+    (the kernel it replaced on these graphs). ``relax_cluster``: one
+    relaxation of the 125x125 city's first chunk (S = 1,024, past
+    ``relax``'s limit), and ``relax_sweep``'s sweeps (a sweep's time) on
+    the same inputs. ``relax_sweep``: its sweeps (a sweep's time) at
+    ``past``'s 341x341 city's first chunk (S = 128, N = 116,281), the
+    shapes the main path gives it.
     ``pair_costs``: one launch at the main chunk's (128, 64, 8) from the
     cached (N, N) node kernels, default params. Returns {kernel: (ms,
     plain ms, bound ms, bound by)} and the 100x100 numbers."""
@@ -2858,18 +3053,47 @@ def phase_timing_routes(dev, served, big, huge):
 
     kernel = DeviceRouteKernel(huge["city"], dev)
     plan, srcs = first_chunk_sources(kernel, huge)
-    ms = time_relaxations(dev, kernel, srcs, float(plan.chunk_bound),
-                          "125x125")
+    bound = float(plan.chunk_bound)
+    ms = time_relaxations(dev, kernel, srcs, bound, "125x125")
+    dist = route_relax.relax_cluster_cuda(
+        kernel._arcs, torch.from_numpy(srcs).to(dev), bound,
+        n_nodes=kernel.n_nodes, max_iters=kernel.n_nodes)[0]
+    c_bound, c_by, c_bytes = relax_bound(kernel, len(srcs), dist)
+    del dist
     s_bound = sweep_bound(len(srcs), kernel.n_nodes, kernel.n_edges)
     sweep_ms = ms["relax_sweep"] / ms["iters"]
     plain_sweep = ms["plain"] / ms["iters"]
-    log(f"[timing] relax_sweep, 125x125 city's first chunk (S={len(srcs)}, "
-        f"N={kernel.n_nodes}, E={kernel.n_edges}) at "
-        f"{float(plan.chunk_bound):.1f} m: {ms['iters']} sweeps (state "
+    log(f"[timing] relax_cluster, 125x125 city's first chunk (S={len(srcs)}"
+        f", N={kernel.n_nodes}, E={kernel.n_edges}, clusters of "
+        f"{route_relax.cluster_width(kernel.n_nodes)} blocks) at "
+        f"{bound:.1f} m, {ms['iters']} sweeps: {ms['relax_cluster']:.4f} ms "
+        f"in one launch; relax_sweep's sweeps on the same inputs (state "
         f"reset included) {ms['relax_sweep']:.4f} ms = {sweep_ms:.4f} ms a "
-        f"sweep; plain {ms['plain']:.3f} ms ({plain_sweep:.3f} a sweep); "
-        f"bound {s_bound[0]:.5f} ms a sweep by {s_bound[1]} ({s_bound[2]} "
-        f"bytes)")
+        f"sweep ({ms['relax_sweep'] / ms['relax_cluster']:.2f}x "
+        f"relax_cluster); plain {ms['plain']:.3f} ms ({plain_sweep:.3f} a "
+        f"sweep); bound {c_bound:.5f} ms by {c_by} ({c_bytes} bytes); "
+        f"relax_sweep's bound {s_bound[0]:.5f} ms a sweep by {s_bound[1]} "
+        f"({s_bound[2]} bytes)")
+    out["relax_cluster"] = (ms["relax_cluster"], ms["plain"], c_bound, c_by)
+    out["relax_sweep 125x125"] = (sweep_ms, plain_sweep, s_bound[0],
+                                  s_bound[1])
+    del kernel
+    torch.cuda.empty_cache()
+
+    kernel = DeviceRouteKernel(past["city"], dev)
+    plan, srcs = first_chunk_sources(kernel, past)
+    bound = float(plan.chunk_bound)
+    name = f"{PAST_CITY['rows']}x{PAST_CITY['cols']}"
+    ms = time_relaxations(dev, kernel, srcs, bound, name)
+    s_bound = sweep_bound(len(srcs), kernel.n_nodes, kernel.n_edges)
+    sweep_ms = ms["relax_sweep"] / ms["iters"]
+    plain_sweep = ms["plain"] / ms["iters"]
+    log(f"[timing] relax_sweep, {name} city's first chunk (S={len(srcs)}, "
+        f"N={kernel.n_nodes}, E={kernel.n_edges}, past a cluster's reach) at "
+        f"{bound:.1f} m, {ms['iters']} sweeps (state reset included): "
+        f"{ms['relax_sweep']:.4f} ms = {sweep_ms:.4f} ms a sweep; plain "
+        f"{ms['plain']:.3f} ms ({plain_sweep:.3f} a sweep); bound "
+        f"{s_bound[0]:.5f} ms a sweep by {s_bound[1]} ({s_bound[2]} bytes)")
     out["relax_sweep"] = (sweep_ms, plain_sweep, s_bound[0], s_bound[1])
     del kernel
     torch.cuda.empty_cache()
@@ -2972,6 +3196,130 @@ def phase_against(dev, path):
                 f"{by['this'][0]:.4f} / {by['this'][1]:.4f} ms; "
                 f"{path} takes {ratio:.2f}x as long")
         out[what] = ms
+    return out
+
+
+def step_launcher(mod, x, sigma, beta):
+    """(a call that enqueues R rounds of ``mod``'s incremental step on
+    the stacked operands ``x`` (R, N, ...) and (N, K) scores, uncounted,
+    a call that returns its (scores, bp, prev_best) stacked by round):
+    one launch where ``mod`` has the multi-round kernel, else one launch
+    a round, each round's scores the next one's input."""
+    import torch
+    R, N, Kc = x[0].shape
+    if hasattr(mod, "incremental_steps_cuda"):
+        buf = torch.empty(mod.output_words(N, Kc, R), dtype=torch.int32,
+                          device=x[0].device)
+        RNK = R * N * Kc
+        return (lambda: mod.launch(x, None, sigma, beta, buf),
+                lambda: (buf[:RNK].view(torch.float32).view(R, N, Kc),
+                         buf[RNK:2 * RNK].view(R, N, Kc),
+                         buf[2 * RNK:].view(R, N)))
+    bufs = [torch.empty(mod.output_words(N, Kc), dtype=torch.int32,
+                        device=x[0].device) for _ in range(R)]
+    NK = N * Kc
+
+    def run():
+        prev = x[5]
+        for r in range(R):
+            mod.launch((*(t[r] for t in x[:5]), prev), sigma, beta, bufs[r])
+            prev = bufs[r][:NK].view(torch.float32).view(N, Kc)
+
+    return run, lambda: (
+        torch.stack([b[:NK].view(torch.float32).view(N, Kc) for b in bufs]),
+        torch.stack([b[NK:2 * NK].view(N, Kc) for b in bufs]),
+        torch.stack([b[2 * NK:] for b in bufs]))
+
+
+def phase_against_step(dev, path):
+    """This checkout's incremental step against the one at ``path`` at
+    each (N, R) of ``STEP_TIMED`` (K=8, every row stepping every round):
+    outputs equal (scores bit for bit), then each timed by CUDA graphs in
+    the order other, this, this, other; a checkout without the
+    multi-round kernel takes one launch a round. Returns {"N,R":
+    {"other": [ms, ms], "this": [ms, ms]}}."""
+    import torch
+    from reporter_tpu_torch.ops import incremental
+    other = load_other(path, "ops.incremental")
+    sigma, beta = np.float32(4.07), np.float32(3.0)
+    out = {}
+    for N, R in STEP_TIMED:
+        x = tuple(torch.from_numpy(a).to(dev)
+                  for a in stacked_steps(N, K, R, 950 + N + R))
+        fns = {name: step_launcher(mod, x, sigma, beta)
+               for name, mod in (("this", incremental), ("other", other))}
+        for run, _res in fns.values():
+            run()
+        torch.cuda.synchronize()
+        same, _err = step_equal(fns["this"][1](), fns["other"][1]())
+        check(same, f"incremental step at N,K,R={N},{K},{R} differs from "
+                    f"{path}'s")
+        ms = {"other": [], "this": []}
+        for name in ("other", "this", "this", "other"):
+            ms[name].append(graph_ms(fns[name][0], 100))
+        log(f"[against] incremental_step N,K={N},{K}, {R} round(s): {path} "
+            f"{ms['other'][0]:.5f} / {ms['other'][1]:.5f} ms, this "
+            f"{ms['this'][0]:.5f} / {ms['this'][1]:.5f} ms")
+        out[f"{N},{R}"] = ms
+    return out
+
+
+def phase_against_stream(dev, path):
+    """The ragged call (``ragged_windows``) through a matcher of each
+    checkout on the card, as first reports with new uuids each time: in
+    turns other, this, this, other for the wall, then each once traced by
+    tracemalloc for its host peak; the device peak over what was
+    allocated before and the incremental-step launches of each call.
+    Every match of this checkout is byte-equal to the other's. Returns
+    {"other"|"this": {"wall_s": [...], "host_peak_bytes", "device_peak_
+    bytes", "launches"}}."""
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
+    from reporter_tpu_torch.synth import build_grid_city
+    om = load_other(path, "matcher")
+    oo = load_other(path, "ops")
+    render = load_other(path, "matcher.matcher").render_segments_json
+    counter = {"this": ops.incremental_steps_cuda,
+               "other": getattr(oo, "incremental_steps_cuda", None)
+               or oo.incremental_step_cuda}
+    city = build_grid_city(**CITY)
+    served = {"city": city, "params": MatchParams(max_candidates=K)}
+    served["reqs"] = main_requests(SegmentMatcher(
+        city, served["params"], device="cpu", native=False))[0]
+    windows = ragged_windows(served)
+    sides = {"other": om.SegmentMatcher(
+        load_other(path, "synth").build_grid_city(**CITY),
+        om.MatchParams(max_candidates=K), device=dev),
+        "this": SegmentMatcher(city, served["params"], device=dev)}
+    out = {name: {"wall_s": []} for name in sides}
+    first = {}
+    for i, name in enumerate(("other", "this", "this", "other",
+                              "other", "this")):
+        traced = i >= 4
+        reqs, got, wall, host, dev_peak, n = ragged_call(
+            sides[name], windows, f"a{i}", lambda: counter[name].launches,
+            traced)
+        if traced:
+            out[name]["host_peak_bytes"] = host
+        else:
+            out[name]["wall_s"].append(wall)
+            out[name].setdefault("device_peak_bytes", dev_peak)
+            out[name].setdefault("launches", n)
+        first.setdefault(name, [
+            None if g is None else match_json(g) if name == "this" else
+            json.dumps(g if isinstance(g, dict) else json.loads(render(
+                g.cols, g.lo, g.hi, g.mode)), sort_keys=True) for g in got])
+        log(f"[against-stream] {name} ({path if name == 'other' else '.'}), "
+            f"ragged call {i + 1}{', traced' if traced else ''}: wall "
+            f"{wall:.4f} s, device peak {dev_peak} bytes, launches {n}"
+            + (f", host peak {host} bytes" if traced else ""))
+    check(first["this"] == first["other"],
+          "the ragged call's matches differ between the checkouts")
+    for name in sides:
+        w = out[name]["wall_s"]
+        log(f"[against-stream] {name}: wall median "
+            f"{float(np.median(w)):.4f} s (range {min(w):.4f}-{max(w):.4f}); "
+            f"{json.dumps(out[name])}")
     return out
 
 
@@ -3254,6 +3602,15 @@ def step_inputs(N, Kc, seed):
     return dist, valid, route, gc.astype(np.float32), case, prev
 
 
+def stacked_steps(N, Kc, R, seed):
+    """``incremental_steps``' operands for R rounds of ``step_inputs``
+    rows: (R, N, ...) dist, valid, route, gc and case, and round 0's
+    carried scores."""
+    rounds = [step_inputs(N, Kc, seed + 97 * r) for r in range(R)]
+    return [np.stack([rd[k] for rd in rounds]) for k in range(5)] \
+        + [rounds[0][5]]
+
+
 def step_equal(a, b):
     """Whether two (new_scores, bp, prev_best) triples are equal, scores
     bit for bit, and the scores' largest absolute difference."""
@@ -3270,11 +3627,16 @@ def phase_verify_step(dev):
     the CPU, same inputs (``step_inputs``) at every N of ``STEP_N`` and K
     of ``STEP_K``: new_scores bit-equal, bp and prev_best equal; and the
     kernel's first 37 rows of a 512-row launch equal to a launch of those
-    37 rows alone. Returns the scores' largest absolute difference."""
+    37 rows alone; then ``incremental_steps`` (R rounds in one launch,
+    each row for its own number of rounds) against its plain version on
+    the card and on the CPU at each (N, K, R) of ``STEP_ROUNDS``. Returns
+    the scores' largest absolute difference."""
     import itertools
     import torch
     from reporter_tpu_torch.ops import (incremental_step_cuda,
-                                        incremental_step_plain)
+                                        incremental_step_plain,
+                                        incremental_steps_cuda,
+                                        incremental_steps_plain)
     sigma, beta = np.float32(4.07), np.float32(3.0)
     worst, zeros = 0.0, set()
     for seed, (N, Kc) in enumerate(itertools.product(STEP_N, STEP_K)):
@@ -3300,12 +3662,34 @@ def phase_verify_step(dev):
         del x, got
     check(zeros == {False, True}, "the checked scores held no zeros of both "
                                   "signs")
+    rng = np.random.default_rng(77)
+    for N, Kc, R in STEP_ROUNDS:
+        arrays = stacked_steps(N, Kc, R, 800 + N + Kc)
+        n_steps = rng.integers(1, R + 1, N).astype(np.int32)
+        n_steps[0] = R
+        if N > 2:  # counts outside 0..R: read clamped, as the plain version
+            n_steps[1:3] = (R + 7, -3)
+        cpu = [torch.from_numpy(a) for a in arrays] \
+            + [torch.from_numpy(n_steps)]
+        x = [t.to(dev) for t in cpu]
+        got = incremental_steps_cuda(*x[:6], x[6], sigma, beta)
+        torch.cuda.synchronize()
+        for where, want in (
+                ("card", incremental_steps_plain(*x, sigma, beta)),
+                ("CPU", incremental_steps_plain(*cpu, sigma, beta))):
+            same, err = step_equal(got, want)
+            check(same, f"incremental_steps differs from the plain version "
+                        f"on the {where} at N,K,R={N},{Kc},{R}")
+            worst = max(worst, err)
+        del x, got
     torch.cuda.empty_cache()
     log(f"[verify-step] incremental_step bit-equal to the plain version on "
         f"the card and on the CPU at N {STEP_N} x K {STEP_K} (ties, NORMAL/"
         f"RESTART/SKIP rows, routes at 1e9 and +inf, invalid candidates, "
         f"+0.0 and -0.0 in the scores); 37 rows alone equal the same rows "
-        f"of 512; largest |difference| {worst}")
+        f"of 512; R rounds in one launch, ragged step counts (and counts "
+        f"past R and below 0, read clamped), the same at "
+        f"(N, K, R) {STEP_ROUNDS}; largest |difference| {worst}")
     return worst
 
 
@@ -3337,9 +3721,10 @@ def stream_parity(dev, served):
     until each trace ends: the served and declined slots equal a CPU
     run's, every served match and /report body byte-equal to the card's
     match_many of the same window and to the CPU run's match, the two
-    tables' blobs and counters equal. ``incremental_step`` is counted
-    from 0 over the run: one launch per round and parameter group, the
-    CPU run's rounds. Returns (launches, rounds by group)."""
+    tables' blobs and counters equal, the rounds the CPU run's.
+    ``incremental_step`` is counted from 0 over the run: one launch per
+    call and parameter group that stepped (all its rounds). Returns
+    (launches, rounds by group)."""
     from reporter_tpu_torch import ops
     from reporter_tpu_torch.matcher import SegmentMatcher
     city, params = served["city"], served["params"]
@@ -3347,14 +3732,18 @@ def stream_parity(dev, served):
              for i, r in enumerate(served["reqs"][:N_TRACES])]
     gpu = SegmentMatcher(city, params, device=dev)
     cpu = SegmentMatcher(city, params, device="cpu")
-    n_served = n_windows = 0
+    n_served = n_windows = calls_groups = 0
     walls = []
-    ops.incremental_step_cuda.launches = 0
+    ops.incremental_steps_cuda.launches = 0
     for hi in range(4, T_MAIN + 1, 4):
         reqs = [dict(r, trace=r["trace"][:hi]) for r in reqs0]
+        before = dict(gpu.incremental_table.rounds)
         t0 = time.perf_counter()
         got = gpu.match_incremental(reqs)
         walls.append(time.perf_counter() - t0)
+        # the groups that stepped in this call: one launch each
+        calls_groups += sum(v > before.get(g, 0) for g, v in
+                            gpu.incremental_table.rounds.items())
         want = cpu.match_incremental(reqs)
         batch = gpu.match_many(reqs)
         check([g is None for g in got] == [w is None for w in want],
@@ -3370,13 +3759,14 @@ def stream_parity(dev, served):
         check(bodies([got[i] for i in live], sub)
               == bodies([batch[i] for i in live], sub),
               f"window {hi}: a /report body differs from match_many's")
-    launches = ops.incremental_step_cuda.launches
+    launches = ops.incremental_steps_cuda.launches
     rounds = dict(gpu.incremental_table.rounds)
     check(rounds == cpu.incremental_table.rounds and len(rounds) == 2,
           f"rounds {rounds} on the card, {cpu.incremental_table.rounds} on "
           f"the CPU")
-    check(launches == sum(rounds.values()),
-          f"{launches} incremental_step launches for {rounds} rounds")
+    check(launches == calls_groups < sum(rounds.values()),
+          f"{launches} incremental_step launches for {calls_groups} calls "
+          f"and groups ({rounds} rounds)")
     check(gpu.incremental_table.gauge() == cpu.incremental_table.gauge(),
           "the card's table counters differ from the CPU run's")
     check(dict(gpu.incremental_table.to_blobs())
@@ -3389,7 +3779,8 @@ def stream_parity(dev, served):
         f"each match and /report body byte-equal to the card's match_many "
         f"and to the CPU run; blobs and counters equal the CPU run's "
         f"({gpu.incremental_table.gauge()}); incremental_step launches "
-        f"{launches} = rounds by (sigma, beta, K) {rounds}; wall a call "
+        f"{launches}, one a call and group, for the rounds by (sigma, "
+        f"beta, K) {rounds}; wall a call "
         f"median {float(np.median(walls)):.4f} s (range "
         f"{min(walls):.4f}-{max(walls):.4f})")
     return launches, rounds
@@ -3469,6 +3860,91 @@ def long_streams(reqs, n, length):
     return out
 
 
+def ragged_windows(served):
+    """The ragged call's windows: main's 512 uuids as first reports, every
+    64th of 1,024 points (``long_streams``), the other odd ones of 64 and
+    the even ones of 16, so one call's rounds run 16, 64 and about 1,000
+    deep."""
+    streams = long_streams(served["reqs"][:N_TRACES], N_TRACES, 1024)
+    return [pts[:1024 if i % 64 == 0 else 64 if i % 2 else 16]
+            for i, pts in enumerate(streams)]
+
+
+def ragged_call(m, windows, tag, launches_of, traced=False):
+    """One ``match_incremental`` of ``windows`` as first reports (uuids
+    new to ``m``, named by ``tag``): (requests, matches, wall s, host peak
+    bytes (tracemalloc, with ``traced``; else None), device peak bytes
+    over what was allocated before, incremental-step launches)."""
+    import torch
+    import tracemalloc
+    reqs = [{"uuid": f"{tag}-{i}", "trace": pts, "match_options": OPTS}
+            for i, pts in enumerate(windows)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = launches_of()
+    if traced:
+        tracemalloc.start()
+    t0 = time.perf_counter()
+    got = m.match_incremental(reqs)
+    wall = time.perf_counter() - t0
+    host = None
+    if traced:
+        host = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+    torch.cuda.synchronize()
+    return (reqs, got, wall, host, torch.cuda.max_memory_allocated() - base,
+            launches_of() - n0)
+
+
+def stream_ragged(dev, served):
+    """The ragged call (``ragged_windows``) through ``match_incremental``
+    on the card: every slot served or declined as a CPU run does, every
+    served match byte-equal to the CPU run's and to the card's
+    ``match_many``, blobs equal; then three more such calls, the last
+    traced by tracemalloc. Prints the walls, the host and device peaks
+    and the launches (slabs of at most ``SLAB_BYTES``). Returns them."""
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.matcher.incremental import SLAB_BYTES
+    windows = ragged_windows(served)
+    city, params = served["city"], served["params"]
+    gpu = SegmentMatcher(city, params, device=dev)
+    cpu = SegmentMatcher(city, params, device="cpu")
+
+    def launches_of():
+        return ops.incremental_steps_cuda.launches
+
+    reqs, got, wall, _h, dev_peak, launches = ragged_call(
+        gpu, windows, "r0", launches_of)
+    want = cpu.match_incremental(reqs)
+    batch = gpu.match_many(reqs)
+    check([g is None for g in got] == [w is None for w in want],
+          "ragged call: the card serves other slots than the CPU")
+    live = [i for i, g in enumerate(got) if g is not None]
+    for i in live:
+        check(match_json(got[i]) == match_json(want[i])
+              == match_json(batch[i]),
+              f"ragged call, {reqs[i]['uuid']}: the match differs")
+    check(dict(gpu.incremental_table.to_blobs())
+          == dict(cpu.incremental_table.to_blobs()),
+          "ragged call: the card's blobs differ from the CPU run's")
+    check(len(live) > len(reqs) // 2, f"ragged call: only {len(live)} of "
+                                      f"{len(reqs)} served")
+    walls = [wall]
+    for r in (1, 2):
+        walls.append(ragged_call(gpu, windows, f"r{r}", launches_of)[2])
+    host_peak = ragged_call(gpu, windows, "r3", launches_of, traced=True)[3]
+    out = {"uuids": len(windows), "points": sum(map(len, windows)),
+           "served": len(live), "launches": launches,
+           "slab_bytes": SLAB_BYTES, "wall_s": walls,
+           "host_peak_bytes": host_peak, "device_peak_bytes": dev_peak}
+    log(f"[stream] ragged call {json.dumps(out)}: first reports of 16, 64 "
+        f"and 1,024 points in one call, each served match byte-equal to "
+        f"the CPU run's and to match_many's, blobs equal")
+    return out
+
+
 def pctl_ms(xs):
     return (round(float(np.percentile(xs, 50)) * 1e3, 4),
             round(float(np.percentile(xs, 99)) * 1e3, 4))
@@ -3502,7 +3978,7 @@ def stream_leg(dev, served, T, n):
     steps0, commits0 = counters("match.incremental.steps",
                                 "match.incremental.commits")
     inc_dec, inc_wall, mm_dec, mm_wall = [], [], [], []
-    launches0 = ops.incremental_step_cuda.launches
+    launches0 = ops.incremental_steps_cuda.launches
     n_served = rounding = 0
     numpy_m = SegmentMatcher(served["city"], served["params"], device=dev,
                              native=False)
@@ -3543,7 +4019,7 @@ def stream_leg(dev, served, T, n):
            "steps_per_point": round(steps / (n * STREAM_MEASURE), 4),
            "commits": commits, "served": n_served,
            "windows": n * STREAM_MEASURE, "native_rounding": rounding,
-           "launches": ops.incremental_step_cuda.launches - launches0}
+           "launches": ops.incremental_steps_cuda.launches - launches0}
     check(n_served > 0, f"T={T}, {n} uuids: nothing served")
     log(f"[stream] leg {json.dumps(out)} (ms as [p50, p99] a call)")
     return out
@@ -3551,52 +4027,63 @@ def stream_leg(dev, served, T, n):
 
 def phase_stream(dev, served):
     """The incremental streaming decode on the card: the parity leg, the
-    fallback leg and the streaming legs (``STREAM_WINDOWS`` x 1 and 512
-    uuids). Returns (incremental_step launches of the parity leg, rounds,
-    viterbi_decode launches of the fallback leg, the legs)."""
+    fallback leg, the ragged call and the streaming legs
+    (``STREAM_WINDOWS`` x 1 and 512 uuids). Returns (incremental_step
+    launches of the parity leg, rounds, viterbi_decode launches of the
+    fallback leg, the legs)."""
     t0 = time.perf_counter()
     launches, rounds = stream_parity(dev, served)
     fallback_launches = stream_fallback(dev, served)
+    stream_ragged(dev, served)
     legs = [stream_leg(dev, served, T, n)
             for T in STREAM_WINDOWS for n in (1, N_TRACES)]
     log(f"[stream] {time.perf_counter() - t0:.1f} s")
     return launches, rounds, fallback_launches, legs
 
 
-def step_bound_ms(N, Kc):
-    """The least time of one step of N rows: each input read once (dist,
-    valid, route, gc, case, prev) and each output written once (scores,
-    bp, prev_best) at the card's memory rate, against about 6 f32 ops
-    per (row, i, j) and 4 per (row, j) at its f32 rate."""
-    n_bytes = N * (Kc * 4 + Kc + Kc * Kc * 4 + 4 + 4 + Kc * 4) \
-        + N * (Kc * 8 + 4)
-    n_ops = N * Kc * Kc * 6 + N * Kc * 4
+def step_bound_ms(N, Kc, R=1):
+    """The least time of R rounds of N rows: each input read once (dist,
+    valid, route, gc, case a round; the carried scores and step counts
+    once) and each output written once (scores, bp, prev_best a round) at
+    the card's memory rate, against about 6 f32 ops per (round, row, i,
+    j) and 4 per (round, row, j) at its f32 rate."""
+    n_bytes = R * N * (Kc * 4 + Kc + Kc * Kc * 4 + 4 + 4) \
+        + N * (Kc * 4 + 4) + R * N * (Kc * 8 + 4)
+    n_ops = R * (N * Kc * Kc * 6 + N * Kc * 4)
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", n_bytes)
 
 
+#: (N, R) the timing phase times the step at, K=8: one row and 512 rows a
+#: round, and 512 rows for 4 rounds in one launch
+STEP_TIMED = ((1, 1), (N_TRACES, 1), (N_TRACES, 4))
+
+
 def phase_timing_step(dev):
-    """incremental_step by CUDA graphs (100 launches a graph) at N=1 and
-    512 rows, K=8, beside its bound and the plain version's time on the
-    card. Returns {N: (ms, plain ms, bound ms, bound by)}."""
+    """incremental_step by CUDA graphs (100 launches a graph) at each (N,
+    R) of ``STEP_TIMED``, K=8, every row stepping every round, beside its
+    bound and the plain version's time on the card. Returns {(N, R): (ms,
+    plain ms, bound ms, bound by)}."""
     import torch
     from reporter_tpu_torch.ops import incremental
     sigma, beta = np.float32(4.07), np.float32(3.0)
     out = {}
-    for N in (1, N_TRACES):
-        x = tuple(torch.from_numpy(a).to(dev)
-                  for a in step_inputs(N, K, 900 + N))
-        buf = torch.empty(incremental.output_words(N, K), dtype=torch.int32,
-                          device=dev)
-        ms = graph_ms(lambda: incremental.launch(x, sigma, beta, buf), 100)
-        plain = time_ms(
-            lambda: incremental.incremental_step_plain(*x, sigma, beta), 20)
-        bms, by, n_bytes = step_bound_ms(N, K)
-        out[N] = (ms, plain, bms, by)
-        log(f"[timing] incremental_step N,K={N},{K}: {ms:.5f} ms (CUDA "
-            f"graphs), plain {plain:.4f} ms, bound {bms:.6f} ms by {by} "
-            f"({n_bytes} bytes)")
+    for N, R in STEP_TIMED:
+        arrays = stacked_steps(N, K, R, 900 + N + R)
+        x = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        n_steps = torch.full((N,), R, dtype=torch.int32, device=dev)
+        buf = torch.empty(incremental.output_words(N, K, R),
+                          dtype=torch.int32, device=dev)
+        ms = graph_ms(lambda: incremental.launch(x, n_steps, sigma, beta,
+                                                 buf), 100)
+        plain = time_ms(lambda: incremental.incremental_steps_plain(
+            *x, n_steps, sigma, beta), 20)
+        bms, by, n_bytes = step_bound_ms(N, K, R)
+        out[N, R] = (ms, plain, bms, by)
+        log(f"[timing] incremental_step N,K={N},{K}, {R} round(s) in one "
+            f"launch: {ms:.5f} ms (CUDA graphs), plain {plain:.4f} ms, bound "
+            f"{bms:.6f} ms by {by} ({n_bytes} bytes)")
     log("[timing] library: no single PyTorch call computes a Viterbi step")
     return out
 
@@ -3637,11 +4124,14 @@ def main() -> int:
     spills = phase_build()
     if args.against:
         against = phase_against(dev, args.against)
+        step = phase_against_step(dev, args.against)
+        ragged = phase_against_stream(dev, args.against)
         kernels = phase_against_route_kernels(dev, args.against)
         routes = phase_against_routes(args.against)
         serving = phase_against_serve(dev, args.against)
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"against": args.against, "ms": against,
+                            "step_ms": step, "ragged_call": ragged,
                             "route_kernels_ms": kernels,
                             "routes_s": routes, "serve": serving})
     phase_verify(dev)
@@ -3649,7 +4139,8 @@ def main() -> int:
     launches, main, max_err, scalars, served = phase_main(dev)
     big = grid_inputs(BIG_CITY, N_TRACES, 11)
     huge = grid_inputs(HUGE_CITY, 64, 17)
-    verified = phase_verify_routes(dev, served, big, huge)
+    past = grid_inputs(PAST_CITY, PAST_TRACES, 19)
+    verified = phase_verify_routes(dev, served, big, huge, past)
     route_launches, _runs = phase_routes(dev, served)
     step_launches, _rounds, fallback_launches, _legs = phase_stream(
         dev, served)
@@ -3658,10 +4149,10 @@ def main() -> int:
     fault_launches = phase_faults(dev, served)
     phase_prefork(served)
     phase_city(big)
-    sweep_launches, _big_runs = phase_route_city(big, huge)
+    city_launches, _city_runs = phase_route_city(big, huge, past)
     floor = launch_floor_ms(dev)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
-    route_times = phase_timing_routes(dev, served, big, huge)
+    route_times = phase_timing_routes(dev, served, big, huge, past)
     step_times = phase_timing_step(dev)
     check(not spills, f"ptxas reports spills: {spills}")
 
@@ -3703,10 +4194,14 @@ def main() -> int:
             # (phase_routes): one launch a relaxation
             ("relax", "reporter_tpu/ops/route_relax.py:61",
              verified["relax_err"], route_launches["relax"]),
-            # the 125x125 city with route_device=True (phase_route_city):
-            # one launch a sweep; "ms" is a sweep's
+            # the 125x125 city with route_device=True (phase_route_city),
+            # cold and the first warm round: one launch a relaxation
+            ("relax_cluster", "reporter_tpu/ops/route_relax.py:61",
+             verified["cluster_err"], city_launches["relax_cluster"]),
+            # the 341x341 city with route_device=True (phase_route_city):
+            # one launch a sweep; "ms" is a sweep's at its first chunk
             ("relax_sweep", "reporter_tpu/ops/route_relax.py:61",
-             verified["sweep_err"], sweep_launches),
+             verified["sweep_err"], city_launches["relax_sweep"]),
             ("pair_costs", "reporter_tpu/ops/route_relax.py:120",
              verified["pair_err"], route_launches["pair_costs"])):
         r_ms, r_plain, r_bound, r_by = route_times[name]
@@ -3717,19 +4212,30 @@ def main() -> int:
             "bound_by": r_by, "library_ms": None,
             # the faults phase's route.device leg (the probe)
             "launches_faults": fault_launches[name]})
-    ms, plain, bms, by = step_times[N_TRACES]
+        if name == "relax_sweep":
+            # a sweep at the 125x125 city's first chunk, the shape the
+            # kernel served before relax_cluster took that city
+            (kernels[-1]["ms_125x125"], kernels[-1]["plain_ms_125x125"],
+             kernels[-1]["bound_ms_125x125"], _by) = \
+                route_times["relax_sweep 125x125"]
+    ms, plain, bms, by = step_times[N_TRACES, 1]
     kernels.append({
         "name": "incremental_step", "route": "cuda",
         "source": "reporter_tpu_torch/ops/csrc/viterbi.cu",
         "replaces": "reporter_tpu/ops/incremental.py:50",
-        # match_incremental's parity leg (phase_stream): one a round
+        # match_incremental's parity leg (phase_stream): one a call and
+        # parameter group, all its rounds
         "launches": step_launches, "max_abs_err": step_err,
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": None,
         # the faults phase's match.incremental.commit leg
         "launches_faults": fault_launches["incremental_step"],
         # one row, the one-uuid stream's step
-        "ms_1_8": step_times[1][0], "bound_ms_1_8": step_times[1][2]})
+        "ms_1_8": step_times[1, 1][0], "bound_ms_1_8": step_times[1, 1][2],
+        # 512 rows, 4 rounds in one launch
+        "ms_512_8_r4": step_times[N_TRACES, 4][0],
+        "plain_ms_512_8_r4": step_times[N_TRACES, 4][1],
+        "bound_ms_512_8_r4": step_times[N_TRACES, 4][2]})
     for k in kernels:
         # an empty kernel's launch by CUDA graphs, as "ms" is timed
         k["launch_floor_ms"] = floor

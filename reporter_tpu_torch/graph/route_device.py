@@ -26,10 +26,12 @@ Per chunk the kernel
 A relaxation that does not converge within the sweep cap raises, and so
 does a chunk whose relaxation would allocate more than its device's
 budget (:func:`over_budget`): nothing falls back to the host search. On
-the card the relaxation is ``relax`` (one launch, a block per source row
-with the row's state in shared memory) on a graph of at most
-``route_relax.relax_fits`` nodes, ``relax_sweep`` on a larger one, chosen
-by N when the kernel is built.
+the card the relaxation is chosen by N when the kernel is built
+(``route_relax.relax_kernel_for``): ``relax`` (one launch, a block per
+source row with the row's state in shared memory) up to 14,528 nodes,
+``relax_cluster`` (one launch, the row's state over a thread-block
+cluster of 2 to 8 blocks) up to 116,216, ``relax_sweep`` (a launch a
+sweep) past that.
 
 On a graph whose ``2 * N * N`` float32 node kernels fit
 ``_CACHE_BUDGET_ELEMS`` the kernel keeps a node-kernel cache on the
@@ -86,8 +88,9 @@ def relax_bytes(S: int, N: int, E: int, device_type: str,
     """Bytes one relaxation of ``S`` padded sources over ``N`` nodes and
     ``E`` edges allocates. On the CPU the plain version's two (S, max(N,
     E)) float32 gathers, the reference's count; on the card the (S, N)
-    dist and time planes ``relax`` writes, and for ``relax_sweep`` its
-    two packed (S, N) int64 states besides."""
+    dist and time planes ``relax`` and ``relax_cluster`` write (their
+    state lives in shared memory), and for ``relax_sweep`` its two packed
+    (S, N) int64 states besides."""
     if device_type == "cpu":
         return 2 * 4 * S * max(N, E)
     planes = 2 * 4 * S * N
@@ -229,14 +232,15 @@ class DeviceRouteKernel:
         self._e_secs = self._upload(secs)
         self._head_x = self._upload(np.ascontiguousarray(heads[:, 0]))
         self._head_y = self._upload(np.ascontiguousarray(heads[:, 1]))
-        # the relaxation this graph takes: relax (over the CSR arcs,
-        # uploaded once) or relax_sweep on the card, by N alone; the plain
-        # version on the CPU
+        # the relaxation this graph takes: relax or relax_cluster (over
+        # the CSR arcs, uploaded once) or relax_sweep on the card, by N
+        # alone; the plain version on the CPU
         self.relax_kernel = (route_relax.relax_kernel_for(self.n_nodes)
                              if on_card else "plain")
         self._arcs = (route_relax.csr_arcs(*net.csr(), net.edge_end, e_len,
                                            secs, self.device)
-                      if self.relax_kernel == "relax" else None)
+                      if self.relax_kernel in ("relax", "relax_cluster")
+                      else None)
         # host copy for gathering sources (no device round trip per chunk)
         self._end_np = np.asarray(net.edge_end, dtype=np.int32)
         # observed relaxation stats (stats())

@@ -6,9 +6,10 @@ costs O(T·K²) each time. This module carries the decode forward instead:
 per uuid it keeps the last-step log-scores (K,), a bounded backpointer
 ring of the **uncommitted** tail, and the per-step scalars that segment
 assembly reads for the committed prefix. An appended kept point then
-costs its candidate row, one route row and one row of a batched device
-step (``ops.incremental_step_batch``: on the card the CUDA kernel
-``incremental_step``, one launch a round for every trace that advances).
+costs its candidate row, one route row and one row of a round of the
+batched device step (``ops.incremental_steps``: on the card the CUDA
+kernel ``incremental_steps``, the rounds of a call's parameter group in
+one launch a slab of rounds, :data:`SLAB_BYTES` at most).
 
 Every report it serves is byte-identical to ``SegmentMatcher.match_many``
 over the same window:
@@ -82,6 +83,18 @@ DEFAULT_BUDGET_MB = 64.0
 #: the batch path ships f16 wherever the data fits it, so every carried
 #: state quantises through the f16 wire
 WIRE_F16 = True
+
+#: host bytes one slab of ``incremental_steps`` rounds may take, its
+#: padded operands and outputs (:func:`slab_row_bytes` a row and round):
+#: a call's rounds of a parameter group run in as few slabs as fit
+SLAB_BYTES = 16 << 20
+
+
+def slab_row_bytes(K: int) -> int:
+    """Bytes of one row and round of a slab at K candidates: dist, valid,
+    the K x K route, gc and case in; new scores, bp and prev_best out."""
+    return 4 * K * K + 13 * K + 12
+
 
 #: the pressure ladder's ``shed_trace`` rung (service/admission.py): the
 #: incremental path steps aside and every slot rides the batch path. One
@@ -313,8 +326,8 @@ class IncrementalTable:
 
     Owned by a :class:`~.matcher.SegmentMatcher` (its
     ``incremental_table``); its device work goes through
-    ``ops.incremental_step_batch`` on the matcher's device, every trace
-    that advances in a round in one launch. ``lag`` is the most
+    ``ops.incremental_steps`` on the matcher's device, the rounds of a
+    call's parameter group in one launch a slab. ``lag`` is the most
     uncommitted ring steps a trace may hold (at least ``MIN_LAG``),
     ``budget_mb`` the carried-state budget in MiB. Mutations run under
     one lock: a streaming worker advances from its flush thread while
@@ -336,8 +349,9 @@ class IncrementalTable:
         self.evictions = 0
         self.fallbacks = 0
         self.resets = 0
-        #: device steps run, by parameter group (sigma, beta, K): one
-        #: launch each on the card
+        #: rounds replayed, by parameter group (sigma, beta, K): one a
+        #: round in which a live trace of the group steps (the card runs
+        #: a call's rounds of a group in one launch)
         self.rounds: Dict[tuple, int] = {}
 
     # -- gauges ------------------------------------------------------------
@@ -668,9 +682,30 @@ class IncrementalTable:
         return np.ascontiguousarray(route, dtype=np.float32)
 
     def _run_rounds(self, jobs) -> None:
-        """Advance every job's queued steps through the batched step, one
-        device step per round and parameter group (round r = each trace's
-        r-th step)."""
+        """Advance every job's queued steps: round r is each trace's r-th
+        step, the rounds of a parameter group computed on the device in
+        one call a slab of rounds (:meth:`_steps`), then replayed on the
+        host in the JAX package's order (:meth:`_replay`): for each round,
+        each group in the order its first live trace comes. A job that
+        falls back in a round takes no part in the later ones; its rows'
+        later outputs are discarded (rows are independent, so the others'
+        bits are the same)."""
+        def gkey(job):
+            p = job[4]
+            return (float(p.effective_sigma), float(p.beta),
+                    int(p.max_candidates))
+
+        stepping = [job for job in jobs if job[5] and job[3]]
+        # a uuid twice in one call shares one state, and each of its rows
+        # starts a round from the state the round before left: such a
+        # call steps one round a launch
+        per_round = len({id(job[2]) for job in stepping}) < len(stepping)
+        ran: Dict[tuple, tuple] = {}
+        if not per_round:
+            groups: Dict[tuple, list] = {}
+            for job in stepping:
+                groups.setdefault(gkey(job), []).append(job)
+            ran = {g: self._steps(grp, 0, *g) for g, grp in groups.items()}
         r = 0
         while True:
             rows = [job for job in jobs if job[5] and r < len(job[3])]
@@ -678,48 +713,81 @@ class IncrementalTable:
                 break
             # group rows by the device scalars; the steady state is one
             # shared params object
-            groups: Dict[tuple, list] = {}
+            groups = {}
             for job in rows:
-                p = job[4]
-                gkey = (float(p.effective_sigma), float(p.beta),
-                        int(p.max_candidates))
-                groups.setdefault(gkey, []).append(job)
-            for gkey, grp in groups.items():
-                self._round(grp, r, *gkey)
-                self.rounds[gkey] = self.rounds.get(gkey, 0) + 1
+                groups.setdefault(gkey(job), []).append(job)
+            for g, grp in groups.items():
+                self._replay(grp, r, ran[g] if not per_round
+                             else self._steps(grp, r, *g, rounds=1))
+                self.rounds[g] = self.rounds.get(g, 0) + 1
             r += 1
 
-    def _round(self, grp, r, sigma, beta, K) -> None:
-        n = len(grp)
-        dist = np.empty((n, K), dtype=np.float32)
-        valid = np.empty((n, K), dtype=bool)
-        route = np.empty((n, K, K), dtype=np.float32)
-        gc = np.empty(n, dtype=np.float32)
-        case = np.empty(n, dtype=np.int32)
-        prev = np.zeros((n, K), dtype=np.float32)
-        for b, job in enumerate(grp):
+    def _steps(self, grp, r0, sigma, beta, K, rounds=None):
+        """Rounds ``r0``.. of the group's jobs (at most ``rounds``) through
+        ``ops.incremental_steps``, in slabs of rounds: a slab takes the
+        rows still stepping at its first round and as many rounds as keep
+        its padded operands and outputs within ``SLAB_BYTES`` (at least
+        one), each row starting from the scores the slab before left (its
+        carried scores, zeros before its first step, in the first slab).
+        So one long window among many short ones pads no more than a slab.
+        Returns (r0, slabs): each slab (first round, new_scores (R, n, K),
+        bp, prev_best (R, n), {id(job): row})."""
+        counts = [len(job[3]) - r0 for job in grp]
+        total = max(counts) if rounds is None else rounds
+        prev = {id(job): job[2].scores for job in grp}
+        slabs = []
+        s0 = 0
+        while s0 < total:
+            live = [job for job, c in zip(grp, counts) if c > s0]
+            n = len(live)
+            R = min(total - s0, max(1, SLAB_BYTES // (n * slab_row_bytes(K))))
+            dist = np.zeros((R, n, K), dtype=np.float32)
+            valid = np.zeros((R, n, K), dtype=bool)
+            route = np.zeros((R, n, K, K), dtype=np.float32)
+            gc = np.zeros((R, n), dtype=np.float32)
+            case = np.zeros((R, n), dtype=np.int32)
+            init = np.zeros((n, K), dtype=np.float32)
+            n_steps = np.zeros(n, dtype=np.int32)
+            for b, job in enumerate(live):
+                part = job[3][r0 + s0:r0 + s0 + R]
+                n_steps[b] = len(part)
+                for s, step in enumerate(part):
+                    dist[s, b] = step.dist_w
+                    valid[s, b] = step.valid
+                    route[s, b] = step.route_w
+                    gc[s, b] = step.gc_w
+                    case[s, b] = step.case
+                if prev[id(job)] is not None:
+                    init[b] = prev[id(job)]
+            new_scores, bp, prev_best = self._launch(
+                (dist, valid, route, gc, case, init, n_steps),
+                np.float32(sigma), np.float32(beta))
+            rows = {}
+            for b, job in enumerate(live):
+                rows[id(job)] = b
+                prev[id(job)] = new_scores[R - 1, b]
+            slabs.append((s0, new_scores, bp, prev_best, rows))
+            s0 += R
+        return r0, slabs
+
+    def _replay(self, grp, r, ran) -> None:
+        """Round ``r`` of the group's jobs from ``ran`` (:meth:`_steps`):
+        count the steps, carry the scores, append the ring, commit."""
+        r0, slabs = ran
+        s0, new_scores, bp, prev_best, rows = next(
+            slab for slab in reversed(slabs) if slab[0] <= r - r0)
+        s = r - r0 - s0
+        metrics.count("match.incremental.steps", len(grp))
+        for job in grp:
             step = job[3][r]
             st = job[2]
-            dist[b] = step.dist_w
-            valid[b] = step.valid
-            route[b] = step.route_w
-            gc[b] = step.gc_w
-            case[b] = step.case
-            if st.scores is not None:
-                prev[b] = st.scores
-        new_scores, bp, prev_best = self._step(
-            (dist, valid, route, gc, case, prev), np.float32(sigma),
-            np.float32(beta))
-        metrics.count("match.incremental.steps", n)
-        for b, job in enumerate(grp):
-            step = job[3][r]
-            st = job[2]
+            b = rows[id(job)]
             first = st.scores is None
-            st.scores = new_scores[b].copy()
+            st.scores = new_scores[s, b].copy()
             st.ring.append(_Ring(
                 step.kept_idx, step.case, step.edge_ids, step.offset_m,
-                None if first else bp[b].copy(),
-                0 if first else int(prev_best[b]),
+                None if first else bp[s, b].copy(),
+                0 if first else int(prev_best[s, b]),
                 None if first else step.route_raw))
             try:
                 while len(st.ring) > self.lag:
@@ -728,29 +796,30 @@ class IncrementalTable:
                 job[5] = False
                 self._fall_back(job[1], fb)
 
-    def _step(self, arrays, sigma, beta):
-        """One ``ops.incremental_step_batch`` on the matcher's device;
-        (new_scores, bp, prev_best) as host arrays. On the card: one upload
-        per operand, one launch, and one copy of the kernel's one output
-        buffer into pinned memory."""
+    def _launch(self, arrays, sigma, beta):
+        """One ``ops.incremental_steps`` on the matcher's device;
+        (new_scores, bp, prev_best) as host arrays. On the card: one
+        upload per operand, one launch, and one copy of the kernel's one
+        output buffer into pinned memory."""
         dev = self.matcher.device
         x = tuple(torch.from_numpy(a) for a in arrays)
         if dev.type == "cpu":
             return tuple(t.numpy() for t in
-                         ops.incremental_step_batch(*x, sigma, beta))
-        N, K = arrays[0].shape
+                         ops.incremental_steps(*x, sigma, beta))
+        R, N, K = arrays[0].shape
         with torch.cuda.device(dev):
-            out = torch.empty(ops.incremental.output_words(N, K),
+            out = torch.empty(ops.incremental.output_words(N, K, R),
                               dtype=torch.int32, device=dev)
-            ops.incremental_step_batch(*(t.to(dev) for t in x), sigma,
-                                       beta, out=out)
+            ops.incremental_steps(*(t.to(dev) for t in x), sigma, beta,
+                                  out=out)
             host = torch.empty(out.shape, dtype=torch.int32,
                                pin_memory=True)
             host.copy_(out, non_blocking=True)
             torch.cuda.current_stream(dev).synchronize()
         h = host.numpy()
-        return (h[:N * K].view(np.float32).reshape(N, K),
-                h[N * K:2 * N * K].reshape(N, K), h[2 * N * K:])
+        RNK = R * N * K
+        return (h[:RNK].view(np.float32).reshape(R, N, K),
+                h[RNK:2 * RNK].reshape(R, N, K), h[2 * RNK:].reshape(R, N))
 
     def _commit_one(self, st: CarriedState) -> None:
         """Fixed-lag commit of the oldest ring step: finalise its choice

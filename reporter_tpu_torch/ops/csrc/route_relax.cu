@@ -1,13 +1,18 @@
 // Device route costs for Hopper (sm_90a): the bounded multi-source
-// relaxation (`relax`, one launch; `relax_sweep`, one launch per sweep, for
-// graphs past the shared-memory limit), and the pair-cost assembly.
+// relaxation (`relax`, one launch, a block a source row; `relax_cluster`,
+// one launch, a thread-block cluster a source row, for graphs past one
+// block's shared memory; `relax_sweep`, one launch per sweep, for graphs
+// past a cluster's), and the pair-cost assembly.
 //
 // Replaces two jitted XLA programs of the JAX package that ran on the TPU:
 //   reporter_tpu/ops/route_relax.py `relax_csr` (:61), the while_loop of
 //     Jacobi sweeps, by `relax` (every sweep of every source row in one
-//     launch) or, where a row's state does not fit shared memory,
-//     `relax_sweep` (the host loop in ops/route_relax.py
-//     `relax_sweep_cuda` stops on the first quiet sweep);
+//     launch), where a row's state does not fit one block's shared memory
+//     by `relax_cluster` (the same, the row's state split over a cluster
+//     of 2 to 8 blocks), and past that by `relax_sweep` (the host loop in
+//     ops/route_relax.py `relax_sweep_cuda` stops on the first quiet
+//     sweep); the choice is by N alone (ops/route_relax.py
+//     `relax_kernel_for`);
 //   reporter_tpu/ops/route_relax.py `pair_costs` (:120) with its packed
 //     entry `pair_costs_packed` (:190), by `pair_costs`.
 // All give the bits of the plain PyTorch versions in ops/route_relax.py,
@@ -51,6 +56,44 @@
 // N=10,000, 164 MB, 49 us. The host reads iters and converged once per
 // relaxation, not once per sweep.
 //
+// relax_cluster. `relax` past 14,528 nodes: a cluster of C blocks (2 to 8,
+// ops/route_relax.py `cluster_width`: the fewest whose slices fit) per
+// source row, launched with cudaLaunchKernelEx and the cluster-dimension
+// attribute. Block r of the cluster owns the nodes [r*L, (r+1)*L), L =
+// ceil(N/C), and keeps their two packed buffers in its dynamic shared
+// memory (16*L bytes, then 16 bytes of flags): one launch takes N up to
+// 8 * 14,527 = 116,216 nodes. A sweep is `relax`'s: each block finds its
+// slice's frontier (the words where cur differs from nxt, copied into
+// nxt, a bit per owned node), then relaxes its frontier's out-arcs in CSR
+// order with the same admission rule, and the candidate word is min'd
+// into the nxt of the block that owns the arc's end: in the block's own
+// slice by `relax`'s 64-bit atomicMin, in a neighbour's through
+// distributed shared memory (`cluster.map_shared_rank`) by a 64-bit
+// atomicCAS loop. (A 64-bit atomic min on a distributed shared memory
+// address is not atomic on the H100, whether the generic ATOM.E.MIN.64
+// that atomicMin on a mapped pointer compiles to or the PTX
+// atom.shared::cluster.min.u64: analysis/dsmem_atomics.py loses minima
+// with it at every cluster width, even on a block's own words reached
+// through their mapped address, and none with this mix, the own slice's
+// atomicMin (ATOMS.CAST.SPIN.64) beside the remote CAS loop
+// (ATOM.E.CAS.64), nor with CAS loops alone. PERF.md.) Two
+// cluster.sync()s a sweep: one after the frontier copy, so that no block
+// relaxes into a slice another block is still copying, and one after the
+// relaxation. Whether any block lowered a word
+// is one flag in rank 0's shared memory, one per sweep parity: rank 0
+// clears the other parity's flag after the first sync of a sweep, when
+// every block has read it, so a clear never races a read. Every block
+// reads the same flag after the second sync and so takes the same
+// branch: the syncs are never in a branch some blocks skip. The buffers
+// are sliced, not changed: each candidate, each min's outcome and each
+// sweep count are `relax`'s, so the bits are too. At the end each block
+// writes its slice of the dist and time planes, rank 0 alone the row's
+// info, and a last cluster.sync() keeps rank 0's flags alive until every
+// block has read them. Before the first launch of a (width, block, shared
+// bytes) the wrapper asks cudaOccupancyMaxActiveClusters and raises if no
+// cluster fits. Bound: `relax`'s, the 8*S*N planes written; at S=1,024,
+// N=15,625 (the 125x125 city's chunk, C=2), 128 MB, 38 us at 3.35 TB/s.
+//
 // relax_sweep. One sweep: copy old into new (S*N words), zero the changed
 // flag, then one thread per (source row, edge): read the old word at the
 // edge's start, drop the arc unless d + len <= bound (NaN-safe:
@@ -87,9 +130,12 @@
 // atomicMax per block reaches L2. Bound: B*(T-1)*K*K*4 bytes written and
 // the blobs read, about 2.7 MB at (128, 64, 8): 0.8 us at 3.35 TB/s; the
 // gathers of edge columns and kernel rows stay in L2.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -99,6 +145,11 @@ constexpr unsigned long long kUnreached = 0x7F8000007F800000ull;
 // dynamic shared memory one block may take on Hopper (227 KB)
 constexpr int kMaxSmem = 232448;
 constexpr int kRelaxMaxThreads = 1024;
+// relax_cluster: the most blocks of a portable cluster, and the bytes of
+// rank 0's two per-parity flags after each block's slice (16 keep the
+// next word aligned)
+constexpr int kMaxCluster = 8;
+constexpr int kClusterFlagBytes = 16;
 // pair_costs: outputs a block aims at, and its shared words a candidate
 // and a step
 constexpr int kTileOutputs = 1024;
@@ -193,6 +244,127 @@ __global__ void __launch_bounds__(kRelaxMaxThreads)
     if (!quiet) atomicAdd(info + 1, 1);
     if (!src_ok) atomicAdd(info + 2, 1);
   }
+}
+
+// One cluster of C blocks per source row (cluster k = blocks [k*C,
+// (k+1)*C) = source row k); block r owns nodes [r*L, r*L + own). One
+// block an SM (its shared memory), so all 64K registers are its own.
+__global__ void __launch_bounds__(kRelaxMaxThreads, 1)
+    relax_cluster_kernel(const int32_t* __restrict__ src_nodes,
+                         const int32_t* __restrict__ csr_off,
+                         const int32_t* __restrict__ csr_end,
+                         const float* __restrict__ csr_len,
+                         const float* __restrict__ csr_secs, int N, int L,
+                         float bound, int max_iters, float* __restrict__ dist,
+                         float* __restrict__ time,
+                         int32_t* __restrict__ info) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ unsigned long long state[];
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int lo = rank * L;
+  const int own = max(0, min(L, N - lo));
+  unsigned long long* cur = state;      // this block's slice, read
+  unsigned long long* nxt = state + L;  // and written
+  int* flags = reinterpret_cast<int*>(state + 2 * L);
+  // rank 0's flags: flag[p] is set by any block that lowers a word in a
+  // sweep of parity p
+  volatile int* flag0 = cluster.map_shared_rank(flags, 0);
+  const int tid = threadIdx.x;
+  const int step = blockDim.x;
+  for (int n = tid; n < own; n += step) {
+    cur[n] = kUnreached;
+    nxt[n] = kUnreached;
+  }
+  if (rank == 0 && tid == 0) {
+    flags[0] = 0;
+    flags[1] = 0;
+  }
+  __syncthreads();
+  const int row = blockIdx.x / C;
+  const int src = src_nodes[row];
+  const bool src_ok = src >= 0 && src < N;
+  if (tid == 0 && src_ok && src >= lo && src < lo + own)
+    cur[src - lo] = 0ull;  // (0, 0) at the source, in its owner's slice
+  __syncthreads();
+  int iters = 0;
+  int parity = 0;
+  bool quiet = false;
+  while (iters < max_iters) {
+    unsigned long long mine = 0ull;
+    for (int n = tid, b = 0; n < own; n += step, ++b) {
+      const unsigned long long w = cur[n];
+      if (w != nxt[n]) {
+        nxt[n] = w;
+        mine |= 1ull << b;
+      }
+    }
+    // every slice's frontier copied before any block relaxes into it
+    cluster.sync();
+    // every block read the other parity's flag before this sync
+    if (rank == 0 && tid == 0) flags[parity ^ 1] = 0;
+    int lowered = 0;
+    while (mine) {
+      const int b = __ffsll(static_cast<long long>(mine)) - 1;
+      mine &= mine - 1;
+      const int n = tid + b * step;
+      const unsigned long long w = cur[n];
+      const float d = dist_of(w);
+      const float t = time_of(w);
+      const int end = csr_off[lo + n + 1];
+      for (int a = csr_off[lo + n]; a < end; ++a) {
+        const float cd = __fadd_rn(d, csr_len[a]);
+        if (!(cd <= bound)) continue;  // the admission rule
+        const unsigned long long cand = pack(cd, __fadd_rn(t, csr_secs[a]));
+        const int v = csr_end[a];
+        const int owner = v / L;
+        if (owner == rank) {  // this block's slice: as relax
+          unsigned long long* dst = nxt + (v - lo);
+          if (cand < *reinterpret_cast<volatile unsigned long long*>(dst) &&
+              atomicMin(dst, cand) > cand)
+            lowered = 1;
+          continue;
+        }
+        // a neighbour's slice: a 64-bit CAS loop, the guess unreached
+        // (every word is at most that, every candidate below it)
+        unsigned long long* dst =
+            cluster.map_shared_rank(nxt, owner) + (v - owner * L);
+        unsigned long long old = kUnreached;
+        while (cand < old) {
+          const unsigned long long seen = atomicCAS(dst, old, cand);
+          if (seen == old) {
+            lowered = 1;
+            break;
+          }
+          old = seen;
+        }
+      }
+    }
+    if (__any_sync(0xffffffffu, lowered) && (tid & 31) == 0)
+      flag0[parity] = 1;
+    cluster.sync();  // every relaxation of the sweep done
+    ++iters;
+    if (!flag0[parity]) {  // the same value in every block
+      quiet = true;        // nxt == cur: the state is final
+      break;
+    }
+    unsigned long long* swap = cur;
+    cur = nxt;
+    nxt = swap;
+    parity ^= 1;
+  }
+  const size_t at = static_cast<size_t>(row) * N + lo;
+  for (int n = tid; n < own; n += step) {
+    const unsigned long long w = cur[n];
+    dist[at + n] = dist_of(w);
+    time[at + n] = time_of(w);
+  }
+  if (rank == 0 && tid == 0) {
+    atomicMax(info, iters);
+    if (!quiet) atomicAdd(info + 1, 1);
+    if (!src_ok) atomicAdd(info + 2, 1);
+  }
+  cluster.sync();  // rank 0's flags stay until every block has read them
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -430,6 +602,82 @@ extern "C" int relax(const void* src_nodes, int S, const void* csr_off,
       static_cast<const float*>(csr_len), static_cast<const float*>(csr_secs),
       N, bound, max_iters, static_cast<float*>(dist),
       static_cast<float*>(time), static_cast<int32_t*>(info));
+  return (int)cudaGetLastError();
+}
+
+// relax_cluster's launch configuration: S clusters of C blocks of
+// `threads`, each block's slice of L = ceil(N/C) nodes and the flags in
+// its dynamic shared memory. Returns cudaErrorInvalidValue for a plan the
+// kernel does not take (a thread owns at most 64 nodes).
+static cudaError_t cluster_config(int S, int N, int C, int threads,
+                                  cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                                  cudaLaunchAttribute* attr, int* L) {
+  if (S < 1 || N < 1 || C < 1 || C > kMaxCluster || threads < 32 ||
+      threads > kRelaxMaxThreads || threads % 32)
+    return cudaErrorInvalidValue;
+  *L = (N + C - 1) / C;
+  const long long smem = 16ll * *L + kClusterFlagBytes;
+  if (smem > kMaxSmem || (*L + threads - 1) / threads > 64 ||
+      static_cast<long long>(S) * C > INT32_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      relax_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned>(S * C));
+  cfg->blockDim = dim3(static_cast<unsigned>(threads));
+  cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(C);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of relax_cluster's plan (C blocks of `threads`, the
+// shared bytes of N nodes) the card can hold at once, in *clusters; 0
+// means the launch could never run. Returns a CUDA error.
+extern "C" int relax_cluster_occupancy(int N, int C, int threads,
+                                       int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int L;
+  cudaError_t err = cluster_config(1, N, C, threads, nullptr, &cfg, &attr, &L);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, relax_cluster_kernel,
+                                             &cfg);
+}
+
+// The whole relaxation on `stream`: a cluster of C blocks of `threads` per
+// source row, every sweep up to `max_iters`; writes the (S, N) dist and
+// time planes and info = [iters, rows that did not converge, sources
+// outside 0..N-1] (three zeroed int32). Returns a CUDA error.
+extern "C" int relax_cluster(const void* src_nodes, int S,
+                             const void* csr_off, const void* csr_end,
+                             const void* csr_len, const void* csr_secs, int N,
+                             int C, float bound, int max_iters, int threads,
+                             void* dist, void* time, void* info,
+                             void* stream) {
+  if (max_iters < 0) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int L;
+  cudaError_t err = cluster_config(S, N, C, threads,
+                                   static_cast<cudaStream_t>(stream), &cfg,
+                                   &attr, &L);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(
+      &cfg, relax_cluster_kernel, static_cast<const int32_t*>(src_nodes),
+      static_cast<const int32_t*>(csr_off),
+      static_cast<const int32_t*>(csr_end),
+      static_cast<const float*>(csr_len), static_cast<const float*>(csr_secs),
+      N, L, bound, max_iters, static_cast<float*>(dist),
+      static_cast<float*>(time), static_cast<int32_t*>(info));
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

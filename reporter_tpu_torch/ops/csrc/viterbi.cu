@@ -680,19 +680,34 @@ cudaError_t launch_g(int G, const void* dist, const void* valid,
 // hold signed zeros). Inputs are f32: the host has already round-tripped
 // the wire values through f16.
 //
-// Bound. A row reads K*K*4 + K*9 + 8 bytes and writes K*8 + 4: at N=512,
-// K=8, 172,032 bytes in and 34,816 out, 0.062 us at 3.35 TB/s. The
-// operations (about 6 f32 ops per (i, j)) bound nothing. What a launch
-// costs is its fixed part: the launch itself and one dependent pass over K
-// previous candidates per thread (3.1 us at N=512, K=8 on the H100,
-// PERF.md).
+// Rounds. One launch runs R rounds of one parameter group: the operands
+// stacked (R, N, ...), a step count per row (n_steps, read clamped to
+// 0..R; none: R each), the scores carried from round to round in
+// registers. Round r's outputs go to new_scores/bp (R, N, K) and
+// prev_best (R, N); a row's rounds at and past its step count are written
+// as zeros. The host replays the rounds in its own order
+// (matcher/incremental.py `_run_rounds`), so one call of the streaming
+// decode is one launch a parameter group and slab of rounds (the host
+// bounds a slab's bytes).
 //
-// Design: the simple one. A block per row and a thread per candidate j
-// (blockDim = K rounded up to a warp), prev staged once in shared memory;
-// each thread walks i in ascending order, so ties keep the lowest index as
-// a strict '>' does, and reads route[i, j] coalesced with its neighbours.
-// Every thread also walks prev for max(prev) and prev_best (shared-memory
-// broadcasts), so no second barrier is needed.
+// Bound. A row's round reads K*K*4 + K*9 + 8 bytes and writes K*8 + 4, the
+// carried scores K*4 once: at N=512, K=8, R=1, 172,032 bytes in and 34,816
+// out, 0.062 us at 3.35 TB/s. The operations (about 6 f32 ops per (i, j))
+// bound nothing. What a launch costs is the launch itself and one round's
+// dependent chain: the loads, then K shuffles and maxima.
+//
+// Design. For K <= 32 (`incremental_packed`), a row takes a segment of W
+// lanes, K rounded up to a power of two, and a warp packs 32/W rows (four
+// warps a block). Lane j keeps prev[j] in a register; prev[i] comes to it
+// by __shfl_sync within the segment, so there is no shared memory and no
+// barrier. A lane starts every load of a round (case, gc, its dist and
+// valid, its K route values: column j, coalesced with its neighbours)
+// before the chain, and round r+1's while round r computes. The walk over
+// i is ascending with `max_step`, so first maximal indices and the
+// signed-zero rule hold. For K > 32 (up to 128, `incremental_rows`), a
+// block of K threads (rounded up to a warp) per row, prev in two shared
+// buffers that alternate by round, one barrier a round. Past 128 the
+// wrapper refuses.
 
 // m = max(m, v) with i its first maximal index, as the JAX step reduces:
 // an equal v takes m's place but not its index (+0.0 == -0.0, so only a
@@ -702,37 +717,160 @@ __device__ __forceinline__ void max_step(float v, int i, float& m, int& arg) {
   if (v >= m) m = v;
 }
 
-__global__ void incremental_step_kernel(
-    const float* __restrict__ dist, const uint8_t* __restrict__ valid,
-    const float* __restrict__ route, const float* __restrict__ gc,
-    const int32_t* __restrict__ cases, const float* __restrict__ prev,
-    int K, double inv_sigma, double inv_beta,
-    float* __restrict__ new_scores, int32_t* __restrict__ bp,
-    int32_t* __restrict__ prev_best) {
-  __shared__ float sp[128];
+constexpr int STEP_THREADS = 128;
+constexpr int STEP_MAX_K = 128;
+
+struct StepIn {
+  const float* dist;     // (R, N, K)
+  const uint8_t* valid;  // (R, N, K)
+  const float* route;    // (R, N, K, K)
+  const float* gc;       // (R, N)
+  const int32_t* cases;  // (R, N)
+  const float* prev;     // (N, K): the scores before round 0
+  const int32_t* steps;  // (N,) rounds of each row, or null: R each
+  int R, N, K;
+  double inv_sigma, inv_beta;
+};
+
+struct StepOut {
+  float* scores;        // (R, N, K)
+  int32_t* bp;          // (R, N, K)
+  int32_t* prev_best;   // (R, N)
+};
+
+// Row n's rounds: its step count clamped to 0..R (as the plain version's
+// `n_steps > r` over r < R reads it), R each without counts.
+__device__ __forceinline__ int row_steps(const StepIn& in, int n) {
+  return in.steps ? min(max(in.steps[n], 0), in.R) : in.R;
+}
+
+// A lane's operands of one round: its dist and valid, the row's case and
+// gc, and its route column (W values, K of them real).
+template <int W>
+struct LaneOps {
+  float d, g;
+  int c;
+  bool v;
+  float r[W];
+};
+
+template <int W>
+__device__ __forceinline__ void load_lane(const StepIn& in, int r, int n,
+                                          int j, bool on, LaneOps<W>& o) {
+  o.d = 0.0f;
+  o.g = 0.0f;
+  o.c = 0;
+  o.v = false;
+#pragma unroll
+  for (int i = 0; i < W; ++i) o.r[i] = 0.0f;
+  if (!on) return;
+  const long long rn = (long long)r * in.N + n;
+  o.c = in.cases[rn];
+  o.g = in.gc[rn];
+  o.d = in.dist[rn * in.K + j];
+  o.v = in.valid[rn * in.K + j] != 0;
+  const float* col = in.route + rn * in.K * in.K + j;
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    if (i < in.K) o.r[i] = col[(long long)i * in.K];
+}
+
+template <int W>
+__global__ void __launch_bounds__(STEP_THREADS)
+    incremental_packed(const StepIn in, const StepOut out) {
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (W - 1);  // the candidate of this lane's row
+  const int n = (blockIdx.x * STEP_THREADS + threadIdx.x) / W;
+  const bool live = n < in.N;
+  const bool mine = live && j < in.K;  // a real (row, candidate) lane
+  const int steps = live ? row_steps(in, n) : 0;
+  float p = mine ? in.prev[(long long)n * in.K + j] : 0.0f;
+  LaneOps<W> cur, nxt;
+  load_lane<W>(in, 0, n, j, mine && steps > 0, cur);
+  // every lane runs every round: the shuffles need the whole warp
+  for (int r = 0; r < in.R; ++r) {
+    load_lane<W>(in, r + 1, n, j, mine && r + 1 < steps, nxt);
+    float pi = __shfl_sync(ALL_LANES, p, 0, W);
+    float best = __fadd_rn(pi, transition(cur.r[0], cur.g, cur.c, j == 0,
+                                          in.inv_beta));
+    int arg = 0;
+    float mp = pi;
+    int pb = 0;
+#pragma unroll
+    for (int i = 1; i < W; ++i) {
+      pi = __shfl_sync(ALL_LANES, p, i, W);
+      if (i < in.K) {
+        max_step(__fadd_rn(pi, transition(cur.r[i], cur.g, cur.c, i == j,
+                                          in.inv_beta)),
+                 i, best, arg);
+        max_step(pi, i, mp, pb);
+      }
+    }
+    const float e = emission(cur.d, cur.v, cur.c, in.inv_sigma);
+    const float s = __fadd_rn(cur.c == RESTART ? mp : best, e);
+    const bool act = r < steps;
+    const long long rn = (long long)r * in.N + n;
+    if (mine) {
+      out.scores[rn * in.K + j] = act ? s : 0.0f;
+      out.bp[rn * in.K + j] = act ? arg : 0;
+      if (j == 0) out.prev_best[rn] = act ? pb : 0;
+    }
+    p = s;
+    cur = nxt;
+  }
+}
+
+__global__ void __launch_bounds__(STEP_MAX_K)
+    incremental_rows(const StepIn in, const StepOut out) {
+  __shared__ float sp[2][STEP_MAX_K];  // prev, alternating by round
   const int n = blockIdx.x;
   const int j = threadIdx.x;
-  const long long row = (long long)n * K;
-  if (j < K) sp[j] = prev[row + j];
-  __syncthreads();
-  if (j >= K) return;
-  const int c = cases[n];
-  const float g = gc[n];
-  const float e = emission(dist[row + j], valid[row + j] != 0, c, inv_sigma);
-  const float* r = route + row * K + j;  // column j of row n's K x K
-  float best = __fadd_rn(sp[0], transition(r[0], g, c, 0 == j, inv_beta));
-  int arg = 0;
-  float mp = sp[0];
-  int pb = 0;
-  for (int i = 1; i < K; ++i) {
-    max_step(__fadd_rn(sp[i], transition(r[(long long)i * K], g, c, i == j,
-                                           inv_beta)),
-              i, best, arg);
-    max_step(sp[i], i, mp, pb);
+  const int K = in.K;
+  const int steps = row_steps(in, n);
+  if (j < K) sp[0][j] = in.prev[(long long)n * K + j];
+  for (int r = 0; r < in.R; ++r) {
+    __syncthreads();
+    if (j >= K) continue;
+    const long long rn = (long long)r * in.N + n;
+    if (r >= steps) {
+      out.scores[rn * K + j] = 0.0f;
+      out.bp[rn * K + j] = 0;
+      if (j == 0) out.prev_best[rn] = 0;
+      continue;
+    }
+    const float* prev = sp[r & 1];
+    const int c = in.cases[rn];
+    const float g = in.gc[rn];
+    const float e = emission(in.dist[rn * K + j], in.valid[rn * K + j] != 0,
+                             c, in.inv_sigma);
+    const float* col = in.route + rn * K * K + j;
+    float best = __fadd_rn(prev[0], transition(col[0], g, c, j == 0,
+                                               in.inv_beta));
+    int arg = 0;
+    float mp = prev[0];
+    int pb = 0;
+    for (int i = 1; i < K; ++i) {
+      max_step(__fadd_rn(prev[i], transition(col[(long long)i * K], g, c,
+                                             i == j, in.inv_beta)),
+               i, best, arg);
+      max_step(prev[i], i, mp, pb);
+    }
+    const float s = __fadd_rn(c == RESTART ? mp : best, e);
+    out.scores[rn * K + j] = s;
+    out.bp[rn * K + j] = arg;
+    if (j == 0) out.prev_best[rn] = pb;
+    sp[(r + 1) & 1][j] = s;
   }
-  new_scores[row + j] = __fadd_rn(c == RESTART ? mp : best, e);
-  bp[row + j] = arg;
-  if (j == 0) prev_best[n] = pb;
+}
+
+template <int W>
+cudaError_t launch_packed(const StepIn& in, const StepOut& out,
+                          cudaStream_t s) {
+  const long long lanes = (long long)in.N * W;
+  const unsigned grid =
+      static_cast<unsigned>((lanes + STEP_THREADS - 1) / STEP_THREADS);
+  incremental_packed<W><<<grid, STEP_THREADS, 0, s>>>(in, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -777,25 +915,40 @@ extern "C" int viterbi_decode(const void* dist, const void* valid,
   return (int)err;
 }
 
-// Plain C entry point of the incremental step, loaded with ctypes: one
-// launch of a block per row on `stream`, the caller's buffers, the
-// cudaError_t of the launch returned (0 on success). K is 1..128.
-extern "C" int incremental_step(const void* dist, const void* valid,
-                                const void* route, const void* gc,
-                                const void* cases, const void* prev, int N,
-                                int K, float sigma, float beta,
-                                void* new_scores, void* bp, void* prev_best,
-                                void* stream) {
-  if (N <= 0) return 0;
-  if (K <= 0 || K > 128) return (int)cudaErrorInvalidValue;
-  const int threads = (K + 31) / 32 * 32;
-  incremental_step_kernel<<<N, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dist), static_cast<const uint8_t*>(valid),
-      static_cast<const float*>(route), static_cast<const float*>(gc),
-      static_cast<const int32_t*>(cases), static_cast<const float*>(prev), K,
-      1.0 / (double)sigma, 1.0 / (double)beta,
-      static_cast<float*>(new_scores), static_cast<int32_t*>(bp),
-      static_cast<int32_t*>(prev_best));
+// Plain C entry point of the incremental step, loaded with ctypes: R
+// rounds for N rows in one launch on `stream` (`n_steps` (N,) int32 each
+// row's rounds, or null for R each), the caller's buffers, the cudaError_t
+// of the launch returned (0 on success). K is 1..128.
+extern "C" int incremental_steps(const void* dist, const void* valid,
+                                 const void* route, const void* gc,
+                                 const void* cases, const void* prev,
+                                 const void* n_steps, int R, int N, int K,
+                                 float sigma, float beta, void* new_scores,
+                                 void* bp, void* prev_best, void* stream) {
+  if (N <= 0 || R <= 0) return 0;
+  if (K <= 0 || K > STEP_MAX_K) return (int)cudaErrorInvalidValue;
+  const StepIn in{static_cast<const float*>(dist),
+                  static_cast<const uint8_t*>(valid),
+                  static_cast<const float*>(route),
+                  static_cast<const float*>(gc),
+                  static_cast<const int32_t*>(cases),
+                  static_cast<const float*>(prev),
+                  static_cast<const int32_t*>(n_steps),
+                  R,
+                  N,
+                  K,
+                  1.0 / (double)sigma,
+                  1.0 / (double)beta};
+  const StepOut out{static_cast<float*>(new_scores),
+                    static_cast<int32_t*>(bp),
+                    static_cast<int32_t*>(prev_best)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K <= 1) return (int)launch_packed<1>(in, out, s);
+  if (K <= 2) return (int)launch_packed<2>(in, out, s);
+  if (K <= 4) return (int)launch_packed<4>(in, out, s);
+  if (K <= 8) return (int)launch_packed<8>(in, out, s);
+  if (K <= 16) return (int)launch_packed<16>(in, out, s);
+  if (K <= 32) return (int)launch_packed<32>(in, out, s);
+  incremental_rows<<<N, (K + 31) / 32 * 32, 0, s>>>(in, out);
   return (int)cudaGetLastError();
 }

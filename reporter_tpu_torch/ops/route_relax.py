@@ -28,10 +28,15 @@ card's reference), and hand-written CUDA kernels in
     counts launches and ``relax_cuda.reads`` the host reads. It takes
     graphs whose row state fits a block's shared memory
     (:func:`relax_fits`: N <= 14,528 nodes).
+``relax_cluster_cuda``
+    for larger graphs up to :data:`CLUSTER_MAX_NODES` (116,216): the same
+    in one ``relax_cluster`` launch, each source row's state split over a
+    thread-block cluster of :func:`cluster_width` blocks (2 to 8), and
+    one read; ``relax_cluster_cuda.launches`` and ``.reads``.
 ``relax_sweep_cuda``
-    for larger graphs: launches ``relax_sweep`` once per sweep and reads
-    its changed flag after each one; ``relax_sweep_cuda.launches``
-    counts sweeps.
+    for graphs past a cluster's reach: launches ``relax_sweep`` once per
+    sweep and reads its changed flag after each one;
+    ``relax_sweep_cuda.launches`` counts sweeps.
 ``pair_costs_cuda``
     launches ``pair_costs`` once on the two packed blobs;
     ``pair_costs_cuda.launches`` counts launches.
@@ -208,9 +213,15 @@ SMEM_LIMIT = 232_448
 SM_SMEM = 233_472
 #: shared bytes a node takes in ``relax``: two packed 8-byte words
 RELAX_NODE_BYTES = 16
+#: ``relax_cluster``: the most blocks of a portable cluster, and the
+#: bytes of rank 0's two per-parity flags after every block's slice
+CLUSTER_MAX = 8
+CLUSTER_FLAG_BYTES = 16
 
 _lock = threading.Lock()
 _lib = None  # (ctypes.CDLL with argtypes set, build log) once built
+#: (graph size, width) plans of relax_cluster the occupancy query passed
+_clusters_checked: set = set()
 
 
 def build():
@@ -223,6 +234,11 @@ def build():
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.relax.argtypes = [p, i, p, p, p, p, i, f, i, i, p, p, p, p]
             lib.relax.restype = i
+            lib.relax_cluster.argtypes = [p, i, p, p, p, p, i, i, f, i, i,
+                                          p, p, p, p]
+            lib.relax_cluster.restype = i
+            lib.relax_cluster_occupancy.argtypes = [i, i, i, p]
+            lib.relax_cluster_occupancy.restype = i
             lib.relax_sweep.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
             lib.relax_sweep.restype = i
             lib.pair_costs.argtypes = [p, p, p, p, i, p, p, p, p, p, p,
@@ -258,13 +274,37 @@ def _check_sources(dev, src_nodes):
 def relax_fits(n_nodes: int) -> bool:
     """Whether ``relax`` takes a graph of ``n_nodes``: one source row's two
     packed states in one block's shared memory. Past it the card runs
-    ``relax_sweep``; the choice is by N alone."""
+    ``relax_cluster``, then ``relax_sweep``; the choice is by N alone."""
     return 0 < RELAX_NODE_BYTES * n_nodes <= SMEM_LIMIT
 
 
+def cluster_smem(n_nodes: int, width: int) -> int:
+    """Shared bytes of one ``relax_cluster`` block: its slice of
+    ceil(N / width) nodes, two packed words each, then the flags."""
+    return RELAX_NODE_BYTES * -(-n_nodes // width) + CLUSTER_FLAG_BYTES
+
+
+def cluster_width(n_nodes: int) -> int:
+    """``relax_cluster``'s blocks a source row: the fewest, from 2 to
+    :data:`CLUSTER_MAX`, whose slices fit a block's shared memory; 0 past
+    :data:`CLUSTER_MAX_NODES`."""
+    return next((c for c in range(2, CLUSTER_MAX + 1)
+                 if cluster_smem(n_nodes, c) <= SMEM_LIMIT), 0)
+
+
+#: the largest graph one ``relax_cluster`` launch takes: 8 slices of
+#: 14,527 nodes (the flags take a node's 16 bytes of each block)
+CLUSTER_MAX_NODES = CLUSTER_MAX * (
+    (SMEM_LIMIT - CLUSTER_FLAG_BYTES) // RELAX_NODE_BYTES)
+
+
 def relax_kernel_for(n_nodes: int) -> str:
-    """The relaxation kernel the card runs on a graph of ``n_nodes``."""
-    return "relax" if relax_fits(n_nodes) else "relax_sweep"
+    """The relaxation kernel the card runs on a graph of ``n_nodes``:
+    ``relax`` up to 14,528 nodes, ``relax_cluster`` up to
+    :data:`CLUSTER_MAX_NODES`, ``relax_sweep`` past it."""
+    if relax_fits(n_nodes):
+        return "relax"
+    return "relax_cluster" if cluster_width(n_nodes) else "relax_sweep"
 
 
 def relax_threads(n_nodes: int) -> int:
@@ -322,16 +362,10 @@ def launch_relax(arcs: CsrArcs, src_nodes, bound, max_iters: int, dist,
         raise RuntimeError(f"relax launch failed: CUDA error {err}")
 
 
-def relax_cuda(arcs: CsrArcs, src_nodes, bound, *, n_nodes: int,
-               max_iters: int):
-    """:func:`relax_csr` on the card in one ``relax`` launch over the CSR
-    arcs; same contract and the same bits, ``iters`` and ``converged``
-    read back in one copy. Raises on a graph :func:`relax_fits` refuses
-    and on a source outside the graph."""
+def _check_arcs(arcs: CsrArcs, src_nodes, n_nodes: int):
+    """Raise unless ``arcs`` and ``src_nodes`` are what the one-launch
+    relaxations take; returns their device."""
     dev = arcs.length.device
-    if not relax_fits(n_nodes):
-        most = SMEM_LIMIT // RELAX_NODE_BYTES
-        raise ValueError(f"relax takes at most {most} nodes, got {n_nodes}")
     if arcs.offsets.dtype != torch.int32 or arcs.end.dtype != torch.int32 \
             or arcs.length.dtype != _F32 or arcs.secs.dtype != _F32:
         raise TypeError("CSR offsets and ends must be int32, lengths and "
@@ -343,22 +377,113 @@ def relax_cuda(arcs: CsrArcs, src_nodes, bound, *, n_nodes: int,
                          f"{tuple(arcs.offsets.shape)}, {E} ends")
     nvcc.check_operands(dev, **arcs._asdict())
     _check_sources(dev, src_nodes)
+    return dev
+
+
+def _relax_once(fn, launch, src_nodes, n_nodes: int, dev):
+    """Allocate the planes and info, ``launch(src, dist, time, info)``
+    once, read info back in one copy, counting both on the wrapper ``fn``
+    (``fn.launches``, ``fn.reads``): ``(dist, time, iters, converged)``;
+    raises on a source outside the graph."""
     S = src_nodes.shape[0]
     dist = torch.empty((S, n_nodes), dtype=_F32, device=dev)
     time = torch.empty_like(dist)
     info = torch.zeros(3, dtype=torch.int32, device=dev)
-    launch_relax(arcs, src_nodes.to(torch.int32), bound, max_iters, dist,
-                 time, info)
-    relax_cuda.launches += 1
+    launch(src_nodes.to(torch.int32), dist, time, info)
+    fn.launches += 1
     iters, stuck, bad = info.tolist()
-    relax_cuda.reads += 1
+    fn.reads += 1
     if bad:
         raise ValueError(f"{bad} source nodes outside 0..{n_nodes - 1}")
     return dist, time, iters, stuck == 0
 
 
+def relax_cuda(arcs: CsrArcs, src_nodes, bound, *, n_nodes: int,
+               max_iters: int):
+    """:func:`relax_csr` on the card in one ``relax`` launch over the CSR
+    arcs; same contract and the same bits, ``iters`` and ``converged``
+    read back in one copy. Raises on a graph :func:`relax_fits` refuses
+    and on a source outside the graph."""
+    if not relax_fits(n_nodes):
+        most = SMEM_LIMIT // RELAX_NODE_BYTES
+        raise ValueError(f"relax takes at most {most} nodes, got {n_nodes}")
+    dev = _check_arcs(arcs, src_nodes, n_nodes)
+    return _relax_once(
+        relax_cuda, lambda src, dist, time, info: launch_relax(
+            arcs, src, bound, max_iters, dist, time, info),
+        src_nodes, n_nodes, dev)
+
+
 relax_cuda.launches = 0
 relax_cuda.reads = 0
+
+
+def check_cluster(n_nodes: int, device, width: "int | None" = None) -> None:
+    """Raise unless the card can hold at least one cluster of
+    ``relax_cluster``'s plan for ``n_nodes`` (``width`` blocks,
+    :func:`cluster_width` by default; asked of
+    ``cudaOccupancyMaxActiveClusters`` once per plan and process)."""
+    width = width or cluster_width(n_nodes)
+    if (n_nodes, width) in _clusters_checked:
+        return
+    lib, _log = build()
+    got = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.relax_cluster_occupancy(
+            n_nodes, width, relax_threads(-(-n_nodes // width)),
+            ctypes.byref(got))
+    if err != 0:
+        raise RuntimeError(f"relax_cluster occupancy query failed: CUDA "
+                           f"error {err}")
+    if got.value < 1:
+        raise RuntimeError(
+            f"the card holds no cluster of {width} blocks of "
+            f"{cluster_smem(n_nodes, width)} shared bytes (relax_cluster "
+            f"for {n_nodes} nodes)")
+    _clusters_checked.add((n_nodes, width))
+
+
+def launch_relax_cluster(arcs: CsrArcs, src_nodes, bound, max_iters: int,
+                         dist, time, info, width: "int | None" = None) -> None:
+    """Enqueue one ``relax_cluster`` launch (clusters of ``width`` blocks,
+    :func:`cluster_width` by default) on the current stream, uncounted
+    and unchecked (as :func:`launch_relax`). Timing loops call this
+    directly, and checks that hold the kernel at other widths than a
+    graph's own."""
+    S, N = dist.shape
+    width = width or cluster_width(N)
+    lib, _log = build()
+    with torch.cuda.device(dist.device):
+        err = lib.relax_cluster(
+            src_nodes.data_ptr(), S, *(x.data_ptr() for x in arcs), N,
+            width, float(bound), int(max_iters),
+            relax_threads(-(-N // width)), dist.data_ptr(), time.data_ptr(),
+            info.data_ptr(), _stream(dist.device))
+    if err != 0:
+        raise RuntimeError(f"relax_cluster launch failed: CUDA error {err}")
+
+
+def relax_cluster_cuda(arcs: CsrArcs, src_nodes, bound, *, n_nodes: int,
+                       max_iters: int):
+    """:func:`relax_csr` on the card in one ``relax_cluster`` launch: each
+    source row on a cluster of :func:`cluster_width` blocks, its state
+    split over their shared memory; same contract and the same bits,
+    ``iters`` and ``converged`` read back in one copy. Raises on a graph
+    past :data:`CLUSTER_MAX_NODES`, on a card that cannot hold one such
+    cluster, and on a source outside the graph."""
+    if not cluster_width(n_nodes):
+        raise ValueError(f"relax_cluster takes at most {CLUSTER_MAX_NODES} "
+                         f"nodes, got {n_nodes}")
+    dev = _check_arcs(arcs, src_nodes, n_nodes)
+    check_cluster(n_nodes, dev)
+    return _relax_once(
+        relax_cluster_cuda, lambda src, dist, time, info: launch_relax_cluster(
+            arcs, src, bound, max_iters, dist, time, info),
+        src_nodes, n_nodes, dev)
+
+
+relax_cluster_cuda.launches = 0
+relax_cluster_cuda.reads = 0
 
 
 def pack_sources(src_nodes, n_nodes: int):

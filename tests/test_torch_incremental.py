@@ -34,6 +34,7 @@ from reporter_tpu.matcher.matcher import \
 from reporter_tpu.ops.incremental import \
     incremental_step_batch as jax_step
 from reporter_tpu.synth import build_grid_city as jax_city
+from reporter_tpu.utils import metrics as jax_metrics
 from reporter_tpu_torch import ops
 from reporter_tpu_torch.core.tracebatch import TraceBatch
 from reporter_tpu_torch.graph.route import candidate_route_matrices
@@ -242,7 +243,82 @@ def test_the_step_refuses_what_it_does_not_take():
     wide = [torch.from_numpy(a) for a in step_inputs(2, 129, 3)]
     with pytest.raises(ValueError, match="K=129"):
         ops.incremental_step_cuda(*wide, SIGMA, BETA)
-    assert ops.incremental_step_cuda.launches == 0
+    # the one round is the multi-round kernel's, whose wrapper counts
+    assert ops.incremental_steps_cuda.launches == 0
+
+
+@pytest.mark.parametrize("K", [4, 8, 16])
+@pytest.mark.parametrize("N,R", [(1, 1), (1, 5), (7, 4), (64, 6)])
+def test_rounds_equal_successive_single_steps(N, K, R):
+    """R rounds in one call, each row for its own number of rounds, give
+    the bits of R successive single steps with the scores carried; a
+    row's rounds past its count are zeros. Ragged counts, RESTART and
+    SKIP rounds, signed zeros and ties included."""
+    rng = np.random.default_rng(100 * N + 10 * K + R)
+    rounds = [step_inputs(N, K, 7_000 + 97 * r + N + K) for r in range(R)]
+    stacked = [np.stack([rd[k] for rd in rounds]) for k in range(5)]
+    prev = rounds[0][5]
+    n_steps = rng.integers(0, R + 1, N).astype(np.int32)
+    n_steps[0] = R
+    got = [t.numpy() for t in ops.incremental_steps(
+        *(torch.from_numpy(a) for a in stacked), torch.from_numpy(prev),
+        torch.from_numpy(n_steps), SIGMA, BETA)]
+    assert got[0].shape == (R, N, K) and got[1].dtype == np.int32 \
+        and got[2].shape == (R, N)
+    p = prev
+    signs = set()
+    for r in range(R):
+        want = plain_step((*(a[r] for a in stacked), p))
+        live = n_steps > r
+        for g, w in zip(got, want):
+            assert np.array_equal(
+                g[r][live].view(np.int32),
+                np.asarray(w)[live].view(np.int32)), f"round {r}"
+            assert not g[r][~live].view(np.int32).any(), f"round {r}"
+        assert_bits_equal([g[r][live] for g in got],
+                          jax_step(*(a[r][live] for a in stacked), p[live],
+                                   SIGMA, BETA))
+        signs |= set(np.signbit(got[0][r][live][got[0][r][live] == 0])
+                     .tolist())
+        p = want[0]
+    if N >= 64:  # enough rows for every kind
+        assert signs == {False, True}
+        assert (stacked[4] == RESTART).any() and (stacked[4] == SKIP).any()
+
+
+def test_step_counts_outside_the_rounds_clamp_to_them():
+    """A row's step count is read clamped to 0..R: a count past R runs
+    all R rounds, a negative one none (the kernel reads it the same
+    way, so it never loads past the (R, N, ...) operands)."""
+    R, N, K = 3, 6, 8
+    rounds = [step_inputs(N, K, 40 + r) for r in range(R)]
+    x = [torch.from_numpy(np.stack([rd[k] for rd in rounds]))
+         for k in range(5)]
+    prev = torch.from_numpy(rounds[0][5])
+    wild = torch.tensor([R + 5, -2, R, 0, 2**30, -(2**30)],
+                        dtype=torch.int32)
+    tame = wild.clamp(0, R)
+    for g, w in zip(ops.incremental_steps(*x, prev, wild, SIGMA, BETA),
+                    ops.incremental_steps(*x, prev, tame, SIGMA, BETA)):
+        assert np.array_equal(g.numpy().view(np.int32),
+                              w.numpy().view(np.int32))
+
+
+def test_the_rounds_refuse_what_they_do_not_take():
+    x = [torch.from_numpy(np.stack([a] * 2))
+         for a in step_inputs(4, 8, 3)[:5]]
+    prev = torch.zeros((4, 8))
+    n_steps = torch.full((4,), 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.incremental_steps_cuda(*x, prev, n_steps, SIGMA, BETA)
+    with pytest.raises(ValueError, match="CPU path"):
+        ops.incremental_steps(*x, prev, n_steps, SIGMA, BETA,
+                              out=torch.empty(ops.incremental.output_words(
+                                  4, 8, 2), dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\(R, N, K\)"):
+        ops.incremental_steps_cuda(*(t[0] for t in x), prev, n_steps,
+                                   SIGMA, BETA)
+    assert ops.incremental_steps_cuda.launches == 0
 
 
 # -- single-trace native lookups -------------------------------------------
@@ -479,6 +555,151 @@ def test_parameter_groups_advance_in_their_own_rounds(cities, monkeypatch):
                 assert json.dumps(g, sort_keys=True) == jax_ser(w) == ser(b)
     rounds = m.incremental_table.rounds
     assert len(rounds) == 2 and sorted({k[0] for k in rounds}) == [4.07, 6.0]
+    assert_same_tables(jm, m)
+
+
+INC_COUNTERS = ("match.incremental.steps", "match.incremental.commits",
+                "match.incremental.fallbacks", "match.incremental.matches")
+
+
+def _counting_jax_rounds(monkeypatch, jm):
+    """Count the JAX table's device rounds by (sigma, beta, K), as the
+    port's ``IncrementalTable.rounds`` counts its replayed rounds."""
+    table = jm.incremental_table
+    rounds: dict = {}
+    step = table._round
+
+    def counted(grp, r, K, sigma, beta, kernel, lag):
+        key = (float(sigma), float(beta), int(K))
+        rounds[key] = rounds.get(key, 0) + 1
+        return step(grp, r, K, sigma, beta, kernel, lag)
+
+    monkeypatch.setattr(table, "_round", counted)
+    return rounds
+
+
+def test_rounds_of_a_call_replay_as_the_jax_package(cities, monkeypatch):
+    """Eight points appended a call, so each call's rounds of a group run
+    in one device call and replay on the host; a lag of 8 makes windows
+    fall back in the middle of a call's rounds while the other traces
+    step on. Bodies, blobs and the counters (steps, rounds, commits,
+    fallbacks, matches) equal the JAX package's, which steps a round at a
+    time."""
+    _ref_city, city = cities
+    jm, m = pair(cities, monkeypatch, lag=8)
+    jax_rounds = _counting_jax_rounds(monkeypatch, jm)
+    traces = [make_trace(city, 300 + s, noise=6.0) for s in range(5)]
+    opts = [dict(OPTS), dict(OPTS, sigma_z=6.0)]
+    table = m.incremental_table
+    replay = table._replay
+    late_fallbacks = []
+
+    def watched(grp, r, ran):
+        alive = [job[5] for job in grp]
+        replay(grp, r, ran)
+        if r > 0 and any(a and not job[5] for a, job in zip(alive, grp)):
+            late_fallbacks.append(r)
+
+    monkeypatch.setattr(table, "_replay", watched)
+    j0 = [jax_metrics.counter(n) for n in INC_COUNTERS]
+    p0 = [metrics.counter(n) for n in INC_COUNTERS]
+    served = 0
+    for hi in range(8, 41, 8):
+        reqs = [{"uuid": f"mc{s}", "trace": pts[:hi],
+                 "match_options": opts[s % 2]}
+                for s, pts in enumerate(traces)]
+        got = m.match_incremental(reqs)
+        want = jm.match_incremental(reqs)
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if g is not None:
+                served += 1
+                assert json.dumps(g, sort_keys=True) == jax_ser(w)
+    assert served > 0
+    assert [metrics.counter(n) - c for n, c in zip(INC_COUNTERS, p0)] == \
+        [jax_metrics.counter(n) - c for n, c in zip(INC_COUNTERS, j0)]
+    assert table.rounds == jax_rounds and len(jax_rounds) == 2
+    assert table.fallbacks > 0
+    assert late_fallbacks, "no window fell back after a call's first round"
+    assert_same_tables(jm, m)
+
+
+@pytest.mark.parametrize("slab_rounds", [1, 3])
+def test_ragged_first_reports_run_in_bounded_slabs(cities, monkeypatch,
+                                                   slab_rounds):
+    """One call of first reports of 6 to 120 points in one parameter
+    group: with a slab of ``slab_rounds`` rounds of all its rows, every
+    launch's padded operands and outputs stay within ``SLAB_BYTES``, a
+    slab takes only the rows still stepping, the scores carry from slab
+    to slab, and bodies, blobs and counters equal the JAX package's,
+    which steps a round at a time."""
+    _ref_city, city = cities
+    jm, m = pair(cities, monkeypatch, lag=8)
+    jax_rounds = _counting_jax_rounds(monkeypatch, jm)
+    lengths = [6, 120, 16, 6, 40, 16]
+    traces = [make_trace(city, 400 + s, noise=5.0) for s in range(6)]
+    K = m.params.max_candidates
+    monkeypatch.setattr(inc, "SLAB_BYTES",
+                        slab_rounds * len(lengths) * inc.slab_row_bytes(K))
+    table = m.incremental_table
+    launch = table._launch
+    slabs = []
+
+    def counted(arrays, sigma, beta):
+        R, n = arrays[0].shape[:2]
+        assert R * n * inc.slab_row_bytes(K) <= inc.SLAB_BYTES or R == 1
+        assert (arrays[6] > 0).all()  # only the rows still stepping
+        slabs.append((R, n))
+        return launch(arrays, sigma, beta)
+
+    monkeypatch.setattr(table, "_launch", counted)
+    j0 = [jax_metrics.counter(n) for n in INC_COUNTERS]
+    p0 = [metrics.counter(n) for n in INC_COUNTERS]
+    for grow in (0, 4):
+        reqs = [{"uuid": f"rg{s}", "trace": pts[:hi + grow]}
+                for s, (pts, hi) in enumerate(zip(traces, lengths))]
+        got = m.match_incremental(reqs)
+        want = jm.match_incremental(reqs)
+        assert [g is None for g in got] == [w is None for w in want]
+        for g, w in zip(got, want):
+            if g is not None:
+                assert json.dumps(g, sort_keys=True) == jax_ser(w)
+    assert [metrics.counter(n) - c for n, c in zip(INC_COUNTERS, p0)] == \
+        [jax_metrics.counter(n) - c for n, c in zip(INC_COUNTERS, j0)]
+    assert table.rounds == jax_rounds
+    assert len(slabs) > 2 and min(n for _R, n in slabs) < len(lengths)
+    assert_same_tables(jm, m)
+
+
+@pytest.mark.parametrize("seed,windows", [(18, (6, 14, 22)),
+                                          (19, (5, 15, 30))])
+def test_a_uuid_twice_in_a_call_steps_as_the_jax_package(
+        cities, monkeypatch, seed, windows):
+    """Two windows of one uuid in one call share one carried state, and
+    each of its rows starts a round from what the round before left in
+    it: the call steps one round a device call, as the JAX package does,
+    and its fallbacks, counters and declines equal the JAX package's (one
+    device call for all rounds would carry each row's own scores and fall
+    back elsewhere)."""
+    _ref_city, city = cities
+    jm, m = pair(cities, monkeypatch, lag=4)
+    jax_rounds = _counting_jax_rounds(monkeypatch, jm)
+    pts = make_trace(city, seed, noise=12.0)
+    first, a, b = windows
+    j0 = [jax_metrics.counter(n) for n in INC_COUNTERS]
+    p0 = [metrics.counter(n) for n in INC_COUNTERS]
+    for reqs in ([{"uuid": "u", "trace": pts[:first]}],
+                 [{"uuid": "u", "trace": pts[:a]},
+                  {"uuid": "u", "trace": pts[:b]}]):
+        got = m.match_incremental(reqs)
+        want = jm.match_incremental(reqs)
+        assert [g is None for g in got] == [w is None for w in want]
+        for g, w in zip(got, want):
+            if g is not None:
+                assert json.dumps(g, sort_keys=True) == jax_ser(w)
+    assert [metrics.counter(n) - c for n, c in zip(INC_COUNTERS, p0)] == \
+        [jax_metrics.counter(n) - c for n, c in zip(INC_COUNTERS, j0)]
+    assert m.incremental_table.rounds == jax_rounds
     assert_same_tables(jm, m)
 
 

@@ -349,16 +349,22 @@ def test_frontier_relaxation_bit_equal_to_jax(relax_cities, name, bound,
 def test_relax_kernel_choice_by_n_and_its_block_plan():
     """``relax`` takes a graph while a row's two packed states (16 bytes a
     node) fit one Hopper block's 232,448 bytes of shared memory: 14,528
-    nodes, and ``relax_sweep`` from the node past it. The block plan
-    keeps a thread's nodes within its 64 frontier bits."""
+    nodes; ``relax_cluster`` from the node past it, its rows split over a
+    cluster of 2 to 8 blocks, up to 116,216 nodes; ``relax_sweep`` past
+    that. The block plan keeps a thread's nodes within its 64 frontier
+    bits."""
     most = route_relax.SMEM_LIMIT // route_relax.RELAX_NODE_BYTES
     assert most == 14_528
     assert route_relax.relax_fits(most) and not route_relax.relax_fits(
         most + 1)
     assert route_relax.relax_kernel_for(most) == "relax"
-    assert route_relax.relax_kernel_for(most + 1) == "relax_sweep"
+    assert route_relax.relax_kernel_for(most + 1) == "relax_cluster"
     assert route_relax.relax_kernel_for(100 * 100) == "relax"
-    assert route_relax.relax_kernel_for(125 * 125) == "relax_sweep"
+    assert route_relax.relax_kernel_for(125 * 125) == "relax_cluster"
+    assert route_relax.cluster_width(125 * 125) == 2
+    last = route_relax.CLUSTER_MAX_NODES
+    assert route_relax.relax_kernel_for(last) == "relax_cluster"
+    assert route_relax.relax_kernel_for(last + 1) == "relax_sweep"
     plans = {n: route_relax.relax_threads(n)
              for n in (1, 64, 400, 1600, 2000, 8192, 10_000, most)}
     assert plans == {1: 128, 64: 128, 400: 128, 1600: 256, 2000: 256,
@@ -396,6 +402,15 @@ def test_relaxation_budget_per_device_and_kernel():
     assert route_device.over_budget(edge + 1, N, E, "cuda", "relax")
     assert route_device.over_budget(edge // 3 + 1, N, E, "cuda",
                                     "relax_sweep")
+    # relax_cluster keeps its state in the cluster's shared memory: the
+    # planes alone, as relax (the 125x125 city's chunk, S = 1,024)
+    S, N, E = 1024, 125 * 125, 62_000
+    assert route_device.relax_bytes(S, N, E, "cuda", "relax_cluster") \
+        == 8 * S * N == 128_000_000
+    assert not route_device.over_budget(S, N, E, "cuda", "relax_cluster")
+    edge = 4 * 2**30 // (8 * N)
+    assert not route_device.over_budget(edge, N, E, "cuda", "relax_cluster")
+    assert route_device.over_budget(edge + 1, N, E, "cuda", "relax_cluster")
 
 
 def test_relax_refuses_a_graph_past_shared_memory(cities):
@@ -414,6 +429,156 @@ def test_relax_refuses_a_graph_past_shared_memory(cities):
                                max_iters=4)
 
 
+@pytest.mark.parametrize("n,width", [
+    (14_529, 2), (125 * 125, 2), (29_054, 2), (29_055, 3), (200 * 200, 3),
+    (58_108, 4), (100_000, 7), (116_216, 8), (116_217, 0)])
+def test_cluster_width_is_the_fewest_blocks_whose_slices_fit(n, width):
+    """A block of ``relax_cluster`` holds its slice of ceil(N/C) nodes (16
+    bytes each) and 16 bytes of flags: C is the fewest blocks, 2 to 8,
+    that fit 232,448 bytes, 0 past 8 x 14,527 nodes."""
+    assert route_relax.cluster_width(n) == width
+    if width:
+        assert route_relax.cluster_smem(n, width) <= route_relax.SMEM_LIMIT
+        assert width == 2 or route_relax.cluster_smem(n, width - 1) \
+            > route_relax.SMEM_LIMIT
+    assert route_relax.cluster_smem(125 * 125, 2) == 16 * 7_813 + 16
+    assert route_relax.CLUSTER_MAX_NODES == 8 * 14_527 == 116_216
+
+
+def test_relax_cluster_refuses_cpu_tensors_and_graphs_past_a_cluster(cities):
+    city = cities[1]
+    c = _columns(city)
+    arcs = route_relax.csr_arcs(*city.csr(), c["end"], c["len"], c["secs"],
+                                "cpu")
+    src = torch.tensor([0], dtype=torch.int32)
+    before = route_relax.relax_cluster_cuda.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        route_relax.relax_cluster_cuda(arcs, src, 900.0,
+                                       n_nodes=city.num_nodes, max_iters=4)
+    with pytest.raises(ValueError, match="at most 116216 nodes"):
+        route_relax.relax_cluster_cuda(arcs, src, 900.0, n_nodes=116_217,
+                                       max_iters=4)
+    with pytest.raises(ValueError, match="CSR arcs do not fit"):
+        route_relax.relax_cluster_cuda(arcs, src, 900.0, n_nodes=40_000,
+                                       max_iters=4)
+    assert route_relax.relax_cluster_cuda.launches == before
+
+
+def cluster_relax(start, end, length, secs, n_nodes, srcs, bound, max_iters,
+                  width):
+    """``relax_cluster``'s schedule in plain PyTorch, one source row at a
+    time: the row's packed words split into ``width`` slices of ceil(N /
+    width) nodes, block r owning slice r. A sweep: every block copies its
+    slice's frontier (where cur differs from nxt) into nxt; rank 0 clears
+    the other parity's flag; every block relaxes its frontier's out-arcs
+    in CSR order and min's each admitted candidate into the nxt slice of
+    the block that owns the arc's end, setting this parity's flag if a
+    word fell; a quiet flag ends the row. Returns (dist, time, iters,
+    converged) as ``relax_csr``."""
+    N = n_nodes
+    L = -(-N // width)
+    order = np.argsort(start, kind="stable")        # arcs by start node
+    offsets = np.searchsorted(start[order], np.arange(N + 1))
+    a_end = torch.from_numpy(end[order].astype(np.int64))
+    a_len = torch.from_numpy(length[order])
+    a_secs = torch.from_numpy(secs[order])
+    bound = torch.tensor(np.float32(bound))
+    lo = [r * L for r in range(width)]
+    own = [max(0, min(L, N - lo[r])) for r in range(width)]
+    dist, time, iters, converged = [], [], 0, True
+    for src in srcs:
+        cur = [torch.full((own[r],), route_relax.UNREACHED,
+                          dtype=torch.int64) for r in range(width)]
+        nxt = [x.clone() for x in cur]
+        cur[int(src) // L][int(src) % L] = 0
+        flags, parity, k, quiet = [0, 0], 0, 0, False
+        while k < max_iters:
+            fronts = []
+            for r in range(width):   # each block, then cluster.sync()
+                front = cur[r] != nxt[r]
+                nxt[r] = torch.where(front, cur[r], nxt[r])
+                fronts.append(torch.nonzero(front).flatten())
+            flags[parity ^ 1] = 0
+            for r in range(width):   # each block, then cluster.sync()
+                nodes = (fronts[r] + lo[r]).numpy()
+                arcs = torch.from_numpy(np.concatenate(
+                    [np.arange(offsets[n], offsets[n + 1]) for n in nodes]
+                    + [np.zeros(0, np.int64)]).astype(np.int64))
+                d, t = _unpack(cur[r][torch.from_numpy(
+                    np.repeat(nodes - lo[r], np.diff(offsets)[nodes]))])
+                cd = d + a_len[arcs]
+                ok = cd <= bound
+                cand = _pack(cd[ok], (t + a_secs[arcs])[ok])
+                v = a_end[arcs][ok]
+                owner = v // L
+                for o in range(width):   # atomicMin into the owner's nxt
+                    mine = owner == o
+                    if not bool(mine.any()):
+                        continue
+                    new = nxt[o].scatter_reduce(0, v[mine] - lo[o],
+                                                cand[mine], "amin",
+                                                include_self=True)
+                    if bool((new < nxt[o]).any()):
+                        flags[parity] = 1
+                    nxt[o] = new
+            k += 1
+            if not flags[parity]:
+                quiet = True
+                break
+            cur, nxt = nxt, cur
+            parity ^= 1
+        iters, converged = max(iters, k), converged and quiet
+        d, t = _unpack(torch.cat(cur))
+        dist.append(d)
+        time.append(t)
+    return torch.stack(dist), torch.stack(time), iters, converged
+
+
+@pytest.fixture(scope="module")
+def cluster_graphs(relax_cities):
+    """The 20x20 city's columns, and the same graph with its node ids
+    shuffled, so that most arcs cross slices."""
+    net = relax_cities["grid20"]
+    c = _columns(net)
+    perm = np.random.default_rng(12).permutation(net.num_nodes)
+    shuffled = dict(c, start=perm[c["start"]].astype(np.int32),
+                    end=perm[c["end"]].astype(np.int32))
+    return {"grid20": (c, net.num_nodes), "shuffled": (shuffled,
+                                                       net.num_nodes)}
+
+
+@pytest.mark.parametrize("graph", ["grid20", "shuffled"])
+@pytest.mark.parametrize("width", [2, 3, 4])
+@pytest.mark.parametrize("cap", [None, 1, "short"])
+def test_cluster_schedule_bit_equal_to_relax_csr(cluster_graphs, graph,
+                                                 width, cap):
+    """Slicing the rows over a cluster changes no candidate, no min and no
+    sweep count: ``relax_cluster``'s schedule gives the plain
+    ``relax_csr``'s dist, time, iters and converged bit for bit, at
+    convergence, capped at one sweep and one sweep short of it."""
+    c, N = cluster_graphs[graph]
+    L = -(-N // width)
+    crossing = np.mean(c["start"] // L != c["end"] // L)
+    assert crossing > (0.5 if graph == "shuffled" else 0.0)
+    srcs = np.random.default_rng(21).choice(N, 10, replace=False).astype(
+        np.int32)
+    srcs[-1] = srcs[0]  # a repeated row, as the padding makes
+    bound = np.float32(1500.0)
+    cols = [torch.from_numpy(c[k]) for k in ("start", "end", "len", "secs")]
+    full = route_relax.relax_csr(*cols, torch.from_numpy(srcs), bound,
+                                 n_nodes=N, max_iters=N)
+    assert full[3] and full[2] > 2
+    max_iters = {None: N, 1: 1, "short": full[2] - 1}[cap]
+    want = full if cap is None else route_relax.relax_csr(
+        *cols, torch.from_numpy(srcs), bound, n_nodes=N, max_iters=max_iters)
+    got = cluster_relax(c["start"], c["end"], c["len"], c["secs"], N, srcs,
+                        bound, max_iters, width)
+    assert np.array_equal(_bits(got[0]), _bits(want[0]))
+    assert np.array_equal(_bits(got[1]), _bits(want[1]))
+    assert (got[2], got[3]) == (want[2], want[3])
+    assert got[3] == (cap is None)
+
+
 def test_packed_state_orders_as_dist_then_time():
     """The kernel's word: float bits of (dist, time), high and low; their
     integer order is the lexicographic order of the pairs."""
@@ -430,6 +595,22 @@ def test_packed_state_orders_as_dist_then_time():
     packed = route_relax.pack_sources(torch.tensor([2, 0]), 3)
     assert packed[0, 2] == 0 and packed[1, 0] == 0
     assert int((packed == route_relax.UNREACHED).sum()) == 4
+
+
+def test_the_dsmem_probe_needs_the_card_and_mirrors_the_kernel(capsys):
+    """The DSMEM atomics probe (``analysis/dsmem_atomics.py``) refuses to
+    run without CUDA, builds nothing at import, and its ``min/cas`` way
+    is ``relax_cluster``'s: a CAS loop whose first guess is the unreached
+    word the kernel starts every node at."""
+    from reporter_tpu_torch.analysis import dsmem_atomics
+    assert dsmem_atomics.main([]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err
+    assert dsmem_atomics.UNREACHED == route_relax.UNREACHED
+    assert "0x7F8000007F800000ull" in dsmem_atomics.SOURCE
+    src = route_relax.SOURCE.read_text()
+    assert "unsigned long long old = kUnreached;" in src
+    assert "unsigned long long old = kUnreached;" in dsmem_atomics.SOURCE
+    assert dsmem_atomics.MODES[2] == "min/cas"
 
 
 # -- DeviceRouteKernel ------------------------------------------------------
