@@ -109,6 +109,24 @@ Phases, each fatal on failure:
             limit: relax_cluster, one launch and one read a relaxation)
             the same way; 8 traces on a 341x341 grid city (116,281 nodes,
             past a cluster's reach: relax_sweep), cold
+   worker   the streaming worker (reporter_tpu_torch.streaming.worker.main)
+            in this process on the 100x100 city: 2,048 vehicles' probe
+            lines (written by a low-priority child process started with
+            the run) to tile files, with the carried-state decode
+            (report_incremental: incremental_step launched) and with
+            "incremental": false (report_many: viterbi_decode), tiles
+            byte-equal; then the first 512 vehicles fault-free, with
+            match.incremental.commit=error#1 (it fires), killed by
+            worker.offer=crash+k#1 in a child process (exit 137, decode
+            frames in its snapshot) and resumed by a new worker, and with
+            --device cpu, each byte-equal to the fault-free card run.
+            No leg parses badly, sheds or dead-letters; a card leg calls
+            no plain version, the CPU leg launches no kernel. One JSON
+            line a leg (messages, reports, flushes, tiles, segments kept
+            and culled, launches, the match.incremental counters and
+            gauge, wall, messages/s, reports/s, the batcher.flush p50 and
+            p99), then the phase's seconds beside the card's name and
+            power limit
 8. timing   the launch floor (an empty kernel with the kernels' C launch
             interface, built beside them, by CUDA graphs and back to back);
             CUDA-event times of the decode kernel from CUDA graphs (the
@@ -167,7 +185,7 @@ After routes comes the incremental streaming decode:
             ReporterService; report_incremental equal to report_many slot
             for slot, viterbi_decode launches counted for the declined
             slots. Streaming legs (BENCH_STREAM_r01.json's shape): windows
-            warmed to 64 and 256 raw points, lag 32, then 32 reports of
+            warmed to 64 and 256 raw points, lag 32, then 16 reports of
             one more point each, with 1 uuid and with 512 uuids a call:
             the incremental decode seconds and wall a call against
             match_many's of the same windows, steps per point, commits;
@@ -187,7 +205,8 @@ warm round; relax_cluster: route-city's 125x125 device runs, cold and
 the first warm round; relax_sweep: route-city's 341x341 run, one launch
 a sweep; incremental_step: the stream phase's parity leg, one launch a
 call and parameter group;
-each kernel also its ``launches_faults`` and the ``launch_floor_ms``),
+each kernel also its ``launches_faults``, its ``launches_worker`` (the
+worker phase's legs, each counted from 0) and the ``launch_floor_ms``),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
 
@@ -264,7 +283,9 @@ OPTS = {"mode": "auto", "report_levels": [0, 1, 2],
 # reports and lag (BENCH_STREAM_r01.json's shape)
 OPTS_B = dict(OPTS, sigma_z=5.0)
 STREAM_WINDOWS = (64, 256)
-STREAM_MEASURE = 32
+#: reports measured a streaming leg (32 before the worker phase came; cut
+#: to keep the whole run near half its time limit)
+STREAM_MEASURE = 16
 STREAM_LAG = 32
 # the longest jump between two traces stitched into one stream
 SEAM_M = 800.0
@@ -4041,6 +4062,337 @@ def phase_stream(dev, served):
     return launches, rounds, fallback_launches, legs
 
 
+# -- the streaming worker ------------------------------------------------------
+#: the [worker] phase's fleet on BIG_CITY: vehicles (one trip each, numpy
+#: seed 11), the first legs' and then the smaller legs' count, their start
+#: times spread evenly over WORKER_SPREAD_S seconds
+WORKER_VEHICLES = 2048      # cut from 4,096 (PERF.md §4)
+WORKER_SMALL = 512
+WORKER_SPREAD_S = 600
+WORKER_FORMAT = r",sv,\|,0,1,2,3,4"
+#: the resume leg's child snapshots every this many messages
+#: (``--state-every``) and is killed just after one (k a multiple of it)
+WORKER_STATE_EVERY = 1024
+#: a session gap no stream reaches: the worker then evicts sessions only
+#: at the end of the stream, so tile boundaries do not depend on how
+#: fast a leg runs on the wall clock (its eviction clock)
+WORKER_GAP_MS = 10 ** 12
+#: the options every leg runs with: tiles flushed only at the end of the
+#: stream and report-ready sessions in batches of 64 (tools/chaos.py's
+#: deterministic settings)
+WORKER_ARGS = ("-p", "2", "-q", "3600", "-i", "1000000000", "-r", "0,1",
+               "-x", "0,1", "-s", "smoke", "--report-flush-interval",
+               "1000000000")
+
+
+def write_worker_stream(path, n=WORKER_VEHICLES):
+    """Write the [worker] stream: ``n`` vehicles on BIG_CITY, one trip
+    each (``synth.generate_trace``, 4 m noise, a probe every 5 s, 6-60
+    edges, numpy seed 11), vehicle i starting ``i * WORKER_SPREAD_S //
+    n`` s after the first, every probe merged in time order (ties by
+    uuid) as sv lines ``uuid|lat|lon|time|accuracy``. Runs in a child
+    process started with the smoke run (``start_worker_stream``), so its
+    ~100 s of Python route searches overlap the phases before
+    [worker]."""
+    from reporter_tpu_torch.synth import build_grid_city, generate_trace
+    city = build_grid_city(**BIG_CITY)
+    rng = np.random.default_rng(11)
+    rows = []
+    i = 0
+    while i < n:
+        uuid = f"veh-{i}"
+        tr = generate_trace(city, uuid, rng, noise_m=4.0, sample_period_s=5.0,
+                            start_time=1_500_000_000
+                            + i * WORKER_SPREAD_S // n,
+                            min_route_edges=6, max_route_edges=60)
+        if tr is None:
+            continue
+        rows.extend((p["time"], uuid, p) for p in tr.points)
+        i += 1
+    rows.sort(key=lambda r: (r[0], r[1]))
+    with open(path + ".tmp", "w") as f:
+        f.writelines(f"{u}|{p['lat']}|{p['lon']}|{p['time']}|"
+                     f"{p['accuracy']}\n" for _t, u, p in rows)
+    os.replace(path + ".tmp", path)
+
+
+def start_worker_stream(tmp):
+    """Start ``write_worker_stream`` in a child process at the lowest CPU
+    priority; returns (the Popen, the stream's path)."""
+    import atexit
+    path = os.path.join(tmp, "stream.txt")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import os, chip_smoke; os.nice(19); "
+         f"chip_smoke.write_worker_stream({path!r})"], cwd=str(ROOT))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, path
+
+
+def tile_tree(root):
+    """{relative path: bytes} of the tile files under ``root`` (the
+    dead-letter spool, a dot directory, left out)."""
+    out = {}
+    for dirpath, dirnames, files in os.walk(root):
+        dirnames[:] = [d for d in dirnames if not d.startswith(".")]
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+class SummaryLog:
+    """Keeps the worker's ``summary`` log line (``main`` logs one at the
+    end of a run)."""
+
+    def __init__(self):
+        import logging
+        self.records = []
+        handler = logging.Handler(logging.INFO)
+        handler.emit = lambda rec: self.records.append(rec.getMessage())
+        log_ = logging.getLogger("reporter_tpu_torch.streaming")
+        log_.setLevel(logging.INFO)
+        log_.addHandler(handler)
+        # main()'s basicConfig finds a handler and leaves the root alone:
+        # only warnings reach the console
+        console = logging.StreamHandler()
+        console.setLevel(logging.WARNING)
+        logging.getLogger().addHandler(console)
+
+    def last(self):
+        lines = [m for m in self.records if m.startswith("summary ")]
+        check(bool(lines), "the worker logged no summary")
+        return json.loads(lines[-1][len("summary "):])
+
+
+def worker_leg(name, stream, out, conf, dev, summaries, extra=()):
+    """One leg through ``streaming.worker.main`` in this process: the
+    kernels' and the plain versions' counts set to 0 just before and
+    read just after, the metrics registry reset (per-leg counters and
+    the ``batcher.flush`` timer). Checks the leg's health (parse
+    failures, sheds, dead letters, at least one tile) and returns its
+    numbers, its tile tree and its summary."""
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.streaming import worker
+    from reporter_tpu_torch.utils import faults, metrics, spool
+    wrappers = dict(kernel_wrappers(),
+                    incremental_step=ops.incremental_steps_cuda)
+    for w in wrappers.values():
+        w.launches = 0
+    plain = {"viterbi_plain": ops.viterbi_plain,
+             "incremental_steps_plain": ops.incremental_steps_plain}
+    plain_calls = dict.fromkeys(plain, 0)
+
+    def counted(key):
+        def call(*args, **kw):
+            plain_calls[key] += 1
+            return plain[key](*args, **kw)
+        return call
+
+    for key in plain:
+        setattr(ops, key, counted(key))  # ops' dispatchers read them here
+    metrics.default.reset()
+    conf_path = out + ".json"
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    with open(stream) as f:
+        n_lines = sum(1 for _ in f)
+    t0 = time.perf_counter()
+    try:
+        rc = worker.main(["-f", WORKER_FORMAT, *WORKER_ARGS, "-o", out,
+                          "--input", stream, "--config", conf_path,
+                          "--device", str(dev), *extra])
+    finally:
+        for key, fn in plain.items():
+            setattr(ops, key, fn)
+        fired = faults.fired_counts()
+        faults.clear()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"[worker] {name}: main returned {rc}")
+    s = summaries.last()
+    snap = metrics.snapshot()
+    ctr = snap["counters"]
+    flush = snap["timers"].get("batcher.flush", {})
+    tree = tile_tree(out)
+    dead = spool.backlog(os.path.join(out, ".deadletter"))
+    check(s["processed"] == n_lines and s["parse_failures"] == 0,
+          f"[worker] {name}: {s['processed']} of {n_lines} messages "
+          f"processed, {s['parse_failures']} parse failures")
+    check(ctr.get("backpressure.shed", 0) == 0,
+          f"[worker] {name}: backpressure shed sessions")
+    check(dead["files"] == 0 and not any(
+        ctr.get(c, 0) for c in ("batch.deadletter", "batch.dropped",
+                                "egress.fail", "egress.deadletter")),
+          f"[worker] {name}: dead-lettered {dead} ({ctr})")
+    check(tree and s["tiles"] == len(tree), f"[worker] {name}: "
+          f"{len(tree)} tiles on disk, {s['tiles']} written")
+    inc = {k.split("match.incremental.")[1]: v for k, v in ctr.items()
+           if k.startswith("match.incremental.")}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    row = {"leg": name, "device": str(dev), "messages": s["processed"],
+           "reports": s["reports"], "flushes": s["flushes"],
+           "tiles": len(tree), "kept": s["kept"], "culled": s["culled"],
+           "launches": launches, "plain_calls": plain_calls,
+           "incremental": inc, "gauge": s["incremental"],
+           "faults_fired": fired,
+           "wall_s": round(wall, 3),
+           "msgs_per_s": round(s["processed"] / wall, 1),
+           "reports_per_s": round(s["reports"] / wall, 1),
+           "flush_ms": [round(flush.get("p50_s", 0.0) * 1e3, 3),
+                        round(flush.get("p99_s", 0.0) * 1e3, 3)]}
+    return row, tree, s
+
+
+def worker_leg_checks(row, card):
+    """No fallback between the card and the CPU: a card leg calls no
+    plain version, a CPU leg launches no kernel."""
+    if card:
+        check(not any(row["plain_calls"].values()),
+              f"[worker] {row['leg']}: the card leg ran a plain version "
+              f"{row['plain_calls']}")
+    else:
+        check(not any(row["launches"].values()),
+              f"[worker] {row['leg']}: the CPU leg launched {row['launches']}")
+
+
+def phase_worker(dev, big, stream_proc, stream, smi):
+    """The streaming worker (``reporter_tpu_torch.streaming.worker.main``)
+    on the card, from raw probe lines to tile files, on BIG_CITY's fleet
+    (``write_worker_stream``), in five legs:
+
+    1. incremental  the full stream, defaults: report-ready sessions
+       through ``report_incremental`` (``incremental_step`` launched); its
+       tile tree is the reference;
+    2. batch        the full stream with ``"incremental": false``: every
+       report through ``report_many`` (``viterbi_decode``, no
+       ``incremental_step``); tiles byte-equal to leg 1's;
+    3. commit-error the first WORKER_SMALL vehicles with
+       ``match.incremental.commit=error#1`` armed (and
+       ``incremental_lag`` 16, so that traces commit): the fault fires
+       and the tiles equal a fault-free card run of the same vehicles
+       (at the default lag);
+    4. resume       the same vehicles in a child process snapshotting
+       every WORKER_STATE_EVERY messages (``--state-every``) and killed
+       by ``worker.offer=crash+k#1`` (k two thirds of the messages, a
+       multiple of it): exit 137, a snapshot carrying decode frames; a new
+       worker restores it and reads the rest; tiles equal the fault-free
+       run's;
+    5. cpu          the same vehicles with ``--device cpu``: tiles equal
+       the card's.
+
+    Every leg: no parse failure, no shed, nothing dead-lettered, at least
+    one tile; a card leg calls no plain version, the CPU leg launches no
+    kernel. Prints one JSON line a leg, then the phase's seconds beside
+    ``smi`` (the card's name and power limit), and returns {kernel: {leg:
+    launches}}."""
+    import tempfile
+    import torch
+    from reporter_tpu_torch.streaming.anonymiser import Anonymiser, TileSink
+    from reporter_tpu_torch.streaming.batcher import PointBatcher
+    from reporter_tpu_torch.streaming.state import restore_bytes
+    t_phase = time.perf_counter()
+    summaries = SummaryLog()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    graph = os.path.join(tmp, "city.npz")
+    big["city"].save(graph)
+    check(stream_proc.wait() == 0, "the worker stream's writer failed")
+    log(f"[worker] stream ready {time.perf_counter() - t_phase:.1f} s "
+        f"after the phase began")
+    with open(stream) as f:
+        lines = f.readlines()
+    small_ids = {f"veh-{i}" for i in range(WORKER_SMALL)}
+    small = [ln for ln in lines if ln.split("|", 1)[0] in small_ids]
+    k = len(small) * 2 // 3 // WORKER_STATE_EVERY * WORKER_STATE_EVERY
+    paths = {}
+    for name, part in (("small", small), ("tail", small[k:])):
+        paths[name] = os.path.join(tmp, f"{name}.txt")
+        with open(paths[name], "w") as f:
+            f.writelines(part)
+    log(f"[worker] {WORKER_VEHICLES} vehicles, {len(lines)} messages; "
+        f"the first {WORKER_SMALL}: {len(small)} messages, killed after "
+        f"{k}")
+    worker_conf = {"session_gap_ms": WORKER_GAP_MS}
+
+    def conf(**service):
+        return {"graph": graph, "service": service, "worker": worker_conf}
+
+    rows, launches = [], {}
+
+    def leg(name, stream_path, c, device=dev, extra=()):
+        row, tree, s = worker_leg(name, stream_path,
+                                  os.path.join(tmp, name), c, device,
+                                  summaries, extra)
+        worker_leg_checks(row, device.type == "cuda")
+        for kname, n in row["launches"].items():
+            launches.setdefault(kname, {})[name] = n
+        rows.append(row)
+        log(f"[worker] leg {json.dumps(row)}")
+        return row, tree, s
+
+    row, ref, _s = leg("incremental", stream, conf())
+    check(row["launches"]["incremental_step"] >= 1,
+          "[worker] incremental: incremental_step never launched")
+    row, tree, _s = leg("batch", stream, conf(incremental=False))
+    check(tree == ref, "[worker] batch: tiles differ from the incremental "
+                       "leg's")
+    check(row["launches"]["incremental_step"] == 0
+          and row["launches"]["viterbi_decode"] >= 1,
+          f"[worker] batch: launches {row['launches']}")
+    _row, small_ref, _s = leg("small", paths["small"], conf())
+    # lag 16, as tools/chaos.py's commit leg: at the default 32 this
+    # stream's reports come too often for a carried trace to commit
+    row, tree, _s = leg("commit-error", paths["small"],
+                        conf(faults="match.incremental.commit=error#1",
+                             incremental_lag=16))
+    check(row["faults_fired"] == {"match.incremental.commit": 1}
+          and row["incremental"].get("errors", 0) >= 1,
+          f"[worker] commit-error: the fault did not fire "
+          f"({row['faults_fired']}, {row['incremental']})")
+    check(tree == small_ref, "[worker] commit-error: tiles differ from the "
+                             "fault-free run's")
+    # resume: a child process killed after message k, then a worker here
+    # restoring its snapshot and reading the rest of the stream
+    state = os.path.join(tmp, "resume.state")
+    out = os.path.join(tmp, "resume")
+    crash_conf = out + "-crash.json"
+    with open(crash_conf, "w") as f:
+        json.dump(conf(faults=f"worker.offer=crash+{k}#1"), f)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "reporter_tpu_torch.streaming.worker",
+         "-f", WORKER_FORMAT, *WORKER_ARGS, "-o", out, "--input",
+         paths["small"], "--config", crash_conf, "--device", str(dev),
+         "--state-file", state, "--state-every", str(WORKER_STATE_EVERY)],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    check(p.returncode == 137, f"[worker] resume: the child exited "
+                               f"{p.returncode}: {p.stderr[-2000:]}")
+    with open(state, "rb") as f:
+        frames = restore_bytes(
+            f.read(), PointBatcher(lambda t: None, lambda k_, s: None),
+            Anonymiser(TileSink(os.path.join(tmp, "scratch")), 1, 3600))
+    check(len(frames) > 0, "[worker] resume: the snapshot carries no "
+                           "decode frames")
+    row, tree, s = leg("resume", paths["tail"], conf(),
+                       extra=("--state-file", state))
+    check(s["restored"] and tree == small_ref,
+          f"[worker] resume: restored {s['restored']}; tiles differ from "
+          f"the fault-free run's")
+    row["child_s"] = round(child_s, 3)
+    row["frames"] = len(frames)
+    log(f"[worker] resume: the child exited 137 after {k} messages in "
+        f"{child_s:.1f} s, its snapshot {len(frames)} decode frames; "
+        f"restored and read the other {len(small) - k}")
+    _row, tree, _s = leg("cpu", paths["small"], conf(),
+                         device=torch.device("cpu"))
+    check(tree == small_ref, "[worker] cpu: tiles differ from the card's")
+    tmp_dir.cleanup()
+    log(f"[worker] {time.perf_counter() - t_phase:.1f} s on {smi}; every "
+        f"leg's tiles byte-equal to its reference")
+    return launches
+
+
 def step_bound_ms(N, Kc, R=1):
     """The least time of R rounds of N rows: each input read once (dist,
     valid, route, gc, case a round; the carried scores and step counts
@@ -4121,6 +4473,12 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    if not args.against:
+        # the [worker] phase's stream, written while the phases before
+        # it run
+        import tempfile
+        stream_dir = tempfile.TemporaryDirectory()
+        stream_proc, stream = start_worker_stream(stream_dir.name)
     spills = phase_build()
     if args.against:
         against = phase_against(dev, args.against)
@@ -4150,6 +4508,9 @@ def main() -> int:
     phase_prefork(served)
     phase_city(big)
     city_launches, _city_runs = phase_route_city(big, huge, past)
+    worker_launches = phase_worker(dev, big, stream_proc, stream,
+                                   smi[0] if smi else "nvidia-smi: no output")
+    stream_dir.cleanup()
     floor = launch_floor_ms(dev)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
     route_times = phase_timing_routes(dev, served, big, huge, past)
@@ -4239,6 +4600,8 @@ def main() -> int:
     for k in kernels:
         # an empty kernel's launch by CUDA graphs, as "ms" is timed
         k["launch_floor_ms"] = floor
+        # the worker phase's legs (phase_worker), each counted from 0
+        k["launches_worker"] = worker_launches[k["name"]]
     return finish(smi, {"kernels": kernels})
 
 

@@ -9,7 +9,8 @@ nothing of ``reporter_tpu`` or JAX. Its entry points run on the card
 unless they are given ``device="cpu"``.
 
 Layout (each module mirrors its ``reporter_tpu`` counterpart):
-  core/     — geodesy, OSMLR id math, tile hierarchy, columnar TraceBatch
+  core/     — geodesy, OSMLR id math, tile hierarchy, columnar TraceBatch,
+              the Point/Segment/tile value types
   graph/    — road network (.npz format shared with reporter_tpu), spatial
               index, bounded route distances
   matcher/  — HMM scoring + plain PyTorch decode, padding, assembly,
@@ -18,7 +19,10 @@ Layout (each module mirrors its ``reporter_tpu`` counterpart):
   native/   — the C++ host runtime (batched prep, assembly, wire writer)
   service/  — the /report HTTP service: report(), the micro-batching
               dispatcher, the threaded server, pre-fork workers
-  utils/    — metrics and post-fork resets
+  streaming/ — the streaming worker: raw probe lines through the batcher
+              and report_incremental to anonymised tile files
+  utils/    — metrics, post-fork resets, failpoints, breakers, spools,
+              HTTP egress
   synth.py  — synthetic grid cities and probe traces
 """
 

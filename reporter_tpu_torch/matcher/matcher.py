@@ -347,8 +347,9 @@ class SegmentMatcher:
 
     ``circuit_threshold`` and ``circuit_cooldown_s`` set every breaker of
     the matcher's failure domains (``CIRCUIT_DOMAINS``). A poisoned
-    trace's request lands in the spool's trace directory
-    (``utils.spool.set_trace_dir``).
+    trace's request lands in ``quarantine_spool`` (the streaming worker
+    points it at its own trace spool), else in the spool's trace
+    directory (``utils.spool.set_trace_dir``).
     """
 
     #: domain name -> breaker attribute; ``/health``'s ``degraded`` block
@@ -419,6 +420,9 @@ class SegmentMatcher:
         # and the drain lane gives it back once read, so a pair is made
         # (and first recorded) once per launch in flight, not per launch
         self._timing_free: collections.deque = collections.deque()
+        #: where a poisoned trace's request JSON lands (None: the spool's
+        #: registered trace directory, else log-and-drop)
+        self.quarantine_spool: Optional[str] = None
 
     @cached_property
     def grid(self) -> SpatialGrid:
@@ -1018,7 +1022,7 @@ class SegmentMatcher:
         best-effort, counted either way. The name is
         per uuid, so a replay that poisons again overwrites its entry."""
         metrics.count("matcher.assemble.quarantined")
-        root = spool.trace_dir()
+        root = self.quarantine_spool or spool.trace_dir()
         uuid = tb.uuid(i) if tb is not None else None
         if root is None or tb is None:
             logger.error("quarantined poisoned trace %s (%s) with no "

@@ -599,7 +599,11 @@ def read_config(path: str) -> dict:
     Raises on a missing graph or an unknown key (this service has no
     datastore and no city registry)."""
     with open(path) as f:
-        conf = json.load(f)
+        return parse_config(json.load(f))
+
+
+def parse_config(conf: dict) -> dict:
+    """:func:`read_config` of an already loaded config object."""
     if "graph" not in conf:
         raise ValueError('no "graph": the road network .npz to serve')
     unknown = set(conf) - {"graph", "matcher", "service"}

@@ -12,11 +12,13 @@
   and bytes, so ``/health`` shows a stalled drain as a gauge before the
   disk fills.
 
-The trace spool's root is registered process-wide (:func:`set_trace_dir`,
-the service's ``deadletter_dir`` config key): the matcher's
-poisoned-trace quarantine writes into it and ``/health`` reads its
-backlog. The port of ``reporter_tpu/utils/spool.py``; the tile spool
-(its root and writer) comes with the streaming worker.
+The spool roots are registered process-wide: the trace spool by
+:func:`set_trace_dir` (the service's ``deadletter_dir`` config key, and
+the streaming worker's ``.traces`` spool), the tile spool by
+:func:`set_tile_dir` (the worker's tile sink's dead-letter directory).
+The matcher's poisoned-trace quarantine writes into the trace spool when
+its own ``quarantine_spool`` is unset, and ``/health`` reads both
+backlogs. The port of ``reporter_tpu/utils/spool.py``.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ NESTED_SPOOLS = (".traces", ".flightrec", ".quarantine")
 BACKLOG_TTL_S = 5.0
 
 _lock = _locks.new_lock("spool")
+_tile_dir: Optional[str] = None
 _trace_dir: Optional[str] = None
 _cap_bytes = 0
 # per-root approximate spooled bytes, kept by write() and made exact by
@@ -63,6 +66,18 @@ def set_cap_mb(mb: float) -> None:
 def cap_bytes() -> int:
     """The per-spool-root byte cap (0 = unbounded)."""
     return _cap_bytes
+
+
+def set_tile_dir(path: Optional[str]) -> None:
+    """Register the tile dead-letter root (the streaming worker's)."""
+    global _tile_dir
+    with _lock:
+        _tile_dir = path
+
+
+def tile_dir() -> Optional[str]:
+    with _lock:
+        return _tile_dir
 
 
 def set_trace_dir(path: Optional[str]) -> None:
@@ -123,9 +138,9 @@ def backlog_cached(root: Optional[str],
 
 
 def backlog_snapshot() -> Dict[str, Dict[str, int]]:
-    """Backlog gauges of the spool roots: ``/health``'s ``deadletter``
-    block. No tile spool runs in the port yet, so ``tiles`` reads 0s."""
-    return {"tiles": backlog_cached(None),
+    """Backlog gauges of the registered spool roots: ``/health``'s
+    ``deadletter`` block."""
+    return {"tiles": backlog_cached(tile_dir()),
             "traces": backlog_cached(trace_dir())}
 
 
@@ -194,4 +209,5 @@ _forksafe.register(_fork_reset)
 
 __all__ = ["write", "enforce_cap", "backlog", "backlog_cached",
            "backlog_snapshot", "cap_bytes", "set_cap_mb", "walk_files",
-           "set_trace_dir", "trace_dir", "NESTED_SPOOLS"]
+           "set_tile_dir", "tile_dir", "set_trace_dir", "trace_dir",
+           "NESTED_SPOOLS"]

@@ -475,3 +475,100 @@ def test_fork_resets_in_a_worker(tmp_path):
                     "fired": {"s": 0}, "estimates": 0}
     assert admission.current_level() == 2
     assert faults.fired_counts() == {"s": 1}
+
+
+# -- streaming backpressure (the worker's governor) ------------------------------
+def governor_pair(monkeypatch, **kw):
+    """The JAX package's governor and the port's, configured alike (the
+    JAX side's switch through its environment)."""
+    from reporter_tpu.streaming.backpressure import \
+        BackpressureGovernor as JaxGovernor
+    from reporter_tpu_torch.streaming.backpressure import BackpressureGovernor
+    enabled = kw.pop("enabled", True)
+    monkeypatch.setenv("REPORTER_TPU_BACKPRESSURE", "1" if enabled else "0")
+    return JaxGovernor(**kw), BackpressureGovernor(enabled=enabled, **kw)
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_governor_thresholds_and_bounds(monkeypatch, enabled):
+    """The same flush outcomes and sensor readings through both
+    governors: the same offer delays, shed verdicts and snapshots; off,
+    neither delays nor sheds."""
+    from reporter_tpu_torch.streaming.backpressure import SHED_FACTOR
+    ref, gov = governor_pair(monkeypatch, latency_high_s=0.1, depth_high=4,
+                             max_delay_s=0.05, enabled=enabled)
+    seen = []
+    for step in ("calm", "flush", "2x", "shed", "depth"):
+        for g in (ref, gov):
+            if step == "flush":
+                g.note_flush(10, 0.5, 0, 0)       # 50 ms a trace: calm
+            elif step == "2x":
+                g.ewma_s = 0.2
+            elif step == "shed":
+                g.ewma_s = 0.1 * SHED_FACTOR
+            elif step == "depth":
+                g.ewma_s = None
+                g.note_flush(1, 0.0, 1, 20)       # depth 5x threshold
+        snap = [g.snapshot() for g in (ref, gov)]
+        assert snap[0] == snap[1]
+        assert ref.offer_delay() == gov.offer_delay()
+        assert ref.should_shed() == gov.should_shed()
+        seen.append((gov.offer_delay(), gov.should_shed()))
+    if enabled:
+        assert seen[0] == seen[1] == (0.0, False)
+        assert 0.0 < seen[2][0] <= 0.05 and not seen[2][1]
+        assert seen[3] == seen[4] == (0.05, True)
+    else:
+        assert set(seen) == {(0.0, False)}
+
+
+def test_batcher_sheds_report_ready_sessions(tmp_path, monkeypatch):
+    """Past the shed threshold a report-ready session dead-letters its
+    trace JSON instead of queueing, in both packages alike."""
+    from reporter_tpu.core.types import Point as JaxPoint
+    from reporter_tpu.streaming.batcher import PointBatcher as JaxBatcher
+    from reporter_tpu_torch.core.types import Point
+    from reporter_tpu_torch.streaming.batcher import PointBatcher
+    ref_gov, gov = governor_pair(monkeypatch, latency_high_s=0.001,
+                                 depth_high=1)
+    got = []
+    for name, P, cls, g, reg in (
+            ("jax", JaxPoint, JaxBatcher, ref_gov, jax_metrics.default),
+            ("port", Point, PointBatcher, gov, metrics)):
+        g.ewma_s = 1.0  # pinned severe pressure
+        assert g.should_shed()
+        spool = str(tmp_path / name / ".traces")
+        batcher = cls(lambda body: None, lambda k, s: None,
+                      deadletter_dir=spool, governor=g)
+        before = reg.counter("backpressure.shed")
+        t0 = 1700000000
+        for i in range(12):
+            batcher.process("veh-1", P(lat=0.001 * i, lon=0.0,
+                                       time=t0 + 30 * i, accuracy=5),
+                            (t0 + 30 * i) * 1000)
+        (name_,) = os.listdir(spool)
+        with open(os.path.join(spool, name_)) as f:
+            body = f.read()
+        got.append((reg.counter("backpressure.shed") - before,
+                    len(batcher.pending),
+                    len(batcher.store["veh-1"].points),
+                    name_.split(".", 1)[1], body))
+    assert got[0] == got[1]
+    shed, pending, left, suffix, body = got[1]
+    assert (shed, pending, suffix) == (1, 0, "veh-1.json") and left < 10
+    assert json.loads(body)["uuid"] == "veh-1"
+    assert len(json.loads(body)["trace"]) >= 10
+
+
+def test_requeue_depth_tracked():
+    from reporter_tpu_torch.core.types import Point
+    from reporter_tpu_torch.streaming.batcher import Batch, PointBatcher
+    batcher = PointBatcher(lambda body: None, lambda k, s: None,
+                           retry_budget=2)
+    b = Batch(Point(lat=0.0, lon=0.0, time=1, accuracy=5))
+    batcher.store["veh-2"] = b
+    batcher._submit_failed("veh-2", b)
+    assert len(batcher._retrying) == 1 and b.retries == 1
+    assert batcher.governor.requeue_depth == 0  # fed at flush time
+    batcher._flush_due([])
+    assert batcher.governor.flushes == 0

@@ -628,8 +628,18 @@ def test_backlog_snapshot_reads_the_registered_roots(tmp_path):
         assert spool.backlog_snapshot() == {
             "tiles": {"files": 0, "bytes": 0},
             "traces": {"files": 1, "bytes": 2}}
+        # the streaming worker's tile spool (its nested trace spool and
+        # flight-recorder dumps are not tiles)
+        root = str(tmp_path / "tiles")
+        spool.write(root, "1_2/0/3/t.e00000000", "x" * 5)
+        spool.write(root, ".traces/trace-1.u.json", "{}")
+        spool.set_tile_dir(root)
+        assert spool.tile_dir() == root
+        assert spool.backlog_snapshot()["tiles"] == {"files": 1,
+                                                     "bytes": 5}
     finally:
         spool.set_trace_dir(None)
+        spool.set_tile_dir(None)
 
 
 # -- fsio ----------------------------------------------------------------------
@@ -692,4 +702,385 @@ def test_health_shows_the_armed_spec(cities):
         assert body["faults"] == "native.prep=error#1"
         assert body["status"] == "ok"
     finally:
+        port.dispatcher.close()
+
+
+# -- the streaming worker's failure domains --------------------------------------
+@pytest.fixture
+def worker_globals():
+    """The worker registers process-wide spool roots and a flight-recorder
+    directory; each test leaves them as it found them."""
+    from reporter_tpu_torch.obs import flightrec
+    yield
+    spool.set_tile_dir(None)
+    spool.set_trace_dir(None)
+    flightrec.set_dump_dir(None)
+
+
+def stream_parts(root, both=False):
+    """A batcher and an anonymiser over a file sink under ``root`` (the
+    JAX package's too with ``both``)."""
+    from reporter_tpu_torch.streaming.anonymiser import Anonymiser, TileSink
+    from reporter_tpu_torch.streaming.batcher import PointBatcher
+    out = [(PointBatcher(lambda t: None, lambda k, s: None),
+            Anonymiser(TileSink(str(root / "t")), privacy=1,
+                       quantisation=3600))]
+    if both:
+        from reporter_tpu.streaming.anonymiser import Anonymiser as JA
+        from reporter_tpu.streaming.anonymiser import TileSink as JS
+        from reporter_tpu.streaming.batcher import PointBatcher as JB
+        out.append((JB(lambda t: None, lambda k, s: None),
+                    JA(JS(str(root / "jt")), privacy=1, quantisation=3600)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["error", "partial"])
+def test_state_save_failpoint_as_the_jax_package(tmp_path, kind):
+    """``state.save``: an error before the write leaves no snapshot; a
+    partial after it leaves the snapshot written and the caller told it
+    failed. Both packages alike."""
+    from reporter_tpu.streaming.state import StateStore as JaxStore
+    from reporter_tpu_torch.streaming.state import StateStore
+    (b, a), (jb, ja) = stream_parts(tmp_path, both=True)
+    got = []
+    for store, args, err in (
+            (StateStore(str(tmp_path / "s.bin")), (b, a), faults.FaultError),
+            (JaxStore(str(tmp_path / "j.bin")), (jb, ja),
+             jax_faults.FaultError)):
+        arm(f"state.save={kind}")
+        with pytest.raises(err):
+            store.save(*args)
+        got.append(os.path.exists(store.path))
+        faults.clear()
+        jax_faults.clear()
+        store.save(*args)
+        assert os.path.exists(store.path)
+    assert got == [kind == "partial"] * 2
+
+
+def test_worker_post_egress_failpoint(tmp_path, worker_globals):
+    """``worker.post_egress`` sits after the sink ack and before the
+    epoch marker: a fault there leaves the epoch uncommitted, so a
+    restore re-emits it under the same deterministic names."""
+    from reporter_tpu_torch.streaming.anonymiser import Anonymiser, TileSink
+    from reporter_tpu_torch.streaming.formatter import Formatter
+    from reporter_tpu_torch.streaming.state import StateStore
+    from reporter_tpu_torch.streaming.worker import StreamWorker
+    from reporter_tpu_torch.core.types import Segment
+    state = StateStore(str(tmp_path / "s.bin"), interval_s=0.0)
+    w = StreamWorker(
+        Formatter.from_config(r",sv,\|,0,1,2,3,4"), lambda t: None,
+        Anonymiser(TileSink(str(tmp_path / "t")), privacy=1,
+                   quantisation=3600),
+        flush_interval_s=1e9, state=state)
+    w.anonymiser.process("k", Segment(1 << 25, 2 << 25, 1500000000,
+                                      1500000030, 500, 0))
+    faults.configure("worker.post_egress=error")
+    with pytest.raises(faults.FaultError):
+        w._flush_tiles()
+    faults.clear()
+    assert state.committed_epoch() == -1
+    assert w.anonymiser.tiles_written == 1
+
+
+def test_egress_partial_spools_despite_committed_write(tmp_path):
+    """``egress.http=partial``: the tile reaches the file sink, yet the
+    caller sees failure and spools it, in both packages."""
+    from reporter_tpu.streaming.anonymiser import TileSink as JaxSink
+    from reporter_tpu_torch.streaming.anonymiser import TileSink
+    reset_counters()
+    for name, cls in (("port", TileSink), ("jax", JaxSink)):
+        arm("egress.http=partial")
+        sink = cls(str(tmp_path / name))
+        assert sink.store("1_2/0/1", "f", "payload") is False
+        assert (tmp_path / name / "1_2" / "0" / "1" / "f").exists()
+        assert (tmp_path / name / ".deadletter" / "1_2" / "0" / "1"
+                / "f").read_text() == "payload"
+    for registry in (metrics, jax_metrics.default):
+        assert (registry.counter("egress.fail"),
+                registry.counter("egress.deadletter")) == (1, 1)
+
+
+def kill_lines(n=4):
+    """``n`` vehicles' probe lines on an 8x8 city, and the city."""
+    city = build_grid_city(rows=8, cols=8, spacing_m=200.0, seed=3)
+    rng = np.random.default_rng(13)
+    rows = []
+    for i in range(n):
+        tr = None
+        while tr is None:
+            tr = generate_trace(city, f"veh-{i}", rng, noise_m=3.0,
+                                sample_period_s=5.0, min_route_edges=8,
+                                start_time=1_500_000_000 + 11 * i)
+        rows += [(p["time"], tr.uuid, p) for p in tr.points]
+    rows.sort(key=lambda r: (r[0], r[1]))
+    return city, [f"{u}|{p['lat']}|{p['lon']}|{p['time']}|{p['accuracy']}"
+                  for _t, u, p in rows]
+
+
+@pytest.mark.parametrize("snapshots", [("--state-interval", "0"),
+                                       ("--state-every", "64")])
+def test_worker_offer_crash_restores_to_the_same_tiles(tmp_path,
+                                                       worker_globals,
+                                                       snapshots):
+    """``worker.offer=crash+k#1`` kills a worker process at its (k+1)th
+    message (exit 137) with a postmortem naming the in-flight
+    ``worker.offer`` span; a new worker restores the snapshot (taken
+    after every message, or after every 64th with k a multiple of 64;
+    the carried decode frames in it) and reads the rest: the tiles of an
+    unbroken run, byte for byte."""
+    import subprocess
+    import sys
+    from reporter_tpu_torch.streaming import worker
+    city, lines = kill_lines()
+    graph = str(tmp_path / "city.npz")
+    city.save(graph)
+    k = len(lines) * 2 // 3
+    if snapshots[0] == "--state-every":
+        k -= k % int(snapshots[1])
+    for name, part in (("full", lines), ("tail", lines[k:])):
+        (tmp_path / f"{name}.txt").write_text("\n".join(part) + "\n")
+
+    def args(inp, out, *extra):
+        return ["-f", r",sv,\|,0,1,2,3,4", "--graph", graph, "-p", "1",
+                "-q", "3600", "-i", "1000000000", "-s", "c", "-o", out,
+                "--input", str(tmp_path / inp), "-r", "0,1,2",
+                "-x", "0,1,2", "--report-flush-interval", "0",
+                "--device", "cpu", *extra]
+
+    ref = str(tmp_path / "ref")
+    assert worker.main(args("full.txt", ref)) == 0
+    conf = tmp_path / "crash.json"
+    conf.write_text(json.dumps({"graph": graph, "service": {
+        "trace": True, "faults": f"worker.offer=crash+{k}#1"}}))
+    out, state = str(tmp_path / "chaos"), str(tmp_path / "state.bin")
+    p = subprocess.run(
+        [sys.executable, "-m", "reporter_tpu_torch.streaming.worker",
+         *args("full.txt", out, "--config", str(conf), "--state-file",
+               state, *snapshots)],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert p.returncode == faults.CRASH_EXIT_CODE, p.stderr[-2000:]
+    rec = os.path.join(out, ".deadletter", ".flightrec")
+    (dump,) = os.listdir(rec)
+    post = json.load(open(os.path.join(rec, dump)))
+    assert post["reason"] == "crash.worker.offer"
+    assert "worker.offer" in [s["name"] for s in post["in_flight"]]
+    from reporter_tpu_torch.streaming.anonymiser import Anonymiser, TileSink
+    from reporter_tpu_torch.streaming.batcher import PointBatcher
+    from reporter_tpu_torch.streaming.state import restore_bytes
+    frames = restore_bytes(open(state, "rb").read(),
+                           PointBatcher(lambda t: None, lambda k, s: None),
+                           Anonymiser(TileSink(str(tmp_path / "x")), 1,
+                                      3600))
+    assert frames, "the snapshot carries no decode frames"
+    assert worker.main(args("tail.txt", out, "--state-file", state)) == 0
+
+    def tiles(root):
+        return {os.path.relpath(os.path.join(r, f), root):
+                open(os.path.join(r, f), "rb").read()
+                for r, dirs, fs in os.walk(root) for f in fs
+                if ".deadletter" not in r}
+    assert tiles(out) == tiles(ref) and tiles(ref)
+
+
+class TestDrainer:
+    """The dead-letter replayer (``streaming/drainer.py``) against the
+    JAX package's: the same entries replayed, backed off, quarantined,
+    the same counters."""
+
+    def _response(self):
+        return {"datastore": {"reports": [
+            {"id": 1 << 25, "next_id": 2 << 25, "t0": 1500000000,
+             "t1": 1500000030, "length": 500, "queue_length": 0}]},
+            "segment_matcher": {"segments": []}}
+
+    def _seed_trace(self, root):
+        os.makedirs(os.path.join(root, ".traces"), exist_ok=True)
+        with open(os.path.join(root, ".traces", "trace-1.u.json"),
+                  "w", encoding="utf-8") as f:
+            json.dump({"uuid": "u", "trace": [
+                {"lat": 14.6, "lon": 120.98, "time": 1500000000},
+                {"lat": 14.601, "lon": 120.981, "time": 1500000030}],
+                "match_options": {"mode": "auto", "report_levels": [0],
+                                  "transition_levels": [0]}}, f)
+
+    def _both(self, tmp_path, run):
+        """``run(DeadLetterDrainer, root, registry)`` in each package;
+        returns the port's outcome, equal to the JAX package's."""
+        from reporter_tpu.streaming.drainer import \
+            DeadLetterDrainer as JaxDrainer
+        from reporter_tpu_torch.streaming.drainer import DeadLetterDrainer
+        reset_counters()
+        got = run(DeadLetterDrainer, str(tmp_path / "port"), metrics)
+        want = run(JaxDrainer, str(tmp_path / "jax"), jax_metrics.default)
+        assert got == want
+        return got
+
+    def test_trace_replay_forwards_and_deletes(self, tmp_path):
+        def run(cls, root, reg):
+            self._seed_trace(root)
+            fwd = []
+            d = cls(root, submit=lambda body: self._response(),
+                    forward=lambda key, seg: fwd.append((key,
+                                                         seg.to_bytes())))
+            return (d.drain_now(), d.backlog(), fwd,
+                    reg.counter("replay.traces.ok"))
+        n, backlog, fwd, ok = self._both(tmp_path, run)
+        assert (n, backlog, len(fwd), ok) == (1, {"tiles": 0, "traces": 0},
+                                              1, 1)
+
+    def test_backoff_then_quarantine(self, tmp_path):
+        def run(cls, root, reg):
+            self._seed_trace(root)
+            now = [0.0]
+            d = cls(root, submit=lambda body: None, interval_s=10.0,
+                    max_attempts=3, base_backoff_s=5.0, backoff_jitter=0.0,
+                    clock=lambda: now[0])
+            seen = []
+            for t in (0.0, 2.0, 10.0, 20.0):
+                now[0] = t
+                d.maybe_drain()
+                seen.append((reg.counter("replay.traces.fail"),
+                             reg.counter("replay.quarantined")))
+            return seen, d.backlog(), os.listdir(
+                os.path.join(root, ".traces", ".quarantine"))
+        seen, backlog, quarantined = self._both(tmp_path, run)
+        assert seen == [(1, 0), (1, 0), (2, 0), (3, 1)]
+        assert backlog["traces"] == 0 and quarantined == ["trace-1.u.json"]
+
+    def test_poison_replay_loop_terminates_and_quarantines(self, tmp_path):
+        def run(cls, root, reg):
+            self._seed_trace(root)
+            tdir = os.path.join(root, ".traces")
+
+            def poisoned_submit(body):
+                with open(os.path.join(tdir, "poison.u.json"), "w",
+                          encoding="utf-8") as f:
+                    json.dump(body, f)
+                reg.count("matcher.assemble.quarantined")
+                return self._response()
+
+            d = cls(root, submit=poisoned_submit, max_attempts=3)
+            first = (d.drain_now(), d.backlog()["traces"])
+            for _ in range(10):
+                d._pass(d.clock(), ignore_backoff=True)
+            return first, d.backlog()["traces"], sorted(
+                os.listdir(os.path.join(tdir, ".quarantine")))
+        assert self._both(tmp_path, run) == (
+            (0, 2), 0, ["poison.u.json", "trace-1.u.json"])
+
+    def test_budget_key_survives_dotted_uuids(self, tmp_path):
+        def run(cls, root, reg):
+            d = cls(root)
+            troot = d.trace_root
+            return [os.path.relpath(d._budget_key(
+                troot, os.path.join(troot, name)), root)
+                    if not d._budget_key(troot, os.path.join(
+                        troot, name)).startswith("uuid:")
+                    else d._budget_key(troot, os.path.join(troot, name))
+                    for name in ("trace-1-000001.fleet7.bus12.json",
+                                 "trace-1-000002.fleet9.bus12.json",
+                                 "poison.fleet7.bus12.json", "weird")]
+        a, b, c, weird = self._both(tmp_path, run)
+        assert a != b and a == c and weird == os.path.join(".traces",
+                                                           "weird")
+
+    def test_paced_pass_bounded_by_max_per_pass(self, tmp_path,
+                                                monkeypatch):
+        def run(cls, root, reg):
+            os.makedirs(os.path.join(root, ".traces"))
+            for i in range(5):
+                with open(os.path.join(root, ".traces", f"t{i}.u{i}.json"),
+                          "w", encoding="utf-8") as f:
+                    json.dump({"uuid": f"u{i}"}, f)
+            monkeypatch.setattr(cls, "MAX_PER_PASS", 2)
+            cls(root, submit=lambda body: None, interval_s=0.0
+                ).maybe_drain()
+            return reg.counter("replay.traces.fail")
+        assert self._both(tmp_path, run) == 2
+
+    def test_externally_removed_entry_drops_attempt_state(self, tmp_path):
+        def run(cls, root, reg):
+            self._seed_trace(root)
+            d = cls(root, submit=lambda body: None, max_attempts=10)
+            d._pass(0.0, ignore_backoff=True)
+            before = (len(d._attempts), len(d._due))
+            os.unlink(os.path.join(root, ".traces", "trace-1.u.json"))
+            d._pass(100.0, ignore_backoff=True)
+            return before, d._attempts, d._due
+        assert self._both(tmp_path, run) == ((1, 1), {}, {})
+
+    def test_tile_replay_reaches_the_sink(self, tmp_path):
+        from reporter_tpu_torch.core.types import Segment
+        from reporter_tpu_torch.streaming.anonymiser import TileSink
+        from reporter_tpu_torch.streaming.drainer import DeadLetterDrainer
+        reset_counters()
+        root = str(tmp_path / "dl")
+        seg = Segment(1 << 25, 2 << 25, 1500000000, 1500000030, 500, 0)
+        payload = "\n".join([Segment.column_layout(),
+                             seg.csv_row("AUTO", "t")])
+        tile_rel = "1500000000_1500003599/0/100"
+        os.makedirs(os.path.join(root, tile_rel))
+        with open(os.path.join(root, tile_rel, "t.e00000003"), "w") as f:
+            f.write(payload)
+        out = str(tmp_path / "out")
+        d = DeadLetterDrainer(root, sink=TileSink(out))
+        assert d.drain_now() == 1
+        assert open(os.path.join(out, tile_rel, "t.e00000003")).read() \
+            == payload
+        assert d.backlog()["tiles"] == 0
+        assert metrics.counter("replay.tiles.ok") == 1
+
+    def test_worker_drains_its_spools_at_the_replay_interval(
+            self, tmp_path, worker_globals):
+        """``replay_interval_s`` arms the worker's drainer: a spooled
+        trace replays through the live submit path into the tiles."""
+        from reporter_tpu_torch.streaming.anonymiser import (Anonymiser,
+                                                             TileSink)
+        from reporter_tpu_torch.streaming.formatter import Formatter
+        from reporter_tpu_torch.streaming.worker import StreamWorker
+        out = str(tmp_path / "out")
+        sink = TileSink(out)
+        self._seed_trace(sink.deadletter)
+        w = StreamWorker(Formatter.from_config(r",sv,\|,0,1,2,3,4"),
+                         lambda body: self._response(),
+                         Anonymiser(sink, privacy=1, quantisation=3600),
+                         flush_interval_s=1e9, replay_interval_s=0.001,
+                         replay_attempts=2)
+        assert w.drainer.max_attempts == 2
+        assert StreamWorker(Formatter.from_config(r",sv,\|,0,1,2,3,4"),
+                            lambda body: None,
+                            Anonymiser(TileSink(str(tmp_path / "o2")), 1,
+                                       3600)).drainer is None
+        w.run([])
+        assert w.drainer.backlog() == {"tiles": 0, "traces": 0}
+        assert w.anonymiser.tiles_written == 1
+
+
+def test_health_reads_the_worker_spools_as_the_jax_package(
+        cities, tmp_path, worker_globals):
+    """A tile and a trace in each package's registered worker spools:
+    ``/health``'s ``deadletter`` block counts them alike (the nested
+    trace spool is not a tile)."""
+    from reporter_tpu.utils import spool as jax_spool_mod
+    ref_city, city = cities
+    ref = JaxService(JaxMatcher(net=ref_city), threshold_sec=15, max_batch=8)
+    port = ReporterService(SegmentMatcher(city, device="cpu"), max_batch=8)
+    try:
+        got = []
+        for mod, svc, name in ((spool, port, "port"),
+                               (jax_spool_mod, ref, "jax")):
+            root = str(tmp_path / name)
+            mod.write(root, "1_2/0/3/t.e00000000", "x" * 7)
+            mod.write(root, ".traces/trace-1-000001.u.json", "{}")
+            mod.set_tile_dir(root)
+            mod.set_trace_dir(os.path.join(root, ".traces"))
+            got.append(json.loads(svc.health()[1])["deadletter"])
+        assert got[0] == got[1] == {"tiles": {"files": 1, "bytes": 7},
+                                    "traces": {"files": 1, "bytes": 2}}
+    finally:
+        jax_spool_mod.set_tile_dir(None)
+        jax_spool_mod.set_trace_dir(None)
+        ref.dispatcher.close()
         port.dispatcher.close()

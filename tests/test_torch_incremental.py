@@ -795,3 +795,101 @@ def test_report_incremental_answers_each_slot_as_report_many(cities):
     finally:
         service.dispatcher.close()
         plain.dispatcher.close()
+
+
+# -- with the streaming worker's batcher and state -----------------------------
+def test_session_gap_eviction_drops_carried_state(cities, monkeypatch):
+    """The batcher's session-gap eviction (punctuate) rides the on_evict
+    hook in both packages: the uuid's carried decode state dies with the
+    session, after its final relaxed-threshold report."""
+    from reporter_tpu.core.types import Point as JaxPoint
+    from reporter_tpu.streaming.batcher import PointBatcher as JaxBatcher
+    from reporter_tpu_torch.core.types import Point
+    from reporter_tpu_torch.streaming.batcher import PointBatcher
+    _ref_city, city = cities
+    jm, m = pair(cities, monkeypatch)
+    pts = make_trace(city, 31)
+    for matcher, P, cls in ((jm, JaxPoint, JaxBatcher),
+                            (m, Point, PointBatcher)):
+        assert matcher.match_incremental(
+            [{"uuid": "veh", "trace": pts}])[0] is not None
+        assert matcher.incremental_table.gauge()["traces"] == 1
+        evicted = []
+
+        def on_evict(uuid, _m=matcher):
+            _m.incremental_table.evict(uuid, "session gap")
+            evicted.append(uuid)
+
+        pb = cls(lambda t: None, lambda k, s: None, on_evict=on_evict)
+        pb.process("veh", P(14.6, 121.0, 10, 0), stream_time_ms=0)
+        pb.punctuate(stream_time_ms=200_000)  # past the 60 s gap
+        assert evicted == ["veh"]
+    assert_same_tables(jm, m)
+    assert m.incremental_table.gauge()["traces"] == 0
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_state_snapshot_v3_carries_frames(cities, monkeypatch, tmp_path,
+                                          writer):
+    """StateStore.save tees the carried state into the v3 snapshot and
+    restore hands it back through the provider, across the packages:
+    a snapshot either one saved restores its frames in the other, and
+    both resume the stream byte-equal."""
+    from reporter_tpu.streaming import anonymiser as jax_anon
+    from reporter_tpu.streaming import batcher as jax_batcher
+    from reporter_tpu.streaming import state as jax_state
+    from reporter_tpu_torch.streaming import anonymiser, batcher, state
+    _ref_city, city = cities
+    jm, m = pair(cities, monkeypatch)
+    pts = make_trace(city, 71)
+    mid = max(9, (len(pts) // 2) // 3 * 3)
+    assert stream(jm, m, pts[:mid], "snap")[0] > 0
+    packages = {"jax": (jm, jax_anon, jax_batcher, jax_state),
+                "port": (m, anonymiser, batcher, state)}
+    src_m, src_anon, src_batcher, src_state = packages[writer]
+    path = str(tmp_path / "state.bin")
+    src_state.StateStore(path, incremental=lambda: src_m.incremental_table
+                         ).save(src_batcher.PointBatcher(lambda t: None,
+                                                         lambda k, s: None),
+                                src_anon.Anonymiser(src_anon.TileSink(
+                                    str(tmp_path / "t")), 2, 60))
+    jm2, m2 = pair(cities, monkeypatch)
+    for matcher, name in ((jm2, "jax"), (m2, "port")):
+        _m, anon, bat, st = packages[name]
+        pb = bat.PointBatcher(lambda t: None, lambda k, s: None)
+        assert st.StateStore(path, incremental=lambda _x=matcher:
+                             _x.incremental_table).restore(
+            pb, anon.Anonymiser(anon.TileSink(str(tmp_path / "t")), 2, 60))
+        assert matcher.incremental_table.gauge()["traces"] == 1
+    assert stream(jm2, m2, pts, "snap", start=mid, step=3)[0] > 0
+    assert m2.incremental_table.resets == jm2.incremental_table.resets == 0
+    assert_same_tables(jm2, m2)
+
+
+def test_v2_snapshot_still_restores(tmp_path):
+    """A pre-incremental (v2) snapshot restores batches and slices in
+    both packages: the missing section is an empty cache, not
+    corruption."""
+    import struct
+    from reporter_tpu.streaming import anonymiser as jax_anon
+    from reporter_tpu.streaming import batcher as jax_batcher
+    from reporter_tpu.streaming import state as jax_state
+    from reporter_tpu_torch.core.types import Point
+    from reporter_tpu_torch.streaming import anonymiser, batcher, state
+    pb = batcher.PointBatcher(lambda t: None, lambda k, s: None)
+    pb.process("veh", Point(14.6, 121.0, 10, 0), stream_time_ms=0)
+    anon = anonymiser.Anonymiser(anonymiser.TileSink(str(tmp_path / "t")),
+                                 2, 60)
+    raw = bytearray(state.snapshot_bytes(pb, anon))
+    # the header's version rewritten to 2, the (empty) incremental
+    # section's count dropped
+    struct.pack_into("<I", raw, 4, 2)
+    path = tmp_path / "state.bin"
+    path.write_bytes(bytes(raw[:-4]))
+    for anon_mod, bat_mod, st_mod in ((anonymiser, batcher, state),
+                                      (jax_anon, jax_batcher, jax_state)):
+        pb2 = bat_mod.PointBatcher(lambda t: None, lambda k, s: None)
+        assert st_mod.StateStore(str(path)).restore(
+            pb2, anon_mod.Anonymiser(anon_mod.TileSink(str(tmp_path / "t")),
+                                     2, 60))
+        assert list(pb2.store) == ["veh"]

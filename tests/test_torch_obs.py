@@ -675,3 +675,81 @@ def test_prefork_slot_dumps_into_its_own_directory(tmp_path):
     finally:
         configure_obs({"flightrec_dir": None})
     assert prefork._flightrec_dumps(3, 41) == []
+
+
+# -- the streaming worker's heartbeat ----------------------------------------
+def reset_worker_globals():
+    """A worker registers its spool roots and flight-recorder directory
+    process-wide (both packages'); unregister them."""
+    from reporter_tpu.utils import spool as jax_spool
+    from reporter_tpu_torch.utils import spool
+    for mod in (spool, jax_spool):
+        mod.set_tile_dir(None)
+        mod.set_trace_dir(None)
+    flightrec.set_dump_dir(None)
+    jax_flightrec.set_dump_dir(None)
+
+
+def heartbeat_lines(caplog, name):
+    return [json.loads(rec.message[len("heartbeat "):])
+            for rec in caplog.records
+            if rec.name == name and rec.message.startswith("heartbeat ")]
+
+
+def test_heartbeat_line_is_json_with_the_jax_packages_keys(tmp_path,
+                                                           monkeypatch,
+                                                           caplog):
+    """One message through each package's worker with a heartbeat due:
+    one JSON line, the same keys in the same order and the same values
+    (the throughput aside); the port's interval is an argument, the JAX
+    package's an environment knob."""
+    import logging
+    from reporter_tpu.streaming import anonymiser as jax_anon
+    from reporter_tpu.streaming import formatter as jax_formatter
+    from reporter_tpu.streaming import worker as jax_worker
+    from reporter_tpu_torch.streaming.anonymiser import Anonymiser, TileSink
+    from reporter_tpu_torch.streaming.formatter import Formatter
+    from reporter_tpu_torch.streaming.worker import StreamWorker
+    monkeypatch.setenv("REPORTER_TPU_HEARTBEAT_S", "0.0001")
+    ref = jax_worker.StreamWorker(
+        jax_formatter.Formatter.from_config(r",sv,\|,0,1,2,3,4"),
+        lambda _t: None,
+        jax_anon.Anonymiser(jax_anon.TileSink(str(tmp_path / "j")), 1,
+                            3600), circuit_probe=lambda: "closed")
+    w = StreamWorker(Formatter.from_config(r",sv,\|,0,1,2,3,4"),
+                     lambda _t: None,
+                     Anonymiser(TileSink(str(tmp_path / "p")), 1, 3600),
+                     circuit_probe=lambda: "closed", heartbeat_s=0.0001)
+    try:
+        assert w.heartbeat_s == ref.heartbeat_s == 0.0001
+        with caplog.at_level(logging.INFO):
+            time.sleep(0.001)
+            ref.offer("hb-uuid|45.0|-122.0|1000|5")
+            w.offer("hb-uuid|45.0|-122.0|1000|5")
+        (want,) = heartbeat_lines(caplog, "reporter_tpu.streaming")
+        (got,) = heartbeat_lines(caplog, "reporter_tpu_torch.streaming")
+        assert list(got) == list(want)
+        for key in got:
+            if key not in ("msgs_per_s", "padding_waste", "compile_count",
+                           "shadow_mismatches"):
+                assert got[key] == want[key], key
+        assert got["processed"] == 1 and got["batches_in_flight"] == 1
+        assert got["flush_epoch"] == 0 and got["circuit"] == "closed"
+        assert got["msgs_per_s"] >= 0
+    finally:
+        reset_worker_globals()
+
+
+def test_heartbeat_default_off(tmp_path):
+    from reporter_tpu_torch.streaming.anonymiser import Anonymiser, TileSink
+    from reporter_tpu_torch.streaming.formatter import Formatter
+    from reporter_tpu_torch.streaming.worker import StreamWorker
+    worker = StreamWorker(
+        Formatter.from_config(r",sv,\|,0,1,2,3,4"), lambda t: None,
+        Anonymiser(TileSink(str(tmp_path / "out")), 1, 3600))
+    try:
+        assert worker.heartbeat_s == 0.0
+        worker.offer("hb-uuid|45.0|-122.0|1000|5")
+        assert worker._hb_processed == 0
+    finally:
+        reset_worker_globals()
