@@ -110,7 +110,7 @@ Phases, each fatal on failure:
             the same way; 8 traces on a 341x341 grid city (116,281 nodes,
             past a cluster's reach: relax_sweep), cold
    worker   the streaming worker (reporter_tpu_torch.streaming.worker.main)
-            in this process on the 100x100 city: 2,048 vehicles' probe
+            in this process on the 100x100 city: 1,024 vehicles' probe
             lines (written by a low-priority child process started with
             the run) to tile files, with the carried-state decode
             (report_incremental: incremental_step launched) and with
@@ -127,6 +127,31 @@ Phases, each fatal on failure:
             gauge, wall, messages/s, reports/s, the batcher.flush p50 and
             p99), then the phase's seconds beside the card's name and
             power limit
+   pipeline the batched pipeline (reporter_tpu_torch.pipeline) over a
+            day's probe archive of 1,024 vehicles on the 100x100 city
+            (written by a low-priority child process started with the
+            run: 1-4 trips a vehicle, every 16th one long session past
+            1,024 points; 16 part files in the reference's pipe layout,
+            half gzipped, both time formats, malformed and out-of-bbox
+            lines): simple_reporter.main in this process on the card
+            (--concurrency 8 --privacy 2), again with --device cpu, then
+            python -m reporter_tpu_torch pipeline --device cuda in a child
+            process; tile trees byte-equal by directory and match rows
+            equal as sorted lines across the three; viterbi_decode
+            launched once a chunk the match stage's match_many calls
+            planned, by length bucket (T=1,024 among them), no plain
+            decode on the card and no launch on the CPU; probes, windows,
+            chunked windows, match_many calls, rows, tiles, rows culled,
+            seam duplicates dropped, each stage's wall, windows/s and
+            probes/s of the match stage, and the card's busy share over
+            one match_many holding a window of the last bucket (in the
+            child: by then this process's torch.profiler sees no CUDA
+            activity)
+   accuracy python -m reporter_tpu_torch accuracy --traces 2048 on the
+            20x20 city at ci.yml's thresholds (0.99, 0.985) in a child
+            process, --device cuda and then --device cpu: both exit 0,
+            their JSON lines equal, the card's launches one a planned
+            chunk
 8. timing   the launch floor (an empty kernel with the kernels' C launch
             interface, built beside them, by CUDA graphs and back to back);
             CUDA-event times of the decode kernel from CUDA graphs (the
@@ -199,12 +224,13 @@ kernels (viterbi_decode: ``launches`` match_many's in the main phase,
 ``launches_serve`` each timed serve window's, lanes on,
 ``launches_obs`` the obs phase's parity window's,
 ``launches_stream_fallback`` the stream phase's declined slots,
-``launches_faults`` the faults phase's legs; relax and
-pair_costs: the routes phase's device lanes-on runs, cold and the first
-warm round; relax_cluster: route-city's 125x125 device runs, cold and
-the first warm round; relax_sweep: route-city's 341x341 run, one launch
-a sweep; incremental_step: the stream phase's parity leg, one launch a
-call and parameter group;
+``launches_faults`` the faults phase's legs, ``launches_pipeline`` the
+pipeline phase's card run, ``launches_accuracy`` the accuracy phase's
+card run; relax and pair_costs: the routes phase's device lanes-on runs,
+cold and the first warm round; relax_cluster: route-city's 125x125
+device runs, cold and the first warm round; relax_sweep: route-city's
+341x341 run, one launch a sweep; incremental_step: the stream phase's
+parity leg, one launch a call and parameter group;
 each kernel also its ``launches_faults``, its ``launches_worker`` (the
 worker phase's legs, each counted from 0) and the ``launch_floor_ms``),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero,
@@ -4066,7 +4092,7 @@ def phase_stream(dev, served):
 #: the [worker] phase's fleet on BIG_CITY: vehicles (one trip each, numpy
 #: seed 11), the first legs' and then the smaller legs' count, their start
 #: times spread evenly over WORKER_SPREAD_S seconds
-WORKER_VEHICLES = 2048      # cut from 4,096 (PERF.md §4)
+WORKER_VEHICLES = 1024      # cut from 4,096, then 2,048 (PERF.md §4)
 WORKER_SMALL = 512
 WORKER_SPREAD_S = 600
 WORKER_FORMAT = r",sv,\|,0,1,2,3,4"
@@ -4393,6 +4419,589 @@ def phase_worker(dev, big, stream_proc, stream, smi):
     return launches
 
 
+# -- the batched pipeline -----------------------------------------------------
+#: the [pipeline] phase's archive: a day of a fleet of PIPE_VEHICLES on
+#: BIG_CITY (numpy seed PIPE_SEED), every PIPE_LONG_EVERY-th vehicle one
+#: long session, as PIPE_FILES part files in the reference's pipe layout
+PIPE_VEHICLES = 1024        # cut from 2,048 (PERF.md §4)
+PIPE_CUT_FROM = 2048
+PIPE_SEED = 13
+PIPE_LONG_EVERY = 16
+PIPE_FILES = 16
+PIPE_DAY0 = 1_500_000_000
+PIPE_ARGS = ("--inactivity", "120", "--privacy", "2", "--concurrency", "8",
+             "--quantisation", "3600", "--source-id", "smoke",
+             "--no-cleanup")
+
+
+def write_pipeline_archive(root, n=PIPE_VEHICLES):
+    """Write the [pipeline] archive under ``root``: ``n`` vehicles on
+    BIG_CITY (numpy seed PIPE_SEED). Each makes 1-4 trips
+    (``synth.generate_trace``, 4 m noise, a probe every 5 s, 6-60 edges),
+    the first starting 0-18 h into the day, each next one 300-900 s after
+    the last ended (past the pipeline's ``--inactivity 120``). Every
+    PIPE_LONG_EVERY-th vehicle instead drives one session of 1,100-2,600
+    points, stitched from the other vehicles' trips as ``long_streams``
+    stitches (each next trip starting within SEAM_M of the last one's
+    end, or the nearest start when none does, after the jump at 10 m/s,
+    5-30 s), past the largest padding
+    bucket, so the chunker and its seam dedupe run. The probes go out as
+    lines in the reference's pipe layout (uuid in column 1, time in 0, lat
+    in 9, lon in 10, accuracy in 5), times alternating between
+    ``%Y-%m-%d %H:%M:%S`` and epoch integers, sorted by time and cut into
+    PIPE_FILES part files, every other one gzipped; one line in 5,000 is
+    followed by three malformed ones and one in 7,000 by a copy 1° to the
+    north, outside the bbox. Writes ``meta.json`` last: the probe and line
+    counts and the bbox (the city's, 0.01° wider). Runs in a child process
+    started with the smoke run (``start_pipeline_archive``)."""
+    import gzip
+    from reporter_tpu_torch.core.geo import equirectangular_m
+    from reporter_tpu_torch.synth import build_grid_city, generate_trace
+    city = build_grid_city(**BIG_CITY)
+    rng = np.random.default_rng(PIPE_SEED)
+    sessions, pool = {}, []
+    for i in range(n):
+        if i % PIPE_LONG_EVERY == 0:
+            continue
+        uuid = f"veh-{i}"
+        t = PIPE_DAY0 + int(rng.integers(0, 18 * 3600))
+        pts = []
+        for _ in range(int(rng.integers(1, 5))):
+            tr = None
+            while tr is None:
+                tr = generate_trace(city, uuid, rng, noise_m=4.0,
+                                    sample_period_s=5.0, start_time=t,
+                                    min_route_edges=6, max_route_edges=60)
+            pts.extend(tr.points)
+            pool.append(tr.points)
+            t = tr.points[-1]["time"] + int(rng.integers(300, 901))
+        sessions[uuid] = pts
+    starts = np.array([[p[0]["lat"], p[0]["lon"]] for p in pool])
+    n_long = 0
+    for i in range(0, n, PIPE_LONG_EVERY):
+        length = int(rng.integers(1100, 2601))
+        seg = pool[int(rng.integers(len(pool)))]
+        base = PIPE_DAY0 + int(rng.integers(0, 12 * 3600))
+        pts = [dict(p, time=p["time"] - seg[0]["time"] + base) for p in seg]
+        k = 0
+        while len(pts) < length:
+            end = pts[-1]
+            jump = equirectangular_m(end["lat"], end["lon"], starts[:, 0],
+                                     starts[:, 1])
+            near = np.flatnonzero(jump <= SEAM_M)
+            j = int(near[k % len(near)]) if len(near) \
+                else int(np.argmin(jump))
+            seg = pool[j]
+            t_off = end["time"] + int(min(30.0, max(5.0, jump[j] / 10.0)))
+            pts.extend(dict(p, time=p["time"] - seg[0]["time"] + t_off)
+                       for p in seg)
+            k += 1
+        sessions[f"veh-{i}"] = pts[:length]
+        n_long += 1
+    lines, n_probes, bad, outside = [], 0, 0, 0
+    for uuid, pts in sessions.items():
+        for p in pts:
+            cols = ["x"] * 11
+            cols[0] = (time.strftime("%Y-%m-%d %H:%M:%S",
+                                     time.gmtime(p["time"]))
+                       if n_probes % 2 else str(p["time"]))
+            cols[1] = uuid
+            cols[5] = str(p["accuracy"])
+            cols[9] = str(p["lat"])
+            cols[10] = str(p["lon"])
+            lines.append((p["time"], "|".join(cols)))
+            n_probes += 1
+            if n_probes % 5000 == 0:
+                lines.extend((p["time"], ln) for ln in (
+                    "garbage", "|".join(cols[:6]),
+                    "|".join(cols[:9] + ["lat?", cols[10]])))
+                bad += 3
+            if n_probes % 7000 == 0:
+                cols[9] = str(p["lat"] + 1.0)
+                lines.append((p["time"], "|".join(cols)))
+                outside += 1
+    lines.sort(key=lambda r: r[0])
+    per = -(-len(lines) // PIPE_FILES)
+    for f_i in range(PIPE_FILES):
+        part = "".join(ln + "\n" for _t, ln in
+                       lines[f_i * per:(f_i + 1) * per])
+        if f_i % 2:
+            with gzip.open(os.path.join(root, f"part-{f_i:05d}.gz"), "wt",
+                           compresslevel=1) as f:
+                f.write(part)
+        else:
+            with open(os.path.join(root, f"part-{f_i:05d}"), "w") as f:
+                f.write(part)
+    lat, lon = city.node_lat, city.node_lon
+    meta = {"vehicles": n, "long_sessions": n_long, "trips": len(pool),
+            "probes": n_probes, "lines": len(lines), "malformed": bad,
+            "outside": outside,
+            "bbox": [float(lat.min()) - 0.01, float(lon.min()) - 0.01,
+                     float(lat.max()) + 0.01, float(lon.max()) + 0.01]}
+    with open(os.path.join(root, "meta.json.tmp"), "w") as f:
+        json.dump(meta, f)
+    os.replace(os.path.join(root, "meta.json.tmp"),
+               os.path.join(root, "meta.json"))
+
+
+def start_pipeline_archive(tmp):
+    """Start ``write_pipeline_archive`` into ``tmp``/archive in a child
+    process at the lowest CPU priority; returns (the Popen, the archive's
+    directory)."""
+    import atexit
+    root = os.path.join(tmp, "archive")
+    os.makedirs(root)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import os, chip_smoke; os.nice(19); "
+         f"chip_smoke.write_pipeline_archive({root!r})"], cwd=str(ROOT))
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, root
+
+
+class DecodeLog:
+    """Counts what the decode does while it is entered: every
+    ``SegmentMatcher.match_many`` call's windows and the chunks its
+    native dispatch plans for them in each length bucket (the bucketing
+    and ``_split_bucket`` of ``_dispatch_native``, read just before the
+    call), and each ``viterbi_decode`` launch's and plain decode's T
+    (``ops.viterbi_cuda`` and ``ops.viterbi_plain`` wrapped where
+    ``ops.decode_batch`` reads them). ``trace_dir`` set, the first call
+    holding a window of the last bucket runs under
+    ``metrics.device_trace``; ``busy`` then holds (wall s, busy share,
+    kernels) of it (``device_busy``). A trace that holds no CUDA activity
+    is kept in ``trace_errors`` and the next such call traced, at most
+    TRACE_TRIES times."""
+
+    TRACE_TRIES = 4
+
+    def __init__(self, trace_dir=None):
+        self.trace_dir = trace_dir
+        self.calls = 0
+        self.windows = 0
+        self.planned = {}     # T -> chunks the dispatch planned
+        self.launched = {}    # T -> viterbi_decode launches
+        self.plain = {}       # T -> plain decodes
+        self.busy = None
+        self.trace_errors = []
+
+    def plan(self, matcher, tb):
+        from reporter_tpu_torch.matcher.batchpad import LENGTH_BUCKETS
+        check(matcher.runtime is not None, "the pipeline's matcher is not "
+                                           "native")
+        buckets = np.asarray(LENGTH_BUCKETS, dtype=np.int64)
+        raw = tb.lengths()
+        Ts = buckets[np.minimum(np.searchsorted(buckets, np.maximum(raw, 1)),
+                                len(buckets) - 1)]
+        for _params, idxs in matcher._param_groups(matcher._trace_params(tb)):
+            for T0 in np.unique(Ts[idxs]).tolist():
+                group = idxs[Ts[idxs] == T0]
+                for T, part in matcher._split_bucket(int(T0), group, raw):
+                    self.planned[T] = self.planned.get(T, 0) \
+                        + -(-len(part) // matcher.chunk)
+        return int(Ts.max()) if len(Ts) else 0
+
+    def __enter__(self):
+        from reporter_tpu_torch import ops
+        from reporter_tpu_torch.core.tracebatch import as_trace_batch
+        from reporter_tpu_torch.matcher import SegmentMatcher
+        from reporter_tpu_torch.matcher.batchpad import LENGTH_BUCKETS
+        from reporter_tpu_torch.utils import metrics
+        self._saved = (SegmentMatcher.match_many, ops.viterbi_cuda,
+                       ops.viterbi_plain)
+        match_many, cuda, plain = self._saved
+        log_ = self
+
+        def counted_match_many(matcher, traces):
+            tb = as_trace_batch(traces)
+            top = log_.plan(matcher, tb)
+            log_.calls += 1
+            log_.windows += len(tb)
+            if log_.trace_dir and log_.busy is None \
+                    and len(log_.trace_errors) < DecodeLog.TRACE_TRIES \
+                    and top == LENGTH_BUCKETS[-1] \
+                    and matcher.device.type == "cuda":
+                from torch.profiler import record_function
+                out = None
+                try:
+                    with metrics.device_trace(log_.trace_dir,
+                                              matcher.device) as dt:
+                        with record_function("pipeline.match_many"):
+                            out = match_many(matcher, tb)
+                    log_.busy = device_busy(dt, "pipeline.match_many") \
+                        + (len(tb),)
+                except RuntimeError as e:
+                    if out is None:   # the call itself failed
+                        raise
+                    # the trace came back without the card's activity:
+                    # the next such call is traced instead
+                    evs = dt.profile.events() if dt.profile else []
+                    log_.trace_errors.append(
+                        f"call {log_.calls}: {e} ({len(evs)} events, "
+                        f"{len(tb)} windows)")
+                return out
+            return match_many(matcher, tb)
+
+        def counted(fn, into):
+            def call(dist_m, *args, **kw):
+                T = int(dist_m.shape[1])
+                into[T] = into.get(T, 0) + 1
+                return fn(dist_m, *args, **kw)
+            call.launches = 0
+            return call
+
+        SegmentMatcher.match_many = counted_match_many
+        ops.viterbi_cuda = counted(cuda, self.launched)
+        ops.viterbi_plain = counted(plain, self.plain)
+        self._launches0 = cuda.launches
+        return self
+
+    def __exit__(self, *exc):
+        from reporter_tpu_torch import ops
+        from reporter_tpu_torch.matcher import SegmentMatcher
+        SegmentMatcher.match_many, ops.viterbi_cuda, ops.viterbi_plain = \
+            self._saved
+        # the wrapper's own count, against the launches seen by T
+        self.launches = ops.viterbi_cuda.launches - self._launches0
+        return False
+
+    def summary(self):
+        return {"match_many": self.calls, "windows": self.windows,
+                "planned": dict(sorted(self.planned.items())),
+                "launched": dict(sorted(self.launched.items())),
+                "plain": dict(sorted(self.plain.items())),
+                "launches": self.launches}
+
+
+def counted_cli(out_path, argv, trace_dir=None):
+    """``python -m reporter_tpu_torch *argv`` in this process (runpy, as
+    ``-m`` runs it) inside a ``DecodeLog`` (``trace_dir``: its device
+    trace's directory); writes {"rc", the log's summary, "busy",
+    "trace_errors"} to ``out_path`` and returns the exit code. The
+    [pipeline] phase's CLI child and the [accuracy] phase's children run
+    this."""
+    import runpy
+    ops_log = DecodeLog(trace_dir or None)
+    sys.argv = ["reporter_tpu_torch", *argv]
+    rc = 0
+    with ops_log:
+        try:
+            runpy.run_module("reporter_tpu_torch", run_name="__main__",
+                             alter_sys=True)
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, **ops_log.summary(), "busy": ops_log.busy,
+                   "trace_errors": ops_log.trace_errors}, f)
+    return rc
+
+
+def counted_child(out_path, argv, cwd, trace_dir="", timeout=600):
+    """``counted_cli`` in a child process started in ``cwd``: (the
+    CompletedProcess, its wall seconds, the summary it wrote)."""
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         "chip_smoke.counted_cli(sys.argv[1], sys.argv[3:], sys.argv[2]))",
+         out_path, trace_dir, *argv], cwd=cwd, capture_output=True,
+        text=True, timeout=timeout, env=dict(os.environ,
+                                             PYTHONPATH=str(ROOT)))
+    wall = time.perf_counter() - t0
+    summary = None
+    if os.path.exists(out_path):
+        with open(out_path) as f:
+            summary = json.load(f)
+    return p, wall, summary
+
+
+def check_decode_log(what, summary, card):
+    """The decode ran as the dispatch planned: on the card every planned
+    chunk launched ``viterbi_decode`` once (by T, and by the wrapper's own
+    count) and no plain decode ran; on the CPU the plain decode ran once a
+    planned chunk and nothing launched."""
+    planned = summary["planned"]
+    if card:
+        check(summary["launched"] == planned
+              and summary["launches"] == sum(planned.values())
+              and not summary["plain"],
+              f"{what}: launches {summary['launched']} "
+              f"({summary['launches']} counted), planned chunks {planned}, "
+              f"plain decodes {summary['plain']}")
+    else:
+        check(summary["plain"] == planned and not summary["launched"]
+              and summary["launches"] == 0,
+              f"{what}: plain decodes {summary['plain']}, planned chunks "
+              f"{planned}, launches {summary['launched']}")
+
+
+def pipeline_rows(root):
+    """{relative path: sorted lines} of the files under ``root``."""
+    return {rel: sorted(body.decode().splitlines())
+            for rel, body in tile_tree(root).items()}
+
+
+def tiles_by_dir(root):
+    """The report stage's tile files under ``root``, {directory: bytes}:
+    stage 3 names a file by hashing a temporary path, one a directory."""
+    out = {}
+    for rel, body in tile_tree(root).items():
+        d = os.path.dirname(rel)
+        check(d not in out, f"two tile files in {d}")
+        out[d] = body
+    return out
+
+
+class RecordLog:
+    """Keeps the records of the logger ``name`` at INFO and above."""
+
+    def __init__(self, name):
+        import logging
+        self.records = []
+        handler = logging.Handler(logging.INFO)
+        handler.emit = self.records.append
+        lg = logging.getLogger(name)
+        lg.setLevel(logging.INFO)
+        lg.addHandler(handler)
+        if not logging.getLogger().handlers:
+            # main()'s basicConfig finds a handler and leaves the root
+            # alone: only warnings reach the console
+            console = logging.StreamHandler()
+            console.setLevel(logging.WARNING)
+            logging.getLogger().addHandler(console)
+
+
+def pipeline_run(name, work, archive, meta, conf, device):
+    """``simple_reporter.main`` in this process from ``work`` (its
+    temporary directories land there): the three stages over
+    ``archive`` on ``device``, tiles to ``work``/out, inside a
+    ``DecodeLog`` with the metrics reset just before. Returns the run's
+    numbers, its tile tree by directory and its match rows."""
+    import glob
+    import logging
+    from reporter_tpu_torch.pipeline import simple_reporter
+    from reporter_tpu_torch.utils import metrics
+    os.makedirs(work)
+    logs = RecordLog("reporter_tpu_torch.pipeline")
+    metrics.default.reset()
+    cwd = os.getcwd()
+    os.chdir(work)
+    t0 = time.perf_counter()
+    try:
+        with DecodeLog() as dl:
+            rc = simple_reporter.main([
+                "--src", archive, "--match-config", conf,
+                "--bbox", ",".join(map(str, meta["bbox"])),
+                "--dest", os.path.join(work, "out"), "--device", str(device),
+                *PIPE_ARGS])
+    finally:
+        os.chdir(cwd)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"[pipeline] {name}: main returned {rc}")
+    errors = [r.getMessage() for r in logs.records
+              if r.levelno >= logging.ERROR]
+    check(not errors, f"[pipeline] {name}: logged errors {errors[:3]}")
+    (traces,) = glob.glob(os.path.join(work, "traces_*"))
+    (matches,) = glob.glob(os.path.join(work, "matches_*"))
+    probes = sum(len(b.splitlines()) for b in tile_tree(traces).values())
+    rows = pipeline_rows(matches)
+    tiles = tiles_by_dir(os.path.join(work, "out"))
+    snap = metrics.snapshot()
+    ctr, timers = snap["counters"], snap["timers"]
+    kept = sum(len(b.splitlines()) - 1 for b in tiles.values())
+    n_rows = sum(len(v) for v in rows.values())
+    stage = {k.split(".")[1]: round(v["total_s"], 3)
+             for k, v in timers.items() if k.startswith("pipeline.")}
+    summary = dl.summary()
+    row = {"run": name, "device": str(device), "probes": probes,
+           "windows": ctr.get("pipeline.windows", 0),
+           "chunked_windows": ctr.get("pipeline.chunks", 0),
+           "match_many": ctr.get("pipeline.batches", 0),
+           "seam_dropped": ctr.get("pipeline.seam_dropped", 0),
+           "rows": n_rows, "tiles": len(tiles), "kept": kept,
+           "culled": n_rows - kept, "stage_s": stage,
+           "wall_s": round(wall, 3),
+           "windows_per_s": round(ctr.get("pipeline.windows", 0)
+                                  / stage["match"], 1),
+           "probes_per_s": round(probes / stage["match"], 1),
+           "decode": summary}
+    check(summary["match_many"] == row["match_many"]
+          and summary["windows"] == row["windows"],
+          f"[pipeline] {name}: match_many saw {summary['match_many']} calls "
+          f"and {summary['windows']} windows, the stage counted "
+          f"{row['match_many']} and {row['windows']}")
+    return row, tiles, rows
+
+
+def phase_pipeline(dev, big, archive_proc, archive, smi):
+    """The batched pipeline (``reporter_tpu_torch.pipeline``) over a
+    day's archive of BIG_CITY's fleet (``write_pipeline_archive``), in
+    three runs of its three stages: ``simple_reporter.main`` in this
+    process on the card (``--concurrency 8 --privacy 2``), the same with
+    ``--device cpu``, and ``python -m reporter_tpu_torch pipeline
+    --device cuda`` in a child process (``counted_child``). The three tile trees byte-equal by
+    directory and the match rows equal as sorted lines; in the card run
+    ``viterbi_decode`` launched once a chunk the match stage's
+    ``match_many`` calls planned, by length bucket, at least once in the
+    T=1,024 bucket, no plain decode, no error logged, windows chunked;
+    the child's launches equal the card run's; the CPU run launched
+    nothing and dropped the seam duplicates the card
+    run dropped (none arise on this data: a chunk's overlap is
+    report()'s holdback plus less than one probe interval, so a seam
+    duplicate needs a segment traversed within that interval;
+    ``tests/test_torch_pipeline.py`` makes them). Prints the numbers
+    of each run and the card's busy share over one ``match_many`` holding
+    a window of the last bucket in the child, and returns the card run's
+    launches."""
+    import tempfile
+    from reporter_tpu_torch.matcher.batchpad import LENGTH_BUCKETS
+    t_phase = time.perf_counter()
+    check(archive_proc.wait() == 0, "the pipeline archive's writer failed")
+    with open(os.path.join(archive, "meta.json")) as f:
+        meta = json.load(f)
+    log(f"[pipeline] archive ready {time.perf_counter() - t_phase:.1f} s "
+        f"after the phase began: {json.dumps(meta)}; the fleet cut from "
+        f"{PIPE_CUT_FROM} vehicles to {meta['vehicles']} (the CPU run's "
+        f"plain decode kept the phase past 120 s)")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    graph = os.path.join(tmp, "city.npz")
+    big["city"].save(graph)
+    conf = os.path.join(tmp, "conf.json")
+    with open(conf, "w") as f:
+        json.dump({"graph": graph}, f)
+    runs = []
+    card, tiles, rows = pipeline_run(
+        "card", os.path.join(tmp, "card"), archive, meta, conf, dev)
+    runs.append(card)
+    check_decode_log("[pipeline] card", card["decode"], True)
+    check(card["decode"]["launched"].get(LENGTH_BUCKETS[-1], 0) >= 1,
+          f"[pipeline] card: no launch in the T={LENGTH_BUCKETS[-1]} "
+          f"bucket ({card['decode']['launched']})")
+    check(card["chunked_windows"] >= 2,
+          f"[pipeline] card: {card['chunked_windows']} chunked windows")
+    check(card["probes"] == meta["probes"],
+          f"[pipeline] card: {card['probes']} probes gathered, the archive "
+          f"holds {meta['probes']} good ones")
+    cpu, cpu_tiles, cpu_rows = pipeline_run(
+        "cpu", os.path.join(tmp, "cpu"), archive, meta, conf,
+        torch_device("cpu"))
+    runs.append(cpu)
+    check_decode_log("[pipeline] cpu", cpu["decode"], False)
+    check(cpu_rows == rows, "[pipeline] cpu: match rows differ from the "
+                            "card's")
+    check(cpu["seam_dropped"] == card["seam_dropped"]
+          and cpu["windows"] == card["windows"],
+          f"[pipeline] cpu: {cpu['seam_dropped']} seam duplicates dropped "
+          f"and {cpu['windows']} windows, the card's run "
+          f"{card['seam_dropped']} and {card['windows']}")
+    check(cpu_tiles == tiles, "[pipeline] cpu: tiles differ from the card's")
+    # the CLI in a child process, as a user runs it (python -m
+    # reporter_tpu_torch, by runpy inside a DecodeLog), with the device
+    # trace of one match_many holding a window of the last bucket: in
+    # this process torch.profiler sees no CUDA activity by now (PERF.md
+    # §7)
+    work = os.path.join(tmp, "cli")
+    os.makedirs(work)
+    p, cli_s, cli = counted_child(
+        os.path.join(tmp, "cli.json"),
+        ["pipeline", "--src", archive, "--match-config", conf, "--bbox",
+         ",".join(map(str, meta["bbox"])), "--dest",
+         os.path.join(work, "out"), "--device", "cuda", *PIPE_ARGS], work,
+        str(ROOT / "reporter_tpu_torch" / "_build" / "obs"))
+    check(p.returncode == 0 and cli and cli["rc"] == 0,
+          f"[pipeline] cli: exited {p.returncode}: {p.stderr[-2000:]}")
+    check_decode_log("[pipeline] cli", cli, True)
+    check(cli["launches"] == card["decode"]["launches"],
+          f"[pipeline] cli: {cli['launches']} launches, the card run "
+          f"{card['decode']['launches']}")
+    check(cli["busy"] is not None, f"[pipeline] cli: no device trace of a "
+                                   f"match_many holding a window of the "
+                                   f"last bucket saw the card "
+                                   f"{cli['trace_errors']}")
+    busy = cli["busy"]
+    check(" ERROR " not in p.stderr and "Batch match failed" not in p.stderr,
+          f"[pipeline] cli: logged errors: {p.stderr[-2000:]}")
+    import glob
+    (matches,) = glob.glob(os.path.join(work, "matches_*"))
+    check(pipeline_rows(matches) == rows, "[pipeline] cli: match rows "
+                                          "differ from the card run's")
+    check(tiles_by_dir(os.path.join(work, "out")) == tiles,
+          "[pipeline] cli: tiles differ from the card run's")
+    timings = [ln for ln in p.stderr.splitlines() if "Stage timings" in ln]
+    runs.append({"run": "cli", "device": "cuda", "wall_s": round(cli_s, 3),
+                 "stage_timings": timings[-1].split("Stage timings: ")[-1]
+                 if timings else None, "decode": cli["launched"],
+                 "trace_errors": cli["trace_errors"]})
+    for row in runs:
+        log(f"[pipeline] run {json.dumps(row)}")
+    wall_s, share, kern, n_win = busy
+    log(f"[pipeline] device trace, one match_many of {n_win} windows with "
+        f"one in the T={LENGTH_BUCKETS[-1]} bucket: wall {wall_s:.4f} s, "
+        f"device busy {share:.2%}, idle {1 - share:.2%} ({smi})")
+    for ms, name, n in kern[:4]:
+        log(f"[pipeline]   {ms:10.3f} ms  {n:6d} x  {name[:90]}")
+    log(f"[pipeline] {meta['probes']} probes of {meta['vehicles']} vehicles "
+        f"({meta['long_sessions']} long sessions) gathered; "
+        f"{card['windows']} windows, {card['chunked_windows']} of them "
+        f"chunked, in {card['match_many']} match_many calls; decode by "
+        f"bucket {card['decode']['launched']}; {card['rows']} rows, "
+        f"{card['tiles']} tiles, {card['culled']} rows culled by privacy, "
+        f"{card['seam_dropped']} seam duplicates dropped; stages "
+        f"{card['stage_s']} s; match stage {card['windows_per_s']} "
+        f"windows/s, {card['probes_per_s']} probes/s; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}; the three runs' "
+        f"tiles byte-equal")
+    tmp_dir.cleanup()
+    return card["decode"]["launches"]
+
+
+def torch_device(name):
+    import torch
+    return torch.device(name)
+
+
+# -- the accuracy gate ---------------------------------------------------------
+#: the accuracy gate's arguments: ci.yml's thresholds, 2,048 traces on the
+#: 20x20 city
+ACCURACY_ARGS = ("accuracy", "--traces", "2048", "--rows", "20", "--cols",
+                 "20", "--min-agreement", "0.99", "--min-point-agreement",
+                 "0.985")
+
+
+def phase_accuracy(smi):
+    """``python -m reporter_tpu_torch accuracy`` (``ACCURACY_ARGS``) in a
+    child process with ``--device cuda``, then with ``--device cpu``, each
+    inside a ``DecodeLog`` (``counted_cli``): both exit 0, their JSON
+    lines are equal, the card's run launched ``viterbi_decode`` once a
+    planned chunk and the CPU's nothing. Returns the card's launches."""
+    import tempfile
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for device in ("cuda", "cpu"):
+            p, wall, counts = counted_child(
+                os.path.join(tmp, f"{device}.json"),
+                [*ACCURACY_ARGS, "--device", device], tmp)
+            check(p.returncode == 0 and counts and counts["rc"] == 0,
+                  f"[accuracy] {device}: exited {p.returncode}: "
+                  f"{p.stderr[-2000:]}")
+            check_decode_log(f"[accuracy] {device}", counts,
+                             device == "cuda")
+            line = p.stdout.strip().splitlines()[-1]
+            out[device] = (json.loads(line), counts, wall)
+            log(f"[accuracy] {device}: {line} ({wall:.1f} s, decode "
+                f"{counts['launched'] or counts['plain']} by bucket)")
+    (res, counts, _w), (cpu_res, _c, _w2) = out["cuda"], out["cpu"]
+    check(res == cpu_res, f"[accuracy] the card's result {res} differs from "
+                          f"the CPU's {cpu_res}")
+    log(f"[accuracy] {res['traces']} traces: agreement {res['agreement']}, "
+        f"point agreement {res['point_agreement']}, boundary misses "
+        f"{res['point_misses_boundary']}, interior misses "
+        f"{res['point_misses_interior']}; viterbi_decode launches "
+        f"{counts['launches']}; card and CPU equal; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s on {smi}")
+    return counts["launches"]
+
+
 def step_bound_ms(N, Kc, R=1):
     """The least time of R rounds of N rows: each input read once (dist,
     valid, route, gc, case a round; the carried scores and step counts
@@ -4479,6 +5088,8 @@ def main() -> int:
         import tempfile
         stream_dir = tempfile.TemporaryDirectory()
         stream_proc, stream = start_worker_stream(stream_dir.name)
+        # and the [pipeline] phase's archive
+        archive_proc, archive = start_pipeline_archive(stream_dir.name)
     spills = phase_build()
     if args.against:
         against = phase_against(dev, args.against)
@@ -4510,7 +5121,12 @@ def main() -> int:
     city_launches, _city_runs = phase_route_city(big, huge, past)
     worker_launches = phase_worker(dev, big, stream_proc, stream,
                                    smi[0] if smi else "nvidia-smi: no output")
+    pipeline_launches = phase_pipeline(
+        dev, big, archive_proc, archive,
+        smi[0] if smi else "nvidia-smi: no output")
     stream_dir.cleanup()
+    accuracy_launches = phase_accuracy(
+        smi[0] if smi else "nvidia-smi: no output")
     floor = launch_floor_ms(dev)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
     route_times = phase_timing_routes(dev, served, big, huge, past)
@@ -4538,6 +5154,12 @@ def main() -> int:
         # the faults phase (phase_faults): each leg's launches, equal to
         # the chunks it dispatched (the card domains' legs: the probe's)
         "launches_faults": fault_launches["viterbi_decode"],
+        # the pipeline phase's card run (phase_pipeline): one a chunk its
+        # match stage's match_many calls planned, by length bucket
+        "launches_pipeline": pipeline_launches,
+        # the accuracy phase's card run (phase_accuracy): one match_many
+        # of 2,048 traces in a child process
+        "launches_accuracy": accuracy_launches,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,

@@ -1,0 +1,99 @@
+"""Umbrella CLI: ``python -m reporter_tpu_torch <command> [args...]``.
+
+One front door for every service and tool of the port (the analog of the
+reference's scattered entry points: reporter-kafka jar,
+reporter_service.py, simple_reporter.py, cat_to_kafka.py, get_tiles.py,
+PrintConsumer):
+
+  serve            matcher HTTP service (/report)           [reporter_service]
+  stream           streaming worker (format/batch/anonymise) [reporter-kafka]
+  pipeline         batched 3-stage historical pipeline      [simple_reporter]
+  replay           flat file/stdin -> topic/stdout producer [cat_to_kafka]
+  print-consumer   debug-print a topic                      [PrintConsumer]
+  tiles            list/download graph tiles for a bbox     [get_tiles et al]
+  synth            synthetic GPS trace generator      [generate_test_trace]
+  accuracy         matcher accuracy gate against synthetic ground truth
+
+The commands that decode (serve, stream, pipeline, accuracy) run on the
+card unless given ``--device cpu``.
+
+Still to come, with the modules they need: graph (road networks: build,
+tile, inspect) and datastore (the histogram datastore over flushed tiles).
+"""
+from __future__ import annotations
+
+import sys
+
+COMMANDS = {}
+
+
+def _cmd(name):
+    def register(loader):
+        COMMANDS[name] = loader
+        return loader
+    return register
+
+
+@_cmd("serve")
+def _serve():
+    from .service.server import main
+    return main
+
+
+@_cmd("stream")
+def _stream():
+    from .streaming.worker import main
+    return main
+
+
+@_cmd("pipeline")
+def _pipeline():
+    from .pipeline.simple_reporter import main
+    return main
+
+
+@_cmd("replay")
+def _replay():
+    from .tools.replay import main
+    return main
+
+
+@_cmd("print-consumer")
+def _print_consumer():
+    from .tools.print_consumer import main
+    return main
+
+
+@_cmd("tiles")
+def _tiles():
+    from .tools.tiles_cli import main
+    return main
+
+
+@_cmd("synth")
+def _synth():
+    from .tools.synth_cli import main
+    return main
+
+
+@_cmd("accuracy")
+def _accuracy():
+    from .tools.accuracy_cli import main
+    return main
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return 0 if argv else 2
+    name, rest = argv[0], argv[1:]
+    if name not in COMMANDS:
+        print(f"unknown command {name!r}; one of: "
+              + ", ".join(sorted(COMMANDS)), file=sys.stderr)
+        return 2
+    return COMMANDS[name]()(rest)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -602,6 +602,22 @@ def read_config(path: str) -> dict:
         return parse_config(json.load(f))
 
 
+def read_config_block(path: str, block: str, keys, graph=None):
+    """(:func:`parse_config` of the file, its ``block`` of an entry
+    point's own keys): the block is popped before the service's keys are
+    parsed, ``graph`` overrides the file's, and an unknown key in either
+    raises."""
+    with open(path) as f:
+        raw = json.load(f)
+    knobs = dict(raw.pop(block, None) or {})
+    unknown = set(knobs) - set(keys)
+    if unknown:
+        raise ValueError(f"unknown {block} keys {sorted(unknown)}")
+    if graph:
+        raw["graph"] = graph
+    return parse_config(raw), knobs
+
+
 def parse_config(conf: dict) -> dict:
     """:func:`read_config` of an already loaded config object."""
     if "graph" not in conf:

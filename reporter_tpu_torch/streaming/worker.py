@@ -443,16 +443,8 @@ def read_worker_config(path: str, graph: Optional[str] = None):
     """(the service's :func:`~..service.server.parse_config` of the file,
     its ``worker`` block): ``graph`` overrides the file's; an unknown
     key in either raises."""
-    from ..service.server import parse_config
-    with open(path) as f:
-        raw = json.load(f)
-    knobs = dict(raw.pop("worker", None) or {})
-    unknown = set(knobs) - set(WORKER_KEYS)
-    if unknown:
-        raise ValueError(f"unknown worker keys {sorted(unknown)}")
-    if graph:
-        raw["graph"] = graph
-    return parse_config(raw), knobs
+    from ..service.server import read_config_block
+    return read_config_block(path, "worker", WORKER_KEYS, graph)
 
 
 def main(argv=None) -> int:

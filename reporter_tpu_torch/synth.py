@@ -154,6 +154,37 @@ class SyntheticTrace:
             },
         }
 
+    def truth_complete_segments(self, net: RoadNetwork) -> List[int]:
+        """Segment ids the ground-truth path traversed END TO END — the
+        set a correct matcher must report with a real length (reference
+        README.md "Reporter Output": length=-1 marks partial traversal).
+        A truth segment counts only when the path covered it from offset
+        0 through its full length; a route that turns onto or off a
+        multi-block segment mid-way did NOT traverse it completely, even
+        mid-route."""
+        out: List[int] = []
+        run_start_off = None
+        prev_sid = None
+        prev_end = 0.0
+        for e in self.edge_path:
+            sid = int(net.edge_segment_id[e])
+            off = float(net.edge_segment_offset_m[e])
+            if sid != prev_sid:
+                if prev_sid is not None and prev_sid >= 0 \
+                        and run_start_off is not None \
+                        and run_start_off <= 1e-3 and prev_end >= \
+                        net.segment_length_m.get(prev_sid, float("inf")) - 1e-3:
+                    out.append(prev_sid)
+                run_start_off = off if sid >= 0 else None
+                prev_sid = sid
+            prev_end = off + float(net.edge_length_m[e])
+        if prev_sid is not None and prev_sid >= 0 \
+                and run_start_off is not None and run_start_off <= 1e-3 \
+                and prev_end >= net.segment_length_m.get(
+                    prev_sid, float("inf")) - 1e-3:
+            out.append(prev_sid)
+        return out
+
 
 def generate_trace(net: RoadNetwork, uuid: str, rng: np.random.Generator,
                    noise_m: float = 5.0, sample_period_s: float = 1.0,

@@ -1,0 +1,192 @@
+"""Accuracy gate: point-level segment agreement vs synthetic ground truth.
+
+The reference had no automated accuracy gate — its synthetic-trace
+harness (reference: py/generate_test_trace.py:181-203) produced traces
+for *manual* inspection against a live stack. Here the same idea is an
+executable gate: synthesise noisy traces whose true edge/segment sequence
+is known, batch-match them on device, and score per-point segment-id
+agreement. BASELINE.md's north star requires >=99% agreement; CI runs
+this with ``--min-agreement 0.99`` (ci.yml).
+
+Usage:
+  python -m reporter_tpu_torch accuracy [--graph g.npz] [--traces N]
+      [--noise-m 4.0] [--min-agreement 0.99] [--seed 0] [--device cpu]
+
+The decode runs on the card unless ``--device cpu`` is given.
+
+Prints one JSON line with the agreement stats; exits 1 below the gate.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+
+def score(net, matcher, traces) -> dict:
+    """Match all traces in one device batch and score two agreements:
+
+    - ``point_agreement``: per-probe-point segment-id attribution vs truth
+      (strict; counts the inherently ambiguous ±1-point boundary cases)
+    - ``segment_*``: the reported segment stream — the datastore contract.
+      Precision over emitted *complete* segments (length > 0), recall over
+      the truth path's end-to-end traversals
+      (SyntheticTrace.truth_complete_segments). This is the metric
+      BASELINE.md's >=99% north star is about: clients consume
+      (segment_id, next_id, duration) rows, not per-point paths.
+    """
+    matches = matcher.match_many([tr.request_json() for tr in traces])
+    agree = total = 0
+    emitted = spurious = 0
+    truth_full = truth_found = 0
+    boundary_misses = interior_misses = 0
+    per_trace = []
+    for match, tr in zip(matches, traces):
+        truth_pts = [int(net.edge_segment_id[e]) for e in tr.point_edges]
+        decoded = {}
+        for s in match["segments"]:
+            sid = s.get("segment_id")
+            for i in range(s["begin_shape_index"], s["end_shape_index"] + 1):
+                decoded[i] = sid
+        t_agree = t_total = 0
+        for i, true_sid in enumerate(truth_pts):
+            if true_sid < 0:  # point on an unassociated (no-OSMLR) edge
+                continue
+            t_total += 1
+            if decoded.get(i) == true_sid:
+                t_agree += 1
+            else:
+                # a miss whose decoded id matches the NEIGHBORING truth
+                # point is the inherent +/-1-point attribution ambiguity
+                # at a segment boundary (the probe sits within noise of
+                # it; either side is defensible); anything else is a real
+                # matching error
+                got = decoded.get(i)
+                off_by_one = (
+                    (i > 0 and got == truth_pts[i - 1])
+                    or (i + 1 < len(truth_pts)
+                        and got == truth_pts[i + 1]))
+                if off_by_one:
+                    boundary_misses += 1
+                else:
+                    interior_misses += 1
+        agree += t_agree
+        total += t_total
+        per_trace.append(t_agree / t_total if t_total else 1.0)
+
+        # the datastore contract is about COMPLETE traversals (length > 0
+        # only when the segment was covered end to end — reference
+        # README.md "Reporter Output"): precision = emitted completes the
+        # truth really did traverse fully; recall = truth's full
+        # traversals the matcher reported complete
+        truth_complete = tr.truth_complete_segments(net)
+        complete = [s["segment_id"] for s in match["segments"]
+                    if s.get("segment_id") is not None
+                    and s.get("length", -1) > 0]
+        tset = set(truth_complete)
+        emitted += len(complete)
+        spurious += sum(1 for sid in complete if sid not in tset)
+        truth_full += len(truth_complete)
+        got = set(complete)
+        truth_found += sum(1 for sid in truth_complete if sid in got)
+    seg_precision = 1.0 - spurious / emitted if emitted else 0.0
+    seg_recall = truth_found / truth_full if truth_full else 1.0
+    return {
+        "traces": len(traces),
+        "points_scored": total,
+        "point_agreement": round(agree / total, 5) if total else 0.0,
+        # decomposition of the strict misses: boundary-adjacent ones are
+        # the inherent +/-1-point attribution ambiguity at segment
+        # transitions; interior ones are real matching errors
+        "point_misses_boundary": boundary_misses,
+        "point_misses_interior": interior_misses,
+        "worst_trace": round(min(per_trace), 5) if per_trace else 0.0,
+        "segments_emitted": emitted,
+        "segment_precision": round(seg_precision, 5),
+        "segment_recall": round(seg_recall, 5),
+        "agreement": round(min(seg_precision, seg_recall), 5),
+    }
+
+
+def main(argv=None):
+    import torch
+
+    parser = argparse.ArgumentParser(
+        prog="reporter_tpu_torch accuracy", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--graph", help="RoadNetwork .npz; omit for a "
+                        "default synthetic city")
+    parser.add_argument("--device", type=torch.device, default="cuda",
+                        help="cuda (default), cuda:I or cpu")
+    parser.add_argument("--rows", type=int, default=16)
+    parser.add_argument("--cols", type=int, default=16)
+    parser.add_argument("--spacing-m", type=float, default=200.0)
+    parser.add_argument("--traces", type=int, default=64)
+    parser.add_argument("--noise-m", type=float, default=4.0)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--min-agreement", type=float, default=0.0,
+                        help="exit 1 if (segment) agreement falls below "
+                        "this")
+    parser.add_argument("--min-point-agreement", type=float, default=0.0,
+                        help="exit 1 if STRICT per-point agreement falls "
+                        "below this")
+    parser.add_argument("--turn-penalty-factor", type=float, default=500.0,
+                        help="matcher turn penalty; the reference's own "
+                        "accuracy harness uses 500 "
+                        "(generate_test_trace.py:172)")
+    args = parser.parse_args(argv)
+
+    from ..matcher import MatchParams, SegmentMatcher
+    from ..synth import build_grid_city, generate_trace
+
+    if args.graph:
+        from ..graph.network import RoadNetwork
+        net = RoadNetwork.load(args.graph)
+    else:
+        # no service/internal edges: ground truth on those is ambiguous
+        # by design (the matcher must *not* report them)
+        net = build_grid_city(rows=args.rows, cols=args.cols,
+                              spacing_m=args.spacing_m, seed=args.seed,
+                              service_road_fraction=0.0,
+                              internal_fraction=0.0)
+    try:
+        matcher = SegmentMatcher(net=net, params=MatchParams(
+            turn_penalty_factor=args.turn_penalty_factor),
+            device=args.device)
+    except RuntimeError as e:
+        print(f"FAIL: {e}", file=sys.stderr)
+        return 1
+
+    rng = np.random.default_rng(args.seed)
+    traces = []
+    attempts = 0
+    while len(traces) < args.traces:
+        attempts += 1
+        if attempts > 50 * args.traces:
+            print(f"FAIL: could only generate {len(traces)}/{args.traces} "
+                  "traces on this graph (too small/disconnected for "
+                  "min_route_edges=8?)", file=sys.stderr)
+            return 1
+        tr = generate_trace(net, f"acc-{len(traces)}", rng,
+                            noise_m=args.noise_m, min_route_edges=8)
+        if tr is not None:
+            traces.append(tr)
+
+    result = score(net, matcher, traces)
+    result["noise_m"] = args.noise_m
+    print(json.dumps(result))
+    if result["agreement"] < args.min_agreement:
+        print(f"FAIL: agreement {result['agreement']} < "
+              f"{args.min_agreement}", file=sys.stderr)
+        return 1
+    if result["point_agreement"] < args.min_point_agreement:
+        print(f"FAIL: point_agreement {result['point_agreement']} < "
+              f"{args.min_point_agreement}", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -39,7 +39,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"reporter_tpu_torch.ops.viterbi",
             "reporter_tpu_torch.ops.incremental",
             "reporter_tpu_torch.matcher.incremental",
-            "reporter_tpu_torch.native"} <= expected
+            "reporter_tpu_torch.native",
+            "reporter_tpu_torch.__main__",
+            "reporter_tpu_torch.pipeline",
+            "reporter_tpu_torch.pipeline.simple_reporter",
+            "reporter_tpu_torch.tools",
+            "reporter_tpu_torch.tools.accuracy_cli",
+            "reporter_tpu_torch.tools.synth_cli",
+            "reporter_tpu_torch.tools.replay",
+            "reporter_tpu_torch.tools.print_consumer",
+            "reporter_tpu_torch.tools.tiles_cli"} <= expected
     assert not got["native_loaded"]
     mods = got["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
@@ -50,10 +59,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("first", ["reporter_tpu_torch.graph.route_device",
                                    "reporter_tpu_torch.ops.route_relax",
                                    "reporter_tpu_torch.ops.incremental",
-                                   "reporter_tpu_torch.matcher.incremental"])
+                                   "reporter_tpu_torch.matcher.incremental",
+                                   "reporter_tpu_torch.pipeline",
+                                   "reporter_tpu_torch.tools.accuracy_cli",
+                                   "reporter_tpu_torch.__main__"])
 def test_a_module_imports_first(first):
     """The port's modules import one another in a cycle (ops -> matcher
-    -> graph.route_device -> ops); each entry imports in a fresh process."""
+    -> graph.route_device -> ops); each entry, the batched pipeline, the
+    tools and the umbrella CLI among them, imports in a fresh process."""
     subprocess.run([sys.executable, "-c", f"import {first}"], check=True,
                    timeout=120)
 
