@@ -147,6 +147,22 @@ Phases, each fatal on failure:
             one match_many holding a window of the last bucket (in the
             child: by then this process's torch.profiler sees no CUDA
             activity)
+   datastore the histogram datastore fed by the card (phase_datastore):
+            [worker]'s first 512 vehicles through python -m
+            reporter_tpu_torch stream --datastore (incremental_step on
+            the card, the background compactor on), tiles equal to
+            [worker]'s and the store equal to datastore ingest of the CPU
+            leg's tiles; the resume child and a replayed tail counting
+            nothing twice; [pipeline]'s card and CPU tiles ingested, equal;
+            the server from a config file with the tee store (/histogram
+            over every segment, bboxes at levels 0-2, window=inf and
+            viewport equal to LocalDatastore's; /feed delivering a second
+            ingest; /health 200); a week's store of the 100x100 city
+            (ingest rows/s, compaction seconds, bytes, answers equal
+            before and after compaction, /histogram requests/s and
+            p50/p99 from 64 client threads); datastore profile --replay of
+            main's 512 traces on the card, then warm_matcher (memo hits,
+            bodies equal to a cold matcher's, both first-call walls)
    accuracy python -m reporter_tpu_torch accuracy --traces 2048 on the
             20x20 city at ci.yml's thresholds (0.99, 0.985) in a child
             process, --device cuda and then --device cpu: both exit 0,
@@ -226,11 +242,12 @@ kernels (viterbi_decode: ``launches`` match_many's in the main phase,
 ``launches_stream_fallback`` the stream phase's declined slots,
 ``launches_faults`` the faults phase's legs, ``launches_pipeline`` the
 pipeline phase's card run, ``launches_accuracy`` the accuracy phase's
-card run; relax and pair_costs: the routes phase's device lanes-on runs,
+card run, ``launches_datastore`` the datastore phase's profile replay; relax and pair_costs: the routes phase's device lanes-on runs,
 cold and the first warm round; relax_cluster: route-city's 125x125
 device runs, cold and the first warm round; relax_sweep: route-city's
 341x341 run, one launch a sweep; incremental_step: the stream phase's
-parity leg, one launch a call and parameter group;
+parity leg, one launch a call and parameter group (``launches_datastore``
+the datastore phase's tee leg);
 each kernel also its ``launches_faults``, its ``launches_worker`` (the
 worker phase's legs, each counted from 0) and the ``launch_floor_ms``),
 and as the last line {"ok": true, "device": {...}}. Exits non-zero,
@@ -1503,15 +1520,19 @@ def http(url, data=None):
         return e.code, e.headers, e.read()
 
 
-def post_all(url, reqs, clients, trace_every=0, span=False, retry=False):
-    """POST every request to ``url``/report from a pool of ``clients``
+def post_all(url, reqs, clients, trace_every=0, span=False, retry=False,
+             path="/report", window_s=0):
+    """POST every request to ``url``+``path`` from a pool of ``clients``
     threads in a child process (so the load does not share the
     service's GIL), every ``trace_every``-th (from the first) to
-    ``/report?trace=1``: ([(status, X-Reporter-Proc, body)] in request
+    ``path?trace=1``: ([(status, X-Reporter-Proc, body)] in request
     order, per-request seconds, wall seconds), with ``span`` the epoch
     nanoseconds at which the child's first request started and its last
     ended, and with ``retry`` each answer's Retry-After header (None
-    where it has none)."""
+    where it has none). With ``window_s`` > 0 every client instead sends
+    ``reqs`` in turn until ``window_s`` seconds have passed (a closed
+    loop that keeps all ``clients`` busy; the wall ends with the last
+    answer), and the answers, in no set order, hold no bodies."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
         with open(f"{tmp}/reqs.json", "w") as f:
@@ -1520,7 +1541,7 @@ def post_all(url, reqs, clients, trace_every=0, span=False, retry=False):
             [sys.executable, "-c", "import sys, chip_smoke; "
              "chip_smoke.client_main(*sys.argv[1:])", url,
              f"{tmp}/reqs.json", f"{tmp}/out.json", str(clients),
-             str(trace_every)],
+             str(trace_every), path, str(window_s)],
             cwd=ROOT, check=True, timeout=600)
         with open(f"{tmp}/out.json") as f:
             out = json.load(f)
@@ -1531,29 +1552,56 @@ def post_all(url, reqs, clients, trace_every=0, span=False, retry=False):
     return got + (out["retry"],) if retry else got
 
 
-def client_main(url, reqs_path, out_path, clients, trace_every="0"):
+def client_main(url, reqs_path, out_path, clients, trace_every="0",
+                path="/report", window_s="0"):
     """The load generator :func:`post_all` runs in its own process."""
-    from concurrent.futures import ThreadPoolExecutor
+    import itertools
+    import threading
     with open(reqs_path) as f:
         reqs = json.load(f)
-    every = int(trace_every)
+    every, clients = int(trace_every), int(clients)
+    window = float(window_s)
     # urllib's first use in 64 threads at once races its lazy set-up
     # (seconds on a loaded host): one GET from this thread first
     http(url + "/health")
+    done = {}
 
     def one(i):
-        path = "/report?trace=1" if every and i % every == 0 else "/report"
+        where = path + "?trace=1" if every and i % every == 0 else path
         t0 = time.perf_counter()
-        st, h, body = http(url + path, json.dumps(reqs[i]).encode())
-        return ((st, h["X-Reporter-Proc"], body.decode()),
-                time.perf_counter() - t0, h["Retry-After"])
+        st, h, body = http(url + where, json.dumps(reqs[i % len(reqs)])
+                           .encode())
+        done[i] = ((st, h["X-Reporter-Proc"], "" if window else
+                    body.decode()), time.perf_counter() - t0,
+                   h["Retry-After"])
 
+    def client():
+        # each client takes the next request as it comes free: every
+        # request once, or (with a window) until the window has passed
+        try:
+            while True:
+                i = next(order)
+                if (time.perf_counter() - t0 >= window if window
+                        else i >= len(reqs)):
+                    return
+                one(i)
+        except BaseException as e:  # re-raised after the join
+            errors.append(e)
+
+    order = itertools.count()
+    errors = []
     t0_ns = time.time_ns()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(int(clients)) as pool:
-        done = list(pool.map(one, range(len(reqs))))
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
     wall = time.perf_counter() - t0
     t1_ns = time.time_ns()
+    done = [done[i] for i in sorted(done)]
     with open(out_path, "w") as f:
         json.dump({"answers": [a for a, _t, _r in done],
                    "seconds": [t for _a, t, _r in done], "wall": wall,
@@ -4192,14 +4240,15 @@ class SummaryLog:
 
 
 def worker_leg(name, stream, out, conf, dev, summaries, extra=()):
-    """One leg through ``streaming.worker.main`` in this process: the
+    """One leg through ``python -m reporter_tpu_torch stream``'s ``main``
+    (``streaming.worker.main``) in this process: the
     kernels' and the plain versions' counts set to 0 just before and
     read just after, the metrics registry reset (per-leg counters and
     the ``batcher.flush`` timer). Checks the leg's health (parse
     failures, sheds, dead letters, at least one tile) and returns its
     numbers, its tile tree and its summary."""
     from reporter_tpu_torch import ops
-    from reporter_tpu_torch.streaming import worker
+    from reporter_tpu_torch.__main__ import main as umbrella
     from reporter_tpu_torch.utils import faults, metrics, spool
     wrappers = dict(kernel_wrappers(),
                     incremental_step=ops.incremental_steps_cuda)
@@ -4223,11 +4272,11 @@ def worker_leg(name, stream, out, conf, dev, summaries, extra=()):
         json.dump(conf, f)
     with open(stream) as f:
         n_lines = sum(1 for _ in f)
+    argv = ["-f", WORKER_FORMAT, *WORKER_ARGS, "-o", out, "--input",
+            stream, "--config", conf_path, "--device", str(dev), *extra]
     t0 = time.perf_counter()
     try:
-        rc = worker.main(["-f", WORKER_FORMAT, *WORKER_ARGS, "-o", out,
-                          "--input", stream, "--config", conf_path,
-                          "--device", str(dev), *extra])
+        rc = umbrella(["stream", *argv])
     finally:
         for key, fn in plain.items():
             setattr(ops, key, fn)
@@ -4281,7 +4330,7 @@ def worker_leg_checks(row, card):
               f"[worker] {row['leg']}: the CPU leg launched {row['launches']}")
 
 
-def phase_worker(dev, big, stream_proc, stream, smi):
+def phase_worker(dev, big, stream_proc, stream, smi, keep):
     """The streaming worker (``reporter_tpu_torch.streaming.worker.main``)
     on the card, from raw probe lines to tile files, on BIG_CITY's fleet
     (``write_worker_stream``), in five legs:
@@ -4310,7 +4359,10 @@ def phase_worker(dev, big, stream_proc, stream, smi):
     one tile; a card leg calls no plain version, the CPU leg launches no
     kernel. Prints one JSON line a leg, then the phase's seconds beside
     ``smi`` (the card's name and power limit), and returns {kernel: {leg:
-    launches}}."""
+    launches}}. ``keep`` receives what [datastore] reads again: the
+    directory, the graph, the small stream, its tail and kill point, its
+    reference tiles, the CPU leg's tile directory and the small leg's
+    row."""
     import tempfile
     import torch
     from reporter_tpu_torch.streaming.anonymiser import Anonymiser, TileSink
@@ -4365,7 +4417,7 @@ def phase_worker(dev, big, stream_proc, stream, smi):
     check(row["launches"]["incremental_step"] == 0
           and row["launches"]["viterbi_decode"] >= 1,
           f"[worker] batch: launches {row['launches']}")
-    _row, small_ref, _s = leg("small", paths["small"], conf())
+    small_row, small_ref, _s = leg("small", paths["small"], conf())
     # lag 16, as tools/chaos.py's commit leg: at the default 32 this
     # stream's reports come too often for a carried trace to commit
     row, tree, _s = leg("commit-error", paths["small"],
@@ -4413,7 +4465,10 @@ def phase_worker(dev, big, stream_proc, stream, smi):
     _row, tree, _s = leg("cpu", paths["small"], conf(),
                          device=torch.device("cpu"))
     check(tree == small_ref, "[worker] cpu: tiles differ from the card's")
-    tmp_dir.cleanup()
+    keep.update(dir=tmp_dir, graph=graph, small=paths["small"],
+                tail=paths["tail"], k=k, small_ref=small_ref,
+                cpu_tiles=os.path.join(tmp, "cpu"), small_row=small_row,
+                summaries=summaries)
     log(f"[worker] {time.perf_counter() - t_phase:.1f} s on {smi}; every "
         f"leg's tiles byte-equal to its reference")
     return launches
@@ -4831,7 +4886,7 @@ def pipeline_run(name, work, archive, meta, conf, device):
     return row, tiles, rows
 
 
-def phase_pipeline(dev, big, archive_proc, archive, smi):
+def phase_pipeline(dev, big, archive_proc, archive, smi, keep):
     """The batched pipeline (``reporter_tpu_torch.pipeline``) over a
     day's archive of BIG_CITY's fleet (``write_pipeline_archive``), in
     three runs of its three stages: ``simple_reporter.main`` in this
@@ -4850,7 +4905,8 @@ def phase_pipeline(dev, big, archive_proc, archive, smi):
     ``tests/test_torch_pipeline.py`` makes them). Prints the numbers
     of each run and the card's busy share over one ``match_many`` holding
     a window of the last bucket in the child, and returns the card run's
-    launches."""
+    launches. ``keep`` receives the card and CPU runs' tile directories
+    (and the directory holding them) for [datastore]."""
     import tempfile
     from reporter_tpu_torch.matcher.batchpad import LENGTH_BUCKETS
     t_phase = time.perf_counter()
@@ -4950,8 +5006,502 @@ def phase_pipeline(dev, big, archive_proc, archive, smi):
         f"windows/s, {card['probes_per_s']} probes/s; the phase "
         f"{time.perf_counter() - t_phase:.1f} s on {smi}; the three runs' "
         f"tiles byte-equal")
-    tmp_dir.cleanup()
+    keep.update(dir=tmp_dir, card=os.path.join(tmp, "card", "out"),
+                cpu=os.path.join(tmp, "cpu", "out"))
     return card["decode"]["launches"]
+
+
+# -- the histogram datastore ----------------------------------------------------
+#: the tee leg's and the served store's compaction threshold
+DS_TEE_MAX_DELTAS = 8
+#: the week store: every BIG_CITY OSMLR segment in every hour of a week,
+#: Poisson(DS_OBS_PER_HOUR) observations a segment-hour (numpy seed
+#: DS_SEED; 3, cut from 5 to pay for the /histogram load's windows), the
+#: background compactor at DS_MAX_DELTAS
+DS_OBS_PER_HOUR = 3
+DS_HOURS = 168
+DS_MAX_DELTAS = 24
+#: the last hours land with the compactor stopped, so that the full
+#: compaction after them has deltas to merge
+DS_TAIL_HOURS = 12
+DS_SEED = 29
+#: Monday 2017-07-17 00:00 UTC: hour-of-week 0
+DS_WEEK0 = 1_500_249_600
+#: /histogram load on the week store: client threads, the distinct
+#: requests of each kind (one segment, a batch of DS_BATCH segments, a
+#: bbox) that the clients send in turn, and the seconds each kind's
+#: closed loop runs (a batch or a bbox takes about 0.15-0.2 s of the
+#: server's interpreter, so 64 clients wait about 10 s an answer: 20 s
+#: is a few requests a client)
+DS_CLIENTS = 64
+DS_BATCH = 1024
+DS_LOAD = {"single": 512, "batch": 64, "bbox": 64}
+DS_WINDOW_S = {"single": 10.0, "batch": 20.0, "bbox": 20.0}
+
+
+def datastore_cli(argv):
+    """``python -m reporter_tpu_torch datastore *argv`` in this process:
+    (exit code, its JSON lines)."""
+    import contextlib
+    import io
+    from reporter_tpu_torch.__main__ import main as umbrella
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = umbrella(["datastore", *argv])
+    return rc, [json.loads(ln) for ln in buf.getvalue().splitlines() if ln]
+
+
+def resident_ids(ds):
+    """Every segment id holding a histogram cell in ``ds``."""
+    return sorted({int(i) for lvl, idx in ds.partitions()
+                   for i in ds.resident_segments(lvl, idx)})
+
+
+def store_answers(ds, ids, **kw):
+    """``query_many`` of ``ids`` in batches of DS_BATCH, as JSON text."""
+    return [json.dumps(ds.query_many(ids[i:i + DS_BATCH], **kw),
+                       separators=(",", ":"))
+            for i in range(0, len(ids), DS_BATCH)]
+
+
+def same_store(a, b, what):
+    """Both stores hold the same segments and answer each equally;
+    returns (segments, rows)."""
+    ids = resident_ids(a)
+    check(ids and ids == resident_ids(b),
+          f"[datastore] {what}: the stores hold {len(ids)} and "
+          f"{len(resident_ids(b))} segments")
+    check(store_answers(a, ids) == store_answers(b, ids),
+          f"[datastore] {what}: answers differ")
+    ra, rb = a.stats()["rows"], b.stats()["rows"]
+    check(ra == rb, f"[datastore] {what}: {ra} and {rb} rows")
+    return len(ids), ra
+
+
+def histogram_load(url, bodies_, window_s):
+    """POST ``bodies_`` in turn to ``url``/histogram from DS_CLIENTS
+    threads in a child process for ``window_s`` seconds (every client
+    busy throughout): {requests, clients, window_s, wall_s,
+    requests_per_s, p50_ms, p99_ms} over every request of the window."""
+    answers, secs, wall = post_all(url, bodies_, DS_CLIENTS,
+                                   path="/histogram", window_s=window_s)
+    status = {st for st, _tag, _body in answers}
+    check(status == {200},
+          f"[datastore] /histogram load: statuses {status}")
+    secs = np.asarray(secs)
+    return {"requests": len(secs), "clients": DS_CLIENTS,
+            "window_s": window_s, "wall_s": round(wall, 3),
+            "requests_per_s": round(len(secs) / wall, 1),
+            "p50_ms": round(float(np.percentile(secs, 50)) * 1e3, 3),
+            "p99_ms": round(float(np.percentile(secs, 99)) * 1e3, 3)}
+
+
+def week_observations(types, h, rng, base, succ):
+    """Hour ``h`` of the week store: Poisson(DS_OBS_PER_HOUR) traversals
+    of every segment of ``base``, at its base speed times a weekday
+    rush-hour shape (0.55 at 07-09 and 16-19 Monday to Friday, 1.15 at
+    night, 0.95 at weekends) with log-normal noise, to one of three
+    successors; as ``Segment`` structs."""
+    seg_ids, lengths = base["ids"], base["lengths"]
+    day, hour = divmod(h, 24)
+    factor = (0.95 if day >= 5 else 0.55 if hour in (7, 8, 16, 17, 18)
+              else 1.15 if hour < 5 else 1.0)
+    counts = rng.poisson(DS_OBS_PER_HOUR, seg_ids.shape[0])
+    idx = np.repeat(np.arange(seg_ids.shape[0]), counts)
+    kph = np.clip(base["kph"][idx] * factor
+                  * rng.lognormal(0.0, 0.15, idx.shape[0]), 3.0, 130.0)
+    dur = lengths[idx] / (kph / 3.6)
+    t0 = DS_WEEK0 + h * 3600 + rng.uniform(0, 3000, idx.shape[0])
+    nxt = succ[idx, rng.integers(0, 3, idx.shape[0])]
+    return [types.Segment(int(a), int(b), float(c), float(c + d), int(e), 0)
+            for a, b, c, d, e in zip(seg_ids[idx].tolist(), nxt.tolist(),
+                                     t0.tolist(), dur.tolist(),
+                                     lengths[idx].tolist())]
+
+
+def phase_datastore(dev, served, big, kw, kp, smi):
+    """The histogram datastore (``reporter_tpu_torch.datastore``), fed by
+    the card, in five legs:
+
+    1. tee      the [worker] phase's first WORKER_SMALL vehicles through
+       ``python -m reporter_tpu_torch stream ... --datastore D
+       --datastore-max-deltas 8`` (``incremental_step`` on the card, the
+       background compactor on): tiles byte-equal to [worker]'s, and the
+       store answers every segment as one built by ``datastore ingest``
+       of [worker]'s CPU leg's tiles does. Then the resume leg with the
+       tee: a child killed by ``worker.offer=crash+k#1``, a worker
+       restoring its snapshot, and the same tail again from the same
+       snapshot (a flush re-offered after a crash): the store equals the
+       tee store, nothing counted twice;
+    2. pipeline ``datastore ingest`` of [pipeline]'s card and CPU tiles
+       into two stores: equal answers;
+    3. serve    the port's server from a config file holding the tee
+       store (``"datastore"``): /histogram over every segment (batched),
+       bboxes at levels 0-2 over the city, ``window=inf`` and
+       ``viewport`` equal to ``LocalDatastore``'s own answers; a /feed
+       subscriber on the city's bbox gets a second ingest's events;
+       /health 200 with its datastore, compaction and freshness blocks;
+    4. week     every BIG_CITY OSMLR segment in every hour of a week
+       (``week_observations``): DS_HOURS ``ingest_segments`` calls with
+       freshness on and the compactor at DS_MAX_DELTAS (stopped for the
+       last DS_TAIL_HOURS); ingest rows/s,
+       compaction seconds, bytes on disk, answers equal before and after
+       a full compaction, and /histogram requests/s and p50/p99 from
+       DS_CLIENTS threads (a child process), each kind a closed loop of
+       DS_WINDOW_S seconds, for one segment, DS_BATCH segments and a
+       bbox;
+    5. profile  ``datastore profile --replay`` of main's 512 traces on
+       the card (``viterbi_decode``), then ``warm_matcher`` on a fresh
+       card matcher: route-memo hits on its first call, bodies
+       byte-equal to a cold matcher's; the cold and warm first-call
+       walls.
+
+    Returns {"viterbi_decode": the profile replay's launches,
+    "incremental_step": the tee leg's}."""
+    import shutil
+    import tempfile
+    import threading
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.core import types
+    from reporter_tpu_torch.core.osmlr import tile_level
+    from reporter_tpu_torch.datastore import (BackgroundCompactor,
+                                              LocalDatastore, load_profile,
+                                              profile_path, warm_matcher)
+    from reporter_tpu_torch.graph.version import map_version
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.service import server
+    from reporter_tpu_torch.utils import metrics
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    graph = kw["graph"]
+    conf = {"graph": graph, "service": {},
+            "worker": {"session_gap_ms": WORKER_GAP_MS}}
+    tee_args = ("--datastore-max-deltas", str(DS_TEE_MAX_DELTAS))
+    launches = {}
+
+    # 1. the tee leg, then the CPU leg's tiles ingested
+    tee = os.path.join(tmp, "tee_store")
+    row, tree, _s = worker_leg(
+        "tee", kw["small"], os.path.join(tmp, "tee"), conf, dev,
+        kw["summaries"], extra=("--datastore", tee, *tee_args))
+    worker_leg_checks(row, dev.type == "cuda")
+    check(tree == kw["small_ref"], "[datastore] tee: tiles differ from "
+                                   "[worker]'s")
+    launches["incremental_step"] = row["launches"]["incremental_step"]
+    check(launches["incremental_step"] >= 1 or dev.type != "cuda",
+          "[datastore] tee: incremental_step never launched")
+    cpu_store = os.path.join(tmp, "cpu_store")
+    rc, lines = datastore_cli(["ingest", cpu_store, kw["cpu_tiles"]])
+    check(rc == 0 and lines[0]["failures"] == 0,
+          f"[datastore] ingest of [worker]'s CPU tiles: {rc} {lines}")
+    tee_ds = LocalDatastore(tee)
+    n_seg, n_rows = same_store(tee_ds, LocalDatastore(cpu_store),
+                               "tee against the CPU leg's ingested tiles")
+    log(f"[datastore] tee leg {json.dumps(row)}; {n_seg} segments, "
+        f"{n_rows} rows, every answer equal to the CPU leg's ingested "
+        f"tiles'; {row['msgs_per_s']} messages/s with the tee on, "
+        f"[worker]'s small leg {kw['small_row']['msgs_per_s']} without "
+        f"({smi})")
+
+    # the resume leg with the tee, and the tail replayed from its snapshot
+    k, state = kw["k"], os.path.join(tmp, "resume.state")
+    resume = os.path.join(tmp, "resume_store")
+    out = os.path.join(tmp, "resume")
+    crash_conf = os.path.join(tmp, "crash.json")
+    with open(crash_conf, "w") as f:
+        json.dump(dict(conf, service={"faults":
+                                      f"worker.offer=crash+{k}#1"}), f)
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, "-m", "reporter_tpu_torch", "stream", "-f",
+         WORKER_FORMAT, *WORKER_ARGS, "-o", out, "--input", kw["small"],
+         "--config", crash_conf, "--device", str(dev), "--state-file",
+         state, "--state-every", str(WORKER_STATE_EVERY), "--datastore",
+         resume, *tee_args], cwd=str(ROOT), capture_output=True, text=True,
+        timeout=600)
+    child_s = time.perf_counter() - t0
+    check(p.returncode == 137, f"[datastore] resume: the child exited "
+                               f"{p.returncode}: {p.stderr[-2000:]}")
+    shutil.copy(state, state + ".again")
+    for name, snap in (("tee-resume", state), ("tee-again", state + ".again")):
+        row, tree, s = worker_leg(
+            name, kw["tail"], os.path.join(tmp, name), conf, dev,
+            kw["summaries"],
+            extra=("--state-file", snap, "--datastore", resume, *tee_args))
+        worker_leg_checks(row, dev.type == "cuda")
+        check(s["restored"] and tree == kw["small_ref"],
+              f"[datastore] {name}: restored {s['restored']}; tiles differ "
+              f"from [worker]'s")
+        same_store(tee_ds, LocalDatastore(resume), name)
+    log(f"[datastore] resume with the tee: the child exited 137 after {k} "
+        f"messages in {child_s:.1f} s; the restored tail, and the tail again "
+        f"from the same snapshot, leave the store equal to the tee store "
+        f"({n_rows} rows, none counted twice)")
+
+    # 2. the pipeline's card and CPU tiles
+    stores = []
+    for name in ("card", "cpu"):
+        root = os.path.join(tmp, f"pipeline_{name}")
+        t0 = time.perf_counter()
+        rc, lines = datastore_cli(["ingest", root, kp[name]])
+        check(rc == 0 and lines[0]["failures"] == 0 and lines[0]["files"],
+              f"[datastore] ingest of [pipeline]'s {name} tiles: {lines}")
+        stores.append((LocalDatastore(root), lines[0],
+                       time.perf_counter() - t0))
+    p_seg, p_rows = same_store(stores[0][0], stores[1][0],
+                               "[pipeline]'s card and CPU tiles")
+    log(f"[datastore] pipeline tiles: card {stores[0][1]['files']} files "
+        f"in {stores[0][2]:.3f} s, CPU {stores[1][1]['files']}; {p_seg} "
+        f"segments, {p_rows} rows, every answer equal")
+
+    # 3. serving the tee store from a config file
+    net = big["city"]
+    bbox = [float(net.node_lon.min()), float(net.node_lat.min()),
+            float(net.node_lon.max()), float(net.node_lat.max())]
+    serve_conf = os.path.join(tmp, "serve.json")
+    with open(serve_conf, "w") as f:
+        json.dump({"graph": graph, "datastore": {"root": tee}}, f)
+    cfg = server.read_config(serve_conf)
+    matcher = server.matcher_from_config(cfg, dev)
+    ds = server.datastore_from_config(cfg)
+    ds.set_map_version(map_version(matcher.net))
+    svc = server.ReporterService(matcher, datastore=ds, **cfg["service"])
+    svc.compactor = BackgroundCompactor(ds, max_deltas=DS_TEE_MAX_DELTAS)
+    svc.compactor.start()
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    httpd = server.serve(svc, "127.0.0.1", port)
+    url = f"http://127.0.0.1:{port}"
+    local = LocalDatastore(tee)
+    ids = resident_ids(local)
+    try:
+        for i in range(0, len(ids), DS_BATCH):
+            st, _h, body = http(url + "/histogram", json.dumps(
+                {"segments": ids[i:i + DS_BATCH]}).encode())
+            check(st == 200 and body.decode() == json.dumps(
+                {"results": local.query_many(ids[i:i + DS_BATCH])},
+                separators=(",", ":")),
+                f"[datastore] serve: /histogram segments {i}.. differ")
+        for level in (0, 1, 2):
+            st, _h, body = http(url + "/histogram?bbox=" + ",".join(
+                map(str, bbox)) + f"&level={level}")
+            check(st == 200 and body.decode() == json.dumps(
+                local.query_bbox(bbox, level), separators=(",", ":")),
+                f"[datastore] serve: bbox at level {level} differs")
+        st, _h, body = http(url + "/histogram", json.dumps(
+            {"segments": ids[:DS_BATCH], "window": "inf"}).encode())
+        check(st == 200 and body.decode() == json.dumps(
+            {"results": local.query_many(ids[:DS_BATCH], window="inf")},
+            separators=(",", ":")), "[datastore] serve: window=inf differs")
+        st, _h, body = http(url + "/histogram?viewport=1&level=2&bbox="
+                            + ",".join(map(str, bbox)))
+        view = local.enable_freshness().viewports.summarise(bbox, 2)
+        check(st == 200 and json.loads(body) == view,
+              f"[datastore] serve: viewport differs ({st})")
+        # /feed: a subscriber on the city's bbox, then a second ingest
+        tier = ds.enable_freshness()
+        got = {}
+        feed_path = ("/feed?level=2&bbox=" + ",".join(map(str, bbox))
+                     + "&cursor={}&timeout={}")
+
+        def subscribe(cursor=tier.feed.cursor):
+            got["answer"] = http(url + feed_path.format(cursor, 30))
+
+        th = threading.Thread(target=subscribe)
+        th.start()
+        deadline = time.monotonic() + 30
+        while tier.feed.snapshot()["waiters"] == 0:
+            check(time.monotonic() < deadline, "[datastore] serve: the "
+                                               "feed subscriber never waited")
+            time.sleep(0.005)
+        # level-2 segments of the city: the subscription's level
+        level2 = [sid for sid in sorted(net.segment_length_m)
+                  if tile_level(sid) == 2][:64]
+        second = [types.Segment(sid, None, DS_WEEK0 + 60.0 * j,
+                                DS_WEEK0 + 60.0 * j + 20.0, 200, 0)
+                  for j, sid in enumerate(level2)]
+        added = ds.ingest_segments(second, ingest_key="second-ingest")
+        th.join(30)
+        st, _h, body = got["answer"]
+        events = json.loads(body)["events"] if st == 200 else []
+        # a poll returns at the first event: the rest from its cursor
+        while st == 200 and events and sum(e["rows"] for e in events) \
+                < len(second):
+            st, _h, body = http(url + feed_path.format(events[-1]["seq"],
+                                                       1))
+            more = json.loads(body)["events"] if st == 200 else []
+            if not more:
+                break
+            events += more
+        check(added == len(second) == 64 and events
+              and sum(e["rows"] for e in events)
+              == added and all(e["kind"] == "delta" for e in events),
+              f"[datastore] serve: /feed answered {st} {body[:300]!r}")
+        st, _h, body = http(url + "/health")
+        health = json.loads(body)
+        check(st == 200 and health["datastore"]["status"] == "ok"
+              and {"compaction", "freshness"} <= set(health),
+              f"[datastore] serve: /health {st} {sorted(health)}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.compactor.stop()
+        svc.dispatcher.close()
+    log(f"[datastore] serve: /histogram over {len(ids)} segments in "
+        f"batches of {DS_BATCH}, bboxes at levels 0-2, window=inf and "
+        f"viewport equal to LocalDatastore's; /feed delivered "
+        f"{len(events)} events of the second ingest; /health 200 with "
+        f"{json.dumps({k: health[k] for k in ('datastore', 'compaction')})}")
+
+    # 4. a week's store
+    week_root = os.path.join(tmp, "week")
+    week = LocalDatastore(week_root)
+    week.enable_freshness()
+    seg_ids = np.array(sorted(net.segment_length_m), dtype=np.int64)
+    rng = np.random.default_rng(DS_SEED)
+    base = {"ids": seg_ids,
+            "lengths": np.maximum(1, np.round([
+                net.segment_length_m[s] for s in seg_ids.tolist()]))
+            .astype(np.int64),
+            "kph": rng.uniform(25.0, 70.0, seg_ids.shape[0])}
+    succ = seg_ids[rng.integers(0, seg_ids.shape[0],
+                                (seg_ids.shape[0], 3))]
+    metrics.default.reset()
+    compactor = BackgroundCompactor(week, max_deltas=DS_MAX_DELTAS).start()
+    ingest_s = make_s = 0.0
+    rows = obs = 0
+    try:
+        for h in range(DS_HOURS):
+            if h == DS_HOURS - DS_TAIL_HOURS:
+                compactor.stop()
+            t0 = time.perf_counter()
+            segs = week_observations(types, h, rng, base, succ)
+            t1 = time.perf_counter()
+            rows += week.ingest_segments(segs, ingest_key=f"week/h{h:03d}")
+            ingest_s += time.perf_counter() - t1
+            make_s += t1 - t0
+            obs += len(segs)
+    finally:
+        compactor.stop()
+    ctr = metrics.snapshot()["counters"]
+    before = week.stats()
+    week_ids = resident_ids(week)
+    check(week_ids == seg_ids.tolist(),
+          f"[datastore] week: {len(week_ids)} of {len(seg_ids)} segments "
+          f"hold cells")
+    t0 = time.perf_counter()
+    answers = store_answers(week, week_ids)
+    query_all_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compacted = week.compact()
+    compact_s = time.perf_counter() - t0
+    after = week.stats()
+    check(store_answers(week, week_ids) == answers,
+          "[datastore] week: answers differ before and after compaction")
+    check(after["rows"] == before["rows"] == rows,
+          f"[datastore] week: rows {before['rows']}, {after['rows']}, "
+          f"ingested {rows}")
+    check(before["segments"] > before["partitions"] == after["segments"],
+          f"[datastore] week: the compaction merged {compacted}")
+    week_row = {"segments": len(week_ids), "hours": DS_HOURS,
+                "observations": obs, "rows": rows,
+                "ingest_s": round(ingest_s, 3),
+                "ingest_rows_per_s": round(rows / ingest_s, 1),
+                "structs_s": round(make_s, 3),
+                "background_compactions":
+                    ctr.get("datastore.compactor.compacted", 0),
+                "before": before, "query_all_s": round(query_all_s, 3),
+                "compaction_s": round(compact_s, 3),
+                "compacted": compacted, "after": after}
+    log(f"[datastore] week {json.dumps(week_row)} ({smi})")
+    wsvc = server.ReporterService(matcher, datastore=week)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    httpd = server.serve(wsvc, "127.0.0.1", port)
+    url = f"http://127.0.0.1:{port}"
+    pick = np.random.default_rng(DS_SEED + 1)
+    lon0, lat0, lon1, lat1 = bbox
+    kinds = {
+        "single": [{"segment_id": int(s)} for s in pick.choice(
+            seg_ids, DS_LOAD["single"])],
+        "batch": [{"segments": pick.choice(seg_ids, DS_BATCH,
+                                           replace=False).tolist()}
+                  for _ in range(DS_LOAD["batch"])],
+        "bbox": [{"bbox": [lo, la, lo + (lon1 - lon0) / 4,
+                           la + (lat1 - lat0) / 4], "level": 2}
+                 for lo, la in zip(pick.uniform(lon0, lon1, DS_LOAD["bbox"]),
+                                   pick.uniform(lat0, lat1,
+                                                DS_LOAD["bbox"]))]}
+    try:
+        for kind, reqs in kinds.items():
+            st, _h, body = http(url + "/histogram",
+                                json.dumps(reqs[0]).encode())
+            want = (week.query(reqs[0]["segment_id"]) if kind == "single"
+                    else {"results": week.query_many(reqs[0]["segments"])}
+                    if kind == "batch"
+                    else week.query_bbox(reqs[0]["bbox"], 2))
+            check(st == 200 and body.decode() == json.dumps(
+                want, separators=(",", ":")),
+                f"[datastore] week: /histogram {kind} differs")
+            load = histogram_load(url, reqs, DS_WINDOW_S[kind])
+            load["body_bytes"] = len(body)
+            log(f"[datastore] week /histogram {kind}: {json.dumps(load)} "
+                f"({smi})")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        wsvc.dispatcher.close()
+
+    # 5. the .profile pre-warm of main's 512 traces
+    city, reqs = served["city"], served["reqs"][:N_TRACES]
+    main_graph = os.path.join(tmp, "main_city.npz")
+    city.save(main_graph)
+    replay = os.path.join(tmp, "main.jsonl")
+    with open(replay, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in reqs)
+    prof_store = os.path.join(tmp, "profile_store")
+    ops.viterbi_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc, lines = datastore_cli(["profile", prof_store, "--graph", main_graph,
+                               "--replay", replay, "--city", "main",
+                               "--device", str(dev)])
+    replay_s = time.perf_counter() - t0
+    launches["viterbi_decode"] = ops.viterbi_cuda.launches
+    check(rc == 0 and lines[0]["n_pairs"] > 0
+          and lines[0]["replayed"] == len(reqs),
+          f"[datastore] profile: {rc} {lines}")
+    check(launches["viterbi_decode"] >= 1 or dev.type != "cuda",
+          "[datastore] profile: the replay never launched viterbi_decode")
+    art = load_profile(profile_path(prof_store))
+    walls = {}
+    out = {}
+    for name in ("cold", "warm"):
+        m = SegmentMatcher(city, served["params"], device=dev)
+        warmed = warm_matcher(m, art) if name == "warm" else 0
+        t0 = time.perf_counter()
+        matches = m.match_many(reqs)
+        walls[name] = time.perf_counter() - t0
+        out[name] = (bodies(matches, reqs), m.runtime.route_memo_stats(),
+                     warmed)
+    check(out["warm"][0] == out["cold"][0],
+          "[datastore] profile: a warmed matcher's bodies differ from a "
+          "cold one's")
+    check(out["warm"][1]["hits"] > 0 and out["warm"][2] == art["n_pairs"],
+          f"[datastore] profile: warmed {out['warm'][2]} of "
+          f"{art['n_pairs']} pairs, first-call memo {out['warm'][1]}")
+    log(f"[datastore] profile: --replay of {len(reqs)} traces in "
+        f"{replay_s:.3f} s, {launches['viterbi_decode']} viterbi_decode "
+        f"launches, {art['n_pairs']} pairs (memo {art['memo_stats']}); "
+        f"first call cold {walls['cold']:.4f} s (memo {out['cold'][1]}), "
+        f"warm {walls['warm']:.4f} s (memo {out['warm'][1]}), bodies "
+        f"byte-equal ({smi})")
+    tmp_dir.cleanup()
+    log(f"[datastore] {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
 
 
 def torch_device(name):
@@ -5119,12 +5669,19 @@ def main() -> int:
     phase_prefork(served)
     phase_city(big)
     city_launches, _city_runs = phase_route_city(big, huge, past)
+    kept_worker, kept_pipeline = {}, {}
     worker_launches = phase_worker(dev, big, stream_proc, stream,
-                                   smi[0] if smi else "nvidia-smi: no output")
+                                   smi[0] if smi else "nvidia-smi: no output",
+                                   kept_worker)
     pipeline_launches = phase_pipeline(
         dev, big, archive_proc, archive,
-        smi[0] if smi else "nvidia-smi: no output")
+        smi[0] if smi else "nvidia-smi: no output", kept_pipeline)
     stream_dir.cleanup()
+    datastore_launches = phase_datastore(
+        dev, served, big, kept_worker, kept_pipeline,
+        smi[0] if smi else "nvidia-smi: no output")
+    kept_worker["dir"].cleanup()
+    kept_pipeline["dir"].cleanup()
     accuracy_launches = phase_accuracy(
         smi[0] if smi else "nvidia-smi: no output")
     floor = launch_floor_ms(dev)
@@ -5160,6 +5717,9 @@ def main() -> int:
         # the accuracy phase's card run (phase_accuracy): one match_many
         # of 2,048 traces in a child process
         "launches_accuracy": accuracy_launches,
+        # the datastore phase's `datastore profile --replay` of main's
+        # 512 traces (phase_datastore)
+        "launches_datastore": datastore_launches["viterbi_decode"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,
@@ -5213,6 +5773,9 @@ def main() -> int:
         "library_ms": None,
         # the faults phase's match.incremental.commit leg
         "launches_faults": fault_launches["incremental_step"],
+        # the datastore phase's tee leg (phase_datastore): the worker
+        # through `python -m reporter_tpu_torch stream --datastore`
+        "launches_datastore": datastore_launches["incremental_step"],
         # one row, the one-uuid stream's step
         "ms_1_8": step_times[1, 1][0], "bound_ms_1_8": step_times[1, 1][2],
         # 512 rows, 4 rounds in one launch

@@ -21,6 +21,10 @@ Layout (each module mirrors its ``reporter_tpu`` counterpart):
               dispatcher, the threaded server, pre-fork workers
   streaming/ — the streaming worker: raw probe lines through the batcher
               and report_incremental to anonymised tile files
+  pipeline/ — the batched pipeline: a probe archive to tiles
+  datastore/ — the histogram datastore over flushed tiles (host numpy, no
+              torch): store, queries, freshness, change feed, profile
+  tools/    — the operational CLIs (python -m reporter_tpu_torch ...)
   utils/    — metrics, post-fork resets, failpoints, breakers, spools,
               HTTP egress
   synth.py  — synthetic grid cities and probe traces

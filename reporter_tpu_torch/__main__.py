@@ -13,12 +13,13 @@ PrintConsumer):
   tiles            list/download graph tiles for a bbox     [get_tiles et al]
   synth            synthetic GPS trace generator      [generate_test_trace]
   accuracy         matcher accuracy gate against synthetic ground truth
+  datastore        histogram datastore: ingest/compact/query/feed/profile
 
-The commands that decode (serve, stream, pipeline, accuracy) run on the
-card unless given ``--device cpu``.
+The commands that decode (serve, stream, pipeline, accuracy, and
+datastore profile --replay) run on the card unless given ``--device cpu``.
 
-Still to come, with the modules they need: graph (road networks: build,
-tile, inspect) and datastore (the histogram datastore over flushed tiles).
+Still to come, with the modules it needs: graph (road networks: build,
+tile, inspect).
 """
 from __future__ import annotations
 
@@ -79,6 +80,12 @@ def _synth():
 @_cmd("accuracy")
 def _accuracy():
     from .tools.accuracy_cli import main
+    return main
+
+
+@_cmd("datastore")
+def _datastore():
+    from .tools.datastore_cli import main
     return main
 
 

@@ -12,7 +12,9 @@ RC001  runtime lock-order inversion: acquiring B while holding A closed
        a cycle in the held-before graph — some schedule of the threads
        involved deadlocks. Reported once per cycle with both acquisition
        stacks.
-RC002  long hold: a lock held longer than the arming threshold.
+RC002  long hold: a lock held longer than the arming threshold. Locks
+       built ``long_hold_ok=True`` (the datastore's commit lock) are
+       exempt.
 RC003  guarded shared state accessed without its owning lock held by the
        accessing thread (:class:`~reporter_tpu_torch.utils.locks.Guarded`).
 RC004  thread-affine state touched from a foreign thread
@@ -179,7 +181,7 @@ def note_released(lock) -> None:
         if rec is None:
             return  # acquired while busy or before arming
         dur_ns = time.perf_counter_ns() - rec.t0_ns
-        if dur_ns >= _hold_ns:
+        if dur_ns >= _hold_ns and not lock.long_hold_ok:
             path, line = rec.site
             _record(Finding(
                 path, line, "RC002",

@@ -56,6 +56,20 @@ class Tiles:
             return -1
         return r * self.ncolumns + c
 
+    def tile_bbox(self, tile_id: int) -> BoundingBox:
+        """Bounding box of one tile, the inverse of :meth:`tile_id` (any
+        interior point maps back to the same id; the shared max edge
+        belongs to the neighbour except at the world boundary)."""
+        if tile_id < 0 or tile_id > self.max_tile_id:
+            raise ValueError(f"tile id {tile_id} out of range "
+                             f"[0, {self.max_tile_id}]")
+        r, c = divmod(tile_id, self.ncolumns)
+        minx = self.bbox.minx + c * self.tilesize
+        miny = self.bbox.miny + r * self.tilesize
+        return BoundingBox(minx, miny,
+                           min(minx + self.tilesize, self.bbox.maxx),
+                           min(miny + self.tilesize, self.bbox.maxy))
+
     def _digits(self, number: int) -> int:
         digits = 1 if number < 0 else 0
         while number:

@@ -118,6 +118,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_cache_size.argtypes = [vp]
     lib.rt_cache_size.restype = i64
     lib.rt_route_memo_stats.argtypes = [vp, i64p]
+    # profile export / pre-warm of the route-pair memo (the datastore's
+    # .profile artifact): export dumps resident (edge_from, edge_to)
+    # pairs, warm recomputes their node kernels as a miss would
+    lib.rt_route_memo_export.restype = i64
+    lib.rt_route_memo_export.argtypes = [vp, i64, i32p, i32p]
+    lib.rt_route_memo_warm.restype = i64
+    lib.rt_route_memo_warm.argtypes = [vp, i64, i32p, i32p, f64]
     lib.rt_f32_to_f16.argtypes = [f32p, u16p, i64]
     lib.rt_candidates.argtypes = [vp, i64, f64p, f64p, i32, f64, i32p, f32p,
                                   f32p, f32p, f32p]
@@ -553,3 +560,34 @@ class NativeRuntime:
         self._lib.rt_route_memo_stats(self._handle, out)
         return {"hits": int(out[0]), "misses": int(out[1]),
                 "size": int(out[2]), "evictions": int(out[3])}
+
+    def route_memo_export(self, cap: int = 1 << 16):
+        """Resident (edge_from, edge_to) pairs of the route memo as two
+        int32 arrays (the ``.profile`` artifact's payload). The clock
+        eviction keeps residents biased hot, so a post-replay export is
+        the graph's top route pairs."""
+        self._check_owner()
+        ea = np.empty(cap, dtype=np.int32)
+        eb = np.empty(cap, dtype=np.int32)
+        n = int(self._lib.rt_route_memo_export(self._handle, cap, ea, eb))
+        return ea[:n].copy(), eb[:n].copy()
+
+    def route_memo_warm(self, edge_from, edge_to,
+                        bound_m: float = 500.0) -> int:
+        """Insert the given pairs' node kernels into the route memo,
+        computed with the same bounded Dijkstra the serving path runs on
+        a miss (bit-identical on later hits). Pairs are sorted by
+        from-edge first so consecutive pairs share one search. Returns
+        the pairs inserted; 0 when the memo is disabled."""
+        self._check_owner()
+        ea = np.ascontiguousarray(edge_from, dtype=np.int32)
+        eb = np.ascontiguousarray(edge_to, dtype=np.int32)
+        if ea.shape != eb.shape:
+            raise ValueError("edge_from/edge_to must share a shape")
+        if ea.size == 0:
+            return 0
+        order = np.lexsort((eb, ea))
+        ea = np.ascontiguousarray(ea[order])
+        eb = np.ascontiguousarray(eb[order])
+        return int(self._lib.rt_route_memo_warm(
+            self._handle, ea.shape[0], ea, eb, float(bound_m)))

@@ -16,7 +16,10 @@ Run::
         [--procs N] [--device cuda|cuda:I|cpu]
 
 The config file holds ``graph`` (a road network ``.npz``), optionally
-``matcher`` (``MatchParams`` fields) and optionally ``service``, whose
+``matcher`` (``MatchParams`` fields), optionally ``datastore`` (a store
+root directory, or an object ``{"root": ..., <knobs>}`` whose knobs are
+``datastore.DATASTORE_KEYS``, the JAX package's ``REPORTER_TPU_DATASTORE``
+and the store's environment knobs) and optionally ``service``, whose
 keys stand for the JAX package's environment knobs:
 
   threshold_sec      THRESHOLD_SEC                  (15)
@@ -55,9 +58,14 @@ are ``faults`` to ``circuit_cooldown_s`` (``configure_faults``; the two
 circuit keys also set the matcher's breakers). Besides ``/report``,
 ``/stats`` and ``/health`` the server answers ``/metrics`` (Prometheus
 text), ``/profile`` (the device profiler's snapshot, with the
-``pressure`` and ``admission`` blocks) and ``/report?trace=1`` (the
+``pressure`` and ``admission`` blocks), ``/report?trace=1`` (the
 report wrapped as ``{"report": ..., "trace": <Chrome trace events of the
-request's spans>}``).
+request's spans>}``), and with a datastore mounted ``/histogram`` (the
+store's query surface: ``segment_id``, ``segments`` or ``bbox`` +
+``level``, with ``hours``, ``t0``/``t1``, ``percentiles``, ``window``,
+``viewport``, ``map_version``, ``merge``) and ``/feed`` (the change
+feed's long-poll: ``bbox``, ``level``, ``cursor``, ``timeout``,
+``max_events``); without one they answer 503.
 
 Failure answers: a decode or device route failure is a 500; while its
 breaker is open a request is refused with 503 and a ``Retry-After`` of
@@ -94,7 +102,8 @@ from ..utils.circuit import (DEFAULT_COOLDOWN_S, DEFAULT_THRESHOLD,
                              CircuitOpen)
 from . import wire
 from .admission import (DEFAULT_HOLD_S, AdmissionGate, Overload,
-                        allow_request_trace, pressure_snapshot)
+                        allow_request_trace, current_level,
+                        pressure_snapshot)
 from .dispatch import DEFAULT_QUEUE_MAX, BatchDispatcher
 from .report import report, report_wire
 
@@ -104,8 +113,24 @@ logger = logging.getLogger("reporter_tpu_torch.service")
 #: snapshot (counters + stage-timer histograms), /metrics the same
 #: registry as Prometheus text, /profile the device profiler's snapshot
 #: (per-shape build and launch telemetry, wide events, shadow verdicts),
-#: /health the liveness probe
-ACTIONS = {"report", "stats", "metrics", "health", "profile"}
+#: /health the liveness probe; /histogram the datastore's query surface
+#: and /feed its change-feed long-poll (503 without a datastore)
+ACTIONS = {"report", "stats", "metrics", "histogram", "health",
+           "profile", "feed"}
+
+#: pressure-ladder rung at which /feed sheds subscribers (429 +
+#: Retry-After): one rung before the match path itself degrades, so
+#: feed fan-out is always the first load dropped
+FEED_SHED_LEVEL = 2
+
+#: the answer of /histogram and /feed without a datastore (the JAX
+#: service's body)
+NO_DATASTORE = ('{"error":"no datastore attached; serve with a '
+                '--datastore directory"}')
+
+#: the answer to a ``city`` key: the port serves one city
+SINGLE_CITY = json.dumps({"error": "no city registry attached; this "
+                                   "fleet serves a single city"})
 
 #: handler threads per process: they parse JSON and then wait on the
 #: dispatcher, so they are IO-bound and the pool is not sized by cores
@@ -191,7 +216,10 @@ class ReporterService:
     ``admission`` arms the admission gate (``service/admission.py``) with
     ``inflight_max`` (0: four dispatcher batches) and the process-wide
     pressure ladder's ``pressure_hold_s``; off, every request is admitted
-    and the bounded dispatcher queue is the only shed."""
+    and the bounded dispatcher queue is the only shed. ``datastore`` (a
+    ``datastore.LocalDatastore``, or None: 503 there) serves
+    ``/histogram`` and ``/feed``; ``compactor``, set by its owner, puts
+    its backlog on ``/health``."""
 
     def __init__(self, matcher: SegmentMatcher, threshold_sec: int = 15,
                  max_batch: int = MATCH_BATCH_DEFAULT,
@@ -200,8 +228,13 @@ class ReporterService:
                  queue_policy: str = "reject",
                  latency_budget_ms: float = 0.0, admission: bool = False,
                  inflight_max: int = 0,
-                 pressure_hold_s: float = DEFAULT_HOLD_S):
+                 pressure_hold_s: float = DEFAULT_HOLD_S,
+                 datastore=None):
         self.matcher = matcher
+        self.datastore = datastore
+        # optional BackgroundCompactor attached by the owning worker or
+        # harness: /health surfaces its delta-pressure backlog gauge
+        self.compactor = None
         self.threshold_sec = threshold_sec
         self.dispatcher = BatchDispatcher(
             matcher.match_many, max_batch=max_batch,
@@ -223,9 +256,7 @@ class ReporterService:
         that ``_respond`` writes to the socket as is; error bodies stay
         str. The validation messages are the reference service's."""
         if trace.get("city") is not None:
-            return 400, json.dumps(
-                {"error": "no city registry attached; this fleet "
-                          "serves a single city"})
+            return 400, SINGLE_CITY
         if trace.get("uuid") is None:
             return 400, '{"error":"uuid is required"}'
         try:
@@ -268,6 +299,126 @@ class ReporterService:
         except Exception as e:
             return 500, json.dumps({"error": str(e)})
 
+    def histogram(self, params: dict) -> tuple[int, str]:
+        """Answer a /histogram query; (status, body). ``params`` carries
+        ONE of ``segment_id`` (single), ``segments`` (batched: answered
+        through one ``query_many`` sweep) or ``bbox`` + ``level``
+        (every resident segment of that level inside the lon/lat box),
+        plus optional ``hours`` (list of hour-of-week ints),
+        ``time_range`` ([t0, t1) epoch seconds, converted to the hour
+        set it covers), ``percentiles``, ``window`` (freshness tier:
+        ``5m``/``300s``/``inf``), ``viewport`` (with bbox+level: the
+        materialised tile summaries, one read per covered tile),
+        ``map_version``/``merge`` (the epoch pin) and ``city`` (the
+        single-city 400)."""
+        if params.get("city") is not None:
+            return 400, SINGLE_CITY
+        if self.datastore is None:
+            return 503, NO_DATASTORE
+        from ..datastore import DEFAULT_PERCENTILES, hours_for_range
+        if params.get("viewport"):
+            if params.get("bbox") is None or params.get("level") is None:
+                return 400, ('{"error":"viewport queries need bbox '
+                             'and level"}')
+            tier = self.datastore.enable_freshness()
+            if tier is None:
+                return 503, ('{"error":"freshness tier disabled '
+                             '(datastore freshness: false)"}')
+            try:
+                result = tier.viewports.summarise(
+                    params["bbox"], int(params["level"]))
+            except (TypeError, ValueError) as e:
+                return 400, json.dumps({"error": str(e)})
+            return 200, json.dumps(result, separators=(",", ":"))
+        seg = params.get("segment_id")
+        segs = params.get("segments")
+        bbox = params.get("bbox")
+        if seg is None and segs is None and bbox is None:
+            return 400, ('{"error":"one of segment_id, segments or '
+                         'bbox (+level) is required"}')
+        hours = params.get("hours")
+        if hours is None and params.get("time_range") is not None:
+            try:
+                t0, t1 = params["time_range"]
+            except Exception:
+                return 400, ('{"error":"time_range must be a [start, end) '
+                             'epoch-seconds pair"}')
+            hours = hours_for_range(int(t0), int(t1)).tolist()
+        pcts = tuple(params.get("percentiles") or DEFAULT_PERCENTILES)
+        # window=: served through the freshness overlay's store view
+        # (the tier is enabled on demand so window=inf works in a
+        # serving process that never ingests); window-less requests take
+        # the exact pre-freshness path
+        window = params.get("window")
+        if window is not None:
+            self.datastore.enable_freshness()
+        # epoch pin/merge: map_version= pins the sweep to one map build,
+        # merge=1 explicitly mixes epochs; the default pins to the
+        # store's active version
+        mv = params.get("map_version")
+        mv = str(mv) if mv is not None else None
+        merge = bool(params.get("merge"))
+        try:
+            if bbox is not None:
+                if params.get("level") is None:
+                    return 400, ('{"error":"bbox queries need a level '
+                                 '(0, 1 or 2)"}')
+                result = self.datastore.query_bbox(
+                    bbox, int(params["level"]), hours=hours,
+                    percentiles=pcts,
+                    max_segments=params.get("max_segments"),
+                    window=window, map_version=mv, merge=merge)
+            elif segs is not None:
+                result = {"results": self.datastore.query_many(
+                    [int(s) for s in segs], hours=hours,
+                    percentiles=pcts, window=window,
+                    map_version=mv, merge=merge)}
+            else:
+                result = self.datastore.query(int(seg), hours=hours,
+                                              percentiles=pcts,
+                                              window=window,
+                                              map_version=mv,
+                                              merge=merge)
+        except (TypeError, ValueError) as e:
+            return 400, json.dumps({"error": str(e)})
+        return 200, json.dumps(result, separators=(",", ":"))
+
+    def feed(self, params: dict) -> tuple[int, str]:
+        """Answer one /feed long-poll; (status, body). Sheds BEFORE
+        registering a waiter: on the pressure ladder (rung >=
+        ``FEED_SHED_LEVEL``) and on the feed's own bounded waiter table,
+        with 429 bodies carrying ``retry_after_s`` (the handler lifts it
+        into Retry-After)."""
+        if params.get("city") is not None:
+            return 400, SINGLE_CITY
+        if self.datastore is None:
+            return 503, NO_DATASTORE
+        tier = self.datastore.enable_freshness()
+        if tier is None:
+            return 503, ('{"error":"freshness tier disabled '
+                         '(datastore freshness: false)"}')
+        from ..datastore.feed import FEED_RETRY_AFTER_S, FeedOverload
+        if current_level() >= FEED_SHED_LEVEL:
+            metrics.count("feed.shed.pressure")
+            return 429, json.dumps(
+                {"error": "overloaded", "reason": "pressure",
+                 "retry_after_s": FEED_RETRY_AFTER_S})
+        try:
+            out = tier.feed.poll(
+                bbox=params.get("bbox"),
+                level=int(params["level"])
+                if params.get("level") is not None else None,
+                cursor=int(params.get("cursor", -1)),
+                timeout_s=min(float(params.get("timeout", 25.0)), 60.0),
+                max_events=int(params.get("max_events", 256)))
+        except FeedOverload as e:
+            return 429, json.dumps(
+                {"error": "overloaded", "reason": e.reason,
+                 "retry_after_s": e.retry_after_s})
+        except (TypeError, ValueError) as e:
+            return 400, json.dumps({"error": str(e)})
+        return 200, json.dumps(out, separators=(",", ":"))
+
     def health(self) -> tuple[int, str]:
         """Liveness and degradation probe; (status, JSON body), with the
         JAX package's blocks in its order: the graph (nodes, edges, its
@@ -277,9 +428,12 @@ class ReporterService:
         (``degraded``), the dead-letter backlog, the armed fault spec, the
         decode shadow's verdicts, the incremental decode (``enabled``, and
         once its table exists the table's gauge), the pressure ladder, the
-        admission gate, the SLO targets with their breaches and the
-        datastore (absent). An open domain or an SLO breach answers 503,
-        "degraded": a load balancer should rotate away. A shedding gate
+        admission gate, the SLO targets with their breaches, the
+        datastore (``absent``, or ``ok`` with its partitions, rows and
+        writer lease, or ``error``), the compactor's backlog and the
+        freshness tier's gauges. An open domain, an SLO breach or a
+        datastore error answers 503, "degraded": a load balancer should
+        rotate away. A shedding gate
         is doing its job and stays 200. The call also ticks the gate, so
         an idle service's ladder steps back up."""
         from ..matcher import incremental as _inc
@@ -315,8 +469,31 @@ class ReporterService:
         body["slo"] = {"targets": {k: round(v * 1000.0, 3) for k, v
                                    in slo_check["targets"].items()},
                        "breaches": slo_check["breaches"]}
-        body["datastore"] = {"status": "absent"}
         healthy = not open_domains and not slo_check["breaches"]
+        if self.datastore is None:
+            body["datastore"] = {"status": "absent"}
+        else:
+            try:
+                stats = self.datastore.stats()
+                body["datastore"] = {"status": "ok",
+                                     "partitions": stats["partitions"],
+                                     "rows": stats["rows"],
+                                     # which pid owns mutations on this
+                                     # store root right now
+                                     "lease": self.datastore.lease
+                                     .snapshot()}
+            except Exception as e:
+                body["datastore"] = {"status": "error", "error": str(e)}
+                healthy = False
+        if self.compactor is not None:
+            # delta-pressure backlog (the last sweep's): a growing one
+            # means compaction is falling behind the tee
+            body["compaction"] = self.compactor.pending()
+        if self.datastore is not None \
+                and getattr(self.datastore, "freshness", None) is not None:
+            # overlay occupancy against its byte budget, feed waiters and
+            # sheds, viewport materialisations
+            body["freshness"] = self.datastore.freshness.snapshot()
         body["status"] = "ok" if healthy else "degraded"
         return (200 if healthy else 503,
                 json.dumps(body, separators=(",", ":")))
@@ -409,6 +586,71 @@ def make_handler(service: ReporterService):
             self.end_headers()
             self.wfile.write(raw)
 
+        def _parse_histogram(self, post: bool) -> dict:
+            """Histogram params: JSON body / ``json=`` like /report, or
+            bare GET query params (``segment_id=…&hours=7-9``)."""
+            params = urllib.parse.parse_qs(
+                urllib.parse.urlsplit(self.path).query)
+            if post or "json" in params:
+                return self._parse(post)
+            out: dict = {}
+            if "segment_id" in params:
+                out["segment_id"] = int(params["segment_id"][0])
+            # repeated segment params: ?segment=A&segment=B&... — served
+            # through ONE query_many sweep
+            if "segment" in params:
+                out["segments"] = [int(s) for s in params["segment"]]
+            # ?bbox=min_lon,min_lat,max_lon,max_lat&level=L
+            if "bbox" in params:
+                out["bbox"] = [float(v) for v
+                               in params["bbox"][0].split(",")]
+            if "level" in params:
+                out["level"] = int(params["level"][0])
+            if "max_segments" in params:
+                out["max_segments"] = int(params["max_segments"][0])
+            if "city" in params:
+                out["city"] = params["city"][0]
+            if "hours" in params:
+                from ..datastore import parse_hours_spec
+                out["hours"] = parse_hours_spec(params["hours"][0])
+            if "t0" in params and "t1" in params:
+                out["time_range"] = [int(params["t0"][0]),
+                                     int(params["t1"][0])]
+            if "percentiles" in params:
+                out["percentiles"] = [
+                    float(p) for p in params["percentiles"][0].split(",")
+                    if p]
+            if "window" in params:
+                out["window"] = params["window"][0]
+            if "map_version" in params:
+                out["map_version"] = params["map_version"][0]
+            if "merge" in params:
+                out["merge"] = params["merge"][0].lower() not in _FALSY
+            if "viewport" in params:
+                out["viewport"] = \
+                    params["viewport"][0].lower() not in _FALSY
+            return out
+
+        def _parse_feed(self, post: bool) -> dict:
+            """Feed params: JSON body / ``json=`` like /report, or bare
+            GET query params (``bbox=…&level=L&cursor=N&timeout=S``)."""
+            params = urllib.parse.parse_qs(
+                urllib.parse.urlsplit(self.path).query)
+            if post or "json" in params:
+                return self._parse(post)
+            out: dict = {}
+            if "bbox" in params:
+                out["bbox"] = [float(v) for v
+                               in params["bbox"][0].split(",")]
+            for key in ("level", "cursor", "max_events"):
+                if key in params:
+                    out[key] = int(params[key][0])
+            if "timeout" in params:
+                out["timeout"] = float(params["timeout"][0])
+            if "city" in params:
+                out["city"] = params["city"][0]
+            return out
+
         def _respond_shed(self, code: int, body, retry_after_s=None):
             """A shed or refused response: every 429, and every 503 of an
             open breaker, carries ``Retry-After``: ``retry_after_s`` when
@@ -449,6 +691,34 @@ def make_handler(service: ReporterService):
                 if code != 200:
                     metrics.count(f"service.errors.{code}")
                 self._respond(code, body)
+                return
+            if action == "histogram":
+                try:
+                    params = self._parse_histogram(post)
+                except Exception as e:
+                    self._respond(400, json.dumps({"error": str(e)}))
+                    return
+                metrics.count("service.requests.histogram")
+                with metrics.timer("service.histogram"):
+                    code, body = service.histogram(params)
+                if code != 200:
+                    metrics.count(f"service.errors.{code}")
+                self._respond(code, body)
+                return
+            if action == "feed":
+                try:
+                    params = self._parse_feed(post)
+                except Exception as e:
+                    self._respond(400, json.dumps({"error": str(e)}))
+                    return
+                metrics.count("service.requests.feed")
+                code, body = service.feed(params)
+                if code != 200:
+                    metrics.count(f"service.errors.{code}")
+                if code == 429:
+                    self._respond_shed(code, body)
+                else:
+                    self._respond(code, body)
                 return
             # the admission gate sheds before the body is read: a 429
             # costs headers, not work. An admitted request's in-flight
@@ -592,12 +862,12 @@ def slot_device(device: torch.device, slot: int,
 
 def read_config(path: str) -> dict:
     """The config file as {"graph": path, "params": MatchParams,
-    "service": {...}, "matcher": {...}, "server": {...}, "obs": {...},
-    "faults": {...}}, each of the last five holding the ``service`` keys
-    that go to one constructor (``obs``: to :func:`configure_obs`,
-    ``faults``: to :func:`configure_faults`).
-    Raises on a missing graph or an unknown key (this service has no
-    datastore and no city registry)."""
+    "datastore": None or {"root": dir, <knobs>}, "service": {...},
+    "matcher": {...}, "server": {...}, "obs": {...}, "faults": {...}},
+    each of the last five holding the ``service`` keys that go to one
+    constructor (``obs``: to :func:`configure_obs`, ``faults``: to
+    :func:`configure_faults`). Raises on a missing graph or an unknown
+    key (this service has no city registry)."""
     with open(path) as f:
         return parse_config(json.load(f))
 
@@ -622,7 +892,7 @@ def parse_config(conf: dict) -> dict:
     """:func:`read_config` of an already loaded config object."""
     if "graph" not in conf:
         raise ValueError('no "graph": the road network .npz to serve')
-    unknown = set(conf) - {"graph", "matcher", "service"}
+    unknown = set(conf) - {"graph", "matcher", "service", "datastore"}
     if unknown:
         raise ValueError(f"unknown keys {sorted(unknown)}")
     given = dict(conf.get("service") or {})
@@ -632,12 +902,44 @@ def parse_config(conf: dict) -> dict:
         raise ValueError(f"unknown service keys {sorted(unknown)}")
     return {"graph": conf["graph"],
             "params": MatchParams(**conf.get("matcher", {})),
+            "datastore": parse_datastore(conf.get("datastore")),
             **{name: {k: given[k] for k in keys if k in given}
                for name, keys in (("service", SERVICE_KEYS),
                                   ("matcher", MATCHER_KEYS),
                                   ("server", SERVER_KEYS),
                                   ("obs", OBS_KEYS),
                                   ("faults", FAULT_KEYS))}}
+
+
+def parse_datastore(value) -> "dict | None":
+    """The config's ``datastore`` key as ``{"root": dir, <knobs>}``: a
+    root directory, or an object holding ``root`` and knobs of
+    ``datastore.DATASTORE_KEYS``; None or "" mounts none. An unknown
+    knob raises."""
+    if not value:
+        return None
+    if isinstance(value, str):
+        return {"root": value}
+    from ..datastore import DATASTORE_KEYS
+    value = dict(value)
+    if not value.get("root"):
+        raise ValueError('the "datastore" object needs a "root"')
+    unknown = set(value) - {"root", *DATASTORE_KEYS}
+    if unknown:
+        raise ValueError(f"unknown datastore keys {sorted(unknown)}")
+    return value
+
+
+def datastore_from_config(conf: dict, root: "str | None" = None):
+    """The ``LocalDatastore`` a :func:`read_config` result mounts (None
+    without a ``datastore`` key); ``root`` overrides the config's."""
+    ds = conf.get("datastore")
+    if ds is None and not root:
+        return None
+    from ..datastore import LocalDatastore
+    knobs = dict(ds or {})
+    knobs.pop("root", None)
+    return LocalDatastore(root or ds["root"], **knobs)
 
 
 def matcher_from_config(conf: dict, device) -> SegmentMatcher:
@@ -651,8 +953,8 @@ def matcher_from_config(conf: dict, device) -> SegmentMatcher:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m reporter_tpu_torch.service.server",
-        description="Serve /report, /stats, /metrics, /profile and "
-                    "/health.")
+        description="Serve /report, /stats, /metrics, /profile, /health, "
+                    "and with a datastore /histogram and /feed.")
     ap.add_argument("config", help="JSON config file")
     ap.add_argument("address", help="host:port to listen on")
     ap.add_argument("--procs", type=int, default=1,
@@ -683,7 +985,14 @@ def main(argv=None) -> int:
         dispatcher thread."""
         matcher = matcher_from_config(
             conf, slot_device(args.device, slot, procs))
-        return ReporterService(matcher, **conf["service"])
+        datastore = datastore_from_config(conf)
+        if datastore is not None:
+            # stamp the store with the graph this process serves: the
+            # /histogram default pin tracks it, and a restart does not
+            # forget the active epoch
+            datastore.set_map_version(map_version(matcher.net))
+        return ReporterService(matcher, datastore=datastore,
+                               **conf["service"])
 
     if args.procs > 1:
         from .prefork import serve_prefork

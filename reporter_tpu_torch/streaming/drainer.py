@@ -25,7 +25,8 @@ Discipline:
   subdir (dot-prefixed — every scanner skips it) for manual autopsy:
   one poison body must not wedge the drain behind it forever.
 - **Trace replay is at-least-once.** Tile replay is exactly-once (the
-  deterministic epoch name dedupes the sink); a replayed TRACE's segments re-enter the live pipeline as
+  deterministic epoch name dedupes the sink, the manifest ledger the
+  store); a replayed TRACE's segments re-enter the live pipeline as
   fresh observations, so a crash in the window between forwarding them
   and unlinking the spool entry replays the trace again on restart
   under a new flush epoch — a duplicate, not a loss. Unlinking first
@@ -33,8 +34,8 @@ Discipline:
   were chosen because they are at least visible. The window is one
   entry wide and only open while a drain pass is mid-flight.
 
-The JAX package's datastore replay (``datastore=``) comes with the
-port's datastore.
+With a co-located datastore (``datastore=``), spooled tiles replay into
+the store too, under the ledger key the worker's tee stamped.
 """
 from __future__ import annotations
 
@@ -64,7 +65,8 @@ class DeadLetterDrainer:
     a successful re-submit still clears the spool entry but the
     segments go nowhere, which is only correct for the standalone CLI
     posting to a REMOTE service that owns its own pipeline. ``sink`` is
-    the TileSink failed tiles re-egress through.
+    the TileSink failed tiles re-egress through; ``datastore`` a
+    ``LocalDatastore`` they also replay into.
     """
 
     #: the worker's defaults: paced passes off, five attempts an entry
@@ -76,6 +78,7 @@ class DeadLetterDrainer:
                  submit: Optional[Callable[[dict], Optional[dict]]] = None,
                  forward: Optional[Callable] = None,
                  sink=None,
+                 datastore=None,
                  interval_s: float = 30.0,
                  max_attempts: int = 5,
                  base_backoff_s: float = 1.0,
@@ -90,6 +93,11 @@ class DeadLetterDrainer:
         self.submit = submit
         self.forward = forward
         self.sink = sink
+        # with a co-located datastore, spooled tiles replay into it too
+        # (relpath ledger key: a tile the tee already ingested dedupes;
+        # a tile whose tee FAILED finally lands): the spool covers both
+        # consumers, so neither can lose what the other received
+        self.datastore = datastore
         self.interval_s = interval_s
         self.max_attempts = max(1, int(max_attempts))
         self.base_backoff_s = base_backoff_s
@@ -205,13 +213,23 @@ class DeadLetterDrainer:
         return True
 
     def _replay_tile(self, path: str) -> bool:
-        if self.sink is None:
+        if self.sink is None and self.datastore is None:
             return False
         rel = os.path.relpath(path, self.tile_root)
         tile_name, file_name = os.path.split(rel)
         tile_name = tile_name.replace(os.sep, "/")
         with open(path, encoding="utf-8") as f:
             payload = f.read()
+        if self.datastore is not None:
+            # idempotent (ledger key == the relpath the tee stamped);
+            # raises on a down store, or a writer lease another process
+            # holds (LeaseHeldElsewhere): a counted failure, backed off,
+            # retried after the holder's TTL
+            from ..datastore import parse_tile_csv
+            self.datastore.ingest(parse_tile_csv(payload),
+                                  ingest_key=f"{tile_name}/{file_name}")
+        if self.sink is None:
+            return True
         # a failed store re-spools the body under the SAME deterministic
         # name (an overwrite) and returns False — the entry just stays
         return self.sink.store(tile_name, file_name, payload)
@@ -296,7 +314,7 @@ class DeadLetterDrainer:
             work += [(self.trace_root, p, self._replay_trace,
                       "replay.traces.ok", "replay.traces.fail")
                      for p in traces]
-        if self.sink is not None:
+        if self.sink is not None or self.datastore is not None:
             work += [(self.tile_root, p, self._replay_tile,
                       "replay.tiles.ok", "replay.tiles.fail")
                      for p in tiles]

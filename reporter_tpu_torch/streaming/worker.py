@@ -26,8 +26,11 @@ CLI options named after the reference's (Reporter.java:43-136):
   --source/-s --output-location/-o --duration/-d
 plus --input (flat file / '-' for stdin replay) or --bootstrap/-b with
 --topics/-t for Kafka, --state-file/--state-interval,
---report-flush-interval and --deadletter as in the JAX package, and the
-port's --state-every (a snapshot every N processed messages).
+--report-flush-interval, --deadletter and --datastore /
+--datastore-max-deltas / --datastore-max-delta-bytes (the tee of every
+flushed tile into a local histogram store, with the background
+compactor) as in the JAX package, and the port's --state-every (a
+snapshot every N processed messages).
 
 ``--config`` takes the service's config file (``service/server.py``
 ``read_config``: ``graph``, which ``--graph`` overrides, ``matcher`` and
@@ -44,12 +47,15 @@ package's environment knobs (``WORKER_KEYS``):
   aws_access_key_id,      AWS_ACCESS_KEY_ID,                  (none)
   aws_secret_access_key   AWS_SECRET_ACCESS_KEY
   session_gap_ms          (StreamWorker's argument)           (60000)
+  compact_interval_s      REPORTER_TPU_COMPACT_INTERVAL_S     (5.0)
 
-The in-process matcher runs on ``cuda`` unless given ``--device cpu``,
-and the worker exits non-zero without CUDA. The JAX package's
-``--datastore*`` flags and the tee, and ``--uuid-filter`` with the
-multi-host init, are not ported yet (``StreamWorker(uuid_filter=)``
-is).
+The config's ``datastore`` object sizes the ``--datastore`` store (its
+``root`` is the flag's directory when both are given). The in-process
+matcher runs on ``cuda`` unless given ``--device cpu``, and the worker
+exits non-zero without CUDA; the tee ingests what the card decoded, and
+a tee failure spools the tile (``reason="tee"``). The JAX package's
+``--uuid-filter`` with the multi-host init is not ported yet
+(``StreamWorker(uuid_filter=)`` is).
 """
 from __future__ import annotations
 
@@ -80,7 +86,8 @@ logger = logging.getLogger("reporter_tpu_torch.streaming")
 WORKER_KEYS = ("heartbeat_s", "retry_budget", "backpressure",
                "backpressure_latency_s", "writer_id", "replay_interval_s",
                "replay_attempts", "aws_access_key_id",
-               "aws_secret_access_key", "session_gap_ms")
+               "aws_secret_access_key", "session_gap_ms",
+               "compact_interval_s")
 
 
 def _pressure_level() -> dict:
@@ -130,7 +137,9 @@ class StreamWorker:
     ``heartbeat_s`` paces the structured heartbeat (0: off);
     ``retry_budget`` and ``governor`` go to the :class:`PointBatcher`;
     ``replay_interval_s`` (0: off) and ``replay_attempts`` arm the
-    :class:`DeadLetterDrainer`."""
+    :class:`DeadLetterDrainer`, which also replays spooled tiles into
+    ``datastore``; ``compactor`` (a ``BackgroundCompactor``) is started
+    here and stopped by :meth:`drain`."""
 
     def __init__(self, formatter: Formatter,
                  submit: Callable[[dict], Optional[dict]],
@@ -156,7 +165,8 @@ class StreamWorker:
                  governor: Optional[BackpressureGovernor] = None,
                  replay_interval_s: float = DeadLetterDrainer
                  .DEFAULT_INTERVAL_S,
-                 replay_attempts: int = DeadLetterDrainer.DEFAULT_ATTEMPTS):
+                 replay_attempts: int = DeadLetterDrainer.DEFAULT_ATTEMPTS,
+                 datastore=None, compactor=None):
         self.formatter = formatter
         # content-derived identity of the graph this worker matches
         # against (graph/version.py), surfaced in the heartbeat; None
@@ -199,6 +209,7 @@ class StreamWorker:
                 submit=submit,
                 forward=lambda key, seg: self.anonymiser.process(key, seg),
                 sink=getattr(anonymiser, "sink", None),
+                datastore=datastore,
                 interval_s=replay_interval_s,
                 max_attempts=replay_attempts)
         self.batcher = PointBatcher(
@@ -231,6 +242,14 @@ class StreamWorker:
         self.incremental_probe = incremental_probe
         self._hb_last = time.monotonic()
         self._hb_processed = 0
+        # background compaction: the delta-pressure policy off the flush
+        # path (the tee ingest does not compact inline; the paced,
+        # lease-gated thread does). Owned here so drain() stops it in
+        # dependency order
+        self.compactor = compactor
+        self.datastore = datastore
+        if compactor is not None:
+            compactor.start()
         # durable state (StateStore): restore open batches + tile slices
         # from the last snapshot; the reference instead loses in-memory
         # state on crash (BatchingProcessor.java:20-22)
@@ -339,9 +358,9 @@ class StreamWorker:
                 "tiles": spool_mod.backlog_cached(self._tile_spool),
                 "traces": spool_mod.backlog_cached(self._trace_spool)},
             "parse_failures": self.parse_failures,
-            # the JAX package's background-compaction backlog: no
-            # datastore in the port yet
-            "datastore_backlog": None,
+            # delta-pressure backlog (the compactor's last sweep)
+            "datastore_backlog": self.compactor.pending()
+            if self.compactor is not None else None,
             # the device-compute vitals (obs/profiler.py)
             "padding_waste": round(waste, 4) if waste is not None
             else None,
@@ -405,8 +424,17 @@ class StreamWorker:
             self.drainer.drain_now()
             self.drainer.pause()
         self._flush_tiles()
+        if self.compactor is not None:
+            # signal + join after the final flush (its deltas were the
+            # last pressure source)
+            self.compactor.stop()
         if self.state is not None:
             self.state.save(self.batcher, self.anonymiser)
+        if self.datastore is not None:
+            # hand the writer lease back on a clean exit: the successor
+            # then acquires a vacant lease instead of stealing from a
+            # dead pid, so a steal stays a crash signal
+            self.datastore.lease.release()
 
     def run(self, messages: Iterable[str],
             duration_s: Optional[float] = None) -> None:
@@ -496,7 +524,23 @@ def main(argv=None) -> int:
                         help="directory spooling tile bodies whose egress "
                              "failed (default <output>/.deadletter for "
                              "file sinks, <tmpdir>/reporter_tpu_deadletter "
-                             "for remote)")
+                             "for remote); replay with: datastore ingest "
+                             "--delete, given this --config so that the "
+                             "store keeps its datastore knobs")
+    parser.add_argument("--datastore",
+                        help="local histogram-store directory: every "
+                             "flushed tile is ALSO aggregated in-process "
+                             "(zero serialisation) so /histogram queries "
+                             "work without a separate ingest step")
+    parser.add_argument("--datastore-max-deltas", type=int, default=None,
+                        help="background compaction: compact partitions "
+                             "holding more than N uncompacted deltas "
+                             "(paced thread off the flush path, the "
+                             "worker block's compact_interval_s)")
+    parser.add_argument("--datastore-max-delta-bytes", type=int,
+                        default=None,
+                        help="background compaction: compact partitions "
+                             "whose uncompacted deltas exceed B bytes")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -569,6 +613,39 @@ def main(argv=None) -> int:
                            incremental=incremental_provider,
                            every=args.state_every)
 
+    tee = datastore = compactor = None
+    if args.datastore:
+        from ..datastore import BackgroundCompactor
+        from ..datastore.compactor import DEFAULT_INTERVAL_S
+        from ..service.server import datastore_from_config
+        datastore = datastore_from_config(conf or {}, root=args.datastore)
+        # freshness tier: the tee's ingest records every flushed delta
+        # into the recent-delta overlay and the change feed
+        datastore.enable_freshness()
+        max_deltas = args.datastore_max_deltas
+        max_bytes = args.datastore_max_delta_bytes
+        inline_deltas = inline_bytes = None
+        if max_deltas is not None or max_bytes is not None:
+            # the pressure policy runs OFF the flush path, on the paced
+            # lease-gated thread; with the thread off (compact_interval_s
+            # 0) the flags still mean something: the tee checks inline
+            interval = knobs.get("compact_interval_s", DEFAULT_INTERVAL_S)
+            if interval > 0:
+                compactor = BackgroundCompactor(
+                    datastore, max_deltas=max_deltas,
+                    max_delta_bytes=max_bytes, interval_s=interval)
+            else:
+                inline_deltas, inline_bytes = max_deltas, max_bytes
+
+        def tee(_tile, segments, ingest_key=None, _ds=datastore,
+                _n=inline_deltas, _b=inline_bytes):
+            # ingest_key is the flush identity the anonymiser stamps:
+            # the ledger key that makes a crash-replayed flush a no-op.
+            # Any failure (a LeaseHeldElsewhere too) spools the tile
+            return _ds.ingest_segments(segments, max_deltas=_n,
+                                       max_delta_bytes=_b,
+                                       ingest_key=ingest_key)
+
     credentials = None
     if knobs.get("aws_access_key_id") or knobs.get("aws_secret_access_key"):
         credentials = (knobs.get("aws_access_key_id"),
@@ -581,7 +658,7 @@ def main(argv=None) -> int:
                                 credentials=credentials),
                        args.privacy, args.quantisation, mode=args.mode,
                        source=args.source,
-                       writer_id=knobs.get("writer_id", "")),
+                       writer_id=knobs.get("writer_id", ""), tee=tee),
             mode=args.mode, reports=args.reports,
             transitions=args.transitions,
             flush_interval_s=args.flush_interval, state=state,
@@ -599,7 +676,8 @@ def main(argv=None) -> int:
             replay_interval_s=knobs.get(
                 "replay_interval_s", DeadLetterDrainer.DEFAULT_INTERVAL_S),
             replay_attempts=knobs.get(
-                "replay_attempts", DeadLetterDrainer.DEFAULT_ATTEMPTS))
+                "replay_attempts", DeadLetterDrainer.DEFAULT_ATTEMPTS),
+            datastore=datastore, compactor=compactor)
         if conf is not None and "flightrec_dir" in conf["obs"]:
             flightrec.set_dump_dir(conf["obs"]["flightrec_dir"])
         if service is not None:

@@ -1,5 +1,5 @@
 """Operational CLIs: replay producer, debug consumer, tile tooling, the
-synthetic-trace generator and the accuracy gate.
+synthetic-trace generator, the accuracy gate and the datastore CLI.
 
 The port of ``reporter_tpu/tools/`` (the reference's ops scripts
 py/cat_to_kafka.py, py/make_requests.sh, py/get_tiles.py +

@@ -42,13 +42,17 @@ class TrackedLock:
     ``threading.Lock`` (non-reentrant; ``with`` support; ``locked()``)
     plus a stable ``name``: the node in the held-before graph (instances
     sharing a name share a node; same-name edges are skipped).
+
+    ``long_hold_ok`` exempts a documented long holder from RC002 (the
+    datastore's commit lock: its manifest fsyncs are the design).
     """
 
-    __slots__ = ("_lock", "name", "_owner", "__weakref__")
+    __slots__ = ("_lock", "name", "long_hold_ok", "_owner", "__weakref__")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, long_hold_ok: bool = False):
         self._lock = threading.Lock()
         self.name = name
+        self.long_hold_ok = long_hold_ok
         self._owner = 0  # acquiring thread id, kept only when armed
         _instances.add(self)
 
@@ -89,9 +93,9 @@ class TrackedLock:
             and self._owner == threading.get_ident()
 
 
-def new_lock(name: str) -> TrackedLock:
+def new_lock(name: str, long_hold_ok: bool = False) -> TrackedLock:
     """The package lock factory."""
-    return TrackedLock(name)
+    return TrackedLock(name, long_hold_ok=long_hold_ok)
 
 
 # ---- guarded shared state --------------------------------------------------

@@ -48,7 +48,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "reporter_tpu_torch.tools.synth_cli",
             "reporter_tpu_torch.tools.replay",
             "reporter_tpu_torch.tools.print_consumer",
-            "reporter_tpu_torch.tools.tiles_cli"} <= expected
+            "reporter_tpu_torch.tools.tiles_cli",
+            "reporter_tpu_torch.tools.datastore_cli",
+            "reporter_tpu_torch.datastore",
+            *(f"reporter_tpu_torch.datastore.{m}" for m in (
+                "schema", "aggregate", "lease", "store", "ingest", "query",
+                "compactor", "freshness", "feed", "profile"))} <= expected
     assert not got["native_loaded"]
     mods = got["modules"]
     assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
@@ -62,6 +67,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                    "reporter_tpu_torch.matcher.incremental",
                                    "reporter_tpu_torch.pipeline",
                                    "reporter_tpu_torch.tools.accuracy_cli",
+                                   "reporter_tpu_torch.datastore",
+                                   "reporter_tpu_torch.tools.datastore_cli",
                                    "reporter_tpu_torch.__main__"])
 def test_a_module_imports_first(first):
     """The port's modules import one another in a cycle (ops -> matcher
@@ -93,3 +100,28 @@ def test_port_reads_no_environment_variable():
              for n, line in enumerate(p.read_text().splitlines(), 1)
              if re.search(r"os\.environ|getenv", line)]
     assert not found
+
+
+DATASTORE_PROBE = """
+import importlib, json, pkgutil, sys
+import reporter_tpu_torch.datastore as ds
+for m in pkgutil.walk_packages(ds.__path__, "reporter_tpu_torch.datastore."):
+    importlib.import_module(m.name)
+import reporter_tpu_torch.tools.datastore_cli
+print(json.dumps(sorted(sys.modules)))
+"""
+
+
+def test_the_datastore_imports_no_torch_and_nothing_of_the_jax_package():
+    """The datastore is host numpy, as in the JAX package: it and the
+    datastore CLI import no torch (a spawned child that ingests pins no
+    interpreter on it) and nothing of ``reporter_tpu``."""
+    out = subprocess.run([sys.executable, "-c", DATASTORE_PROBE],
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    mods = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "reporter_tpu_torch.datastore.store" in mods
+    assert not [m for m in mods if m == "torch" or m.startswith("torch.")]
+    assert not [m for m in mods if m == "jax" or m.startswith("jax.")]
+    assert not [m for m in mods
+                if m == "reporter_tpu" or m.startswith("reporter_tpu.")]

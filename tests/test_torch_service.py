@@ -227,14 +227,14 @@ def test_error_bodies_byte_equal(servers, requests, case):
 
 def test_bad_action_lists_the_ports_actions(servers):
     u_ref, u_port = servers[:2]
-    st_ref, _h, _b = call(u_ref, "/nope?json={}")
+    st_ref, _h, b_ref = call(u_ref, "/nope?json={}")
     st, _h, body = call(u_port, "/nope?json={}")
     assert st == st_ref == 400
-    assert sorted(ACTIONS) == ["health", "metrics", "profile", "report",
-                               "stats"]
-    assert json.loads(body) == {
-        "error": "Try a valid action: ['health', 'metrics', 'profile', "
-                 "'report', 'stats']"}
+    assert sorted(ACTIONS) == ["feed", "health", "histogram", "metrics",
+                               "profile", "report", "stats"]
+    assert json.loads(body) == json.loads(b_ref) == {
+        "error": "Try a valid action: ['feed', 'health', 'histogram', "
+                 "'metrics', 'profile', 'report', 'stats']"}
 
 
 # -- /stats and /health ----------------------------------------------------------
@@ -704,7 +704,8 @@ def test_main_serves_the_ports_bytes(cities, requests, tmp_path, service):
 
 @pytest.mark.parametrize("conf, message", [
     ({}, "graph"),
-    ({"graph": "x.npz", "datastore": "/d"}, "datastore"),
+    ({"graph": "x.npz", "datastore": {"root": "/d", "handels": 1}},
+     "datastore"),
     ({"graph": "x.npz", "service": {"max_bacth": 1}}, "max_bacth"),
     ({"graph": "x.npz", "matcher": {"sigma": 1}}, "sigma"),
 ])

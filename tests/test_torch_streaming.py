@@ -731,10 +731,10 @@ def test_worker_config_keys_reach_the_worker(city_stream, tmp_path):
                    "writer_id": "w7", "replay_interval_s": 3.0,
                    "replay_attempts": 9, "aws_access_key_id": "AK",
                    "aws_secret_access_key": "SK",
-                   "session_gap_ms": 1000}}))
+                   "session_gap_ms": 1000, "compact_interval_s": 0.5}}))
     conf_parsed, knobs = worker.read_worker_config(str(conf))
     assert conf_parsed["matcher"] == {"incremental_lag": 8}
-    assert knobs["writer_id"] == "w7" and len(knobs) == 10
+    assert knobs["writer_id"] == "w7" and len(knobs) == 11
     assert set(knobs) == set(worker.WORKER_KEYS)
     graph2 = str(tmp_path / "other.npz")
     assert worker.read_worker_config(str(conf), graph2)[0]["graph"] == graph2
