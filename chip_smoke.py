@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
+    python3 chip_smoke.py --global-probe
 
 Phases, each fatal on failure:
 
@@ -108,7 +109,9 @@ Phases, each fatal on failure:
             125x125 grid city (15,625 nodes, past relax's shared-memory
             limit: relax_cluster, one launch and one read a relaxation)
             the same way; 8 traces on a 341x341 grid city (116,281 nodes,
-            past a cluster's reach: relax_sweep), cold
+            past a cluster's reach: relax_global, one launch and one read
+            a relaxation), device routes cold and warm and host routes
+            cold and warm, each with its matcher.assemble seconds
    worker   the streaming worker (reporter_tpu_torch.streaming.worker.main)
             in this process on the 100x100 city: 1,024 vehicles' probe
             lines (written by a low-priority child process started with
@@ -176,12 +179,13 @@ Phases, each fatal on failure:
             batch with the L2 flushed) and of the plain version, beside
             the least time the card could take and a model of the chain;
             then of the route kernels, by CUDA graphs: one whole
-            relaxation by relax (one launch) and by relax_sweep's sweeps
-            at the main path's first chunk and at the 100x100 city's, and
-            by relax_cluster (one launch) and relax_sweep's sweeps at the
-            125x125 city's first chunk, one pair_costs launch at the main
-            path's first chunk, and their plain versions, beside their
-            bounds
+            relaxation by relax (one launch) and by relax_global (one
+            launch) at the main path's first chunk and at the 100x100
+            city's, by relax_cluster and by relax_global at the 125x125
+            city's first chunk, by relax_global at the 341x341 and the
+            512x512 cities' first chunks, one pair_costs launch at the
+            main path's first chunk, and their plain versions, beside
+            their bounds
 
 After main come two phases of the device route costs (``route_device``):
 
@@ -193,9 +197,13 @@ After main come two phases of the device route costs (``route_device``):
             short; relax_cluster the same way on the 125x125 city (2
             blocks a cluster) with its first chunk's 1,024 sources at the
             chunk bound and with 64 sources at 1,500 m, and on a 200x200
-            city (3 blocks) with 64 sources; relax_sweep by a direct call
-            on the 125x125 city with the 64 sources: dist and time
-            bit-equal, iters and converged equal. pair_costs against its plain version at
+            city (3 blocks) with 64 sources; relax_global on the 341x341
+            city's first chunk (S=128) and on a 512x512 city (262,144
+            nodes) with 64 sources, each also at 1, 7 and 32 blocks
+            (fewer blocks than rows), and launched directly at the 20x20
+            main chunk and the 125x125 first chunk: dist and time
+            bit-equal, iters and converged equal. pair_costs against its
+            plain version at
             (128, 64, 8), cached and uncached node kernels, turn penalty
             off and on, time caps and backward pairs in the inputs: route
             bit-equal, max_finite equal
@@ -204,7 +212,7 @@ After main come two phases of the device route costs (``route_device``):
             inline: one cold run each, then ten warm rounds in turns;
             bodies byte-equal to the CPU runs with host routes and with
             route_device=True; launches (decode and pair_costs once per
-            chunk, relax sweeps the sum of iters) and the route.device
+            chunk, relax once a relaxation) and the route.device
             counters (relax: one launch and one host read per
             relaxation; the cold lanes-on run's counters, sweeps
             included, equal to the CPU run's); the prep stage's seconds
@@ -244,8 +252,8 @@ kernels (viterbi_decode: ``launches`` match_many's in the main phase,
 pipeline phase's card run, ``launches_accuracy`` the accuracy phase's
 card run, ``launches_datastore`` the datastore phase's profile replay; relax and pair_costs: the routes phase's device lanes-on runs,
 cold and the first warm round; relax_cluster: route-city's 125x125
-device runs, cold and the first warm round; relax_sweep: route-city's
-341x341 run, one launch a sweep; incremental_step: the stream phase's
+device runs, cold and the first warm round; relax_global: route-city's
+341x341 device runs, cold and warm; incremental_step: the stream phase's
 parity leg, one launch a call and parameter group (``launches_datastore``
 the datastore phase's tee leg);
 each kernel also its ``launches_faults``, its ``launches_worker`` (the
@@ -262,10 +270,12 @@ incremental steps at (1,8), (512,8) and 4 rounds of (512,8), outputs
 equal, each timed by CUDA graphs the same way (a checkout without the
 multi-round kernel launches once a round). Then the route kernels: the
 relaxation of the main path's first chunk and of the 100x100 city's
-first chunk, this checkout's relax against the other's
-sweeps (by CUDA graphs, and as the matcher calls each, host reads
-included), and pair_costs at the main chunk, in the same order, outputs
-bit-equal. Then main's 608 requests go through match_many with
+first chunk, this checkout's relax against the other's sweeps (a
+checkout that has relax_sweep), and of the 341x341 city's first chunk,
+this checkout's relax_global against the other's sweeps (by CUDA
+graphs, and as the matcher calls each, host reads included), and
+pair_costs at the main chunk, in the same order, outputs bit-equal.
+Then main's 608 requests go through match_many with
 route_device=True and the lanes on, one matcher from each checkout, cold
 once and ten warm rounds in turns: bodies byte-equal to host routes, the
 prep stage's seconds and the wall of each run, and each side's warm
@@ -273,6 +283,12 @@ median and range. Last, one front door from each checkout, observability
 at its defaults: match_many of main's 512 traces and a serving window of
 the 608 requests, ten rounds in turns, bodies byte-equal to the native
 CPU run: what the always-on instrumentation costs.
+
+With ``--global-probe`` only the build runs, then relax_global at the
+341x341 and 512x512 cities' first chunks: held bit-equal to the plain
+version at its own block count and at 1, 7 and 32 blocks, timed by CUDA
+graphs at 128 to 1,024 threads a block, beside the time of filling its
+planes at +inf and its bound.
 """
 import json
 import os
@@ -308,8 +324,16 @@ MID_CITY = dict(rows=40, cols=40, spacing_m=200.0, seed=42)
 HUGE_CITY = dict(rows=125, cols=125, spacing_m=200.0, seed=42)
 # relax_cluster at 3 blocks a cluster (verify-routes)
 WIDE_CITY = dict(rows=200, cols=200, spacing_m=200.0, seed=42)
-# past relax_cluster's 116,216 nodes: relax_sweep on the main path
+# past relax_cluster's 116,216 nodes: relax_global on the main path
 PAST_CITY = dict(rows=341, cols=341, spacing_m=200.0, seed=42)
+# well past a cluster's reach (262,144 nodes): relax_global in
+# verify-routes (GLOBAL_SOURCES seeded sources) and [timing]
+GLOBAL_CITY = dict(rows=512, cols=512, spacing_m=200.0, seed=42)
+GLOBAL_SOURCES = 64
+#: block counts relax_global is also held at on its graphs, forced: fewer
+#: blocks than rows, each block's slot taking several rows in turn (as
+#: global_blocks gives past its scratch budget)
+FORCED_BLOCKS = (1, 7, 32)
 #: grid cities that relax_cluster runs at clusters of 4 blocks (48,400
 #: nodes) and of 8 (108,900 nodes), checked directly in verify-routes
 CLUSTER_CITIES = {4: dict(rows=220, cols=220, spacing_m=200.0, seed=42),
@@ -919,13 +943,30 @@ def cluster_at_width(kernel, src, bound, max_iters, width):
     return planes[0], planes[1], iters, stuck == 0
 
 
+def global_at_blocks(kernel, src, bound, max_iters, blocks):
+    """``relax_global`` launched directly with ``blocks`` blocks
+    (uncounted: a check, not the main path): (dist, time, iters,
+    converged)."""
+    import torch
+    from reporter_tpu_torch.ops import route_relax
+    planes = torch.empty((2, len(src), kernel.n_nodes), device=kernel.device)
+    info = torch.zeros(3, dtype=torch.int32, device=kernel.device)
+    with route_relax.global_scratch(kernel.device).lock:
+        route_relax.launch_relax_global(kernel._arcs, src, bound, max_iters,
+                                        planes[0], planes[1], info, blocks)
+        iters, stuck, bad = info.tolist()
+    check(bad == 0, f"relax_global at {blocks} blocks: {bad} bad sources")
+    return planes[0], planes[1], iters, stuck == 0
+
+
 def relax_against_plain(kernel, srcs, bound, max_iters, what, which=None,
-                        width=None):
+                        width=None, blocks=None):
     """``srcs`` relaxed at ``bound`` on the card by ``which`` (default the
-    kernel the graph takes, ``kernel.relax_kernel``: ``relax_cuda`` or
-    ``relax_cluster_cuda`` over its CSR arcs, or ``relax_sweep_cuda``;
-    with ``width``, ``relax_cluster`` at clusters of that many blocks)
-    and by the plain version:
+    kernel the graph takes, ``kernel.relax_kernel``: ``relax_cuda``,
+    ``relax_cluster_cuda`` or ``relax_global_cuda`` over its CSR arcs;
+    with ``width``, ``relax_cluster`` at clusters of that many blocks,
+    with ``blocks``, ``relax_global`` at that many blocks) and by the
+    plain version:
     dist and time bit-equal, iters and converged equal. Returns (kernel
     dist, kernel time, iters, converged, the largest absolute
     difference)."""
@@ -944,10 +985,12 @@ def relax_against_plain(kernel, srcs, bound, max_iters, what, which=None,
         k_out = route_relax.relax_cluster_cuda(
             kernel._arcs, src, bound, n_nodes=kernel.n_nodes,
             max_iters=max_iters)
+    elif blocks:
+        k_out = global_at_blocks(kernel, src, bound, max_iters, blocks)
     else:
-        k_out = route_relax.relax_sweep_cuda(*cols, src, bound,
-                                             n_nodes=kernel.n_nodes,
-                                             max_iters=max_iters)
+        k_out = route_relax.relax_global_cuda(
+            kernel._arcs, src, bound, n_nodes=kernel.n_nodes,
+            max_iters=max_iters)
     torch.cuda.synchronize()
     p_out = route_relax.relax_csr(*cols, src, bound, n_nodes=kernel.n_nodes,
                                   max_iters=max_iters)
@@ -974,7 +1017,8 @@ def chunk_sources(kernel, prep, params, B):
                                                     plan.srcs[0], np.int32)])
 
 
-def verify_relax(kernel, srcs, bound, label, which=None, width=None):
+def verify_relax(kernel, srcs, bound, label, which=None, width=None,
+                 blocks=None):
     """``relax_against_plain`` run to convergence, then with a cap of one
     sweep and a cap one short of the sweeps it needed: every run
     bit-equal, the capped ones not converged. Returns (dist, time,
@@ -982,28 +1026,32 @@ def verify_relax(kernel, srcs, bound, label, which=None, width=None):
     from reporter_tpu_torch.ops import route_relax
     which = which or kernel.relax_kernel
     dist, time_sn, iters, ok, err = relax_against_plain(
-        kernel, srcs, bound, kernel.n_nodes, label, which, width)
+        kernel, srcs, bound, kernel.n_nodes, label, which, width, blocks)
     check(ok, f"{label}: the relaxation did not converge")
     caps = sorted({1, max(iters - 1, 1)})
     for cap in caps:
         got = relax_against_plain(kernel, srcs, bound, cap,
-                                  f"{label}, max_iters={cap}", which, width)
+                                  f"{label}, max_iters={cap}", which, width,
+                                  blocks)
         check(got[2:4] == (cap, False), f"{label}, max_iters={cap}: "
                                         f"gave {got[2:4]}")
-    blocks = ""
+    plan = ""
     if which == "relax_cluster":
-        blocks = (f", clusters of "
-                  f"{width or route_relax.cluster_width(kernel.n_nodes)} "
-                  f"blocks{' (forced)' if width else ''}")
+        plan = (f", clusters of "
+                f"{width or route_relax.cluster_width(kernel.n_nodes)} "
+                f"blocks{' (forced)' if width else ''}")
+    elif which == "relax_global":
+        G = blocks or route_relax.global_blocks(len(srcs), kernel.n_nodes)
+        plan = f", {G} blocks{' (forced)' if blocks else ''}"
     log(f"[verify-routes] {which}, {label} (N={kernel.n_nodes}, "
-        f"E={kernel.n_edges}{blocks}), S={len(srcs)} at {float(bound):.1f} "
+        f"E={kernel.n_edges}{plan}), S={len(srcs)} at {float(bound):.1f} "
         f"m: {iters} sweeps, converged; and capped at {caps} sweeps, not "
         f"converged: dist and time bit-equal to the plain version, iters "
         f"and converged equal")
     return dist, time_sn, iters, err
 
 
-def phase_verify_routes(dev, served, big, huge, past):
+def phase_verify_routes(dev, served, big, huge, past, far):
     """The route kernels against their plain versions on the card, same
     inputs. ``relax`` at three shapes: the 20x20 city with the first main
     chunk's sources (S = 512 after padding) at its chunk bound, the 40x40
@@ -1018,10 +1066,14 @@ def phase_verify_routes(dev, served, big, huge, past):
     ``FORCED_WIDTHS`` (launched directly), the first chunk and 256
     sources of each of ``WIDTH_SEEDS``; on a 200x200 grid (40,000
     nodes, 3 blocks) and ``CLUSTER_CITIES`` (4 and 8 blocks) with 64
-    sources of each seed at 1,500 m; ``relax_sweep`` by a direct call on
-    the 125x125 grid with the 64 sources, and on ``past``'s 341x341 grid
-    (116,281 nodes, past a cluster's reach) with its first chunk's
-    sources at its chunk bound, the shapes the main path gives it; the
+    sources of each seed at 1,500 m; ``relax_global`` on ``past``'s
+    341x341 grid (116,281 nodes, past a cluster's reach) with its first
+    chunk's sources at its chunk bound, the shapes the main path gives
+    it (each run restores the device's scratch for the next), and on
+    ``far``'s 512x512 grid (262,144 nodes) with ``GLOBAL_SOURCES`` seeded
+    sources at 1,500 m, each also at every block count of
+    ``FORCED_BLOCKS`` (launched directly); and launched directly at the
+    20x20 city's first main chunk and the 125x125 city's first chunk; the
     same way each.
     ``pair_costs`` at the first main chunk's (128, 64, 8), its first
     16 traces given same-edge backward pairs, on the cached (N, N) and
@@ -1047,6 +1099,9 @@ def phase_verify_routes(dev, served, big, huge, past):
                             f"sources, not 512")
     dist, time_sn, _iters, relax_err = verify_relax(
         kernel, srcs, plan.chunk_bound, "20x20 city, first main chunk")
+    global_err = verify_relax(kernel, srcs, plan.chunk_bound,
+                              "20x20 city, first main chunk",
+                              which="relax_global")[3]
     mid = DeviceRouteKernel(build_grid_city(**MID_CITY), dev)
     relax_err = max(relax_err, verify_relax(
         mid, np.random.default_rng(6).choice(mid.n_nodes, 1024,
@@ -1086,10 +1141,11 @@ def phase_verify_routes(dev, served, big, huge, past):
                                                        replace=False),
                 np.float32(1500.0), f"125x125 city, seed {seed}",
                 width=width)[3])
-    # relax_sweep serves graphs past a cluster's reach; held here by a
-    # direct call on the same graph too
-    sweep_err = verify_relax(hk, some, np.float32(1500.0), "125x125 city",
-                             which="relax_sweep")[3]
+    # relax_global serves graphs past a cluster's reach; held here by a
+    # direct launch at the same chunk too
+    global_err = max(global_err, verify_relax(
+        hk, huge_srcs, huge_plan.chunk_bound, "125x125 city, first chunk",
+        which="relax_global")[3])
     del hk
     torch.cuda.empty_cache()
     for width, shape in ((3, WIDE_CITY), *CLUSTER_CITIES.items()):
@@ -1106,18 +1162,29 @@ def phase_verify_routes(dev, served, big, huge, past):
                 np.float32(1500.0), f"{name}, seed {seed}")[3])
         del wide
         torch.cuda.empty_cache()
-    # relax_sweep at the shapes the main path gives it: the 341x341
-    # city's first chunk at its chunk bound
-    pk = DeviceRouteKernel(past["city"], dev)
-    check(pk.relax_kernel == "relax_sweep",
-          f"the {PAST_CITY['rows']}x{PAST_CITY['cols']} city takes "
-          f"{pk.relax_kernel}")
-    past_plan, past_srcs = first_chunk_sources(pk, past)
-    sweep_err = max(sweep_err, verify_relax(
-        pk, past_srcs, past_plan.chunk_bound,
-        f"{PAST_CITY['rows']}x{PAST_CITY['cols']} city, first chunk")[3])
-    del pk
-    torch.cuda.empty_cache()
+    # relax_global at the shapes the main path gives it: the 341x341
+    # city's first chunk at its chunk bound; and well past a cluster's
+    # reach, the 512x512 city
+    for inputs, shape, first in ((past, PAST_CITY, True),
+                                 (far, GLOBAL_CITY, False)):
+        gk = DeviceRouteKernel(inputs["city"], dev)
+        name = f"{shape['rows']}x{shape['cols']} city"
+        check(gk.relax_kernel == "relax_global",
+              f"the {name} takes {gk.relax_kernel}")
+        if first:
+            g_plan, g_srcs = first_chunk_sources(gk, inputs)
+            g_bound, label = g_plan.chunk_bound, f"{name}, first chunk"
+        else:
+            g_srcs = np.random.default_rng(8).choice(
+                gk.n_nodes, GLOBAL_SOURCES, replace=False)
+            g_bound, label = np.float32(1500.0), name
+        global_err = max(global_err,
+                         verify_relax(gk, g_srcs, g_bound, label)[3])
+        for blocks in FORCED_BLOCKS:
+            global_err = max(global_err, verify_relax(
+                gk, g_srcs, g_bound, label, blocks=blocks)[3])
+        del gk
+        torch.cuda.empty_cache()
 
     # node kernels on both layouts: rows of the relaxed sources (S, N), and
     # the cache's (N, N) with row i = node i
@@ -1165,7 +1232,7 @@ def phase_verify_routes(dev, served, big, huge, past):
                 f"{float(k_max):.3f} equal; {int(finite.sum())} finite of "
                 f"{k_route.numel()}, {n_back} free backward pairs")
     return {"relax_err": relax_err, "cluster_err": cluster_err,
-            "sweep_err": sweep_err, "pair_err": pair_max_err}
+            "global_err": global_err, "pair_err": pair_max_err}
 
 
 def counted_run(matcher, reqs):
@@ -1181,32 +1248,34 @@ def counted_run(matcher, reqs):
     for fn in kernel_wrappers().values():
         fn.launches = 0
     ops.relax_cuda.reads = ops.relax_cluster_cuda.reads = 0
+    ops.relax_global_cuda.reads = 0
     t0 = time.perf_counter()
     out = bodies(matcher.match_many(reqs), reqs)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in kernel_wrappers().items()}
     launches["relax_reads"] = ops.relax_cuda.reads
     launches["relax_cluster_reads"] = ops.relax_cluster_cuda.reads
+    launches["relax_global_reads"] = ops.relax_global_cuda.reads
     return (out, wall, launches, metrics.snapshot()["counters"],
             {k: round(v, 4) for k, v in matcher.stage_seconds.items()})
 
 
 def kernel_wrappers():
     """Each kernel's counted wrapper, by the name the ``kernels`` line
-    gives it (``relax_sweep``'s counts sweeps)."""
+    gives it."""
     from reporter_tpu_torch import ops
     return {"viterbi_decode": ops.viterbi_cuda, "relax": ops.relax_cuda,
             "relax_cluster": ops.relax_cluster_cuda,
-            "relax_sweep": ops.relax_sweep_cuda,
+            "relax_global": ops.relax_global_cuda,
             "pair_costs": ops.pair_costs_cuda}
 
 
 def check_route_launches(what, reqs, chunk, launches, counters, kernel):
     """The chunking's launch counts: the decode and ``pair_costs`` once per
-    chunk (every chunk here has live transitions); with ``relax`` or
-    ``relax_cluster`` (``kernel``) one launch and one host read (iters and
-    converged) per relaxation, with ``relax_sweep`` one launch per sweep
-    (the sum of the relaxations' iters), and never another."""
+    chunk (every chunk here has live transitions); the relaxation kernel
+    the graph takes (``kernel``: ``relax``, ``relax_cluster`` or
+    ``relax_global``) one launch and one host read (iters and converged)
+    per relaxation, and no other relaxation kernel."""
     chunks = expected_launches(reqs, chunk)
     routed = counters.get("route.device.chunks", 0)
     relaxes = counters.get("route.device.relaxes", 0)
@@ -1218,12 +1287,10 @@ def check_route_launches(what, reqs, chunk, launches, counters, kernel):
           and launches["pair_costs"] == routed == chunks,
           f"{what}: {launches['pair_costs']} pair_costs launches for "
           f"{routed} routed chunks, want {chunks}")
-    want = {"relax": 0, "relax_reads": 0, "relax_cluster": 0,
-            "relax_cluster_reads": 0, "relax_sweep": 0}
-    if kernel == "relax_sweep":
-        want["relax_sweep"] = sweeps
-    else:
-        want[kernel] = want[f"{kernel}_reads"] = relaxes
+    want = {f"{name}{tail}": 0 for name in ("relax", "relax_cluster",
+                                            "relax_global")
+            for tail in ("", "_reads")}
+    want[kernel] = want[f"{kernel}_reads"] = relaxes
     got = {k: launches[k] for k in want}
     check(got == want, f"{what}: relaxation launches {got}, want {want} "
                        f"({relaxes} relaxations of {sweeps} sweeps in all)")
@@ -1367,13 +1434,16 @@ def phase_route_city(big, huge, past):
     the 125x125 city (15,625 nodes), whose relaxations ``relax_cluster``
     runs, the same way; and ``past``'s ``PAST_TRACES`` traces on a
     341x341 city (116,281 nodes, past a cluster's reach), whose
-    relaxations ``relax_sweep`` runs, cold. Every body byte-equal to the
-    native CPU run with host routes, launches held to the chunking. Returns the
-    launches of ``relax_cluster`` (the 125x125 city's device runs, cold
-    and the first warm round) and ``relax_sweep`` (the 341x341 run), and
-    the 100x100 and 125x125 runs' numbers."""
+    relaxations ``relax_global`` runs: device routes cold, host routes
+    cold, then a warm round of each, with each run's ``matcher.assemble``
+    seconds. Every body byte-equal to the native CPU run with host routes,
+    launches held to the chunking. Returns the launches of
+    ``relax_cluster`` (the 125x125 city's device runs, cold and the first
+    warm round) and ``relax_global`` (the 341x341 device runs, cold and
+    warm), and the 100x100 and 125x125 runs' numbers."""
     from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
     from reporter_tpu_torch.synth import build_grid_city
+    from reporter_tpu_torch.utils import metrics
     t0 = time.perf_counter()
     city = build_grid_city(**MID_CITY)
     params = MatchParams(max_candidates=K)
@@ -1483,26 +1553,38 @@ def phase_route_city(big, huge, past):
         f"{huge_runs['host']['cold']}")
     del sides
 
-    # relax_sweep on the main path: a graph past a cluster's reach
+    # relax_global on the main path: a graph past a cluster's reach,
+    # device routes against host routes, cold then warm
     city, params, reqs = past["city"], past["params"], past["reqs"]
     want = bodies(SegmentMatcher(city, params, device="cpu").match_many(reqs),
                   reqs)
-    gpu = SegmentMatcher(city, params, route_device=True)
-    check(gpu.route_kernel.relax_kernel == "relax_sweep",
+    sides = {"device": SegmentMatcher(city, params, route_device=True),
+             "host": SegmentMatcher(city, params)}
+    check(sides["device"].route_kernel.relax_kernel == "relax_global",
           f"the {PAST_CITY['rows']}x{PAST_CITY['cols']} city takes "
-          f"{gpu.route_kernel.relax_kernel}")
-    got, wall, n, ctr, stages = counted_run(gpu, reqs)
-    what = f"{PAST_CITY['rows']}x{PAST_CITY['cols']} city"
-    check(got == want, f"{what}: /report bodies differ from the native CPU "
-                       f"run with host routes")
-    check_route_launches(what, reqs, gpu.chunk, n, ctr, "relax_sweep")
-    log(f"[route-city] {what} ({city.num_nodes} nodes / {city.num_edges} "
-        f"edges, past relax_cluster's reach), {len(reqs)} traces, cold: "
-        f"{wall:.4f} s wall, stage seconds {stages}; launches {n}; "
-        f"route.device {route_counters(ctr)}; bodies byte-equal to host "
-        f"routes")
+          f"{sides['device'].route_kernel.relax_kernel}")
+    global_launches = 0
+    for name, run in (("device", "cold"), ("host", "cold"),
+                      ("device", "warm"), ("host", "warm")):
+        got, wall, n, ctr, stages = counted_run(sides[name], reqs)
+        assemble = metrics.snapshot()["timers"].get(
+            "matcher.assemble", {}).get("total_s", 0.0)
+        what = (f"{PAST_CITY['rows']}x{PAST_CITY['cols']} city, {name} "
+                f"routes, {run}")
+        check(got == want, f"{what}: /report bodies differ from the native "
+                           f"CPU run with host routes")
+        if name == "device":
+            check_route_launches(what, reqs, sides[name].chunk, n, ctr,
+                                 "relax_global")
+            global_launches += n["relax_global"]
+        log(f"[route-city] {what} ({city.num_nodes} nodes / "
+            f"{city.num_edges} edges, past relax_cluster's reach), "
+            f"{len(reqs)} traces: {wall:.4f} s wall, matcher.assemble "
+            f"{assemble:.4f} s, stage seconds {stages}; launches {n}; "
+            f"route.device {route_counters(ctr)}; bodies byte-equal to "
+            f"host routes")
     return ({"relax_cluster": cluster_launches,
-             "relax_sweep": n["relax_sweep"]},
+             "relax_global": global_launches},
             {"100x100": runs, "125x125": huge_runs})
 
 
@@ -3014,107 +3096,173 @@ def bound_of(n_bytes, n_ops):
 
 
 def relax_bound(kernel, S, dist):
-    """``relax``'s least time for one relaxation: the (S, N) dist and time
-    planes written, the sources and the CSR arcs read once; two adds, a
-    compare and a min for every arc out of every node a row reached (this
-    run's data: each such arc is relaxed at least once)."""
+    """A relaxation's least time (``relax``, ``relax_cluster`` and
+    ``relax_global`` alike), from this run's data (``dist``, the plain
+    version's planes): the (S, N) dist and time planes written; the
+    sources read; and read once, the CSR offsets (both ends) and the arcs
+    (end, length, seconds) of every node some row reached, the only arcs
+    a bounded relaxation reads; two adds, a compare and a min for every
+    arc out of every node a row reached (each such arc is relaxed at
+    least once in that row)."""
     import torch
-    N, E = kernel.n_nodes, kernel.n_edges
+    N = kernel.n_nodes
     outdeg = torch.diff(kernel._arcs.offsets).to(torch.float32)
-    arcs = float((torch.isfinite(dist).to(torch.float32) @ outdeg).sum())
-    n_bytes = 8 * S * N + 4 * S + 4 * (N + 1) + 12 * E
+    hit = torch.isfinite(dist)
+    arcs = float((hit.to(torch.float32) @ outdeg).sum())
+    union = hit.any(0)
+    offsets = torch.zeros(N + 1, dtype=torch.bool, device=union.device)
+    offsets[:N] |= union
+    offsets[1:] |= union
+    n_bytes = (8 * S * N + 4 * S + 4 * int(offsets.sum())
+               + 12 * int(outdeg[union].sum()))
     return (*bound_of(n_bytes, 4 * arcs), n_bytes)
 
 
-def sweep_bound(S, N, E):
-    """``relax_sweep``'s least time for one sweep: S*N packed words read
-    and written, the E edge columns read; per (row, edge) two adds, a
-    compare and a min."""
-    n_bytes = 16 * S * N + 16 * E
-    return (*bound_of(n_bytes, 4 * S * E), n_bytes)
-
-
 def time_relaxations(dev, kernel, srcs, bound, label, other=None):
-    """One relaxation of ``srcs`` at ``bound`` timed by CUDA graphs:
-    ``relax`` or ``relax_cluster`` in one launch where the graph takes
-    it, ``relax_sweep``'s sweeps back to back after a state reset, and
-    with ``other`` (another checkout's ``ops.route_relax``) its sweeps the
-    same way; each result bit-equal to the plain version's; then the
-    plain version's time. Returns {"relax"|"relax_cluster"|"relax_sweep"
-    |"other"|"plain": ms, "iters": sweeps}."""
+    """One relaxation of ``srcs`` at ``bound`` timed by CUDA graphs, one
+    launch each: by the kernel the graph takes (``relax``,
+    ``relax_cluster`` or ``relax_global``) and by ``relax_global`` beside
+    it where the graph takes another; with ``other`` (another
+    checkout's ``ops.route_relax``, one that has ``relax_sweep``)
+    its sweeps back to back after a state reset; each result bit-equal to
+    the plain version's; then the plain version's time. Returns
+    {"relax"|"relax_cluster"|"relax_global"|"other"|"plain": ms, "iters":
+    sweeps, "bound": ``relax_bound``'s (ms, by, bytes)}."""
     import torch
     from reporter_tpu_torch.ops import route_relax
     N = kernel.n_nodes
     src = torch.from_numpy(np.asarray(srcs, np.int32)).to(dev)
     cols = (kernel._e_start, kernel._e_end, kernel._e_len, kernel._e_secs)
-
-    def sweeps(mod, name):
-        """``mod``'s sweeps, timed, then their final state held bit-equal
-        to the plain version's."""
-        start = mod.pack_sources(src, N)
+    plain = route_relax.relax_csr(*cols, src, bound, n_nodes=N, max_iters=N)
+    check(plain[3], f"{label}: the timed relaxation did not converge")
+    out = {"iters": plain[2], "bound": relax_bound(kernel, len(srcs),
+                                                   plain[0])}
+    n = max(2, min(50, int(2e7 // (len(srcs) * N))))
+    planes = torch.empty((2, len(srcs), N), device=dev)
+    info = torch.zeros(3, dtype=torch.int32, device=dev)
+    scratch = route_relax.global_scratch(dev)
+    launches = {
+        "relax": lambda: route_relax.launch_relax(
+            kernel._arcs, src, bound, N, planes[0], planes[1], info),
+        "relax_cluster": lambda: route_relax.launch_relax_cluster(
+            kernel._arcs, src, bound, N, planes[0], planes[1], info),
+        "relax_global": lambda: route_relax.launch_relax_global(
+            kernel._arcs, src, bound, N, planes[0], planes[1], info)}
+    if kernel.relax_kernel == "relax_cluster":
+        route_relax.check_cluster(N, dev)
+    for name in dict.fromkeys((kernel.relax_kernel, "relax_global")):
+        planes.fill_(float("nan"))  # every entry must be written
+        with scratch.lock:
+            out[name] = graph_ms(launches[name], n)
+        for got, want in zip(planes, plain[:2]):
+            check(bit_equal(got, want) == 0,
+                  f"{label}: {name} differs from the plain version")
+    if other is not None:
+        iters = plain[2]
+        start = other.pack_sources(src, N)
         bufs = (start.clone(), torch.empty_like(start))
         flag = torch.zeros(1, dtype=torch.int32, device=dev)
 
-        def run():
+        def sweeps():
             bufs[0].copy_(start)
             for k in range(iters):
-                mod.launch_sweep(bufs[k % 2], bufs[1 - k % 2], *cols, bound,
-                                 flag)
-        out[name] = graph_ms(run, max(1, n // 4))
-        for got, want in zip(route_relax.unpack_state(bufs[iters % 2]),
+                other.launch_sweep(bufs[k % 2], bufs[1 - k % 2], *cols,
+                                   bound, flag)
+        out["other"] = graph_ms(sweeps, max(1, n // 4))
+        for got, want in zip(other.unpack_state(bufs[iters % 2]),
                              plain[:2]):
             check(bit_equal(got, want) == 0,
-                  f"{label}: {name}'s relaxation differs from the plain "
-                  f"version")
-
-    plain = route_relax.relax_csr(*cols, src, bound, n_nodes=N, max_iters=N)
-    check(plain[3], f"{label}: the timed relaxation did not converge")
-    out = {"iters": plain[2]}
-    iters = plain[2]
-    n = max(2, min(50, int(2e7 // (len(srcs) * N))))
-    if kernel.relax_kernel in ("relax", "relax_cluster"):
-        planes = torch.empty((2, len(srcs), N), device=dev)
-        info = torch.zeros(3, dtype=torch.int32, device=dev)
-        if kernel.relax_kernel == "relax":
-            def one():
-                route_relax.launch_relax(kernel._arcs, src, bound, N,
-                                         planes[0], planes[1], info)
-        else:
-            route_relax.check_cluster(N, dev)
-
-            def one():
-                route_relax.launch_relax_cluster(
-                    kernel._arcs, src, bound, N, planes[0], planes[1], info)
-        out[kernel.relax_kernel] = graph_ms(one, n)
-        for got, want in zip(planes, plain[:2]):
-            check(bit_equal(got, want) == 0,
-                  f"{label}: {kernel.relax_kernel} differs from the plain "
-                  f"version")
-    sweeps(route_relax, "relax_sweep")
-    if other is not None:
-        sweeps(other, "other")
-    del plain
+                  f"{label}: the other checkout's sweeps differ from the "
+                  f"plain version")
+    del plain, planes
     out["plain"] = time_ms(lambda: route_relax.relax_csr(
         *cols, src, bound, n_nodes=N, max_iters=N), 2)
     torch.cuda.empty_cache()
     return out
 
 
-def phase_timing_routes(dev, served, big, huge, past):
+def phase_global_probe(dev):
+    """``relax_global``'s block size and its planes, at the first chunks
+    of the 341x341 and 512x512 cities (the shapes the main path gives
+    it): the kernel held bit-equal to the plain version at its own block
+    count and at ``FORCED_BLOCKS``, then one relaxation timed by CUDA
+    graphs at 128, 256, 512 and 1,024 threads a block (256 again last),
+    and the (2, S, N) planes filled at +inf by one ``fill_``, beside
+    ``relax_bound``. Returns {city: {"threads": {t: ms}, "fill_ms": ms,
+    "bound": (ms, by, bytes)}}."""
+    import torch
+    from reporter_tpu_torch.graph.route_device import DeviceRouteKernel
+    from reporter_tpu_torch.ops import route_relax
+    lib, _log = route_relax.build()
+    out = {}
+    for shape, seed in ((PAST_CITY, 19), (GLOBAL_CITY, 23)):
+        name = f"{shape['rows']}x{shape['cols']}"
+        inputs = grid_inputs(shape, PAST_TRACES, seed)
+        kernel = DeviceRouteKernel(inputs["city"], dev)
+        plan, srcs = first_chunk_sources(kernel, inputs)
+        bound = float(plan.chunk_bound)
+        label = f"{name} city, first chunk"
+        verify_relax(kernel, srcs, plan.chunk_bound, label)
+        for blocks in FORCED_BLOCKS:
+            verify_relax(kernel, srcs, plan.chunk_bound, label,
+                         blocks=blocks)
+        S, N = len(srcs), kernel.n_nodes
+        src = torch.from_numpy(srcs).to(dev)
+        cols = (kernel._e_start, kernel._e_end, kernel._e_len,
+                kernel._e_secs)
+        plain = route_relax.relax_csr(*cols, src, bound, n_nodes=N,
+                                      max_iters=N)
+        r_bound = relax_bound(kernel, S, plain[0])
+        planes = torch.empty((2, S, N), device=dev)
+        info = torch.zeros(3, dtype=torch.int32, device=dev)
+        scratch = route_relax.global_scratch(dev)
+        blocks = route_relax.global_blocks(S, N)
+        words, lists = scratch.take(blocks, N, dev)
+        n = max(2, min(50, int(2e7 // (S * N))))
+        threads = {}
+        for t in (128, 256, 512, 1024, 256):
+            def launch(t=t):  # on the current stream: the graph's in capture
+                err = lib.relax_global(
+                    src.data_ptr(), S, *(x.data_ptr() for x in kernel._arcs),
+                    N, bound, N, blocks, t, words.data_ptr(),
+                    lists.data_ptr(), planes[0].data_ptr(),
+                    planes[1].data_ptr(), info.data_ptr(),
+                    torch.cuda.current_stream(dev).cuda_stream)
+                check(err == 0, f"relax_global at {t} threads: CUDA error "
+                                f"{err}")
+            planes.fill_(float("nan"))
+            with scratch.lock:
+                ms = graph_ms(launch, n)
+            for got, want in zip(planes, plain[:2]):
+                check(bit_equal(got, want) == 0,
+                      f"{label}: relax_global at {t} threads differs")
+            threads.setdefault(t, []).append(ms)
+            log(f"[global-probe] {label} (S={S}, N={N}, {blocks} blocks, "
+                f"{plain[2]} sweeps): {t} threads {ms:.5f} ms")
+        fill = graph_ms(lambda: planes.fill_(float("inf")), n)
+        log(f"[global-probe] {label}: the planes filled at +inf "
+            f"({planes.numel() * 4} bytes) {fill:.5f} ms; relax_bound "
+            f"{r_bound[0]:.5f} ms by {r_bound[1]} ({r_bound[2]} bytes)")
+        out[name] = {"threads": threads, "fill_ms": fill, "bound": r_bound}
+        del kernel, plain, planes
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_timing_routes(dev, served, big, huge, past, far):
     """The route kernels at the main path's shapes, timed by CUDA graphs,
-    each beside its bound and its plain version. ``relax``: one
-    relaxation of the main path's first chunk (the 20x20 city, 128 T=64
-    traces: S = 512 sources) and of the 100x100 city's first chunk (S =
-    2,048), with ``relax_sweep``'s sweeps on the same inputs beside it
-    (the kernel it replaced on these graphs). ``relax_cluster``: one
-    relaxation of the 125x125 city's first chunk (S = 1,024, past
-    ``relax``'s limit), and ``relax_sweep``'s sweeps (a sweep's time) on
-    the same inputs. ``relax_sweep``: its sweeps (a sweep's time) at
-    ``past``'s 341x341 city's first chunk (S = 128, N = 116,281), the
-    shapes the main path gives it.
-    ``pair_costs``: one launch at the main chunk's (128, 64, 8) from the
-    cached (N, N) node kernels, default params. Returns {kernel: (ms,
-    plain ms, bound ms, bound by)} and the 100x100 numbers."""
+    each beside its bound and its plain version. A whole relaxation (one
+    launch) of the first chunk of: the main path (the 20x20 city, 128
+    T=64 traces: S = 512 sources) and the 100x100 city (S = 2,048) by
+    ``relax``; the 125x125 city (S = 1,024, past ``relax``'s limit) by
+    ``relax_cluster``; each with ``relax_global`` on the same inputs
+    beside it; ``past``'s 341x341 city (S = 128, N = 116,281, past a
+    cluster's reach) and ``far``'s 512x512 city (N = 262,144) by
+    ``relax_global``, the shapes the main path gives it. ``pair_costs``:
+    one launch at the main chunk's (128, 64, 8) from the cached (N, N)
+    node kernels, default params. Returns {(kernel, city): (ms, plain ms,
+    bound ms, bound by)}, ``pair_costs`` under (``pair_costs``,
+    ``20x20``)."""
     import torch
     from reporter_tpu_torch.graph.route_device import (DeviceRouteKernel,
                                                        pack_blobs)
@@ -3123,75 +3271,28 @@ def phase_timing_routes(dev, served, big, huge, past):
     out = {}
     for name, inputs in (("20x20", {"city": city, "params": params,
                                     "reqs": served["reqs"]}),
-                         ("100x100", big)):
+                         ("100x100", big), ("125x125", huge),
+                         (f"{PAST_CITY['rows']}x{PAST_CITY['cols']}", past),
+                         (f"{GLOBAL_CITY['rows']}x{GLOBAL_CITY['cols']}",
+                          far)):
         kernel = DeviceRouteKernel(inputs["city"], dev)
         plan, srcs = first_chunk_sources(kernel, inputs)
         bound = float(plan.chunk_bound)
         ms = time_relaxations(dev, kernel, srcs, bound, name)
-        dist = route_relax.relax_cuda(
-            kernel._arcs, torch.from_numpy(srcs).to(dev), bound,
-            n_nodes=kernel.n_nodes, max_iters=kernel.n_nodes)[0]
-        r_bound, r_by, r_bytes = relax_bound(kernel, len(srcs), dist)
-        log(f"[timing] relax, {name} city's first chunk (S={len(srcs)}, "
-            f"N={kernel.n_nodes}, E={kernel.n_edges}) at {bound:.1f} m, "
-            f"{ms['iters']} sweeps: {ms['relax']:.4f} ms in one launch; "
-            f"relax_sweep's sweeps on the same inputs {ms['relax_sweep']:.4f}"
-            f" ms ({ms['relax_sweep'] / ms['iters']:.4f} ms a sweep; "
-            f"{ms['relax_sweep'] / ms['relax']:.2f}x relax); plain "
-            f"{ms['plain']:.3f} ms; bound {r_bound:.5f} ms by {r_by} "
-            f"({r_bytes} bytes)")
-        out[f"relax {name}"] = (ms, r_bound, r_by)
+        r_bound, r_by, r_bytes = ms["bound"]
+        for kname in dict.fromkeys((kernel.relax_kernel, "relax_global")):
+            out[kname, name] = (ms[kname], ms["plain"], r_bound, r_by)
+            log(f"[timing] {kname}, {name} city's first chunk "
+                f"(S={len(srcs)}, N={kernel.n_nodes}, E={kernel.n_edges}) "
+                f"at {bound:.1f} m, {ms['iters']} sweeps: {ms[kname]:.4f} ms "
+                f"in one launch, {ms[kname] / r_bound:.1f}x the bound; "
+                f"plain {ms['plain']:.3f} ms; bound {r_bound:.5f} ms by "
+                f"{r_by} ({r_bytes} bytes)")
         if name == "20x20":
             main_kernel, main_plan, main_srcs = kernel, plan, srcs
-        del dist
+        else:
+            del kernel
         torch.cuda.empty_cache()
-
-    kernel = DeviceRouteKernel(huge["city"], dev)
-    plan, srcs = first_chunk_sources(kernel, huge)
-    bound = float(plan.chunk_bound)
-    ms = time_relaxations(dev, kernel, srcs, bound, "125x125")
-    dist = route_relax.relax_cluster_cuda(
-        kernel._arcs, torch.from_numpy(srcs).to(dev), bound,
-        n_nodes=kernel.n_nodes, max_iters=kernel.n_nodes)[0]
-    c_bound, c_by, c_bytes = relax_bound(kernel, len(srcs), dist)
-    del dist
-    s_bound = sweep_bound(len(srcs), kernel.n_nodes, kernel.n_edges)
-    sweep_ms = ms["relax_sweep"] / ms["iters"]
-    plain_sweep = ms["plain"] / ms["iters"]
-    log(f"[timing] relax_cluster, 125x125 city's first chunk (S={len(srcs)}"
-        f", N={kernel.n_nodes}, E={kernel.n_edges}, clusters of "
-        f"{route_relax.cluster_width(kernel.n_nodes)} blocks) at "
-        f"{bound:.1f} m, {ms['iters']} sweeps: {ms['relax_cluster']:.4f} ms "
-        f"in one launch; relax_sweep's sweeps on the same inputs (state "
-        f"reset included) {ms['relax_sweep']:.4f} ms = {sweep_ms:.4f} ms a "
-        f"sweep ({ms['relax_sweep'] / ms['relax_cluster']:.2f}x "
-        f"relax_cluster); plain {ms['plain']:.3f} ms ({plain_sweep:.3f} a "
-        f"sweep); bound {c_bound:.5f} ms by {c_by} ({c_bytes} bytes); "
-        f"relax_sweep's bound {s_bound[0]:.5f} ms a sweep by {s_bound[1]} "
-        f"({s_bound[2]} bytes)")
-    out["relax_cluster"] = (ms["relax_cluster"], ms["plain"], c_bound, c_by)
-    out["relax_sweep 125x125"] = (sweep_ms, plain_sweep, s_bound[0],
-                                  s_bound[1])
-    del kernel
-    torch.cuda.empty_cache()
-
-    kernel = DeviceRouteKernel(past["city"], dev)
-    plan, srcs = first_chunk_sources(kernel, past)
-    bound = float(plan.chunk_bound)
-    name = f"{PAST_CITY['rows']}x{PAST_CITY['cols']}"
-    ms = time_relaxations(dev, kernel, srcs, bound, name)
-    s_bound = sweep_bound(len(srcs), kernel.n_nodes, kernel.n_edges)
-    sweep_ms = ms["relax_sweep"] / ms["iters"]
-    plain_sweep = ms["plain"] / ms["iters"]
-    log(f"[timing] relax_sweep, {name} city's first chunk (S={len(srcs)}, "
-        f"N={kernel.n_nodes}, E={kernel.n_edges}, past a cluster's reach) at "
-        f"{bound:.1f} m, {ms['iters']} sweeps (state reset included): "
-        f"{ms['relax_sweep']:.4f} ms = {sweep_ms:.4f} ms a sweep; plain "
-        f"{ms['plain']:.3f} ms ({plain_sweep:.3f} a sweep); bound "
-        f"{s_bound[0]:.5f} ms a sweep by {s_bound[1]} ({s_bound[2]} bytes)")
-    out["relax_sweep"] = (sweep_ms, plain_sweep, s_bound[0], s_bound[1])
-    del kernel
-    torch.cuda.empty_cache()
 
     # the main path's assembly: the cached (N, N) node kernels
     kernel, plan, srcs = main_kernel, main_plan, main_srcs
@@ -3225,9 +3326,7 @@ def phase_timing_routes(dev, served, big, huge, past):
         f"the route tensor written, the blobs read; {pair_ops} f32 ops)")
     log("[timing] library: no single PyTorch call computes a bounded "
         "relaxation or the emit ladder")
-    ms, r_bound, r_by = out.pop("relax 20x20")
-    out["relax"] = (ms["relax"], ms["plain"], r_bound, r_by)
-    out["pair_costs"] = (pair_ms, plain_pair, *pair_bound)
+    out["pair_costs", "20x20"] = (pair_ms, plain_pair, *pair_bound)
     return out
 
 
@@ -3432,16 +3531,20 @@ def host_ms(fn, n):
 
 
 def phase_against_route_kernels(dev, path):
-    """The route kernels of this checkout against the ones at ``path``, in
-    one process, on the same inputs: the relaxation of the main path's
-    first chunk (20x20 city, S = 512) and of the 100x100 city's first
-    chunk (S = 2,048), as ``relax`` (one launch) here and as ``path``'s
-    sweeps, timed by CUDA graphs (each result bit-equal to the plain
-    version) and as the matcher calls each, host reads included, on the
-    host's clock; then ``pair_costs`` at the main chunk's (128, 64, 8)
-    from the cached (N, N) kernels by CUDA graphs, outputs equal. Every
-    timing in the order other, this, this, other."""
+    """The route kernels of this checkout against the ones at ``path`` (a
+    checkout that has ``relax_sweep``), in one process, on the same
+    inputs: the relaxation of the main path's first chunk (20x20 city, S
+    = 512) and of the 100x100 city's first chunk (S = 2,048), as
+    ``relax`` (one launch) here, and of the 341x341 city's first chunk (S
+    = 128, N = 116,281), as ``relax_global`` (one launch) here, and as
+    ``path``'s sweeps, timed by CUDA graphs (each result bit-equal to the
+    plain version) and as the matcher calls each, host reads included, on
+    the host's clock, the two outputs equal; then ``pair_costs`` at the
+    main chunk's (128, 64, 8) from the cached (N, N) kernels by CUDA
+    graphs, outputs equal. Every timing in the order other, this, this,
+    other."""
     import torch
+    from reporter_tpu_torch import ops
     from reporter_tpu_torch.graph.route_device import (DeviceRouteKernel,
                                                        pack_blobs)
     from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
@@ -3449,7 +3552,7 @@ def phase_against_route_kernels(dev, path):
     from reporter_tpu_torch.synth import build_grid_city
     other = load_other(path, "ops.route_relax")
     other.build()
-    # the other checkout's sweep loop (its relax_cuda before this slice)
+    # the other checkout's sweep loop (its relax_cuda before relax came)
     other_sweeps = getattr(other, "relax_sweep_cuda", other.relax_cuda)
     city = build_grid_city(**CITY)
     params = MatchParams(max_candidates=K)
@@ -3458,7 +3561,9 @@ def phase_against_route_kernels(dev, path):
     out = {}
     for name, inputs in (("20x20", {"city": city, "params": params,
                                     "reqs": main}),
-                         ("100x100", grid_inputs(BIG_CITY, 128, 11))):
+                         ("100x100", grid_inputs(BIG_CITY, 128, 11)),
+                         (f"{PAST_CITY['rows']}x{PAST_CITY['cols']}",
+                          grid_inputs(PAST_CITY, PAST_TRACES, 19))):
         kernel = DeviceRouteKernel(inputs["city"], dev)
         plan, srcs = first_chunk_sources(kernel, inputs)
         bound = float(plan.chunk_bound)
@@ -3466,21 +3571,30 @@ def phase_against_route_kernels(dev, path):
         N = kernel.n_nodes
         cols = (kernel._e_start, kernel._e_end, kernel._e_len,
                 kernel._e_secs)
-        fns = {"this": lambda: route_relax.relax_cuda(
-                   kernel._arcs, src, bound, n_nodes=N, max_iters=N),
+        # as the matcher calls each: this checkout's kernel for the graph
+        fns = {"this": lambda: ops.relax_routes(
+                   *cols, src, bound, n_nodes=N, max_iters=N,
+                   arcs=kernel._arcs),
                "other": lambda: other_sweeps(
                    *cols, src, bound, n_nodes=N, max_iters=N)}
+        outs = [fns[side]() for side in ("this", "other")]
+        check(all(bit_equal(a, b) == 0 for a, b in zip(outs[0][:2],
+                                                       outs[1][:2]))
+              and outs[0][2:] == outs[1][2:],
+              f"{name}: {kernel.relax_kernel} differs from {path}'s sweeps")
+        del outs
         ms = {"graph": {"other": [], "this": []},
               "host": {"other": [], "this": []}}
         for side in ("other", "this", "this", "other"):
             got = time_relaxations(dev, kernel, srcs, bound, name,
                                    other if side == "other" else None)
             ms["graph"][side].append(got["other" if side == "other"
-                                         else "relax"])
+                                         else kernel.relax_kernel])
             ms["host"][side].append(host_ms(fns[side], 20))
         for method, by in ms.items():
             log(f"[against] relaxation, {name} city's first chunk "
-                f"(S={len(srcs)}, N={N}, {got['iters']} sweeps), {method}: "
+                f"(S={len(srcs)}, N={N}, {got['iters']} sweeps; this "
+                f"{kernel.relax_kernel}, {path} its sweeps), {method}: "
                 f"{path} {by['other'][0]:.4f} / {by['other'][1]:.4f} ms, "
                 f"this {by['this'][0]:.4f} / {by['this'][1]:.4f} ms; {path} "
                 f"takes {np.mean(by['other']) / np.mean(by['this']):.2f}x as "
@@ -3489,6 +3603,9 @@ def phase_against_route_kernels(dev, path):
         if name == "20x20":
             dist, time_sn = fns["this"]()[:2]
             main_kernel, main_plan = kernel, plan
+        else:
+            del kernel
+        torch.cuda.empty_cache()
 
     kernel, plan = main_kernel, main_plan
     N = kernel.n_nodes
@@ -5616,6 +5733,9 @@ def main() -> int:
                     help="time this kernel, device-route prep and the "
                          "front door against the checkout at DIR; nothing "
                          "else runs")
+    ap.add_argument("--global-probe", action="store_true",
+                    help="check relax_global and time it at each block "
+                         "size beside its planes' fill; nothing else runs")
     args = ap.parse_args()
     if not (ROOT / "reporter_tpu_torch" / "ops" / "csrc" / "viterbi.cu").is_file():
         fail("reporter_tpu_torch is not beside this script")
@@ -5632,6 +5752,11 @@ def main() -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}, torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    if args.global_probe:
+        spills = phase_build()
+        probe = phase_global_probe(dev)
+        check(not spills, f"ptxas reports spills: {spills}")
+        return finish(smi, {"global_probe": probe})
     if not args.against:
         # the [worker] phase's stream, written while the phases before
         # it run
@@ -5659,7 +5784,8 @@ def main() -> int:
     big = grid_inputs(BIG_CITY, N_TRACES, 11)
     huge = grid_inputs(HUGE_CITY, 64, 17)
     past = grid_inputs(PAST_CITY, PAST_TRACES, 19)
-    verified = phase_verify_routes(dev, served, big, huge, past)
+    far = grid_inputs(GLOBAL_CITY, PAST_TRACES, 23)
+    verified = phase_verify_routes(dev, served, big, huge, past, far)
     route_launches, _runs = phase_routes(dev, served)
     step_launches, _rounds, fallback_launches, _legs = phase_stream(
         dev, served)
@@ -5686,7 +5812,7 @@ def main() -> int:
         smi[0] if smi else "nvidia-smi: no output")
     floor = launch_floor_ms(dev)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
-    route_times = phase_timing_routes(dev, served, big, huge, past)
+    route_times = phase_timing_routes(dev, served, big, huge, past, far)
     step_times = phase_timing_step(dev)
     check(not spills, f"ptxas reports spills: {spills}")
 
@@ -5732,22 +5858,26 @@ def main() -> int:
         "bound_ms_512_64_8": bms_512,
     }]
     source = "reporter_tpu_torch/ops/csrc/route_relax.cu"
-    for name, replaces, err, n in (
+    past_name = f"{PAST_CITY['rows']}x{PAST_CITY['cols']}"
+    for name, shape, replaces, err, n in (
             # match_many with route_device=True, lanes on, cold and warm
-            # (phase_routes): one launch a relaxation
-            ("relax", "reporter_tpu/ops/route_relax.py:61",
+            # (phase_routes): one launch a relaxation; "ms" one whole
+            # relaxation at the main path's first chunk
+            ("relax", "20x20", "reporter_tpu/ops/route_relax.py:61",
              verified["relax_err"], route_launches["relax"]),
             # the 125x125 city with route_device=True (phase_route_city),
             # cold and the first warm round: one launch a relaxation
-            ("relax_cluster", "reporter_tpu/ops/route_relax.py:61",
+            ("relax_cluster", "125x125",
+             "reporter_tpu/ops/route_relax.py:61",
              verified["cluster_err"], city_launches["relax_cluster"]),
-            # the 341x341 city with route_device=True (phase_route_city):
-            # one launch a sweep; "ms" is a sweep's at its first chunk
-            ("relax_sweep", "reporter_tpu/ops/route_relax.py:61",
-             verified["sweep_err"], city_launches["relax_sweep"]),
-            ("pair_costs", "reporter_tpu/ops/route_relax.py:120",
+            # the 341x341 city with route_device=True (phase_route_city),
+            # cold and warm: one launch a relaxation; "ms" one whole
+            # relaxation at its first chunk
+            ("relax_global", past_name, "reporter_tpu/ops/route_relax.py:61",
+             verified["global_err"], city_launches["relax_global"]),
+            ("pair_costs", "20x20", "reporter_tpu/ops/route_relax.py:120",
              verified["pair_err"], route_launches["pair_costs"])):
-        r_ms, r_plain, r_bound, r_by = route_times[name]
+        r_ms, r_plain, r_bound, r_by = route_times[name, shape]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n, "max_abs_err": err,
@@ -5755,12 +5885,14 @@ def main() -> int:
             "bound_by": r_by, "library_ms": None,
             # the faults phase's route.device leg (the probe)
             "launches_faults": fault_launches[name]})
-        if name == "relax_sweep":
-            # a sweep at the 125x125 city's first chunk, the shape the
-            # kernel served before relax_cluster took that city
-            (kernels[-1]["ms_125x125"], kernels[-1]["plain_ms_125x125"],
-             kernels[-1]["bound_ms_125x125"], _by) = \
-                route_times["relax_sweep 125x125"]
+        if name == "relax_global":
+            # one whole relaxation at the other cities' first chunks
+            for (kname, city), (c_ms, c_plain, c_bound, _by) in \
+                    route_times.items():
+                if kname == name and city != shape:
+                    kernels[-1][f"ms_{city}"] = c_ms
+                    kernels[-1][f"plain_ms_{city}"] = c_plain
+                    kernels[-1][f"bound_ms_{city}"] = c_bound
     ms, plain, bms, by = step_times[N_TRACES, 1]
     kernels.append({
         "name": "incremental_step", "route": "cuda",

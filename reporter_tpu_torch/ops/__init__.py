@@ -6,8 +6,8 @@
   relax       ops/csrc/route_relax.cu `relax`, the whole bounded
               relaxation in one launch; past one block's shared memory
               `relax_cluster`, the same over a thread-block cluster; past
-              a cluster's `relax_sweep`, one launch per sweep
-              (ops/route_relax.py, chosen by N); plain:
+              a cluster's `relax_global`, the same with the state in
+              global memory (ops/route_relax.py, chosen by N); plain:
               ``route_relax.relax_csr``
   pair costs  ops/csrc/route_relax.cu `pair_costs`, the route tensor from
               relaxed node kernels; plain: ``route_relax.pair_costs_packed``
@@ -24,7 +24,7 @@ from .incremental import (incremental_step_cuda, incremental_step_plain,
                           incremental_steps_cuda, incremental_steps_plain)
 from .route_relax import (pair_costs_cuda, pair_costs_packed,
                           relax_cluster_cuda, relax_csr, relax_cuda,
-                          relax_kernel_for, relax_sweep_cuda)
+                          relax_global_cuda, relax_kernel_for)
 from .viterbi import viterbi_cuda, viterbi_plain
 
 __all__ = ["decode_batch", "incremental_step_batch", "incremental_steps",
@@ -32,7 +32,7 @@ __all__ = ["decode_batch", "incremental_step_batch", "incremental_steps",
            "route_pair_costs", "viterbi_cuda", "viterbi_plain",
            "incremental_step_cuda", "incremental_step_plain",
            "incremental_steps_cuda", "incremental_steps_plain", "relax_cuda",
-           "relax_cluster_cuda", "relax_sweep_cuda", "relax_csr",
+           "relax_cluster_cuda", "relax_global_cuda", "relax_csr",
            "pair_costs_cuda",
            "pair_costs_packed"]
 
@@ -96,24 +96,19 @@ def relax_routes(edge_start, edge_end, edge_len, edge_secs, src_nodes, bound,
     """Multi-source bounded relaxation (``route_relax.relax_csr``'s
     contract) on the tensors' device: ``(dist, time, iters,
     converged)``. On the card the kernel ``relax_kernel_for(n_nodes)``
-    names: ``relax`` or ``relax_cluster`` over ``arcs``
-    (``route_relax.CsrArcs``, required there), past a cluster's reach
-    ``relax_sweep`` over the edge columns."""
+    names, over ``arcs`` (``route_relax.CsrArcs``, required there):
+    ``relax``, ``relax_cluster`` or, past a cluster's reach,
+    ``relax_global``."""
     if edge_len.device.type == "cpu":
         return relax_csr(edge_start, edge_end, edge_len, edge_secs,
                          src_nodes, bound, n_nodes=n_nodes,
                          max_iters=max_iters)
     kernel = relax_kernel_for(n_nodes)
-    if kernel != "relax_sweep":
-        if arcs is None:
-            raise ValueError(f"{kernel} on the card needs the graph's CSR "
-                             f"arcs")
-        fn = relax_cuda if kernel == "relax" else relax_cluster_cuda
-        return fn(arcs, src_nodes, bound, n_nodes=n_nodes,
-                  max_iters=max_iters)
-    return relax_sweep_cuda(edge_start, edge_end, edge_len, edge_secs,
-                            src_nodes, bound, n_nodes=n_nodes,
-                            max_iters=max_iters)
+    if arcs is None:
+        raise ValueError(f"{kernel} on the card needs the graph's CSR arcs")
+    fn = {"relax": relax_cuda, "relax_cluster": relax_cluster_cuda,
+          "relax_global": relax_global_cuda}[kernel]
+    return fn(arcs, src_nodes, bound, n_nodes=n_nodes, max_iters=max_iters)
 
 
 def route_pair_costs(ints, f32s, dist_sn, time_sn, edge_start, edge_end,

@@ -1,18 +1,18 @@
 // Device route costs for Hopper (sm_90a): the bounded multi-source
 // relaxation (`relax`, one launch, a block a source row; `relax_cluster`,
 // one launch, a thread-block cluster a source row, for graphs past one
-// block's shared memory; `relax_sweep`, one launch per sweep, for graphs
-// past a cluster's), and the pair-cost assembly.
+// block's shared memory; `relax_global`, one launch, a block a source row
+// with its state in global memory, for graphs past a cluster's), and the
+// pair-cost assembly.
 //
 // Replaces two jitted XLA programs of the JAX package that ran on the TPU:
 //   reporter_tpu/ops/route_relax.py `relax_csr` (:61), the while_loop of
 //     Jacobi sweeps, by `relax` (every sweep of every source row in one
 //     launch), where a row's state does not fit one block's shared memory
 //     by `relax_cluster` (the same, the row's state split over a cluster
-//     of 2 to 8 blocks), and past that by `relax_sweep` (the host loop in
-//     ops/route_relax.py `relax_sweep_cuda` stops on the first quiet
-//     sweep); the choice is by N alone (ops/route_relax.py
-//     `relax_kernel_for`);
+//     of 2 to 8 blocks), and past that by `relax_global` (the same, the
+//     row's state in global memory and its frontier a list); the choice
+//     is by N alone (ops/route_relax.py `relax_kernel_for`);
 //   reporter_tpu/ops/route_relax.py `pair_costs` (:120) with its packed
 //     entry `pair_costs_packed` (:190), by `pair_costs`.
 // All give the bits of the plain PyTorch versions in ops/route_relax.py,
@@ -94,14 +94,42 @@
 // cluster fits. Bound: `relax`'s, the 8*S*N planes written; at S=1,024,
 // N=15,625 (the 125x125 city's chunk, C=2), 128 MB, 38 us at 3.35 TB/s.
 //
-// relax_sweep. One sweep: copy old into new (S*N words), zero the changed
-// flag, then one thread per (source row, edge): read the old word at the
-// edge's start, drop the arc unless d + len <= bound (NaN-safe:
-// !(cd <= b)), and atomicMin the candidate word into new at the edge's
-// end; an atomicMin that lowers a word sets the flag. Bound: 16*S*N +
-// 16*E bytes a sweep. A read of the new word first skips the atomic for
-// an arc that cannot win (the word only falls within a sweep, so a stale
-// read errs towards trying).
+// relax_global. `relax` past 116,216 nodes, in one launch: G blocks
+// stride over the S source rows (block b takes rows b, b + G, ...), each
+// with one slot of a global scratch for the row it is on: two packed
+// buffers and three node lists, 16*N + 12*N bytes (ops/route_relax.py
+// `GlobalScratch`, one a device, kept between relaxations). G =
+// ops/route_relax.py `global_blocks(S, N)`: S where the G slots fit
+// GLOBAL_SCRATCH_BYTES (1 GiB), fewer past it, so the scratch is bounded
+// whatever S. The frontier is a list, not a scan over N: a sweep (1)
+// copies the words of the frontier's nodes from cur into nxt (before it
+// the buffers differ exactly there, so after it they are equal), (2)
+// relaxes the frontier's out-arcs in CSR order with `relax`'s admission
+// rule and 64-bit atomicMin (in global memory, where it is atomic; it was
+// DSMEM where the H100 lost minima), and appends an arc's end to the next
+// frontier when its atomicMin lowered the word the node had at the
+// sweep's start (cur's, which no one writes during the sweep): only a
+// node's first lowering in a sweep sees that word, so a node enters a
+// frontier once, and a list of N entries always holds it. An empty next
+// frontier is the quiet sweep. A node whose atomicMin returned the
+// unreached word enters the reached list, once in the row. Sweeps are
+// separated by __syncthreads(), and the frontier counts (one per sweep
+// parity) live in shared memory: a count is zeroed two sweeps after it
+// was read. Words and lists are read with ld.global.cg, at L2, as the
+// atomics act. The block writes its row of the dist and time planes at
+// +inf first (16-byte stores), then after the sweeps the words of the
+// source and the reached nodes into them, and resets exactly those words
+// of both buffers to unreached: every word of a slot is unreached before
+// and after each row, so the next row of the block (and the next
+// relaxation) finds it ready, and the scratch is filled once, when
+// allocated (16*G*N bytes), not per relaxation. Bound: the 8*S*N planes
+// written, the sources read, and the CSR offsets and arcs of the nodes
+// some row reaches read once (a bounded relaxation reads no other arc):
+// at the 341x341 city's first chunk (S = 128, N = 116,281) the planes
+// alone are 119,071,744 bytes, 0.0355 ms at 3.35 TB/s (chip_smoke.py
+// `relax_bound` adds the rest); the kernel moves those plus the frontier's
+// words, arcs and lists, which a bounded row keeps small and in the 50 MB
+// L2. One block a row leaves SMs idle when S < 132.
 //
 // pair_costs. One block per tile of G consecutive (b, t) steps of the
 // (B, T-1, K, K) route tensor (G*K*K about 1,024 outputs), 32-bit
@@ -367,28 +395,136 @@ __global__ void __launch_bounds__(kRelaxMaxThreads, 1)
   cluster.sync();  // rank 0's flags stay until every block has read them
 }
 
-__global__ void __launch_bounds__(kThreads)
-    relax_sweep_kernel(const unsigned long long* __restrict__ old_state,
-                       unsigned long long* __restrict__ new_state,
-                       const int32_t* __restrict__ e_start,
-                       const int32_t* __restrict__ e_end,
-                       const float* __restrict__ e_len,
-                       const float* __restrict__ e_secs, int N, int E,
-                       long long total, float bound,
-                       int32_t* __restrict__ changed) {
-  const long long idx =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= total) return;
-  const long long s = idx / E;
-  const int e = static_cast<int>(idx - s * E);
-  const unsigned long long word = old_state[s * N + e_start[e]];
-  const float cd = __fadd_rn(dist_of(word), e_len[e]);
-  if (!(cd <= bound)) return;  // the admission rule; +inf never passes
-  const unsigned long long cand = pack(cd, __fadd_rn(time_of(word), e_secs[e]));
-  unsigned long long* dst = new_state + s * N + e_end[e];
-  if (cand < *reinterpret_cast<volatile unsigned long long*>(dst) &&
-      atomicMin(dst, cand) > cand)
-    *changed = 1;
+// `n` floats from `p` (4-byte aligned) set to +inf by the block: a
+// scalar head to 16 bytes, 16-byte stores, a scalar tail.
+__device__ __forceinline__ void fill_inf(float* p, int n) {
+  const float inf = __uint_as_float(0x7F800000u);
+  const int head = min(
+      n, static_cast<int>(((16 - (reinterpret_cast<uintptr_t>(p) & 15)) / 4) &
+                          3));
+  const int quads = (n - head) >> 2;
+  float4* body = reinterpret_cast<float4*>(p + head);
+  for (int i = threadIdx.x; i < head; i += blockDim.x) p[i] = inf;
+  for (int i = threadIdx.x; i < quads; i += blockDim.x)
+    body[i] = make_float4(inf, inf, inf, inf);
+  for (int i = head + 4 * quads + threadIdx.x; i < n; i += blockDim.x)
+    p[i] = inf;
+}
+
+// Blocks stride over the source rows: block b relaxes rows b, b + G, ...
+// (G = gridDim.x <= S) in its own slot of the scratch: buffers
+// words[2bN, 2bN + 2N), lists lists[3bN, 3bN + 3N) (two frontiers, then the
+// reached nodes). Every word is unreached when a row starts and again when
+// it ends, so the next row of the block finds its slot ready.
+__global__ void __launch_bounds__(kRelaxMaxThreads)
+    relax_global_kernel(const int32_t* __restrict__ src_nodes, int S,
+                        const int32_t* __restrict__ csr_off,
+                        const int32_t* __restrict__ csr_end,
+                        const float* __restrict__ csr_len,
+                        const float* __restrict__ csr_secs, int N, float bound,
+                        int max_iters, unsigned long long* words,
+                        int32_t* lists, float* __restrict__ dist,
+                        float* __restrict__ time, int32_t* __restrict__ info) {
+  __shared__ int count[2];  // the next frontier's length, by sweep parity
+  __shared__ int n_reached;
+  const int tid = threadIdx.x;
+  const int step = blockDim.x;
+  unsigned long long* const buf0 = words + size_t(blockIdx.x) * 2 * N;
+  int32_t* const list0 = lists + size_t(blockIdx.x) * 3 * N;
+  for (size_t row = blockIdx.x; row < size_t(S); row += gridDim.x) {
+    unsigned long long* cur = buf0;     // the sweep reads this
+    unsigned long long* nxt = buf0 + N; // and writes this
+    int32_t* front = list0;             // this sweep's frontier
+    int32_t* next = list0 + N;          // and the next one
+    int32_t* const reached = list0 + 2 * N;
+    float* dist_row = dist + row * N;
+    float* time_row = time + row * N;
+    fill_inf(dist_row, N);
+    fill_inf(time_row, N);
+    const int src = src_nodes[row];
+    const bool src_ok = src >= 0 && src < N;
+    if (tid == 0) {
+      n_reached = 0;
+      if (src_ok) {  // (0, 0) at the source, its first frontier
+        __stcg(cur + src, 0ull);
+        __stcg(front, src);
+      }
+    }
+    int nf = src_ok ? 1 : 0;
+    int iters = 0;
+    int parity = 0;
+    bool quiet = false;
+    __syncthreads();
+    while (iters < max_iters) {
+      for (int i = tid; i < nf; i += step) {
+        const int n = __ldcg(front + i);
+        __stcg(nxt + n, __ldcg(cur + n));
+      }
+      // read two sweeps ago, before the syncs of the sweep between
+      if (tid == 0) count[parity] = 0;
+      __syncthreads();
+      for (int i = tid; i < nf; i += step) {
+        const int n = __ldcg(front + i);
+        const unsigned long long w = __ldcg(cur + n);
+        const float d = dist_of(w);
+        const float t = time_of(w);
+        const int end = csr_off[n + 1];
+        for (int a = csr_off[n]; a < end; ++a) {
+          const float cd = __fadd_rn(d, csr_len[a]);
+          if (!(cd <= bound)) continue;  // the admission rule
+          const unsigned long long cand =
+              pack(cd, __fadd_rn(t, csr_secs[a]));
+          const int v = csr_end[a];
+          if (!(cand < __ldcg(nxt + v))) continue;
+          const unsigned long long old = atomicMin(nxt + v, cand);
+          if (old <= cand || old != __ldcg(cur + v)) continue;
+          // v's first lowering this sweep; its first ever if unreached
+          __stcg(next + atomicAdd(&count[parity], 1), v);
+          if (old == kUnreached) __stcg(reached + atomicAdd(&n_reached, 1), v);
+        }
+      }
+      __syncthreads();
+      ++iters;
+      const int lowered = count[parity];
+      if (!lowered) {
+        quiet = true;  // nxt == cur: the state is final
+        break;
+      }
+      unsigned long long* swap = cur;
+      cur = nxt;
+      nxt = swap;
+      int32_t* swap_list = front;
+      front = next;
+      next = swap_list;
+      nf = lowered;
+      parity ^= 1;
+    }
+    // the final words of the source and the reached nodes into the planes,
+    // then those words of both buffers back to unreached; no other word of
+    // the slot was written
+    const int nr = n_reached;
+    for (int i = tid; i < nr; i += step) {
+      const int v = __ldcg(reached + i);
+      const unsigned long long w = __ldcg(cur + v);
+      dist_row[v] = dist_of(w);
+      time_row[v] = time_of(w);
+      __stcg(cur + v, kUnreached);
+      __stcg(nxt + v, kUnreached);
+    }
+    if (tid == 0) {
+      if (src_ok) {
+        const unsigned long long w = __ldcg(cur + src);
+        dist_row[src] = dist_of(w);
+        time_row[src] = time_of(w);
+        __stcg(cur + src, kUnreached);
+        __stcg(nxt + src, kUnreached);
+      }
+      atomicMax(info, iters);
+      if (!quiet) atomicAdd(info + 1, 1);
+      if (!src_ok) atomicAdd(info + 2, 1);
+    }
+    __syncthreads();  // the slot is unreached and n_reached read: next row
+  }
 }
 
 // pair_costs' shared memory: G*K candidate slots of each array, then G
@@ -565,10 +701,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-unsigned blocks(long long total) {
-  return static_cast<unsigned>((total + kThreads - 1) / kThreads);
-}
-
 // pair_costs' tile: steps a block takes, about kTileOutputs outputs
 int tile_steps(int K) {
   const int g = kTileOutputs / (K * K);
@@ -681,30 +813,31 @@ extern "C" int relax_cluster(const void* src_nodes, int S,
   return (int)cudaGetLastError();
 }
 
-// One sweep on `stream`: copy old_state into new_state (S*N words), zero
-// the changed flag, relax every (source row, edge). Returns a CUDA error.
-extern "C" int relax_sweep(const void* old_state, void* new_state,
-                           const void* e_start, const void* e_end,
-                           const void* e_len, const void* e_secs, int S,
-                           int N, int E, float bound, void* changed,
-                           void* stream) {
-  if (S < 0 || N < 0 || E < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t words = static_cast<size_t>(S) * N;
-  cudaError_t err =
-      cudaMemcpyAsync(new_state, old_state, words * sizeof(unsigned long long),
-                      cudaMemcpyDeviceToDevice, st);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(changed, 0, sizeof(int32_t), st);
-  if (err != cudaSuccess) return (int)err;
-  const long long total = static_cast<long long>(S) * E;
-  if (total == 0 || N == 0) return 0;
-  relax_sweep_kernel<<<blocks(total), kThreads, 0, st>>>(
-      static_cast<const unsigned long long*>(old_state),
-      static_cast<unsigned long long*>(new_state),
-      static_cast<const int32_t*>(e_start), static_cast<const int32_t*>(e_end),
-      static_cast<const float*>(e_len), static_cast<const float*>(e_secs), N,
-      E, total, bound, static_cast<int32_t*>(changed));
+// The whole relaxation on `stream`: `blocks` blocks of `threads` (1 <=
+// blocks <= S) striding over the S source rows, every sweep up to
+// `max_iters`, each block's rows in its slot of `words` (2*blocks*N words,
+// every one unreached, and left so) and `lists` (3*blocks*N int32); writes
+// the (S, N) dist and time planes and info = [iters, rows that did not
+// converge, sources outside 0..N-1] (three zeroed int32). Returns a CUDA
+// error.
+extern "C" int relax_global(const void* src_nodes, int S, const void* csr_off,
+                            const void* csr_end, const void* csr_len,
+                            const void* csr_secs, int N, float bound,
+                            int max_iters, int blocks, int threads,
+                            void* words, void* lists, void* dist, void* time,
+                            void* info, void* stream) {
+  if (S < 1 || N < 1 || max_iters < 0 || blocks < 1 || blocks > S ||
+      threads < 32 || threads > kRelaxMaxThreads || threads % 32)
+    return (int)cudaErrorInvalidValue;
+  relax_global_kernel<<<blocks, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(src_nodes), S,
+      static_cast<const int32_t*>(csr_off),
+      static_cast<const int32_t*>(csr_end),
+      static_cast<const float*>(csr_len), static_cast<const float*>(csr_secs),
+      N, bound, max_iters, static_cast<unsigned long long*>(words),
+      static_cast<int32_t*>(lists), static_cast<float*>(dist),
+      static_cast<float*>(time), static_cast<int32_t*>(info));
   return (int)cudaGetLastError();
 }
 

@@ -33,10 +33,11 @@ card's reference), and hand-written CUDA kernels in
     in one ``relax_cluster`` launch, each source row's state split over a
     thread-block cluster of :func:`cluster_width` blocks (2 to 8), and
     one read; ``relax_cluster_cuda.launches`` and ``.reads``.
-``relax_sweep_cuda``
-    for graphs past a cluster's reach: launches ``relax_sweep`` once per
-    sweep and reads its changed flag after each one;
-    ``relax_sweep_cuda.launches`` counts sweeps.
+``relax_global_cuda``
+    for graphs past a cluster's reach: the same in one ``relax_global``
+    launch, blocks striding over the source rows, each row's state in the
+    block's slot of its device's :class:`GlobalScratch` and its frontier
+    a list, and one read; ``relax_global_cuda.launches`` and ``.reads``.
 ``pair_costs_cuda``
     launches ``pair_costs`` once on the two packed blobs;
     ``pair_costs_cuda.launches`` counts launches.
@@ -239,8 +240,9 @@ def build():
             lib.relax_cluster.restype = i
             lib.relax_cluster_occupancy.argtypes = [i, i, i, p]
             lib.relax_cluster_occupancy.restype = i
-            lib.relax_sweep.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p]
-            lib.relax_sweep.restype = i
+            lib.relax_global.argtypes = [p, i, p, p, p, p, i, f, i, i, i,
+                                         p, p, p, p, p, p]
+            lib.relax_global.restype = i
             lib.pair_costs.argtypes = [p, p, p, p, i, p, p, p, p, p, p,
                                        i, i, i, i, p, p, p]
             lib.pair_costs.restype = i
@@ -274,7 +276,7 @@ def _check_sources(dev, src_nodes):
 def relax_fits(n_nodes: int) -> bool:
     """Whether ``relax`` takes a graph of ``n_nodes``: one source row's two
     packed states in one block's shared memory. Past it the card runs
-    ``relax_cluster``, then ``relax_sweep``; the choice is by N alone."""
+    ``relax_cluster``, then ``relax_global``; the choice is by N alone."""
     return 0 < RELAX_NODE_BYTES * n_nodes <= SMEM_LIMIT
 
 
@@ -301,10 +303,10 @@ CLUSTER_MAX_NODES = CLUSTER_MAX * (
 def relax_kernel_for(n_nodes: int) -> str:
     """The relaxation kernel the card runs on a graph of ``n_nodes``:
     ``relax`` up to 14,528 nodes, ``relax_cluster`` up to
-    :data:`CLUSTER_MAX_NODES`, ``relax_sweep`` past it."""
+    :data:`CLUSTER_MAX_NODES`, ``relax_global`` past it."""
     if relax_fits(n_nodes):
         return "relax"
-    return "relax_cluster" if cluster_width(n_nodes) else "relax_sweep"
+    return "relax_cluster" if cluster_width(n_nodes) else "relax_global"
 
 
 def relax_threads(n_nodes: int) -> int:
@@ -486,67 +488,103 @@ relax_cluster_cuda.launches = 0
 relax_cluster_cuda.reads = 0
 
 
-def pack_sources(src_nodes, n_nodes: int):
-    """The packed (S, N) int64 state before the first sweep: (0, 0) at
-    each row's source, (+inf, +inf) elsewhere."""
-    S = src_nodes.shape[0]
-    state = torch.full((S, n_nodes), UNREACHED, dtype=torch.int64,
-                       device=src_nodes.device)
-    state[torch.arange(S, device=state.device), src_nodes.long()] = 0
-    return state
+#: ``relax_global``'s block size
+GLOBAL_THREADS = 256
+#: bytes of a block's slot in ``relax_global``'s scratch, a node: two
+#: packed 8-byte words and three int32 list slots
+GLOBAL_NODE_BYTES = 28
+#: the most a device's ``relax_global`` scratch takes: 1 GiB, a quarter of
+#: a chunk's relaxation budget (``graph/route_device.py``)
+GLOBAL_SCRATCH_BYTES = 2**30
 
 
-def unpack_state(state):
-    """(dist, time) f32 of a packed state: dist in the high 32 bits."""
-    words = state.view(torch.int32).view(*state.shape, 2)
-    return (words[..., 1].contiguous().view(_F32),
-            words[..., 0].contiguous().view(_F32))
+def global_blocks(S: int, N: int) -> int:
+    """``relax_global``'s block count for ``S`` rows of ``N`` nodes: a
+    block a row while the blocks' slots fit :data:`GLOBAL_SCRATCH_BYTES`,
+    fewer past it (each then takes several rows in turn), at least one."""
+    return max(1, min(S, GLOBAL_SCRATCH_BYTES // (GLOBAL_NODE_BYTES * N)))
 
 
-def launch_sweep(old, new, edge_start, edge_end, edge_len, edge_secs,
-                 bound, changed) -> None:
-    """Enqueue one sweep on the current stream, uncounted and unchecked:
-    copy ``old`` into ``new``, zero ``changed`` (int32), then the
-    ``relax_sweep`` kernel. Timing loops call this directly."""
-    S, N = old.shape
+class GlobalScratch:
+    """``relax_global``'s state between relaxations, on one device:
+    ``words`` (a slot of two packed N-word buffers a block, int64, every
+    word unreached before and after a relaxation, so filled once, when
+    allocated) and ``lists`` (a slot of two frontiers and the reached
+    nodes a block, 3*N int32, written before read). It grows to the
+    largest blocks*N asked of it and is never shrunk; ``lock`` is held
+    from a launch until its info is read, so one relaxation uses it at a
+    time and has ended before the next starts."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.words = None
+        self.lists = None
+
+    def take(self, blocks: int, N: int, device):
+        """``(words, lists)`` for ``blocks`` slots of N nodes on
+        ``device``."""
+        need = blocks * N
+        if self.words is None or self.words.device != device \
+                or self.words.numel() < 2 * need:
+            self.words = None  # the old buffers go before the new come
+            self.lists = None
+            self.words = torch.full((2 * need,), UNREACHED,
+                                    dtype=torch.int64, device=device)
+            self.lists = torch.empty(3 * need, dtype=torch.int32,
+                                     device=device)
+        return self.words, self.lists
+
+
+_scratches: dict = {}
+
+
+def global_scratch(device) -> GlobalScratch:
+    """The :class:`GlobalScratch` of ``device`` (made on first use)."""
+    device = torch.device(device)
+    with _lock:
+        return _scratches.setdefault(device, GlobalScratch())
+
+
+def launch_relax_global(arcs: CsrArcs, src_nodes, bound, max_iters: int,
+                        dist, time, info, blocks: "int | None" = None) -> None:
+    """Enqueue one ``relax_global`` launch of ``blocks`` blocks
+    (:func:`global_blocks` by default) on the current stream over its
+    device's scratch (left unreached at the end), uncounted and unchecked
+    (as :func:`launch_relax`). Timing loops call this directly, holding
+    the scratch's lock, and checks that hold the kernel at other block
+    counts than its own."""
+    S, N = dist.shape
+    blocks = blocks or global_blocks(S, N)
+    words, lists = global_scratch(dist.device).take(blocks, N, dist.device)
     lib, _log = build()
-    with torch.cuda.device(old.device):
-        err = lib.relax_sweep(
-            old.data_ptr(), new.data_ptr(), edge_start.data_ptr(),
-            edge_end.data_ptr(), edge_len.data_ptr(), edge_secs.data_ptr(),
-            S, N, edge_start.shape[0], float(bound), changed.data_ptr(),
-            _stream(old.device))
+    with torch.cuda.device(dist.device):
+        err = lib.relax_global(
+            src_nodes.data_ptr(), S, *(x.data_ptr() for x in arcs), N,
+            float(bound), int(max_iters), blocks, GLOBAL_THREADS,
+            words.data_ptr(), lists.data_ptr(), dist.data_ptr(),
+            time.data_ptr(), info.data_ptr(), _stream(dist.device))
     if err != 0:
-        raise RuntimeError(f"relax_sweep launch failed: CUDA error {err}")
+        raise RuntimeError(f"relax_global launch failed: CUDA error {err}")
 
 
-def relax_sweep_cuda(edge_start, edge_end, edge_len, edge_secs, src_nodes,
-                     bound, *, n_nodes: int, max_iters: int):
-    """:func:`relax_csr` on the card for any N: one ``relax_sweep`` launch
-    per sweep, each followed by a read of its changed flag; same contract
-    and the same bits (``edge_start``/``edge_end`` int32 here). The state
-    is double-buffered, so every sweep reads only the previous one's
-    state: the sweep count and each tie equal the plain version's."""
-    dev = edge_len.device
-    _check_edges(dev, edge_start, edge_end, edge_len, edge_secs)
-    _check_sources(dev, src_nodes)
-    bound = float(torch.as_tensor(bound, dtype=_F32))
-    state = pack_sources(src_nodes, n_nodes)
-    spare = torch.empty_like(state)
-    flag = torch.zeros(1, dtype=torch.int32, device=dev)
-    iters, changed = 0, True
-    while changed and iters < max_iters:
-        launch_sweep(state, spare, edge_start, edge_end, edge_len,
-                     edge_secs, bound, flag)
-        relax_sweep_cuda.launches += 1
-        iters += 1
-        changed = bool(flag.item())
-        state, spare = spare, state
-    dist, time = unpack_state(state)
-    return dist, time, iters, not changed
+def relax_global_cuda(arcs: CsrArcs, src_nodes, bound, *, n_nodes: int,
+                      max_iters: int):
+    """:func:`relax_csr` on the card for any N in one ``relax_global``
+    launch over the CSR arcs, the rows' state in the device's
+    :class:`GlobalScratch`; same contract and the same bits, ``iters``
+    and ``converged`` read back in one copy. Raises on a source outside
+    the graph."""
+    dev = _check_arcs(arcs, src_nodes, n_nodes)
+    with global_scratch(dev).lock:  # until _relax_once's read: it ended
+        return _relax_once(
+            relax_global_cuda, lambda src, dist, time, info:
+            launch_relax_global(arcs, src, bound, max_iters, dist, time,
+                                info),
+            src_nodes, n_nodes, dev)
 
 
-relax_sweep_cuda.launches = 0
+relax_global_cuda.launches = 0
+relax_global_cuda.reads = 0
 
 
 def launch_pair_costs(ints, f32s, dist_sn, time_sn, edges, B, T, K, N,

@@ -22,6 +22,7 @@ The kernels themselves run only on the card (``chip_smoke.py``); here
 the CPU tensors take the plain versions. Tolerance: exact.
 """
 import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -219,7 +220,7 @@ def test_wrappers_refuse_cpu_tensors_and_cpu_takes_the_plain_versions(
     c = {k: torch.from_numpy(v) for k, v in _columns(city).items()}
     srcs = torch.tensor([0, 5], dtype=torch.int32)
     before = (route_relax.relax_cuda.launches,
-              route_relax.relax_sweep_cuda.launches,
+              route_relax.relax_global_cuda.launches,
               route_relax.pair_costs_cuda.launches)
     arcs = route_relax.csr_arcs(*city.csr(), city.edge_end, c["len"].numpy(),
                                 c["secs"].numpy(), "cpu")
@@ -227,9 +228,8 @@ def test_wrappers_refuse_cpu_tensors_and_cpu_takes_the_plain_versions(
         route_relax.relax_cuda(arcs, srcs, 900.0, n_nodes=city.num_nodes,
                                max_iters=4)
     with pytest.raises(ValueError, match="CUDA device"):
-        route_relax.relax_sweep_cuda(c["start"], c["end"], c["len"],
-                                     c["secs"], srcs, 900.0,
-                                     n_nodes=city.num_nodes, max_iters=4)
+        route_relax.relax_global_cuda(arcs, srcs, 900.0,
+                                      n_nodes=city.num_nodes, max_iters=4)
     with pytest.raises(ValueError, match="CUDA device"):
         route_relax.pair_costs_cuda(
             torch.zeros(8, dtype=torch.int32), torch.zeros(8),
@@ -241,7 +241,7 @@ def test_wrappers_refuse_cpu_tensors_and_cpu_takes_the_plain_versions(
         n_nodes=city.num_nodes, max_iters=64)
     assert ok and iters > 1 and dist.device.type == "cpu"
     assert (route_relax.relax_cuda.launches,
-            route_relax.relax_sweep_cuda.launches,
+            route_relax.relax_global_cuda.launches,
             route_relax.pair_costs_cuda.launches) == before
 
 
@@ -350,7 +350,7 @@ def test_relax_kernel_choice_by_n_and_its_block_plan():
     """``relax`` takes a graph while a row's two packed states (16 bytes a
     node) fit one Hopper block's 232,448 bytes of shared memory: 14,528
     nodes; ``relax_cluster`` from the node past it, its rows split over a
-    cluster of 2 to 8 blocks, up to 116,216 nodes; ``relax_sweep`` past
+    cluster of 2 to 8 blocks, up to 116,216 nodes; ``relax_global`` past
     that. The block plan keeps a thread's nodes within its 64 frontier
     bits."""
     most = route_relax.SMEM_LIMIT // route_relax.RELAX_NODE_BYTES
@@ -364,7 +364,8 @@ def test_relax_kernel_choice_by_n_and_its_block_plan():
     assert route_relax.cluster_width(125 * 125) == 2
     last = route_relax.CLUSTER_MAX_NODES
     assert route_relax.relax_kernel_for(last) == "relax_cluster"
-    assert route_relax.relax_kernel_for(last + 1) == "relax_sweep"
+    assert route_relax.relax_kernel_for(last + 1) == "relax_global"
+    assert route_relax.relax_kernel_for(512 * 512) == "relax_global"
     plans = {n: route_relax.relax_threads(n)
              for n in (1, 64, 400, 1600, 2000, 8192, 10_000, most)}
     assert plans == {1: 128, 64: 128, 400: 128, 1600: 256, 2000: 256,
@@ -380,28 +381,48 @@ def test_relax_kernel_choice_by_n_and_its_block_plan():
 def test_relaxation_budget_per_device_and_kernel():
     """What a chunk's relaxation allocates, against its device's ceiling:
     the reference's (S, max(N, E)) gathers on the CPU; on the card the
-    (S, N) f32 planes, and for relax_sweep its two packed states too."""
+    (S, N) f32 planes, and for relax_global its blocks' scratch slots too
+    (two packed N-word buffers and three N-entry int32 lists a block, a
+    block a row until the slots would pass 1 GiB)."""
     S, N, E = 2048, 10_000, 39_600
     assert route_device.relax_bytes(S, N, E, "cpu", "plain") \
         == 2 * 4 * S * E
     assert route_device.relax_bytes(S, N, E, "cuda", "relax") \
         == 8 * S * N == 163_840_000
-    assert route_device.relax_bytes(S, N, E, "cuda", "relax_sweep") \
-        == 24 * S * N
+    assert route_relax.global_blocks(S, N) == S
+    assert route_device.relax_bytes(S, N, E, "cuda", "relax_global") \
+        == (8 + 16 + 12) * S * N
     # the 100x100 city's chunk: over the CPU's ceiling, inside the card's
     assert route_device.over_budget(S, N, E, "cpu", "plain")
     assert not route_device.over_budget(S, N, E, "cuda", "relax")
-    assert not route_device.over_budget(S, N, E, "cuda", "relax_sweep")
+    assert not route_device.over_budget(S, N, E, "cuda", "relax_global")
     # the CPU's ceiling is the reference's 64M-element check, exactly
     edge = 64 * 1024 * 1024 // (2 * E)
     assert not route_device.over_budget(edge, N, E, "cpu", "plain")
     assert route_device.over_budget(edge + 1, N, E, "cpu", "plain")
-    # the card's is 4 GiB of what relax and relax_sweep allocate
+    # the card's is 4 GiB of what relax and relax_global allocate
     edge = 4 * 2**30 // (8 * N)
     assert not route_device.over_budget(edge, N, E, "cuda", "relax")
     assert route_device.over_budget(edge + 1, N, E, "cuda", "relax")
-    assert route_device.over_budget(edge // 3 + 1, N, E, "cuda",
-                                    "relax_sweep")
+    # relax_global's slots stop at 1 GiB (3,834 blocks of 10,000 nodes),
+    # so past that S adds the planes alone
+    G = 2**30 // (28 * N)
+    assert route_relax.global_blocks(10 * G, N) == G
+    edge = (4 * 2**30 - 28 * G * N) // (8 * N)
+    assert not route_device.over_budget(edge, N, E, "cuda", "relax_global")
+    assert route_device.over_budget(edge + 1, N, E, "cuda", "relax_global")
+    # metro graphs' chunks of S = 128: at 1,398,000 nodes (the most that
+    # per-sweep launches' 24*S*N bytes took) 27 blocks take the rows in
+    # turn, in fewer bytes; at 3 million nodes 12 blocks still fit
+    S = 128
+    for N, G in ((1_398_000, 27), (3_000_000, 12)):
+        assert route_relax.global_blocks(S, N) == G == 2**30 // (28 * N)
+        assert route_device.relax_bytes(S, N, 4 * N, "cuda",
+                                        "relax_global") \
+            == 8 * S * N + 28 * G * N
+        assert not route_device.over_budget(S, N, 4 * N, "cuda",
+                                            "relax_global")
+    assert 8 * S * 1_398_000 + 28 * 27 * 1_398_000 < 24 * S * 1_398_000
     # relax_cluster keeps its state in the cluster's shared memory: the
     # planes alone, as relax (the 125x125 city's chunk, S = 1,024)
     S, N, E = 1024, 125 * 125, 62_000
@@ -581,7 +602,9 @@ def test_cluster_schedule_bit_equal_to_relax_csr(cluster_graphs, graph,
 
 def test_packed_state_orders_as_dist_then_time():
     """The kernel's word: float bits of (dist, time), high and low; their
-    integer order is the lexicographic order of the pairs."""
+    integer order is the lexicographic order of the pairs. A new
+    ``relax_global`` scratch holds every word unreached, and grows, never
+    shrinks, with the blocks*N asked of it; each device has one."""
     pairs = np.array([[0.0, 0.0], [0.0, 3.5], [1.0, 0.0], [1.0, 2.0],
                       [700.25, 1e-3], [np.inf, np.inf]], np.float32)
     words = (pairs[:, 0].view(np.uint32).astype(np.uint64) << np.uint64(32)
@@ -589,12 +612,225 @@ def test_packed_state_orders_as_dist_then_time():
     assert np.all(np.diff(words.astype(np.float64)) > 0)
     assert int(words[-1]) == route_relax.UNREACHED
     state = torch.from_numpy(words.astype(np.int64)).reshape(2, 3)
-    dist, time = route_relax.unpack_state(state)
+    dist, time = _unpack(state)
     assert np.array_equal(_bits(dist).ravel(), _bits(pairs[:, 0]))
     assert np.array_equal(_bits(time).ravel(), _bits(pairs[:, 1]))
-    packed = route_relax.pack_sources(torch.tensor([2, 0]), 3)
-    assert packed[0, 2] == 0 and packed[1, 0] == 0
-    assert int((packed == route_relax.UNREACHED).sum()) == 4
+    assert torch.equal(_pack(dist, time), state)
+    scratch = route_relax.GlobalScratch()
+    w, lists = scratch.take(2, 3, torch.device("cpu"))
+    assert w.dtype == torch.int64 and tuple(w.shape) == (12,)
+    assert bool((w == route_relax.UNREACHED).all())
+    assert lists.dtype == torch.int32 and tuple(lists.shape) == (18,)
+    assert scratch.take(1, 5, torch.device("cpu"))[0] is w  # fits: kept
+    assert scratch.take(4, 3, torch.device("cpu"))[0].numel() == 24
+    assert route_relax.GLOBAL_NODE_BYTES == 2 * 8 + 3 * 4
+    assert route_relax.global_scratch("cpu") is \
+        route_relax.global_scratch(torch.device("cpu"))
+
+
+def global_relax(start, end, length, secs, n_nodes, srcs, bound, max_iters,
+                 scratch, seed=0):
+    """``relax_global``'s schedule in plain numpy, one source row at a time,
+    the atomics in a seeded order: ``scratch`` ((G, 2, N) uint64, every
+    word unreached before and after) holds G blocks' slots, and row s
+    runs in slot s % G, the block that strides over it, after the rows
+    before it there; the row's two packed buffers are its slot's;
+    the frontier an explicit list, the source first; a sweep copies the
+    previous frontier's words into nxt (the buffers then equal), relaxes
+    the frontier's out-arcs in CSR order with a min into nxt, and puts an
+    arc's end on the next frontier only when its min lowered the word the
+    node had at the sweep's start (its first lowerer), and on the reached
+    list when that word was unreached; an empty next frontier ends the
+    row. The planes start at +inf and take the source's and the reached
+    nodes' final words, and those words of both buffers go back to
+    unreached. Returns (dist, time, iters, converged) as ``relax_csr``."""
+    N = n_nodes
+    order = np.argsort(start, kind="stable")        # arcs by start node
+    offsets = np.searchsorted(start[order], np.arange(N + 1))
+    a_end = end[order].astype(np.int64)
+    a_len = length[order]
+    a_secs = secs[order]
+    bound = np.float32(bound)
+    unreached = np.uint64(route_relax.UNREACHED)
+    rng = np.random.default_rng(seed)
+
+    def word(d, t):
+        return np.uint64((int(np.float32(d).view(np.uint32)) << 32)
+                         | int(np.float32(t).view(np.uint32)))
+
+    def pair(w):
+        bits = np.array([int(w) >> 32, int(w) & 0xFFFFFFFF], np.uint32)
+        return bits.view(np.float32)
+
+    dist = np.full((len(srcs), N), np.inf, np.float32)
+    time = dist.copy()
+    iters, converged = 0, True
+    for s, src in enumerate(srcs):
+        cur, nxt = scratch[s % len(scratch), 0], scratch[s % len(scratch), 1]
+        assert (cur == unreached).all() and (nxt == unreached).all()
+        src = int(src)
+        cur[src] = 0
+        front, reached = [src], []
+        k, quiet = 0, False
+        while k < max_iters:
+            for n in front:
+                nxt[n] = cur[n]
+            assert np.array_equal(nxt, cur)
+            after = []
+            for n in rng.permutation(front):
+                d, t = pair(cur[n])
+                for a in range(offsets[n], offsets[n + 1]):
+                    cd = d + a_len[a]
+                    if not cd <= bound:  # the admission rule
+                        continue
+                    cand = word(cd, t + a_secs[a])
+                    v = a_end[a]
+                    old = nxt[v]
+                    if not cand < old:
+                        continue
+                    nxt[v] = cand    # atomicMin's lowering; it returned old
+                    if old == cur[v]:
+                        after.append(v)
+                        if old == unreached:
+                            reached.append(v)
+            k += 1
+            if not after:
+                quiet = True
+                break
+            assert len(set(after)) == len(after) <= N  # once a sweep
+            cur, nxt = nxt, cur
+            front = after
+        assert len(set(reached)) == len(reached) < N and src not in reached
+        iters, converged = max(iters, k), converged and quiet
+        for v in [src, *reached]:
+            dist[s, v], time[s, v] = pair(cur[v])
+            cur[v] = nxt[v] = unreached
+    return dist, time, iters, converged
+
+
+@pytest.mark.parametrize("graph", ["grid8", "grid20", "shuffled", "osm"])
+@pytest.mark.parametrize("cap", [None, 1, "short"])
+def test_global_schedule_bit_equal_to_relax_csr(relax_cities, cluster_graphs,
+                                                graph, cap):
+    """The explicit frontier list, its sparse copy and the first-lowerer
+    rule change no candidate, no min and no sweep count: ``relax_global``'s
+    schedule gives the JAX ``relax_csr``'s and the plain ``relax_csr``'s
+    dist, time, iters and converged bit for bit, at convergence, capped at
+    one sweep and one sweep short of it, and leaves its scratch unreached
+    for the next relaxation."""
+    if graph == "shuffled":
+        c, N = cluster_graphs["shuffled"]
+    else:
+        c, N = _columns(relax_cities[graph]), relax_cities[graph].num_nodes
+    srcs = np.random.default_rng(23).choice(N, 10, replace=False).astype(
+        np.int32)
+    srcs[-1] = srcs[0]  # a repeated row, as the padding makes
+    bound = np.float32(1500.0)
+    cols = [torch.from_numpy(c[k]) for k in ("start", "end", "len", "secs")]
+    full = route_relax.relax_csr(*cols, torch.from_numpy(srcs), bound,
+                                 n_nodes=N, max_iters=N)
+    assert full[3] and full[2] > 2
+    max_iters = {None: N, 1: 1, "short": full[2] - 1}[cap]
+    want = full if cap is None else route_relax.relax_csr(
+        *cols, torch.from_numpy(srcs), bound, n_nodes=N, max_iters=max_iters)
+    ref = jax_relax.relax_csr(
+        *(jnp.asarray(c[k]) for k in ("start", "end", "len", "secs")),
+        jnp.asarray(srcs), jnp.float32(bound), n_nodes=N, max_iters=max_iters)
+    scratch = np.full((len(srcs), 2, N), route_relax.UNREACHED, np.uint64)
+    got = global_relax(c["start"], c["end"], c["len"], c["secs"], N, srcs,
+                       bound, max_iters, scratch)
+    assert (scratch == np.uint64(route_relax.UNREACHED)).all()
+    for w in (want, ref):
+        assert np.array_equal(_bits(got[0]), _bits(w[0]))
+        assert np.array_equal(_bits(got[1]), _bits(w[1]))
+        assert (got[2], got[3]) == (int(w[2]), bool(w[3]))
+    assert got[3] == (cap is None)
+
+
+@pytest.mark.parametrize("graph", ["grid20", "shuffled", "osm"])
+@pytest.mark.parametrize("blocks", [1, 3])
+def test_global_blocks_take_rows_in_turn(relax_cities, cluster_graphs, graph,
+                                         blocks):
+    """Fewer blocks than rows (``global_blocks`` past its scratch budget,
+    or forced): each block's slot serves its rows one after another,
+    reset exactly by each, and the planes, iters and converged are the
+    plain ``relax_csr``'s bit for bit, at convergence and one sweep
+    short."""
+    if graph == "shuffled":
+        c, N = cluster_graphs["shuffled"]
+    else:
+        c, N = _columns(relax_cities[graph]), relax_cities[graph].num_nodes
+    srcs = np.random.default_rng(29).choice(N, 8, replace=False).astype(
+        np.int32)
+    bound = np.float32(1500.0)
+    cols = [torch.from_numpy(c[k]) for k in ("start", "end", "len", "secs")]
+    full = route_relax.relax_csr(*cols, torch.from_numpy(srcs), bound,
+                                 n_nodes=N, max_iters=N)
+    for max_iters in (N, full[2] - 1):
+        want = route_relax.relax_csr(*cols, torch.from_numpy(srcs), bound,
+                                     n_nodes=N, max_iters=max_iters)
+        scratch = np.full((blocks, 2, N), route_relax.UNREACHED, np.uint64)
+        got = global_relax(c["start"], c["end"], c["len"], c["secs"], N,
+                           srcs, bound, max_iters, scratch, seed=blocks)
+        assert (scratch == np.uint64(route_relax.UNREACHED)).all()
+        assert np.array_equal(_bits(got[0]), _bits(want[0]))
+        assert np.array_equal(_bits(got[1]), _bits(want[1]))
+        assert (got[2], got[3]) == (int(want[2]), bool(want[3]))
+
+
+def test_global_scratch_serves_one_relaxation_at_a_time(cities, monkeypatch):
+    """``relax_global_cuda`` holds its device's scratch's lock from the
+    launch to the read of its info, so relaxations from many threads over
+    the one kept scratch never overlap (here a stand-in launch on CPU
+    tensors dirties the words, yields and restores them, as the kernel
+    does), and each finds every word unreached."""
+    import sys
+    import threading
+    city = cities[1]
+    c = _columns(city)
+    arcs = route_relax.csr_arcs(*city.csr(), c["end"], c["len"], c["secs"],
+                                "cpu")
+    monkeypatch.setattr(route_relax, "_scratches", {})
+    seen = []
+
+    def launch(arcs, src, bound, max_iters, dist, time, info, blocks=None):
+        words, _lists = route_relax.global_scratch(dist.device).take(
+            route_relax.global_blocks(*dist.shape), dist.shape[1],
+            dist.device)
+        seen.append(bool((words == route_relax.UNREACHED).all()))
+        words[:len(src)] = 0
+        threading.Event().wait(0.001)
+        words[:len(src)] = route_relax.UNREACHED
+        dist.fill_(0.0)
+        time.fill_(0.0)
+        info[0] = 1
+
+    monkeypatch.setattr(route_relax, "_check_arcs",
+                        lambda arcs, src, n: torch.device("cpu"))
+    monkeypatch.setattr(route_relax, "launch_relax_global", launch)
+    monkeypatch.setattr(route_relax.relax_global_cuda, "launches", 0)
+    monkeypatch.setattr(route_relax.relax_global_cuda, "reads", 0)
+    src = torch.tensor([0, 5, 9], dtype=torch.int32)
+    workers = 2 * (os.cpu_count() or 1) + 1
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [
+            route_relax.relax_global_cuda(arcs, src, 900.0,
+                                          n_nodes=city.num_nodes,
+                                          max_iters=4)
+            for _ in range(4)]) for _ in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(switch)
+    assert len(seen) == 4 * workers and all(seen)
+    assert list(route_relax._scratches) == [torch.device("cpu")]
+    assert route_relax.relax_global_cuda.launches == 4 * workers
+    assert route_relax.relax_global_cuda.reads == 4 * workers
 
 
 def test_the_dsmem_probe_needs_the_card_and_mirrors_the_kernel(capsys):
