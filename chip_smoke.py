@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --against DIR
     python3 chip_smoke.py --global-probe
+    python3 chip_smoke.py --cities
 
 Phases, each fatal on failure:
 
@@ -113,12 +114,12 @@ Phases, each fatal on failure:
             a relaxation), device routes cold and warm and host routes
             cold and warm, each with its matcher.assemble seconds
    worker   the streaming worker (reporter_tpu_torch.streaming.worker.main)
-            in this process on the 100x100 city: 1,024 vehicles' probe
+            in this process on the 100x100 city: 512 vehicles' probe
             lines (written by a low-priority child process started with
             the run) to tile files, with the carried-state decode
             (report_incremental: incremental_step launched) and with
             "incremental": false (report_many: viterbi_decode), tiles
-            byte-equal; then the first 512 vehicles fault-free, with
+            byte-equal; then the first 256 vehicles fault-free, with
             match.incremental.commit=error#1 (it fires), killed by
             worker.offer=crash+k#1 in a child process (exit 137, decode
             frames in its snapshot) and resumed by a new worker, and with
@@ -131,7 +132,7 @@ Phases, each fatal on failure:
             p99), then the phase's seconds beside the card's name and
             power limit
    pipeline the batched pipeline (reporter_tpu_torch.pipeline) over a
-            day's probe archive of 1,024 vehicles on the 100x100 city
+            day's probe archive of 512 vehicles on the 100x100 city
             (written by a low-priority child process started with the
             run: 1-4 trips a vehicle, every 16th one long session past
             1,024 points; 16 part files in the reference's pipe layout,
@@ -151,7 +152,7 @@ Phases, each fatal on failure:
             child: by then this process's torch.profiler sees no CUDA
             activity)
    datastore the histogram datastore fed by the card (phase_datastore):
-            [worker]'s first 512 vehicles through python -m
+            [worker]'s first 256 vehicles through python -m
             reporter_tpu_torch stream --datastore (incremental_step on
             the card, the background compactor on), tiles equal to
             [worker]'s and the store equal to datastore ingest of the CPU
@@ -170,7 +171,39 @@ Phases, each fatal on failure:
             20x20 city at ci.yml's thresholds (0.99, 0.985) in a child
             process, --device cuda and then --device cpu: both exit 0,
             their JSON lines equal, the card's launches one a planned
-            chunk
+            chunk; then --osm-fixture --traces 64 (the OSM fixture town
+            through graph/osm.py) at ci.yml's 0.99 and 0.975 the same way
+   cities   multi-city serving (service/cities.py) on the card, four
+            cities built by the port's own modules: grid100 (the 100x100
+            city, with a datastore whose .profile datastore profile
+            --replay wrote on the card), metro341 (the 341x341 city
+            written as an RGT tree of 15 tiles by write_tiles, composed
+            back through the C++ tile parser, equal to its source up to
+            the tiles' edge order, saved as .npz), metro512 (the 512x512
+            city) and town (the OSM fixture town through graph/osm.py);
+            each city's card bytes with route_device=True beside its
+            budget bytes. Leg A: python -m reporter_tpu_torch.service.
+            server with a cities config (the default 512 MiB budget) in
+            a child, 64 client threads sending city= requests mixed over
+            the cities, 128 T=64 traces of 4 m noise each, a cold pass and
+            a warm one: every body byte-equal to a device="cpu" registry
+            (all of grid100's and town's, 8 traces each of metro341's and
+            metro512's), requests/s and p50/p99 beside [serve]'s, the
+            child's viterbi_decode launches by its wrapper and by
+            /profile. Leg B: an in-process registry with a budget below
+            the two largest cities (a cut) and town on device routes,
+            eight round-robin cycles: loads, hits and evictions, each
+            load's graph, native-build and pre-warm seconds, grid100's
+            first request with and without its .profile (warmed pairs,
+            memo hits), threading.active_count() and
+            torch.cuda.memory_allocated() back at their values after the
+            first cycle. Leg C: 64 clients keep sending grid100 requests
+            to an in-process front door while grid100 swaps to a
+            re-profiled identical build (flipped, agreement 1.0), to a
+            100x100 city of another seed (refused_shadow) and to it with
+            force (flipped): every answer 200 and byte-equal to the
+            version that served it, /health's swap block equal to the
+            records
 8. timing   the launch floor (an empty kernel with the kernels' C launch
             interface, built beside them, by CUDA graphs and back to back);
             CUDA-event times of the decode kernel from CUDA graphs (the
@@ -250,7 +283,11 @@ kernels (viterbi_decode: ``launches`` match_many's in the main phase,
 ``launches_stream_fallback`` the stream phase's declined slots,
 ``launches_faults`` the faults phase's legs, ``launches_pipeline`` the
 pipeline phase's card run, ``launches_accuracy`` the accuracy phase's
-card run, ``launches_datastore`` the datastore phase's profile replay; relax and pair_costs: the routes phase's device lanes-on runs,
+card run (``launches_accuracy_osm`` its --osm-fixture run),
+``launches_datastore`` the datastore phase's profile replay,
+``launches_cities`` the cities phase's legs (A: the server child's
+wrapper count; B and C: this process's); relax and pair_costs: the
+routes phase's device lanes-on runs,
 cold and the first warm round; relax_cluster: route-city's 125x125
 device runs, cold and the first warm round; relax_global: route-city's
 341x341 device runs, cold and warm; incremental_step: the stream phase's
@@ -258,7 +295,8 @@ parity leg, one launch a call and parameter group (``launches_datastore``
 the datastore phase's tee leg);
 each kernel also its ``launches_faults``, its ``launches_worker`` (the
 worker phase's legs, each counted from 0) and the ``launch_floor_ms``),
-and as the last line {"ok": true, "device": {...}}. Exits non-zero,
+and as the last line {"ok": true, "device": {...}}. After each phase a
+``[time]`` line gives its seconds and the run's so far. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
 
 With ``--against DIR`` (another checkout of the repo, such as a parent
@@ -283,6 +321,9 @@ median and range. Last, one front door from each checkout, observability
 at its defaults: match_many of main's 512 traces and a serving window of
 the 608 requests, ten rounds in turns, bodies byte-equal to the native
 CPU run: what the always-on instrumentation costs.
+
+With ``--cities`` only the build runs, then the accuracy phase's
+--osm-fixture run and the cities phase.
 
 With ``--global-probe`` only the build runs, then relax_global at the
 341x341 and 512x512 cities' first chunks: held bit-equal to the plain
@@ -383,6 +424,19 @@ STEP_ROUNDS = ((512, 8, 4), (1, 8, 4), (37, 32, 3), (37, 128, 3))
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: perf_counter at the last lap (main's start first)
+_LAP = [time.perf_counter()]
+
+
+def lap(name: str) -> None:
+    """Log the seconds since the last lap under ``name`` and the seconds
+    since the run began: each phase's share of the run's time limit."""
+    now = time.perf_counter()
+    log(f"[time] {name} {now - _LAP[-1]:.1f} s; the run so far "
+        f"{now - _LAP[0]:.1f} s")
+    _LAP.append(now)
 
 
 def fail(msg: str) -> None:
@@ -1619,12 +1673,10 @@ def post_all(url, reqs, clients, trace_every=0, span=False, retry=False,
     with tempfile.TemporaryDirectory() as tmp:
         with open(f"{tmp}/reqs.json", "w") as f:
             json.dump(reqs, f)
-        subprocess.run(
-            [sys.executable, "-c", "import sys, chip_smoke; "
-             "chip_smoke.client_main(*sys.argv[1:])", url,
-             f"{tmp}/reqs.json", f"{tmp}/out.json", str(clients),
-             str(trace_every), path, str(window_s)],
-            cwd=ROOT, check=True, timeout=600)
+        subprocess.run(client_argv(url, f"{tmp}/reqs.json",
+                                   f"{tmp}/out.json", clients, trace_every,
+                                   path, window_s),
+                       cwd=ROOT, check=True, timeout=600)
         with open(f"{tmp}/out.json") as f:
             out = json.load(f)
     got = ([(st, tag, body.encode()) for st, tag, body in out["answers"]],
@@ -1634,9 +1686,27 @@ def post_all(url, reqs, clients, trace_every=0, span=False, retry=False,
     return got + (out["retry"],) if retry else got
 
 
+def client_argv(url, reqs_path, out_path, clients, trace_every=0,
+                path="/report", window_s=0, stop_path=""):
+    """The command line of a :func:`client_main` child."""
+    return [sys.executable, "-c", "import sys, chip_smoke; "
+            "chip_smoke.client_main(*sys.argv[1:])", url, reqs_path,
+            out_path, str(clients), str(trace_every), path, str(window_s),
+            stop_path]
+
+
+#: the longest a client_main child runs on a stop file
+STOP_MAX_S = 300.0
+
+
 def client_main(url, reqs_path, out_path, clients, trace_every="0",
-                path="/report", window_s="0"):
-    """The load generator :func:`post_all` runs in its own process."""
+                path="/report", window_s="0", stop_path=""):
+    """The load generator :func:`post_all` runs in its own process. With
+    ``stop_path`` the clients send the requests in turn until that file
+    exists (at most ``STOP_MAX_S``), keeping every body, and
+    ``stop_path + ".ready"`` is written once they run. The output holds
+    each answer's request number (``ids``: its request is ``reqs[i %
+    len(reqs)]``) and its start and end in epoch seconds (``spans``)."""
     import itertools
     import threading
     with open(reqs_path) as f:
@@ -1650,21 +1720,28 @@ def client_main(url, reqs_path, out_path, clients, trace_every="0",
 
     def one(i):
         where = path + "?trace=1" if every and i % every == 0 else path
-        t0 = time.perf_counter()
+        start, t0 = time.time(), time.perf_counter()
         st, h, body = http(url + where, json.dumps(reqs[i % len(reqs)])
                            .encode())
         done[i] = ((st, h["X-Reporter-Proc"], "" if window else
                     body.decode()), time.perf_counter() - t0,
-                   h["Retry-After"])
+                   h["Retry-After"], (start, time.time()))
+
+    def stopped(i):
+        if stop_path:
+            return (os.path.exists(stop_path)
+                    or time.perf_counter() - t0 >= STOP_MAX_S)
+        return time.perf_counter() - t0 >= window if window \
+            else i >= len(reqs)
 
     def client():
         # each client takes the next request as it comes free: every
-        # request once, or (with a window) until the window has passed
+        # request once, or (with a window or a stop file) until the
+        # window has passed or the file exists
         try:
             while True:
                 i = next(order)
-                if (time.perf_counter() - t0 >= window if window
-                        else i >= len(reqs)):
+                if stopped(i):
                     return
                 one(i)
         except BaseException as e:  # re-raised after the join
@@ -1677,17 +1754,21 @@ def client_main(url, reqs_path, out_path, clients, trace_every="0",
     threads = [threading.Thread(target=client) for _ in range(clients)]
     for t in threads:
         t.start()
+    if stop_path:
+        open(stop_path + ".ready", "w").close()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
     wall = time.perf_counter() - t0
     t1_ns = time.time_ns()
-    done = [done[i] for i in sorted(done)]
+    ids = sorted(done)
+    done = [done[i] for i in ids]
     with open(out_path, "w") as f:
-        json.dump({"answers": [a for a, _t, _r in done],
-                   "seconds": [t for _a, t, _r in done], "wall": wall,
-                   "retry": [r for _a, _t, r in done],
+        json.dump({"answers": [a[0] for a in done],
+                   "seconds": [a[1] for a in done], "wall": wall,
+                   "retry": [a[2] for a in done],
+                   "spans": [a[3] for a in done], "ids": ids,
                    "t0_ns": t0_ns, "t1_ns": t1_ns}, f)
 
 
@@ -4257,8 +4338,8 @@ def phase_stream(dev, served):
 #: the [worker] phase's fleet on BIG_CITY: vehicles (one trip each, numpy
 #: seed 11), the first legs' and then the smaller legs' count, their start
 #: times spread evenly over WORKER_SPREAD_S seconds
-WORKER_VEHICLES = 1024      # cut from 4,096, then 2,048 (PERF.md §4)
-WORKER_SMALL = 512
+WORKER_VEHICLES = 512       # cut from 4,096, 2,048, 1,024 (PERF.md §4)
+WORKER_SMALL = 256
 WORKER_SPREAD_S = 600
 WORKER_FORMAT = r",sv,\|,0,1,2,3,4"
 #: the resume leg's child snapshots every this many messages
@@ -4595,7 +4676,7 @@ def phase_worker(dev, big, stream_proc, stream, smi, keep):
 #: the [pipeline] phase's archive: a day of a fleet of PIPE_VEHICLES on
 #: BIG_CITY (numpy seed PIPE_SEED), every PIPE_LONG_EVERY-th vehicle one
 #: long session, as PIPE_FILES part files in the reference's pipe layout
-PIPE_VEHICLES = 1024        # cut from 2,048 (PERF.md §4)
+PIPE_VEHICLES = 512         # cut from 2,048, then 1,024 (PERF.md §4)
 PIPE_CUT_FROM = 2048
 PIPE_SEED = 13
 PIPE_LONG_EVERY = 16
@@ -5033,7 +5114,7 @@ def phase_pipeline(dev, big, archive_proc, archive, smi, keep):
     log(f"[pipeline] archive ready {time.perf_counter() - t_phase:.1f} s "
         f"after the phase began: {json.dumps(meta)}; the fleet cut from "
         f"{PIPE_CUT_FROM} vehicles to {meta['vehicles']} (the CPU run's "
-        f"plain decode kept the phase past 120 s)")
+        f"plain decode and the run's time limit)")
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = tmp_dir.name
     graph = os.path.join(tmp, "city.npz")
@@ -5632,12 +5713,16 @@ def torch_device(name):
 ACCURACY_ARGS = ("accuracy", "--traces", "2048", "--rows", "20", "--cols",
                  "20", "--min-agreement", "0.99", "--min-point-agreement",
                  "0.985")
+#: and on the OSM fixture town (ci.yml's --osm-fixture gates)
+ACCURACY_OSM_ARGS = ("accuracy", "--osm-fixture", "--traces", "64",
+                     "--min-agreement", "0.99", "--min-point-agreement",
+                     "0.975")
 
 
-def phase_accuracy(smi):
-    """``python -m reporter_tpu_torch accuracy`` (``ACCURACY_ARGS``) in a
-    child process with ``--device cuda``, then with ``--device cpu``, each
-    inside a ``DecodeLog`` (``counted_cli``): both exit 0, their JSON
+def phase_accuracy(smi, args=ACCURACY_ARGS, tag="[accuracy]"):
+    """``python -m reporter_tpu_torch`` with ``args`` (an accuracy run) in
+    a child process with ``--device cuda``, then with ``--device cpu``,
+    each inside a ``DecodeLog`` (``counted_cli``): both exit 0, their JSON
     lines are equal, the card's run launched ``viterbi_decode`` once a
     planned chunk and the CPU's nothing. Returns the card's launches."""
     import tempfile
@@ -5647,26 +5732,543 @@ def phase_accuracy(smi):
         for device in ("cuda", "cpu"):
             p, wall, counts = counted_child(
                 os.path.join(tmp, f"{device}.json"),
-                [*ACCURACY_ARGS, "--device", device], tmp)
+                [*args, "--device", device], tmp)
             check(p.returncode == 0 and counts and counts["rc"] == 0,
-                  f"[accuracy] {device}: exited {p.returncode}: "
+                  f"{tag} {device}: exited {p.returncode}: "
                   f"{p.stderr[-2000:]}")
-            check_decode_log(f"[accuracy] {device}", counts,
-                             device == "cuda")
+            check_decode_log(f"{tag} {device}", counts, device == "cuda")
             line = p.stdout.strip().splitlines()[-1]
             out[device] = (json.loads(line), counts, wall)
-            log(f"[accuracy] {device}: {line} ({wall:.1f} s, decode "
+            log(f"{tag} {device}: {line} ({wall:.1f} s, decode "
                 f"{counts['launched'] or counts['plain']} by bucket)")
     (res, counts, _w), (cpu_res, _c, _w2) = out["cuda"], out["cpu"]
-    check(res == cpu_res, f"[accuracy] the card's result {res} differs from "
+    check(res == cpu_res, f"{tag} the card's result {res} differs from "
                           f"the CPU's {cpu_res}")
-    log(f"[accuracy] {res['traces']} traces: agreement {res['agreement']}, "
-        f"point agreement {res['point_agreement']}, boundary misses "
-        f"{res['point_misses_boundary']}, interior misses "
+    log(f"{tag} {' '.join(args[1:])}: {res['traces']} traces, agreement "
+        f"{res['agreement']}, point agreement {res['point_agreement']}, "
+        f"boundary misses {res['point_misses_boundary']}, interior misses "
         f"{res['point_misses_interior']}; viterbi_decode launches "
-        f"{counts['launches']}; card and CPU equal; the phase "
+        f"{counts['launches']}; card and CPU equal; the run "
         f"{time.perf_counter() - t_phase:.1f} s on {smi}")
     return counts["launches"]
+
+
+# -- multi-city serving --------------------------------------------------------
+#: the cities of [cities], in the order a round-robin visits them
+CITY_ORDER = ("grid100", "metro341", "metro512", "town")
+CITY_TRACES = 128           # T=64 requests a city (leg A)
+CITY_CPU_CUT = 8            # of metro341's and metro512's, held to the CPU
+CITY_CYCLES = 8             # leg B's round-robin cycles after the first
+METRO_TILES = 15            # the RGT tree metro341 is written as
+SWAP_SEED = 43              # leg C's divergent 100x100 build
+SWAP_RING_MIN = 16          # captured requests the divergent swap waits for
+#: the grids metro341's and metro512's requests are drawn on: their nodes
+#: are the metro's central ones (same spacing, anchor and parity of the
+#: node count), so a drawn trace's route search stays small
+METRO_DRAW = {"metro341": dict(rows=41, cols=41, spacing_m=200.0, seed=42),
+              "metro512": dict(rows=40, cols=40, spacing_m=200.0, seed=42)}
+
+
+def counted_server(out_path, *argv):
+    """``python -m reporter_tpu_torch.service.server *argv`` in this
+    process until SIGTERM, then writes {"rc", "launches"}: the exit code
+    and the ``viterbi_decode`` wrapper's own count over the server's
+    life. [cities]' leg A runs it in a child."""
+    import signal
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.service.server import main as server_main
+
+    def stop(_signum, _frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, stop)
+    ops.viterbi_cuda.launches = 0
+    rc = server_main(list(argv))
+    with open(out_path, "w") as f:
+        json.dump({"rc": rc, "launches": ops.viterbi_cuda.launches}, f)
+    return rc
+
+
+def cpu_bodies(service, reqs):
+    """``service.handle`` of each request from 32 threads: the bodies as
+    text, each answer 200."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(32) as pool:
+        got = list(pool.map(lambda r: service.handle(dict(r)), reqs))
+    for code, body in got:
+        check(code == 200, f"a CPU city answered {code}: {body}")
+    return [body if isinstance(body, str) else bytes(body).decode()
+            for _code, body in got]
+
+
+def latency_ms(secs):
+    lat = np.array(secs) * 1e3
+    return float(np.percentile(lat, 50)), float(np.percentile(lat, 99))
+
+
+def phase_cities(dev, smi, big=None, past=None, far=None, serving=None):
+    """Multi-city serving on the card (see the module docstring's
+    ``cities``). ``big``, ``past`` and ``far`` are the run's 100x100,
+    341x341 and 512x512 inputs (built here when absent), ``serving``
+    [serve]'s windows. Returns {"profile", "A", "B", "C": viterbi_decode
+    launches}."""
+    import gc
+    import io
+    import signal
+    import socket
+    import tempfile
+    import threading
+    import torch
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.datastore import LocalDatastore
+    from reporter_tpu_torch.graph.network import COLUMNS, RoadNetwork
+    from reporter_tpu_torch.graph.osm import network_from_osm_xml
+    from reporter_tpu_torch.graph.route_device import DeviceRouteKernel
+    from reporter_tpu_torch.graph.tilestore import GraphTileStore, write_tiles
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.service.cities import CityRegistry
+    from reporter_tpu_torch.service.server import ReporterService, serve
+    from reporter_tpu_torch.synth import build_grid_city
+    from reporter_tpu_torch.tools.osm_fixture import build_city_xml
+    from reporter_tpu_torch.utils import metrics
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    launches = {}
+
+    # -- the cities, by the port's own modules
+    t0 = time.perf_counter()
+    src = {"grid100": (big or {}).get("city")
+           or build_grid_city(**BIG_CITY),
+           "metro341": (past or {}).get("city")
+           or build_grid_city(**PAST_CITY),
+           "metro512": (far or {}).get("city")
+           or build_grid_city(**GLOBAL_CITY),
+           "town": network_from_osm_xml(
+               io.BytesIO(build_city_xml().encode()))}
+    swap_city = build_grid_city(**dict(BIG_CITY, seed=SWAP_SEED))
+    t_build = time.perf_counter() - t0
+    # metro341 as an RGT tree, composed back through the C++ parser
+    t0 = time.perf_counter()
+    written = write_tiles(src["metro341"], f"{tmp}/metro341_tiles")
+    t_write = time.perf_counter() - t0
+    parses = metrics.default.counter("tilestore.parse.native")
+    t0 = time.perf_counter()
+    metro = GraphTileStore(f"{tmp}/metro341_tiles").load_all()
+    t_compose = time.perf_counter() - t0
+    parses = metrics.default.counter("tilestore.parse.native") - parses
+    check(len(written) == METRO_TILES and parses == len(written),
+          f"[cities] metro341: {len(written)} tiles written, {parses} "
+          f"parsed by the C++ parser, want {METRO_TILES}")
+    s341 = src["metro341"]
+    a = np.lexsort((s341.edge_end, s341.edge_start))
+    b = np.lexsort((metro.edge_end, metro.edge_start))
+    for name in COLUMNS:
+        want_col = getattr(s341, name)
+        got_col = getattr(metro, name)
+        if name.startswith("edge_"):
+            want_col, got_col = want_col[a], got_col[b]
+        check(got_col.dtype == want_col.dtype
+              and np.array_equal(got_col, want_col),
+              f"[cities] metro341: the composed {name} differs from the "
+              f"source's")
+    # the tiles carry the segments their edges name, as float32
+    named = set(s341.edge_segment_id[s341.edge_segment_id >= 0].tolist())
+    check(set(metro.segment_length_m) == named
+          and all(np.float32(s341.segment_length_m[k]) == np.float32(v)
+                  for k, v in metro.segment_length_m.items()),
+          "[cities] metro341: the composed segment lengths differ")
+    nets = dict(src, metro341=metro)
+    paths = {}
+    for name, net in nets.items():
+        paths[name] = f"{tmp}/{name}.npz"
+        net.save(paths[name])
+    swap_path = f"{tmp}/grid100_seed{SWAP_SEED}.npz"
+    swap_city.save(swap_path)
+    log(f"[cities] built grid100 ({nets['grid100'].num_nodes} nodes / "
+        f"{nets['grid100'].num_edges} edges), metro341 "
+        f"({metro.num_nodes} / {metro.num_edges}), metro512 "
+        f"({nets['metro512'].num_nodes} / {nets['metro512'].num_edges}), "
+        f"town ({nets['town'].num_nodes} / {nets['town'].num_edges}) and "
+        f"the seed-{SWAP_SEED} 100x100 build in {t_build:.2f} s; metro341 "
+        f"written as {len(written)} RGT tiles in {t_write:.3f} s, composed "
+        f"back by {parses} C++ tile parses in {t_compose:.3f} s, its "
+        f"columns equal to the source's up to the tiles' edge order")
+
+    # each city's requests (grid100's the run's 100x100 ones), and
+    # grid100's .profile written on the card
+    t0 = time.perf_counter()
+    reqs = {}
+    for i, (name, net) in enumerate(src.items()):
+        if name == "grid100" and (big or {}).get("reqs"):
+            reqs[name] = big["reqs"][:CITY_TRACES]
+            continue
+        on = build_grid_city(**METRO_DRAW[name]) if name in METRO_DRAW \
+            else net
+        reqs[name] = draw_requests(on, np.random.default_rng(31 + i),
+                                   CITY_TRACES, [T_MAIN],
+                                   max(4, T_MAIN // 12))
+    t_draw = time.perf_counter() - t0
+    store, store_v2 = f"{tmp}/grid100_store", f"{tmp}/grid100_store_v2"
+    ops.viterbi_cuda.launches = 0
+    for root, part in ((store, reqs["grid100"]),
+                       (store_v2, reqs["grid100"][:CITY_TRACES // 2])):
+        replay = f"{root}.jsonl"
+        with open(replay, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in part)
+        rc, lines = datastore_cli(["profile", root, "--graph",
+                                   paths["grid100"], "--replay", replay,
+                                   "--city", "grid100", "--device",
+                                   str(dev)])
+        check(rc == 0 and lines[0]["n_pairs"] > 0,
+              f"[cities] profile --replay: {rc} {lines}")
+    launches["profile"] = ops.viterbi_cuda.launches
+    cities = {"grid100": {"graph": paths["grid100"], "datastore": store},
+              **{name: {"graph": paths[name]}
+                 for name in CITY_ORDER if name != "grid100"}}
+
+    # the CPU registry's bodies, and each city's budget and card bytes
+    cpu = CityRegistry(cities, device="cpu")
+    want, budget_bytes, card_bytes = {}, {}, {}
+    for name in CITY_ORDER:
+        part = reqs[name] if name in ("grid100", "town") \
+            else reqs[name][:CITY_CPU_CUT]
+        entry = cpu.get(name)
+        want[name] = cpu_bodies(entry.service, part)
+        budget_bytes[name] = entry.size_bytes
+        torch.cuda.synchronize(dev)
+        m0 = torch.cuda.memory_allocated(dev)
+        kernel = DeviceRouteKernel(nets[name], dev)
+        torch.cuda.synchronize(dev)
+        card_bytes[name] = torch.cuda.memory_allocated(dev) - m0
+        del kernel
+        cpu.evict(name)
+    swap_cpu = ReporterService(SegmentMatcher(swap_city, device="cpu"))
+    want_swap = cpu_bodies(swap_cpu, reqs["grid100"])
+    swap_cpu.dispatcher.close()
+    swap_cpu.matcher.close()
+    log("[cities] each city's budget bytes (host graph columns) and card "
+        "bytes with route_device=True (outside the budget): "
+        + ", ".join(f"{n} {budget_bytes[n]:,} / {card_bytes[n]:,}"
+                    for n in CITY_ORDER)
+        + f"; requests drawn in {t_draw:.2f} s; set-up "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    t_leg = time.perf_counter()
+
+    # -- leg A: a server child with a cities config, the default budget
+    cfg = f"{tmp}/cities.json"
+    with open(cfg, "w") as f:
+        json.dump({"graph": paths["grid100"], "cities": cities}, f)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    url = f"http://127.0.0.1:{port}"
+    err = open(f"{tmp}/server.err", "w+")
+    counted = f"{tmp}/server.json"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         "chip_smoke.counted_server(*sys.argv[1:]))", counted, cfg,
+         f"127.0.0.1:{port}", "--device", str(dev)], cwd=ROOT,
+        stdout=subprocess.DEVNULL,
+        stderr=err, env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    mixed = [dict(reqs[name][i], city=name) for i in range(CITY_TRACES)
+             for name in CITY_ORDER]
+    passes = {}
+    try:
+        while True:
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                err.seek(0)
+                fail(f"[cities] the server child (rc {proc.poll()}): "
+                     f"{err.read()[-3000:]}")
+            try:
+                st, _h, _b = http(url + "/health")
+                break
+            except OSError:
+                time.sleep(0.1)
+        up = time.perf_counter() - t0
+        for name in ("cold", "warm"):
+            answers, secs, wall = post_all(url, mixed, SERVE_CLIENTS)
+            for j, (st, _tag, body) in enumerate(answers):
+                city, i = CITY_ORDER[j % 4], j // 4
+                check(st == 200, f"[cities] {name}: {city} request {i} "
+                                 f"answered {st}: {body[:300]!r}")
+                if i < len(want[city]):
+                    check(body.decode() == want[city][i],
+                          f"[cities] {name}: {city} body {i} differs from "
+                          f"the CPU registry's")
+            passes[name] = (len(mixed) / wall, *latency_ms(secs), wall)
+        st, _h, raw = http(url + "/profile")
+        prof = json.loads(raw)
+        dispatches = sum(sh["dispatches"] for sh in prof["shapes"])
+        resident = prof["cities"]["resident"]
+        st_h, _h, raw_h = http(url + "/health")
+        health = json.loads(raw_h)
+        st_u, _h, raw_u = http(url + "/report", json.dumps(
+            dict(reqs["grid100"][0], city="atlantis")).encode())
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+    err.close()
+    with open(counted) as f:
+        served = json.load(f)
+    launches["A"] = served["launches"]
+    check(rc == 0 and served["rc"] == 0, f"[cities] the server exited {rc}")
+    check(st_u == 400 and b"atlantis" in raw_u,
+          f"[cities] an unknown city answered {st_u} {raw_u[:200]!r}")
+    check(st_h == 200 and sorted(health["cities"]["resident"])
+          == sorted(CITY_ORDER),
+          f"[cities] /health {st_h}: resident "
+          f"{sorted(health['cities']['resident'])}")
+    check(served["launches"] == dispatches and dispatches >= 2,
+          f"[cities] the server launched viterbi_decode "
+          f"{served['launches']} times, /profile counts {dispatches} "
+          f"dispatches")
+    check(resident["grid100"]["warmed_pairs"] > 0,
+          f"[cities] grid100 was not pre-warmed: {resident['grid100']}")
+    single = None
+    if serving:
+        single = spread([w["requests_per_s"] for w in serving["lanes on"]])
+    log(f"[cities] leg A: the server child up in {up:.2f} s; "
+        f"{len(mixed)} city= requests ({CITY_TRACES} a city) from "
+        f"{SERVE_CLIENTS} client threads, cold pass (loads included) "
+        f"{passes['cold'][0]:.1f} requests/s (p50 {passes['cold'][1]:.2f} "
+        f"ms, p99 {passes['cold'][2]:.2f} ms, {passes['cold'][3]:.3f} s), "
+        f"warm pass {passes['warm'][0]:.1f} requests/s (p50 "
+        f"{passes['warm'][1]:.2f} ms, p99 {passes['warm'][2]:.2f} ms, "
+        f"{passes['warm'][3]:.3f} s); [serve]'s single city, lanes on: "
+        + (f"{single[0]:.1f} ({single[1]:.1f}-{single[2]:.1f}) requests/s"
+           if single else "not run")
+        + f"; every checked body byte-equal to the CPU registry "
+        f"({', '.join(f'{n} {len(want[n])}' for n in CITY_ORDER)}); "
+        f"viterbi_decode launches {served['launches']} (wrapper) = "
+        f"{dispatches} (/profile); resident "
+        + ", ".join(f"{n} {resident[n]['size_bytes']:,} B"
+                    for n in CITY_ORDER)
+        + f", grid100 warmed {resident['grid100']['warmed_pairs']} pairs, "
+        f"memo {resident['grid100']['route_memo']}; unknown city 400; the "
+        f"leg {time.perf_counter() - t_leg:.1f} s")
+    t_leg = time.perf_counter()
+
+    # -- leg B: a budget below the two largest cities
+    budget = budget_bytes["metro512"] + budget_bytes["metro341"] // 2
+    conf_b = dict(cities, grid100_cold={"graph": paths["grid100"]})
+    split = {}
+
+    def loader(name):
+        conf = conf_b[name]
+        t0 = time.perf_counter()
+        net = RoadNetwork.load(conf["graph"])
+        t1 = time.perf_counter()
+        ds = LocalDatastore(conf["datastore"]) if conf.get("datastore") \
+            else None
+        m = SegmentMatcher(net, device=dev, route_device=name == "town")
+        split.setdefault(name, []).append((t1 - t0,
+                                           time.perf_counter() - t1))
+        return ReporterService(m, datastore=ds), None
+
+    reg = CityRegistry(conf_b, budget_bytes=budget, device=dev,
+                       loader=loader)
+    front = ReporterService(SegmentMatcher(nets["town"], device=dev),
+                            cities=reg)
+    loads = {name: [] for name in conf_b}
+    firsts = {}
+    names = ("datastore.city.loads", "datastore.city.hits",
+             "datastore.city.misses", "datastore.city.evictions")
+
+    def visit(name, k):
+        """Load ``name`` if it is not resident (timed), then one routed
+        request; returns (load s or None, request s, entry)."""
+        n0 = counters("datastore.city.misses")[0]
+        t0 = time.perf_counter()
+        entry = reg.get(name)
+        t1 = time.perf_counter()
+        loaded = counters("datastore.city.misses")[0] > n0
+        i = k % CITY_CPU_CUT
+        code, body = front.handle(dict(reqs[name.split("_")[0]][i],
+                                       city=name))
+        t2 = time.perf_counter()
+        check(code == 200 and (body if isinstance(body, str)
+                               else bytes(body).decode())
+              == want[name.split("_")[0]][i],
+              f"[cities] leg B: {name} request {i} answered {code} or a "
+              f"body unlike the CPU registry's")
+        if loaded:
+            loads[name].append(t1 - t0)
+        return (t1 - t0 if loaded else None), t2 - t1, entry
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        return threading.active_count(), torch.cuda.memory_allocated(dev)
+
+    # earlier phases' garbage (their matchers' lanes, their tensors) goes
+    # now, so that it cannot leave during the cycles
+    gc.collect()
+    time.sleep(0.5)
+    c0 = counters(*names)
+    ops.viterbi_cuda.launches = 0
+    t_b = time.perf_counter()
+    try:
+        for name in CITY_ORDER:
+            load_s, req_s, entry = visit(name, 0)
+            if name == "grid100":
+                firsts["with"] = (load_s, req_s, entry.warmed_pairs,
+                                  entry.service.matcher.runtime
+                                  .route_memo_stats())
+            del entry
+        base = settle()
+        for k in range(1, CITY_CYCLES + 1):
+            for name in CITY_ORDER:
+                visit(name, k)
+        after = settle()
+        load_s, req_s, entry = visit("grid100_cold", 0)
+        firsts["without"] = (load_s, req_s, entry.warmed_pairs,
+                             entry.service.matcher.runtime
+                             .route_memo_stats())
+        del entry
+    finally:
+        front.dispatcher.close()
+        for name in list(reg.snapshot()["resident"]):
+            reg.evict(name)
+        front.matcher.close()
+    launches["B"] = ops.viterbi_cuda.launches
+    c1 = counters(*names)
+    delta = dict(zip(names, (y - x for x, y in zip(c0, c1))))
+    check(after == base, f"[cities] leg B: threads and card bytes "
+                         f"{after} after {CITY_CYCLES} cycles, {base} "
+                         f"after the first")
+    check(delta["datastore.city.evictions"] >= 2 * CITY_CYCLES,
+          f"[cities] leg B: {delta} over {CITY_CYCLES} cycles")
+    check(firsts["with"][2] > 0 and firsts["with"][3]["hits"] > 0
+          and firsts["without"][2] == 0,
+          f"[cities] leg B: grid100's pre-warm {firsts}")
+    per_city = "; ".join(
+        f"{n}: {len(loads[n])} loads, load s median "
+        f"{np.median(loads[n]):.4f} (graph {np.median([g for g, _ in split[n]]):.4f}, "
+        f"native build {np.median([b for _, b in split[n]]):.4f}, pre-warm "
+        f"and stamp {np.median(loads[n]) - np.median([g + b for g, b in split[n]]):.4f})"
+        for n in conf_b if loads[n])
+    log(f"[cities] leg B: budget {budget:,} B (cut: below metro341 + "
+        f"metro512, {budget_bytes['metro341'] + budget_bytes['metro512']:,}"
+        f" B), town on device routes; {CITY_CYCLES + 1} round-robin "
+        f"cycles of {len(CITY_ORDER)} cities in "
+        f"{time.perf_counter() - t_b:.2f} s: {delta}; {per_city}; "
+        f"grid100's first request with its .profile {firsts['with'][1] * 1e3:.2f}"
+        f" ms (load {firsts['with'][0]:.4f} s, warmed {firsts['with'][2]} "
+        f"pairs, memo {firsts['with'][3]}), without "
+        f"{firsts['without'][1] * 1e3:.2f} ms (load "
+        f"{firsts['without'][0]:.4f} s, warmed {firsts['without'][2]}, memo "
+        f"{firsts['without'][3]}); threads and torch.cuda.memory_allocated()"
+        f" {base} after the first cycle, {after} after {CITY_CYCLES} more; "
+        f"viterbi_decode launches {launches['B']}; the leg "
+        f"{time.perf_counter() - t_leg:.1f} s")
+    t_leg = time.perf_counter()
+
+    # -- leg C: the swap under load
+    reg = CityRegistry({"grid100": {"graph": paths["grid100"],
+                                    "datastore": store}}, device=dev)
+    front = ReporterService(SegmentMatcher(nets["town"], device=dev),
+                            cities=reg)
+    httpd = serve(front, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    greqs = [dict(r, city="grid100") for r in reqs["grid100"]]
+    stop = f"{tmp}/stop"
+    ops.viterbi_cuda.launches = 0
+    records, windows = [], []
+    try:
+        answers = post_all(url, greqs + greqs, SERVE_CLIENTS)[0]
+        for j, (st, _tag, body) in enumerate(answers):
+            check(st == 200 and body.decode()
+                  == want["grid100"][j % CITY_TRACES],
+                  f"[cities] leg C: warm-up answer {j} ({st}) differs")
+        with open(f"{tmp}/greqs.json", "w") as f:
+            json.dump(greqs, f)
+        load = subprocess.Popen(
+            client_argv(url, f"{tmp}/greqs.json", f"{tmp}/swap_answers.json",
+                        SERVE_CLIENTS, stop_path=stop), cwd=ROOT)
+        t0 = time.perf_counter()
+        while not os.path.exists(stop + ".ready"):
+            check(load.poll() is None and time.perf_counter() - t0 < 120,
+                  "[cities] leg C: the load generator did not start")
+            time.sleep(0.05)
+        time.sleep(0.5)
+        for conf, force in (({"graph": paths["grid100"],
+                              "datastore": store_v2}, None),
+                            ({"graph": swap_path}, None),
+                            ({"graph": swap_path}, True)):
+            t0 = time.perf_counter()
+            while len(reg.get("grid100").capture_samples()) < SWAP_RING_MIN:
+                check(time.perf_counter() - t0 < 60,
+                      "[cities] leg C: the capture ring stays short")
+                time.sleep(0.05)
+            w0 = time.time()
+            records.append(reg.swap("grid100", conf, force=force))
+            windows.append((w0, time.time()))
+        time.sleep(1.0)
+        open(stop, "w").close()
+        check(load.wait(120) == 0, "[cities] leg C: the load generator "
+                                   "failed")
+        st, _h, raw = http(url + "/health")
+        health = json.loads(raw)
+    finally:
+        open(stop, "w").close()
+        httpd.shutdown()
+        httpd.server_close()
+        front.dispatcher.close()
+        for name in list(reg.snapshot()["resident"]):
+            reg.evict(name)
+        front.matcher.close()
+    launches["C"] = ops.viterbi_cuda.launches
+    with open(f"{tmp}/swap_answers.json") as f:
+        out = json.load(f)
+    # [request, status, body, start, end] of each answer during the swaps
+    swap_answers = [(i % len(greqs), st, body, start, end)
+                    for i, (st, _tag, body), (start, end)
+                    in zip(out["ids"], out["answers"], out["spans"])]
+    results = [r["result"] for r in records]
+    check(results == ["flipped", "refused_shadow", "flipped"],
+          f"[cities] leg C: swap results {records}")
+    check(records[0]["agreement"] == 1.0 and records[0]["checks"] > 0
+          and records[0]["from"] != records[0]["to"],
+          f"[cities] leg C: the re-profiled flip {records[0]}")
+    check(records[2]["forced"] and records[1]["from"] == records[0]["to"],
+          f"[cities] leg C: {records}")
+    check(health["cities"]["swap"] == {
+        "flips": 2, "refusals": 1,
+        "last": {"grid100": json.loads(json.dumps(records[2]))}},
+        f"[cities] leg C: /health's swap block {health['cities']['swap']}")
+    forced0, forced1 = windows[2]
+    during = [sum(1 for a in swap_answers if a[3] < w1 and a[4] > w0)
+              for w0, w1 in windows]
+    for i, st, body, start, end in swap_answers:
+        check(st == 200, f"[cities] leg C: an answer {st} during the swaps:"
+                         f" {body[:300]}")
+        old, new = want["grid100"][i], want_swap[i]
+        ok = (body == old if end < forced0 else body == new
+              if start > forced1 else body in (old, new))
+        check(ok, f"[cities] leg C: request {i}'s body is neither build's")
+    check(min(during) > 0, f"[cities] leg C: answers during the swaps "
+                           f"{during}")
+    tail = sum(1 for a in swap_answers if a[3] > forced1)
+    check(tail > 0, "[cities] leg C: no answer after the forced flip")
+    log(f"[cities] leg C: {len(swap_answers)} answers from "
+        f"{SERVE_CLIENTS} client threads, every one 200 and byte-equal to "
+        f"the build that served it ({tail} after the forced flip on the "
+        f"seed-{SWAP_SEED} build); swaps "
+        + "; ".join(f"{r['result']} {r['from']} -> {r['to']} (agreement "
+                    f"{r['agreement']} over {r['checks']} checks, "
+                    f"{w1 - w0:.3f} s, {n} answers during)"
+                    for r, (w0, w1), n in zip(records, windows, during))
+        + f"; /health's swap block equal to the records; viterbi_decode "
+        f"launches {launches['C']}; the leg {time.perf_counter() - t_leg:.1f}"
+        f" s")
+    tmp_dir.cleanup()
+    log(f"[cities] {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches
 
 
 def step_bound_ms(N, Kc, R=1):
@@ -5736,6 +6338,9 @@ def main() -> int:
     ap.add_argument("--global-probe", action="store_true",
                     help="check relax_global and time it at each block "
                          "size beside its planes' fill; nothing else runs")
+    ap.add_argument("--cities", action="store_true",
+                    help="the OSM accuracy run and the cities phase; "
+                         "nothing else runs")
     args = ap.parse_args()
     if not (ROOT / "reporter_tpu_torch" / "ops" / "csrc" / "viterbi.cu").is_file():
         fail("reporter_tpu_torch is not beside this script")
@@ -5757,7 +6362,15 @@ def main() -> int:
         probe = phase_global_probe(dev)
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"global_probe": probe})
-    if not args.against:
+    if args.cities:
+        spills = phase_build()
+        osm = phase_accuracy(smi[0] if smi else "nvidia-smi: no output",
+                             ACCURACY_OSM_ARGS, "[accuracy-osm]")
+        cities = phase_cities(dev, smi[0] if smi else "nvidia-smi: no output")
+        check(not spills, f"ptxas reports spills: {spills}")
+        return finish(smi, {"accuracy_osm_launches": osm,
+                            "cities_launches": cities})
+    if not (args.against or args.cities):
         # the [worker] phase's stream, written while the phases before
         # it run
         import tempfile
@@ -5766,6 +6379,7 @@ def main() -> int:
         # and the [pipeline] phase's archive
         archive_proc, archive = start_pipeline_archive(stream_dir.name)
     spills = phase_build()
+    lap("build")
     if args.against:
         against = phase_against(dev, args.against)
         step = phase_against_step(dev, args.against)
@@ -5779,41 +6393,69 @@ def main() -> int:
                             "route_kernels_ms": kernels,
                             "routes_s": routes, "serve": serving})
     phase_verify(dev)
+    lap("verify")
     step_err = phase_verify_step(dev)
+    lap("verify-step")
     launches, main, max_err, scalars, served = phase_main(dev)
+    lap("main")
     big = grid_inputs(BIG_CITY, N_TRACES, 11)
     huge = grid_inputs(HUGE_CITY, 64, 17)
     past = grid_inputs(PAST_CITY, PAST_TRACES, 19)
     far = grid_inputs(GLOBAL_CITY, PAST_TRACES, 23)
+    lap("the route cities' inputs")
     verified = phase_verify_routes(dev, served, big, huge, past, far)
+    lap("verify-routes")
     route_launches, _runs = phase_routes(dev, served)
+    lap("routes")
     step_launches, _rounds, fallback_launches, _legs = phase_stream(
         dev, served)
+    lap("stream")
     serving = phase_serve(dev, served)
+    lap("serve")
     obs = phase_obs(dev, served, smi[0] if smi else "nvidia-smi: no output")
+    lap("obs")
     fault_launches = phase_faults(dev, served)
+    lap("faults")
     phase_prefork(served)
+    lap("prefork")
     phase_city(big)
+    lap("city")
     city_launches, _city_runs = phase_route_city(big, huge, past)
+    lap("route-city")
     kept_worker, kept_pipeline = {}, {}
     worker_launches = phase_worker(dev, big, stream_proc, stream,
                                    smi[0] if smi else "nvidia-smi: no output",
                                    kept_worker)
+    lap("worker")
     pipeline_launches = phase_pipeline(
         dev, big, archive_proc, archive,
         smi[0] if smi else "nvidia-smi: no output", kept_pipeline)
+    lap("pipeline")
     stream_dir.cleanup()
     datastore_launches = phase_datastore(
         dev, served, big, kept_worker, kept_pipeline,
         smi[0] if smi else "nvidia-smi: no output")
+    lap("datastore")
     kept_worker["dir"].cleanup()
     kept_pipeline["dir"].cleanup()
     accuracy_launches = phase_accuracy(
         smi[0] if smi else "nvidia-smi: no output")
+    lap("accuracy")
+    accuracy_osm_launches = phase_accuracy(
+        smi[0] if smi else "nvidia-smi: no output", ACCURACY_OSM_ARGS,
+        "[accuracy-osm]")
+    lap("accuracy-osm")
+    cities_launches = phase_cities(
+        dev, smi[0] if smi else "nvidia-smi: no output", big, past, far,
+        serving)
+    lap("cities")
     floor = launch_floor_ms(dev)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
+    lap("timing")
     route_times = phase_timing_routes(dev, served, big, huge, past, far)
+    lap("timing-routes")
     step_times = phase_timing_step(dev)
+    lap("timing-step")
     check(not spills, f"ptxas reports spills: {spills}")
 
     ms, plain, bms, by = times["main"]
@@ -5843,6 +6485,11 @@ def main() -> int:
         # the accuracy phase's card run (phase_accuracy): one match_many
         # of 2,048 traces in a child process
         "launches_accuracy": accuracy_launches,
+        # and its --osm-fixture run (64 traces on the OSM town)
+        "launches_accuracy_osm": accuracy_osm_launches,
+        # the cities phase (phase_cities): the .profile replays, leg A's
+        # server child (its wrapper's count), legs B and C in this process
+        "launches_cities": cities_launches,
         # the datastore phase's `datastore profile --replay` of main's
         # 512 traces (phase_datastore)
         "launches_datastore": datastore_launches["viterbi_decode"],

@@ -14,12 +14,10 @@ PrintConsumer):
   synth            synthetic GPS trace generator      [generate_test_trace]
   accuracy         matcher accuracy gate against synthetic ground truth
   datastore        histogram datastore: ingest/compact/query/feed/profile
+  graph            road networks: build, import OSM, tile, untile, inspect
 
 The commands that decode (serve, stream, pipeline, accuracy, and
 datastore profile --replay) run on the card unless given ``--device cpu``.
-
-Still to come, with the modules it needs: graph (road networks: build,
-tile, inspect).
 """
 from __future__ import annotations
 
@@ -86,6 +84,12 @@ def _accuracy():
 @_cmd("datastore")
 def _datastore():
     from .tools.datastore_cli import main
+    return main
+
+
+@_cmd("graph")
+def _graph():
+    from .tools.graph_cli import main
     return main
 
 

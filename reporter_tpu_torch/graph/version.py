@@ -3,12 +3,16 @@
 ``map_version(net)`` hashes the persisted graph columns (the same arrays
 ``RoadNetwork.load`` reads — derived caches are excluded, so a reloaded
 graph hashes identically) into a short stable token, the same token the
-JAX package gives the same network. The token is cached on the network
+JAX package gives the same network. The optional ``extra`` bytes fold a
+city's ``.profile`` artifact in, so a re-profiled build is a new version
+even when the geometry is unchanged. The token is cached on the network
 object: every call after the first is an attribute read.
 """
 from __future__ import annotations
 
 import hashlib
+from typing import Optional
+
 import numpy as np
 
 # the persisted columns, in their fixed order; hashing vars() would pick
@@ -21,11 +25,13 @@ from .network import COLUMNS
 VERSION_LEN = 12
 
 
-def map_version(net) -> str:
+def map_version(net, extra: Optional[bytes] = None) -> str:
     """The content-derived version token of ``net``.
 
     Stable across save/load round trips and process restarts; cached on
     the network object (``net._map_version``) after the first call.
+    ``extra`` (the raw bytes of a city's ``.profile`` artifact) is folded
+    in without being cached.
     """
     cached = getattr(net, "_map_version", None)
     if cached is None:
@@ -42,6 +48,10 @@ def map_version(net) -> str:
             h.update(b"%d:%a" % (int(sid), float(seg[sid])))
         cached = h.hexdigest()[:VERSION_LEN]
         net._map_version = cached
+    if extra:
+        h = hashlib.sha256(cached.encode())
+        h.update(extra)
+        return h.hexdigest()[:VERSION_LEN]
     return cached
 
 

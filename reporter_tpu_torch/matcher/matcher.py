@@ -423,6 +423,29 @@ class SegmentMatcher:
         #: where a poisoned trace's request JSON lands (None: the spool's
         #: registered trace directory, else log-and-drop)
         self.quarantine_spool: Optional[str] = None
+        self._closed = False
+
+    def close(self) -> None:
+        """Release what the matcher holds beyond its last call: the two
+        lanes' threads, the carried incremental state, the device route
+        kernel's tensors, the timing events and the native handle with its
+        worker pool. A city the registry evicts or swaps out closes its
+        matcher (``service/cities.py``); a closed matcher raises on its
+        next call. Idempotent."""
+        self._closed = True
+        if self._lanes is not None:
+            for lane in self._lanes:
+                lane.shutdown(wait=True)
+        if self._incremental_table is not None:
+            self._incremental_table.clear()
+        self.route_kernel = None
+        self._timing_free.clear()
+        if self.runtime is not None:
+            self.runtime.close()
+
+    def _check_open(self) -> None:
+        if self._closed:
+            raise RuntimeError("matcher is closed")
 
     @cached_property
     def grid(self) -> SpatialGrid:
@@ -492,6 +515,7 @@ class SegmentMatcher:
         Per-trace match_options may override params; a TraceBatch with one
         shared options dict resolves params once for the whole batch.
         """
+        self._check_open()
         tb = as_trace_batch(traces)
         ntr = len(tb)
         per_trace_params = self._trace_params(tb)
@@ -572,6 +596,7 @@ class SegmentMatcher:
         (the ``match.incremental.commit`` failpoint among them) counts a
         breaker failure and declines every slot of the call.
         """
+        self._check_open()
         tb = as_trace_batch(traces)
         ntr = len(tb)
         results: list = [None] * ntr

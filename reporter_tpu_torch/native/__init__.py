@@ -5,7 +5,8 @@ batched prep (candidates, kept points, case codes and route tensors, fanned
 out over C++ threads), the candidate lookup and route rows of the points
 a trace appends to its incremental decode (``candidates``,
 ``route_matrices``), the batched assembly of decoded paths into segment
-run columns, and the ``/report`` wire writer over those columns.
+run columns, the ``/report`` wire writer over those columns, and the
+RGT1 graph-tile parser (``parse_tile``, the tile store's reader).
 
 The library is compiled with g++ into ``reporter_tpu_torch/_build/`` at
 first use (:func:`load`), never at import, and loaded with ``ctypes``
@@ -158,7 +159,48 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_report_json_batch.restype = i64
     lib.rt_report_json_batch.argtypes = [vp, vp, vp, i64, f64, i32, i32, vp,
                                          i64, vp]
+    # the RGT1 tile parser (graph/tilestore.py's layout)
+    i64ref = ctypes.POINTER(i64)
+    lib.rt_tile_counts.restype = i32
+    lib.rt_tile_counts.argtypes = [ctypes.c_char_p, i64, i64ref, i64ref,
+                                   i64ref]
+    lib.rt_tile_parse.restype = i32
+    lib.rt_tile_parse.argtypes = [ctypes.c_char_p, i64, i64p, f64p, f64p,
+                                  i32p, i32p, f32p, f32p, i64p, f32p, u8p,
+                                  i64p, f32p]
     return lib
+
+
+# ---- the RGT1 graph-tile parser ---------------------------------------------
+
+#: (column, dtype, count key) in the blob's order; the parser's outputs
+TILE_COLUMNS = (("node_gid", np.int64, "N"), ("node_lat", np.float64, "N"),
+                ("node_lon", np.float64, "N"), ("edge_start", np.int32, "E"),
+                ("edge_end", np.int32, "E"),
+                ("edge_length_m", np.float32, "E"),
+                ("edge_speed_kph", np.float32, "E"),
+                ("edge_segment_id", np.int64, "E"),
+                ("edge_segment_offset_m", np.float32, "E"),
+                ("edge_internal", np.uint8, "E"), ("seg_ids", np.int64, "S"),
+                ("seg_lens", np.float32, "S"))
+
+
+def parse_tile(raw: bytes):
+    """Parse an RGT1 graph-tile blob with the C++ parser: the column dict
+    of the tile store's layout, or None for a malformed blob (the caller's
+    numpy parser then names the fault). Each parse is counted as
+    ``tilestore.parse.native``."""
+    lib = load()
+    counts = [ctypes.c_int64() for _ in range(3)]
+    if lib.rt_tile_counts(raw, len(raw), *map(ctypes.byref, counts)) != 0:
+        return None
+    sizes = dict(zip("NES", (c.value for c in counts)))
+    out = {name: np.empty(sizes[n], dtype) for name, dtype, n in TILE_COLUMNS}
+    if lib.rt_tile_parse(raw, len(raw), *out.values()) != 0:
+        return None
+    out["edge_internal"] = out["edge_internal"].astype(bool)
+    metrics.count("tilestore.parse.native")
+    return out
 
 
 # ---- the /report wire writer ------------------------------------------------
@@ -289,8 +331,14 @@ class NativeRuntime:
             np.ascontiguousarray(net.edge_length_m, dtype=np.float32),
             np.ascontiguousarray(net.edge_speed_kph, dtype=np.float32),
             float(cell_m))
-        weakref.finalize(self, _destroy, lib, self._handle, self._owner_pid)
+        self._finalizer = weakref.finalize(self, _destroy, lib, self._handle,
+                                           self._owner_pid)
         self._asm_cols = None
+
+    def close(self) -> None:
+        """Destroy the C++ handle now (its worker pool joins) rather than
+        at garbage collection; the runtime is unusable afterwards."""
+        self._finalizer()
 
     def _check_owner(self) -> None:
         if os.getpid() != self._owner_pid:

@@ -52,10 +52,22 @@ keys stand for the JAX package's environment knobs:
   admission          REPORTER_TPU_ADMISSION         (false)
   inflight_max       REPORTER_TPU_INFLIGHT_MAX      (0: 4 x max_batch)
   pressure_hold_s    REPORTER_TPU_PRESSURE_HOLD_S   (2.0)
+  city_budget_mb     REPORTER_TPU_CITY_BUDGET_MB    (512)
 
 ``trace`` to ``lockcheck`` are process-wide (``configure_obs``), and so
 are ``faults`` to ``circuit_cooldown_s`` (``configure_faults``; the two
-circuit keys also set the matcher's breakers). Besides ``/report``,
+circuit keys also set the matcher's breakers). ``city_budget_mb`` sizes
+the city registry; its swap knobs are ``CityRegistry`` arguments, as a
+swap is started in process only.
+
+An optional ``cities`` map (name -> ``{"graph", "datastore",
+"profile"}``, ``service/cities.py``) mounts a city registry: a request
+carrying a ``city`` key (``/report``'s body, ``/histogram``'s and
+``/feed``'s parameters) is served by that city's stack, loaded on demand
+on the service's device within the byte budget; an unknown city answers
+400 and a city that fails to load 500. Without the map a ``city`` key
+answers 400. ``/health`` and ``/profile`` carry the registry's
+``cities`` block. Besides ``/report``,
 ``/stats`` and ``/health`` the server answers ``/metrics`` (Prometheus
 text), ``/profile`` (the device profiler's snapshot, with the
 ``pressure`` and ``admission`` blocks), ``/report?trace=1`` (the
@@ -128,7 +140,7 @@ FEED_SHED_LEVEL = 2
 NO_DATASTORE = ('{"error":"no datastore attached; serve with a '
                 '--datastore directory"}')
 
-#: the answer to a ``city`` key: the port serves one city
+#: the answer to a ``city`` key without a city registry
 SINGLE_CITY = json.dumps({"error": "no city registry attached; this "
                                    "fleet serves a single city"})
 
@@ -153,6 +165,8 @@ OBS_KEYS = ("trace", "slo_ms", "shadow_sample", "profile_events",
 #: keys go to the matcher too
 FAULT_KEYS = ("faults", "deadletter_dir", "deadletter_max_mb",
               "circuit_threshold", "circuit_cooldown_s")
+#: the city registry's settings (cities_from_config)
+CITY_KEYS = ("city_budget_mb",)
 
 #: the spellings of "off" of a trace flag (the JAX package's)
 _FALSY = ("", "0", "off", "false")
@@ -219,7 +233,8 @@ class ReporterService:
     and the bounded dispatcher queue is the only shed. ``datastore`` (a
     ``datastore.LocalDatastore``, or None: 503 there) serves
     ``/histogram`` and ``/feed``; ``compactor``, set by its owner, puts
-    its backlog on ``/health``."""
+    its backlog on ``/health``. ``cities`` (a ``cities.CityRegistry``, or
+    None: a ``city`` key answers 400) serves ``city``-tagged requests."""
 
     def __init__(self, matcher: SegmentMatcher, threshold_sec: int = 15,
                  max_batch: int = MATCH_BATCH_DEFAULT,
@@ -229,9 +244,10 @@ class ReporterService:
                  latency_budget_ms: float = 0.0, admission: bool = False,
                  inflight_max: int = 0,
                  pressure_hold_s: float = DEFAULT_HOLD_S,
-                 datastore=None):
+                 datastore=None, cities=None):
         self.matcher = matcher
         self.datastore = datastore
+        self.cities = cities
         # optional BackgroundCompactor attached by the owning worker or
         # harness: /health surfaces its delta-pressure backlog gauge
         self.compactor = None
@@ -255,8 +271,9 @@ class ReporterService:
         bytes (a memoryview of the chunk buffer on the native wire path)
         that ``_respond`` writes to the socket as is; error bodies stay
         str. The validation messages are the reference service's."""
-        if trace.get("city") is not None:
-            return 400, SINGLE_CITY
+        routed = self._route(trace, "handle")
+        if routed is not None:
+            return routed
         if trace.get("uuid") is None:
             return 400, '{"error":"uuid is required"}'
         try:
@@ -299,6 +316,53 @@ class ReporterService:
         except Exception as e:
             return 500, json.dumps({"error": str(e)})
 
+    def _route(self, req: dict, method: str):
+        """City routing: a ``city`` key sends the request to that city's
+        stack (loaded through the registry on a miss) without the key.
+        Returns the routed (status, body), an error answer (400 for an
+        unknown city or without a registry, 500 for a failed load), or
+        None to serve from this stack. The city's own admission gate
+        guards its /report; a 200 /report is offered to the city's swap
+        capture ring."""
+        city = req.get("city")
+        if city is None:
+            return None
+        if self.cities is None:
+            return 400, SINGLE_CITY
+        try:
+            # the pin keeps an eviction from closing the city's stack
+            # under this request; the close waits for the release
+            entry = self.cities.acquire(str(city))
+        except KeyError as e:
+            return 400, json.dumps({"error": str(e).strip("'\"")})
+        except Exception as e:
+            return 500, json.dumps({"error": f"city load failed: {e}"})
+        try:
+            sub = {k: v for k, v in req.items() if k != "city"}
+            if method != "handle":
+                return getattr(entry.service, method)(sub)
+            # getattr: a registry's entries are duck-typed (tests stub
+            # them), and the capture is best-effort
+            gate = getattr(entry.service, "admission", None)
+            if gate is not None:
+                shed = gate.admit()
+                if shed is not None:
+                    return 429, json.dumps(
+                        {"error": "overloaded", "reason": shed.reason,
+                         "retry_after_s": shed.retry_after_s})
+                try:
+                    status, body = entry.service.handle(sub)
+                finally:
+                    gate.release()
+            else:
+                status, body = entry.service.handle(sub)
+            observe = getattr(entry, "observe", None)
+            if status == 200 and observe is not None:
+                observe(sub)
+            return status, body
+        finally:
+            self.cities.release(entry)
+
     def histogram(self, params: dict) -> tuple[int, str]:
         """Answer a /histogram query; (status, body). ``params`` carries
         ONE of ``segment_id`` (single), ``segments`` (batched: answered
@@ -309,10 +373,11 @@ class ReporterService:
         set it covers), ``percentiles``, ``window`` (freshness tier:
         ``5m``/``300s``/``inf``), ``viewport`` (with bbox+level: the
         materialised tile summaries, one read per covered tile),
-        ``map_version``/``merge`` (the epoch pin) and ``city`` (the
-        single-city 400)."""
-        if params.get("city") is not None:
-            return 400, SINGLE_CITY
+        ``map_version``/``merge`` (the epoch pin) and ``city`` (routed
+        to that city's stack)."""
+        routed = self._route(params, "histogram")
+        if routed is not None:
+            return routed
         if self.datastore is None:
             return 503, NO_DATASTORE
         from ..datastore import DEFAULT_PERCENTILES, hours_for_range
@@ -389,8 +454,9 @@ class ReporterService:
         ``FEED_SHED_LEVEL``) and on the feed's own bounded waiter table,
         with 429 bodies carrying ``retry_after_s`` (the handler lifts it
         into Retry-After)."""
-        if params.get("city") is not None:
-            return 400, SINGLE_CITY
+        routed = self._route(params, "feed")
+        if routed is not None:
+            return routed
         if self.datastore is None:
             return 503, NO_DATASTORE
         tier = self.datastore.enable_freshness()
@@ -494,6 +560,10 @@ class ReporterService:
             # overlay occupancy against its byte budget, feed waiters and
             # sheds, viewport materialisations
             body["freshness"] = self.datastore.freshness.snapshot()
+        if self.cities is not None:
+            # the residency table, each resident city's map version, and
+            # the swap block
+            body["cities"] = self.cities.snapshot()
         body["status"] = "ok" if healthy else "degraded"
         return (200 if healthy else 503,
                 json.dumps(body, separators=(",", ":")))
@@ -684,6 +754,9 @@ def make_handler(service: ReporterService):
                 prof["pressure"] = pressure_snapshot()
                 if service.admission is not None:
                     prof["admission"] = service.admission.snapshot()
+                if service.cities is not None:
+                    # each resident city's memo counters and warmed pairs
+                    prof["cities"] = service.cities.snapshot()
                 self._respond(200, json.dumps(prof, separators=(",", ":")))
                 return
             if action == "health":
@@ -862,12 +935,13 @@ def slot_device(device: torch.device, slot: int,
 
 def read_config(path: str) -> dict:
     """The config file as {"graph": path, "params": MatchParams,
-    "datastore": None or {"root": dir, <knobs>}, "service": {...},
-    "matcher": {...}, "server": {...}, "obs": {...}, "faults": {...}},
-    each of the last five holding the ``service`` keys that go to one
-    constructor (``obs``: to :func:`configure_obs`, ``faults``: to
-    :func:`configure_faults`). Raises on a missing graph or an unknown
-    key (this service has no city registry)."""
+    "datastore": None or {"root": dir, <knobs>}, "cities": None or
+    {name: {"graph", "datastore", "profile"}}, "service": {...},
+    "matcher": {...}, "server": {...}, "obs": {...}, "faults": {...},
+    "city": {...}}, each of the last six holding the ``service`` keys that
+    go to one constructor (``obs``: to :func:`configure_obs`, ``faults``:
+    to :func:`configure_faults`, ``city``: to the city registry). Raises
+    on a missing graph or an unknown key."""
     with open(path) as f:
         return parse_config(json.load(f))
 
@@ -892,23 +966,47 @@ def parse_config(conf: dict) -> dict:
     """:func:`read_config` of an already loaded config object."""
     if "graph" not in conf:
         raise ValueError('no "graph": the road network .npz to serve')
-    unknown = set(conf) - {"graph", "matcher", "service", "datastore"}
+    unknown = set(conf) - {"graph", "matcher", "service", "datastore",
+                           "cities"}
     if unknown:
         raise ValueError(f"unknown keys {sorted(unknown)}")
     given = dict(conf.get("service") or {})
     unknown = set(given) - set(SERVICE_KEYS + MATCHER_KEYS + SERVER_KEYS
-                               + OBS_KEYS + FAULT_KEYS)
+                               + OBS_KEYS + FAULT_KEYS + CITY_KEYS)
     if unknown:
         raise ValueError(f"unknown service keys {sorted(unknown)}")
     return {"graph": conf["graph"],
             "params": MatchParams(**conf.get("matcher", {})),
             "datastore": parse_datastore(conf.get("datastore")),
+            "cities": parse_cities(conf.get("cities")),
             **{name: {k: given[k] for k in keys if k in given}
                for name, keys in (("service", SERVICE_KEYS),
                                   ("matcher", MATCHER_KEYS),
                                   ("server", SERVER_KEYS),
                                   ("obs", OBS_KEYS),
-                                  ("faults", FAULT_KEYS))}}
+                                  ("faults", FAULT_KEYS),
+                                  ("city", CITY_KEYS))}}
+
+
+def parse_cities(value) -> "dict | None":
+    """The config's ``cities`` map (name -> an object of
+    ``cities.CITY_CONFIG_KEYS``); None or {} mounts no registry. A city
+    that is not an object, or an unknown key, raises."""
+    if not value:
+        return None
+    from .cities import CITY_CONFIG_KEYS
+    if not isinstance(value, dict):
+        raise ValueError('"cities" must map city names to objects')
+    out = {}
+    for name, conf in value.items():
+        if not isinstance(conf, dict):
+            raise ValueError(f"city {name!r} must be an object")
+        unknown = set(conf) - set(CITY_CONFIG_KEYS)
+        if unknown:
+            raise ValueError(f"unknown keys {sorted(unknown)} of city "
+                             f"{name!r}")
+        out[str(name)] = dict(conf)
+    return out
 
 
 def parse_datastore(value) -> "dict | None":
@@ -940,6 +1038,20 @@ def datastore_from_config(conf: dict, root: "str | None" = None):
     knobs = dict(ds or {})
     knobs.pop("root", None)
     return LocalDatastore(root or ds["root"], **knobs)
+
+
+def cities_from_config(conf: dict, device):
+    """The ``cities.CityRegistry`` a :func:`read_config` result mounts
+    (None without a ``cities`` map), building each city's matcher on
+    ``device`` and sized by the ``city`` keys."""
+    if not conf.get("cities"):
+        return None
+    from .cities import CityRegistry
+    knobs = dict(conf["city"])
+    if "city_budget_mb" in knobs:
+        knobs["budget_bytes"] = int(float(knobs.pop("city_budget_mb"))
+                                    * 1024 * 1024)
+    return CityRegistry(conf["cities"], device=device, **knobs)
 
 
 def matcher_from_config(conf: dict, device) -> SegmentMatcher:
@@ -983,8 +1095,8 @@ def main(argv=None) -> int:
         here, which in pre-fork mode runs after the fork in each worker:
         no child inherits a CUDA context, a native worker pool or a
         dispatcher thread."""
-        matcher = matcher_from_config(
-            conf, slot_device(args.device, slot, procs))
+        device = slot_device(args.device, slot, procs)
+        matcher = matcher_from_config(conf, device)
         datastore = datastore_from_config(conf)
         if datastore is not None:
             # stamp the store with the graph this process serves: the
@@ -992,6 +1104,7 @@ def main(argv=None) -> int:
             # forget the active epoch
             datastore.set_map_version(map_version(matcher.net))
         return ReporterService(matcher, datastore=datastore,
+                               cities=cities_from_config(conf, device),
                                **conf["service"])
 
     if args.procs > 1:

@@ -9,8 +9,9 @@ agreement. BASELINE.md's north star requires >=99% agreement; CI runs
 this with ``--min-agreement 0.99`` (ci.yml).
 
 Usage:
-  python -m reporter_tpu_torch accuracy [--graph g.npz] [--traces N]
-      [--noise-m 4.0] [--min-agreement 0.99] [--seed 0] [--device cpu]
+  python -m reporter_tpu_torch accuracy [--graph g.npz | --osm f.osm |
+      --osm-fixture] [--traces N] [--noise-m 4.0] [--min-agreement 0.99]
+      [--seed 0] [--device cpu]
 
 The decode runs on the card unless ``--device cpu`` is given.
 
@@ -118,6 +119,12 @@ def main(argv=None):
         formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--graph", help="RoadNetwork .npz; omit for a "
                         "default synthetic city")
+    parser.add_argument("--osm", help="OSM XML file to import and match "
+                        "on (the OSM import path: graph/osm.py)")
+    parser.add_argument("--osm-fixture", action="store_true",
+                        help="use the deterministic non-grid OSM city "
+                        "(tools/osm_fixture.py) through the OSM import "
+                        "path")
     parser.add_argument("--device", type=torch.device, default="cuda",
                         help="cuda (default), cuda:I or cpu")
     parser.add_argument("--rows", type=int, default=16)
@@ -144,6 +151,16 @@ def main(argv=None):
     if args.graph:
         from ..graph.network import RoadNetwork
         net = RoadNetwork.load(args.graph)
+    elif args.osm or args.osm_fixture:
+        import io
+
+        from ..graph.osm import network_from_osm_xml
+        if args.osm:
+            net = network_from_osm_xml(args.osm)
+        else:
+            from .osm_fixture import build_city_xml
+            net = network_from_osm_xml(io.BytesIO(
+                build_city_xml().encode()))
     else:
         # no service/internal edges: ground truth on those is ambiguous
         # by design (the matcher must *not* report them)

@@ -15,9 +15,9 @@ device route costs (``REPORTER_TPU_ROUTE_DEVICE=1`` against
   call splits into prep groups);
 - one trace past 1,024 points (the last length bucket and past it);
 - duplicate times: repeated timestamps and repeated points;
-- the reference's generated OSM town (``reporter_tpu/tools/
-  osm_fixture.py`` through its ``graph/osm.py``, saved as ``.npz`` and
-  loaded by the port): curved multi-edge ways, one-ways, ramps.
+- the generated OSM town (each package's ``tools/osm_fixture.py``
+  through its own ``graph/osm.py``, the columns held equal): curved
+  multi-edge ways, one-ways, ramps.
 
 Inputs come from seeded numpy streams through the port's synth. Tolerance:
 exact.
@@ -27,14 +27,15 @@ import io
 import numpy as np
 import pytest
 
-from reporter_tpu.graph.osm import network_from_osm_xml
+from reporter_tpu.graph.osm import network_from_osm_xml as jax_osm
 from reporter_tpu.matcher import MatchParams as JaxParams
 from reporter_tpu.matcher import SegmentMatcher as JaxMatcher
 from reporter_tpu.service.report import report_json as jax_report_json
 from reporter_tpu.synth import build_grid_city as jax_city
-from reporter_tpu.tools.osm_fixture import build_city_xml
+from reporter_tpu.tools.osm_fixture import build_city_xml as jax_xml
 from reporter_tpu.utils import metrics as jax_metrics
-from reporter_tpu_torch.graph.network import RoadNetwork
+from reporter_tpu_torch.graph.network import COLUMNS
+from reporter_tpu_torch.graph.osm import network_from_osm_xml
 from reporter_tpu_torch.matcher import MatchParams, SegmentMatcher
 from reporter_tpu_torch.service.report import report_json
 from reporter_tpu_torch.synth import build_grid_city, generate_trace
@@ -57,15 +58,20 @@ OPTIONS = {
 
 
 @pytest.fixture(scope="module")
-def nets(tmp_path_factory):
+def nets():
     """{name: (the JAX package's network, the port's)}: the grid city
-    built by each package's synth, and the OSM town imported by the JAX
-    package and carried into the port as a saved ``.npz``."""
+    built by each package's synth, and the OSM town imported by each
+    package's importer from its own fixture's bytes (the columns held
+    equal)."""
+    from reporter_tpu_torch.tools.osm_fixture import build_city_xml
+    ref = jax_osm(io.BytesIO(jax_xml().encode()))
     town = network_from_osm_xml(io.BytesIO(build_city_xml().encode()))
-    path = tmp_path_factory.mktemp("town") / "town.npz"
-    town.save(str(path))
+    for name in COLUMNS:
+        got, want = getattr(town, name), getattr(ref, name)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    assert town.segment_length_m == ref.segment_length_m
     return {"grid": (jax_city(**GRID), build_grid_city(**GRID)),
-            "osm": (town, RoadNetwork.load(str(path)))}
+            "osm": (ref, town)}
 
 
 def _traces(net, seed, n, min_pts=8, max_pts=60):

@@ -247,17 +247,21 @@ def test_wrappers_refuse_cpu_tensors_and_cpu_takes_the_plain_versions(
 
 # -- the card's relaxation: its frontier, its plan, its budget ---------------
 def _osm_town():
-    """The reference's generated OSM town through its importer, carried
-    into the port as a saved ``.npz``."""
+    """The generated OSM town through the port's importer, its columns
+    held equal to the JAX package's import of the same bytes."""
     import io
-    import tempfile
-    from reporter_tpu.graph.osm import network_from_osm_xml
-    from reporter_tpu.tools.osm_fixture import build_city_xml
-    from reporter_tpu_torch.graph.network import RoadNetwork
-    ref = network_from_osm_xml(io.BytesIO(build_city_xml().encode()))
-    with tempfile.TemporaryDirectory() as tmp:
-        ref.save(f"{tmp}/town.npz")
-        return RoadNetwork.load(f"{tmp}/town.npz")
+    from reporter_tpu.graph.osm import network_from_osm_xml as jax_osm
+    from reporter_tpu.tools.osm_fixture import build_city_xml as jax_xml
+    from reporter_tpu_torch.graph.network import COLUMNS
+    from reporter_tpu_torch.graph.osm import network_from_osm_xml
+    from reporter_tpu_torch.tools.osm_fixture import build_city_xml
+    ref = jax_osm(io.BytesIO(jax_xml().encode()))
+    town = network_from_osm_xml(io.BytesIO(build_city_xml().encode()))
+    for name in COLUMNS:
+        got, want = getattr(town, name), getattr(ref, name)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
+    assert town.segment_length_m == ref.segment_length_m
+    return town
 
 
 @pytest.fixture(scope="module")

@@ -205,6 +205,98 @@ def test_accuracy_prints_the_jax_tools_json(capsys, argv):
     assert json.loads(got) == json.loads(want) and got == want
 
 
+@pytest.mark.parametrize("argv", [
+    ["--osm-fixture", "--traces", "16"],
+    ["--osm-fixture", "--traces", "64", "--min-agreement", "0.99",
+     "--min-point-agreement", "0.975"]])
+def test_accuracy_osm_fixture_prints_the_jax_tools_json(capsys, argv):
+    """``--osm-fixture`` (the fixture town through each package's OSM
+    importer): the JAX tool's JSON line, at ci.yml's gates too."""
+    from reporter_tpu_torch.tools.accuracy_cli import main
+    assert jax_accuracy.main(argv) == 0
+    want = capsys.readouterr().out
+    assert main(argv + ["--device", "cpu"]) == 0
+    got = capsys.readouterr().out
+    assert got == want and json.loads(got)["traces"] == int(argv[2])
+
+
+def test_accuracy_osm_file_equals_the_fixture(capsys, tmp_path):
+    """``--osm FILE`` of the fixture's bytes answers as ``--osm-fixture``,
+    and as the JAX tool given the same file."""
+    from reporter_tpu_torch.tools import osm_fixture
+    from reporter_tpu_torch.tools.accuracy_cli import main
+    path = tmp_path / "town.osm.xml"
+    path.write_text(osm_fixture.build_city_xml())
+    outs = []
+    for fn, argv in ((jax_accuracy.main, ["--osm", str(path)]),
+                     (main, ["--osm", str(path), "--device", "cpu"]),
+                     (main, ["--osm-fixture", "--device", "cpu"])):
+        assert fn(argv + ["--traces", "8"]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] == outs[2]
+
+
+def _graph_run(main, argv, capsys, root):
+    """(exit code, stdout lines with ``root`` masked) of one graph CLI
+    call."""
+    rc = main(argv)
+    return rc, capsys.readouterr().out.replace(str(root), "ROOT")
+
+
+def _npz_arrays(path):
+    with np.load(path) as data:
+        return {k: (data[k].dtype, data[k].tolist()) for k in data.files}
+
+
+def _files(root):
+    out = {}
+    for r, _d, fs in os.walk(root):
+        for f in fs:
+            full = os.path.join(r, f)
+            with open(full, "rb") as fh:
+                out[os.path.relpath(full, root)] = fh.read()
+    return out
+
+
+def test_graph_cli_equals_the_jax_cli(capsys, tmp_path):
+    """Each ``graph`` subcommand through the JAX CLI and the port's (the
+    umbrella's ``graph``): the same lines, the same ``.npz`` arrays
+    (the archives' timestamps aside) and the same tile trees byte for
+    byte."""
+    from reporter_tpu.tools import graph_cli as jax_graph
+    from reporter_tpu_torch.tools import osm_fixture
+    xml = tmp_path / "town.osm.xml"
+    xml.write_text(osm_fixture.build_city_xml())
+    runs = {}
+    for name, main in (("jax", jax_graph.main),
+                       ("port", lambda a: umbrella(["graph", *a]))):
+        root = tmp_path / name
+        root.mkdir()
+        lines = []
+        for argv in (
+                ["build-synth", "--rows", "7", "--cols", "6", "--seed", "3",
+                 "--out", f"{root}/synth.npz"],
+                ["import-osm", "--in", str(xml), "--out",
+                 f"{root}/town.npz"],
+                ["tile", "--graph", f"{root}/town.npz", "--out-dir",
+                 f"{root}/tiles"],
+                ["untile", "--tile-dir", f"{root}/tiles", "--out",
+                 f"{root}/back.npz"],
+                ["untile", "--tile-dir", f"{root}/tiles",
+                 "--bbox=-122.33,47.60,-122.32,47.61", "--out",
+                 f"{root}/box.npz"],
+                ["info", f"{root}/tiles"], ["info", f"{root}/synth.npz"]):
+            lines.append(_graph_run(main, argv, capsys, root))
+        runs[name] = (lines, {f: _npz_arrays(root / f) for f in
+                              ("synth.npz", "town.npz", "back.npz",
+                               "box.npz")},
+                      _files(root / "tiles"))
+    assert runs["port"][0] == runs["jax"][0]
+    assert all(rc == 0 for rc, _out in runs["port"][0])
+    assert runs["port"][1] == runs["jax"][1]
+    assert runs["port"][2] == runs["jax"][2] and runs["port"][2]
+
+
 def test_accuracy_scores_as_the_jax_tool_on_the_same_matches():
     """``score`` over the same matches and traces: the port's own copy of
     the scoring."""
@@ -314,16 +406,22 @@ def test_kafka_tools_need_the_client(tmp_path, monkeypatch):
 # -- the umbrella ------------------------------------------------------------
 
 def test_help_lists_the_commands_and_those_to_come(capsys):
+    """Every command is listed; none is left to come."""
     assert umbrella([]) == 2
     text = capsys.readouterr().out
     for name in COMMANDS:
         assert f"\n  {name} " in text
-    assert "Still to come" in text and "graph" in text
+    assert "Still to come" not in text and "\n  graph " in text
 
 
 @pytest.mark.parametrize("name", ["graph"])
 def test_commands_still_to_come_are_unknown(capsys, name):
-    assert umbrella([name, "--help"]) == 2
+    """``graph`` was the last command still to come: it is dispatched now,
+    so the port's umbrella knows every command of the JAX package's and
+    an unknown name is still refused."""
+    from reporter_tpu.__main__ import COMMANDS as JAX_COMMANDS
+    assert name in COMMANDS and set(COMMANDS) == set(JAX_COMMANDS)
+    assert umbrella([f"{name}-x", "--help"]) == 2
     assert "unknown command" in capsys.readouterr().err
 
 
@@ -336,11 +434,12 @@ def test_commands_still_to_come_are_unknown(capsys, name):
     ("tiles", "reporter-tiles"),
     ("synth", "reporter-synth"),
     ("accuracy", "reporter_tpu_torch accuracy"),
-    ("datastore", "reporter-datastore")])
+    ("datastore", "reporter-datastore"),
+    ("graph", "reporter-graph")])
 def test_umbrella_dispatches_each_ported_command(capsys, name, prog):
     assert set(COMMANDS) == {"serve", "stream", "pipeline", "replay",
                              "print-consumer", "tiles", "synth", "accuracy",
-                             "datastore"}
+                             "datastore", "graph"}
     with pytest.raises(SystemExit) as e:
         umbrella([name, "--help"])
     assert e.value.code == 0
