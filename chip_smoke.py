@@ -5,6 +5,7 @@
     python3 chip_smoke.py --against DIR
     python3 chip_smoke.py --global-probe
     python3 chip_smoke.py --cities
+    python3 chip_smoke.py --assoc
 
 Phases, each fatal on failure:
 
@@ -35,6 +36,15 @@ Phases, each fatal on failure:
             chunking; both paths' own batches (route and gc in T and in
             T-1 rows) through the kernel and the plain version; traces/s
             with the lanes on, and the stage split of a run without them
+   assoc    the associative-scan decode (ops/assoc_viterbi.py, torch ops;
+            no kernel, nothing counted) on the card: bit-equal to the
+            same call on the CPU at (512,64,8) and (64,1024,8), f16 and
+            f32 wire (restarts, SKIP tails, exact ties); each path within
+            1e-2 of viterbi_decode's by an f64 re-score, the tied traces
+            counted; match_many of main's 512 traces through a matcher
+            with decode="assoc", its bodies equal to the fused decode's
+            but where the paths tie; both decodes timed by CUDA events
+            (median of 20) beside the card's name and power limit
 4. serve    the /report front door in this process (serve(): 64 handler
             threads, the dispatcher's flush cap of 256, native prep) on
             the card, two services built from config files, one with the
@@ -324,6 +334,8 @@ CPU run: what the always-on instrumentation costs.
 
 With ``--cities`` only the build runs, then the accuracy phase's
 --osm-fixture run and the cities phase.
+
+With ``--assoc`` only the build, main and assoc phases run.
 
 With ``--global-probe`` only the build runs, then relax_global at the
 341x341 and 512x512 cities' first chunks: held bit-equal to the plain
@@ -949,6 +961,156 @@ def phase_main(dev):
     served = {"city": city, "params": params, "reqs": main + mixed,
               "want": cpu_bodies["native"]}
     return launches, (main_x, main_rows), main_err, (sigma, beta), served
+
+
+#: the [assoc] phase's shapes (B, T, K): the service's batch, and long
+#: traces (the scan's log depth against the kernel's T-step chain)
+ASSOC_SHAPES = ((N_TRACES, T_MAIN, K), (64, 1024, K))
+#: the f64 re-score tolerance of the JAX package's tests/test_parallel.py
+RESCORE_TOL = 1e-2
+
+
+def rescore_f64(x, paths, sigma, beta):
+    """Each decoded path's total log-score in float64 numpy, independent of
+    either decode's order of accumulation: kept points only, no transition
+    into a RESTART, a fixed -1e9 for an unroutable step."""
+    from reporter_tpu_torch.matcher.hmm import NORMAL, SKIP
+    dist, _valid, route, gc, case = (t.cpu().numpy() for t in x)
+    B, T, _K = dist.shape
+    p = paths.cpu().numpy().astype(np.int64)
+    Tr = T - 1
+    d = np.take_along_axis(dist.astype(np.float64), p[:, :, None], 2)[..., 0]
+    em = np.where(case == SKIP, 0.0, -0.5 * (d / float(sigma)) ** 2)
+    bi, ti = np.meshgrid(np.arange(B), np.arange(Tr), indexing="ij")
+    r = route[:, :Tr].astype(np.float64)[bi, ti, p[:, :-1], p[:, 1:]]
+    g = gc[:, :Tr].astype(np.float64)
+    tr = np.where(r < 0.5e9, -np.abs(r - g) / float(beta), -1e9)
+    tr = np.where(case[:, 1:] == NORMAL, tr, 0.0)
+    return em.sum(axis=1) + tr.sum(axis=1)
+
+
+def median_ms(fn, n=20):
+    """``fn``'s device time: one warm call, then ``n`` calls each between
+    its own pair of CUDA events; the median."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in events]))
+
+
+def kernel_paths(x, scalars):
+    """``viterbi_decode`` on ``x`` through its launcher, uncounted (a check,
+    not the main path): (paths, scores)."""
+    from reporter_tpu_torch.ops import viterbi
+    bufs = out_bufs(x)
+    viterbi.launch(x, *scalars, bufs, viterbi.launch_plan(*x[0].shape))
+    return bufs
+
+
+def phase_assoc(dev, served, smi):
+    """The associative-scan decode (``ops/assoc_viterbi.py``, torch ops,
+    ``SegmentMatcher(decode="assoc")``) on the card: bit-equal to the same
+    call on the CPU at ``ASSOC_SHAPES`` on both wires; each path as good as
+    ``viterbi_decode``'s by the f64 re-score (``RESCORE_TOL``), the tied
+    traces counted; ``match_many`` of main's 512 traces through an assoc
+    matcher on the card, its /report bodies equal to the fused decode's
+    but where the two paths tie by the re-score; then each decode's time
+    (CUDA events, warm, median of 20) at both shapes on the f16 wire.
+    Launches nothing counted. Returns {shape: (assoc ms, kernel ms, the
+    kernel's byte bound)}."""
+    import torch
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.core.tracebatch import TraceBatch
+    from reporter_tpu_torch.matcher import SegmentMatcher
+
+    params = served["params"]
+    scalars = (np.float32(params.effective_sigma), np.float32(params.beta))
+    out = {}
+    for B, T, Kx in ASSOC_SHAPES:
+        arrays = random_inputs(B, T, Kx, 61 + T, ties=True, special=True)
+        for f16 in (True, False):
+            x = to_device(arrays, f16, dev)
+            wire = "f16" if f16 else "f32"
+            a_paths, a_scores = ops.viterbi_assoc_batch(*x, *scalars)
+            torch.cuda.synchronize()
+            c_paths, c_scores = ops.viterbi_assoc_batch(
+                *(t.cpu() for t in x), *scalars)
+            check(torch.equal(a_paths.cpu(), c_paths),
+                  f"assoc paths on the card differ from the CPU's, "
+                  f"({B},{T},{Kx}) {wire}")
+            differ = bit_equal(a_scores.cpu(), c_scores)
+            check(differ == 0, f"{differ} assoc scores on the card not "
+                               f"bit-equal to the CPU's, ({B},{T},{Kx}) "
+                               f"{wire}")
+            k_paths, _k_scores = kernel_paths(x, scalars)
+            torch.cuda.synchronize()
+            gap = np.abs(rescore_f64(x, a_paths, *scalars)
+                         - rescore_f64(x, k_paths, *scalars))
+            check(float(gap.max()) <= RESCORE_TOL,
+                  f"an assoc path scores {float(gap.max())} off the "
+                  f"kernel's by the f64 re-score, ({B},{T},{Kx}) {wire}")
+            tied = int((a_paths != k_paths).any(dim=1).sum())
+            log(f"[assoc] ({B},{T},{Kx}) {wire}: paths and scores on the "
+                f"card bit-equal to the CPU's; against viterbi_decode "
+                f"{tied} of {B} traces decode to another path of equal "
+                f"f64 score (largest gap {float(gap.max()):.3g}, tolerance "
+                f"{RESCORE_TOL})")
+            if f16:
+                ms = median_ms(lambda: ops.viterbi_assoc_batch(*x, *scalars))
+                k_ms = median_ms(lambda: kernel_paths(x, scalars))
+                bms, _by = bound_ms(x, T, Kx)
+                out[f"{B}_{T}_{Kx}"] = (ms, k_ms, bms)
+
+    # match_many: main's 512 traces through an assoc matcher on the card
+    main = served["reqs"][:N_TRACES]
+    m = SegmentMatcher(served["city"], params, decode="assoc")
+    check(m.device.type == "cuda" and m.decode == "assoc",
+          "the assoc matcher is not on the card")
+    before = ops.viterbi_cuda.launches
+    got = bodies(m.match_many(main), main)
+    check(ops.viterbi_cuda.launches == before,
+          "the assoc matcher launched viterbi_decode")
+    want = served["want"][:N_TRACES]
+    differ = {i for i, (a, b) in enumerate(zip(got, want)) if a != b}
+    tied = set()
+    for c, batch in enumerate(native_batches(
+            m.runtime, TraceBatch.from_requests(main), params, m.chunk)):
+        x = tuple(torch.from_numpy(a).to(dev) for a in (
+            batch.dist_m, batch.valid, batch.route_m, batch.gc_m,
+            batch.case))
+        a_paths, _ = ops.viterbi_assoc_batch(*x, *scalars)
+        k_paths, _ = kernel_paths(x, scalars)
+        torch.cuda.synchronize()
+        rows = len(batch.traces)
+        gap = np.abs(rescore_f64(x, a_paths, *scalars)
+                     - rescore_f64(x, k_paths, *scalars))[:rows]
+        check(float(gap.max()) <= RESCORE_TOL,
+              f"match_many chunk {c}: an assoc path scores "
+              f"{float(gap.max())} off the kernel's")
+        rows_tied = (a_paths[:rows] != k_paths[:rows]).any(dim=1).cpu()
+        tied |= {c * m.chunk + r for r in np.flatnonzero(rows_tied.numpy())}
+    check(differ <= tied, f"bodies of traces {sorted(differ - tied)[:8]} "
+                          f"differ from the fused decode's without a tie")
+    m.close()
+    log(f"[assoc] match_many of {N_TRACES} traces with decode=\"assoc\" on "
+        f"the card: {N_TRACES - len(differ)} /report bodies equal to the "
+        f"fused decode's, {len(differ)} differ, each a tie by the f64 "
+        f"re-score ({len(tied)} traces decode to another path of equal "
+        f"score)")
+    card = smi[0] if smi else "nvidia-smi: no output"
+    for shape, (ms, k_ms, bms) in out.items():
+        log(f"[assoc] ({shape.replace('_', ',')}) f16 wire: "
+            f"viterbi_assoc_batch {ms:.4f} ms, viterbi_decode "
+            f"{k_ms:.4f} ms (median of 20, CUDA events; the kernel's byte "
+            f"bound {bms:.4f} ms) on {card}")
+    return out
 
 
 def first_chunk(runtime, params, reqs, chunk, backward=False):
@@ -6341,6 +6503,9 @@ def main() -> int:
     ap.add_argument("--cities", action="store_true",
                     help="the OSM accuracy run and the cities phase; "
                          "nothing else runs")
+    ap.add_argument("--assoc", action="store_true",
+                    help="the main phase and the associative-scan "
+                         "decode's phase; nothing else runs")
     args = ap.parse_args()
     if not (ROOT / "reporter_tpu_torch" / "ops" / "csrc" / "viterbi.cu").is_file():
         fail("reporter_tpu_torch is not beside this script")
@@ -6370,6 +6535,15 @@ def main() -> int:
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"accuracy_osm_launches": osm,
                             "cities_launches": cities})
+    if args.assoc:
+        spills = phase_build()
+        lap("build")
+        _n, _main, _err, _scalars, served = phase_main(dev)
+        lap("main")
+        assoc = phase_assoc(dev, served, smi)
+        lap("assoc")
+        check(not spills, f"ptxas reports spills: {spills}")
+        return finish(smi, {"assoc": assoc})
     if not (args.against or args.cities):
         # the [worker] phase's stream, written while the phases before
         # it run
@@ -6398,6 +6572,8 @@ def main() -> int:
     lap("verify-step")
     launches, main, max_err, scalars, served = phase_main(dev)
     lap("main")
+    assoc = phase_assoc(dev, served, smi)
+    lap("assoc")
     big = grid_inputs(BIG_CITY, N_TRACES, 11)
     huge = grid_inputs(HUGE_CITY, 64, 17)
     past = grid_inputs(PAST_CITY, PAST_TRACES, 19)

@@ -369,7 +369,9 @@ class HistogramStore:
                 logger.warning("moving crashed-commit orphan %s aside "
                                "to %s", dest, os.path.basename(aside))
                 os.replace(dest, aside)
-        os.replace(tmp, dest)
+        # every column and the segment dir were fsync'd at stage time
+        # (_stage_segment, unlocked): this is the rename alone
+        os.replace(tmp, dest)  # lint: ignore[DUR002]
         fsio.fsync_dir(pdir)
 
     def _check_seq_fence(self, pdir: str, expected_seq: int) -> None:

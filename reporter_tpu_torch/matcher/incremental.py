@@ -442,7 +442,10 @@ class IncrementalTable:
         touched and raises."""
         jobs = []   # [i, uuid, state, steps, params, alive]
         touched = []  # every uuid whose state this call may have changed
-        with self._lock:
+        # the rounds and the states they advance must not interleave with
+        # another call's; a first call's kernel build (once a process)
+        # falls inside
+        with self._lock:  # lint: ignore[LD003]
             try:
                 # decode cost (prep of the appended points, the device
                 # rounds, the fixed-lag commits), timed apart from the

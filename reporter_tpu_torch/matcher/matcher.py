@@ -269,6 +269,12 @@ class MatchRuns:
             d = self._dict = {"segments": segments, "mode": self.mode}
         return d
 
+    def has_runs(self) -> bool:
+        """True when the match produced any segment run: an emptiness
+        probe that never materialises the per-run dicts (the streaming
+        batcher's trim only needs this bit)."""
+        return self.hi > self.lo
+
     # -- mapping protocol (materialises) -----------------------------------
     def __getitem__(self, key):
         return self._materialise()[key]
@@ -345,6 +351,12 @@ class SegmentMatcher:
     ``incremental_mb`` the table's byte budget in MiB. They choose a
     path, never a result.
 
+    ``decode`` names the decode (``ops.DECODES``): "fused", the CUDA
+    kernel on the card and the plain scan on the CPU; "scan", the plain
+    scan; "assoc", the associative-scan decode in torch ops. An unknown
+    name raises. "scan" and "assoc" may break an exact score tie
+    differently from the kernel; they are the same decode.
+
     ``circuit_threshold`` and ``circuit_cooldown_s`` set every breaker of
     the matcher's failure domains (``CIRCUIT_DOMAINS``). A poisoned
     trace's request lands in ``quarantine_spool`` (the streaming worker
@@ -368,6 +380,7 @@ class SegmentMatcher:
                  prune_sigma: float = 0.0, incremental: bool = True,
                  incremental_lag: int = DEFAULT_LAG,
                  incremental_mb: float = DEFAULT_BUDGET_MB,
+                 decode: str = "fused",
                  circuit_threshold: int = DEFAULT_THRESHOLD,
                  circuit_cooldown_s: float = DEFAULT_COOLDOWN_S):
         self.device = resolve_device(device)
@@ -375,6 +388,10 @@ class SegmentMatcher:
             raise ValueError("no network: pass net=")
         if prune_sigma < 0:
             raise ValueError(f"prune_sigma={prune_sigma} must be >= 0")
+        if decode not in ops.DECODES:
+            raise ValueError(f"unknown decode {decode!r}: one of "
+                             f"{ops.DECODES}")
+        self.decode = decode
         self.net = net
         self.params = params if params is not None else MatchParams()
         self.prune_sigma = float(prune_sigma)
@@ -407,15 +424,16 @@ class SegmentMatcher:
                         ThreadPoolExecutor(1, "device-drain"))
                        if pipeline else None)
         # the failure domains' breakers; they exist whatever the matcher's
-        # paths, so /health always reports every domain
-        def breaker(name):
-            return CircuitBreaker(name, threshold=circuit_threshold,
-                                  cooldown_s=circuit_cooldown_s)
-        self.circuit = breaker("matcher.circuit")
-        self.circuit_decode = breaker("matcher.circuit.decode")
-        self.circuit_assemble = breaker("matcher.circuit.assemble")
-        self.circuit_route = breaker("matcher.circuit.route")
-        self.circuit_incremental = breaker("matcher.circuit.incremental")
+        # paths, so /health always reports every domain (each domain is a
+        # literal: the lint's FB rules read them)
+        kw = dict(threshold=circuit_threshold, cooldown_s=circuit_cooldown_s)
+        self.circuit = CircuitBreaker("matcher.circuit", **kw)
+        self.circuit_decode = CircuitBreaker("matcher.circuit.decode", **kw)
+        self.circuit_assemble = CircuitBreaker("matcher.circuit.assemble",
+                                               **kw)
+        self.circuit_route = CircuitBreaker("matcher.circuit.route", **kw)
+        self.circuit_incremental = CircuitBreaker(
+            "matcher.circuit.incremental", **kw)
         # free timing-event pairs: the dispatch lane takes one a launch
         # and the drain lane gives it back once read, so a pair is made
         # (and first recorded) once per launch in flight, not per launch
@@ -880,7 +898,8 @@ class SegmentMatcher:
         launch (:class:`CircuitOpen`). Nothing decodes it elsewhere."""
         B, T, K = batch.dist_m.shape
         with metrics.timer("matcher.decode_dispatch"), \
-                profiler.dispatch_span(B, T, K, self.device.type):
+                profiler.dispatch_span(B, T, K, self.device.type,
+                                       self.decode):
             if not self.circuit_decode.allow():
                 metrics.count("matcher.circuit.decode.refused_chunks")
                 raise self.circuit_decode.refuse("decode.dispatch")
@@ -904,7 +923,8 @@ class SegmentMatcher:
                        for a in (batch.dist_m, batch.valid, batch.route_m,
                                  batch.gc_m, batch.case))
         if self.device.type == "cpu":
-            paths, _scores = ops.decode_batch(*arrays, sigma, beta)
+            paths, _scores = ops.decode_batch(*arrays, sigma, beta, None,
+                                              self.decode)
             self._add_stage("decode", t0)
             return paths, None, None, None
         with torch.cuda.device(self.device):
@@ -912,13 +932,17 @@ class SegmentMatcher:
             # device route tensor) is a fresh allocation, which starts on
             # 16 bytes as the kernel needs
             x = tuple(a.to(self.device) for a in arrays)
-            # recorded by the kernel's launcher around the launch
-            try:
-                timing = self._timing_free.pop()
-            except IndexError:
-                timing = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            paths, _scores = ops.decode_batch(*x, sigma, beta, timing)
+            # recorded by the kernel's launcher around the launch; the
+            # other decodes are op sequences, with no one launch to time
+            timing = None
+            if self.decode == "fused":
+                try:
+                    timing = self._timing_free.pop()
+                except IndexError:
+                    timing = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+            paths, _scores = ops.decode_batch(*x, sigma, beta, timing,
+                                              self.decode)
             host = torch.empty(paths.shape, dtype=paths.dtype,
                                pin_memory=True)
             host.copy_(paths, non_blocking=True)
@@ -1015,6 +1039,7 @@ class SegmentMatcher:
                     turn_penalty_factor=q.turn_penalty_factor)
             except Exception as e:
                 self._quarantine_trace(tb, int(i), e)
+                # lint: ignore[HP002] — a quarantined trace's empty match
                 results[i] = {"segments": [], "mode": q.mode}
 
     def _assemble_native(self, batch: PaddedBatch, order, paths,

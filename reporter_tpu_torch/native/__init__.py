@@ -86,7 +86,9 @@ def load() -> ctypes.CDLL:
     """The built, handshaken and bound library (built on first call)."""
     global _lib
     if _lib is None:
-        with _lock:
+        # the build and handshake run under _lock by design: once a
+        # process, and a second caller waits for them, not a second g++
+        with _lock:  # lint: ignore[LD003]
             if _lib is None:
                 _lib = _bind(ctypes.CDLL(str(_build())))
     return _lib

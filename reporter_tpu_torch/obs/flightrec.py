@@ -3,7 +3,8 @@ failure so a crash leaves a postmortem.
 
 It keeps the last ``RING_EVENTS`` closed spans and every open span in
 memory (filled by :mod:`.trace` whenever tracing is armed, nothing
-otherwise) and writes them atomically to ``<dump dir>/flightrec-<pid>-
+otherwise) and commits them (:mod:`..utils.fsio`: tmp, fsync, rename,
+directory fsync) to ``<dump dir>/flightrec-<pid>-
 <seq>-<reason>.json`` at the failure sites that call :func:`dump` (a
 runtime concurrency finding, ``analysis/racecheck.py``). The dump also
 carries the counters and the last decode chunks' wide events.
@@ -21,6 +22,7 @@ import os
 import time
 from typing import List, Optional
 
+from ..utils import fsio
 from ..utils import locks as _locks
 
 #: closed-span ring capacity: at ~20 spans a request, the last ~200
@@ -101,17 +103,6 @@ def reset() -> None:
 
 # ---- the postmortem --------------------------------------------------------
 
-def _atomic_write_text(path: str, text: str) -> None:
-    """Write ``path`` whole or not at all: a temporary file, fsync'd, then
-    renamed over it."""
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "w", encoding="utf-8") as f:
-        f.write(text)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(tmp, path)
-
-
 def dump(reason: str, extra: Optional[dict] = None) -> Optional[str]:
     """Write the postmortem; returns its path, or None without a dump
     directory. Never raises: every caller is already on a failure path."""
@@ -147,7 +138,8 @@ def dump(reason: str, extra: Optional[dict] = None) -> Optional[str]:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir,
                             f"flightrec-{os.getpid()}-{seq:04d}-{safe}.json")
-        _atomic_write_text(path, json.dumps(payload, separators=(",", ":")))
+        fsio.atomic_write_text(
+            path, json.dumps(payload, separators=(",", ":")))
         metrics.count("flightrec.dumps")
         return path
     except Exception:  # the postmortem must never kill its caller

@@ -145,21 +145,31 @@ def _ensure_listener() -> None:
     _listener_registered = True
 
 
-def _shape_key(B: int, T: int, K: int, device: str) -> tuple:
-    return (B, T, K, device, "cuda" if device == "cuda" else "plain", 1)
+def _backend(device: str, decode: str) -> str:
+    """The shape key's backend: the decode's name, the fused decode's
+    being "cuda" on the card and "plain" (the scan) on the CPU."""
+    if decode == "fused":
+        return "cuda" if device == "cuda" else "plain"
+    return decode
+
+
+def _shape_key(B: int, T: int, K: int, device: str,
+               decode: str = "fused") -> tuple:
+    return (B, T, K, device, _backend(device, decode), 1)
 
 
 class _DispatchSpan:
     """Times one decode dispatch and credits library builds to its shape;
     updates the shape table and the decode.* metrics on exit."""
 
-    __slots__ = ("B", "T", "K", "device", "_acc", "_t0")
+    __slots__ = ("B", "T", "K", "device", "decode", "_acc", "_t0")
 
-    def __init__(self, B: int, T: int, K: int, device: str):
+    def __init__(self, B: int, T: int, K: int, device: str, decode: str):
         self.B = B
         self.T = T
         self.K = K
         self.device = device
+        self.decode = decode
 
     def __enter__(self):
         _ensure_listener()
@@ -176,7 +186,7 @@ class _DispatchSpan:
             return False
         calls, build_s = self._acc
         built = calls > 0
-        key = _shape_key(self.B, self.T, self.K, self.device)
+        key = _shape_key(self.B, self.T, self.K, self.device, self.decode)
         global _compile_episodes
         with _lock:
             st = _shapes.get(key)
@@ -219,17 +229,19 @@ class _DispatchSpan:
         return False
 
 
-def dispatch_span(B: int, T: int, K: int,
-                  device: str = "cpu") -> _DispatchSpan:
+def dispatch_span(B: int, T: int, K: int, device: str = "cpu",
+                  decode: str = "fused") -> _DispatchSpan:
     """Wrap one decode dispatch (the matcher's dispatch lane) on a device
-    of type ``device`` ("cuda" or "cpu")."""
-    return _DispatchSpan(B, T, K, device)
+    of type ``device`` ("cuda" or "cpu") by the decode named ``decode``
+    (``ops.DECODES``)."""
+    return _DispatchSpan(B, T, K, device, decode)
 
 
 def note_launch(B: int, T: int, K: int, device: str,
                 seconds: float) -> None:
     """One launch's latency, measured by a CUDA event pair around it
-    and read after the drain lane's event wait."""
+    and read after the drain lane's event wait (the fused decode's
+    kernel: the only decode that is one launch)."""
     key = _shape_key(B, T, K, device)
     with _lock:
         st = _shapes.get(key)

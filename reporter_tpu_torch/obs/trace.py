@@ -331,12 +331,15 @@ def _expand_links(records: List[dict], trace_id: str) -> List[dict]:
                     keep.add(r["span_id"])
                     changed = True
         for r in theirs:
-            if r["span_id"] in keep:
-                out.append({
-                    **r, "trace_id": trace_id,
-                    "parent_id": lk["parent_id"] if r["span_id"] == root_id
-                    else r["parent_id"],
-                    "attrs": {**r.get("attrs", {}), "linked_from": other}})
+            if r["span_id"] not in keep:
+                continue
+            parent = lk["parent_id"] if r["span_id"] == root_id \
+                else r["parent_id"]
+            # lint: ignore[HP002] — the ?trace=1 export of one request
+            attrs = {**r.get("attrs", {}), "linked_from": other}
+            # lint: ignore[HP002] — the ?trace=1 export of one request
+            out.append({**r, "trace_id": trace_id, "parent_id": parent,
+                        "attrs": attrs})
     return out
 
 

@@ -2,7 +2,11 @@
 
   decode      ops/csrc/viterbi.cu, the batched Viterbi (ops/viterbi.py
               builds, binds and launches it); plain: the PyTorch scan in
-              matcher/hmm.py
+              matcher/hmm.py. ``decode_batch(decode=)`` picks one of
+              ``DECODES``: "fused" (the default) is the kernel on the
+              card and the plain scan on the CPU, "scan" the plain scan
+              and "assoc" the associative-scan decode in torch ops
+              (ops/assoc_viterbi.py), on either device
   relax       ops/csrc/route_relax.cu `relax`, the whole bounded
               relaxation in one launch; past one block's shared memory
               `relax_cluster`, the same over a thread-block cluster; past
@@ -20,6 +24,7 @@ Each dispatcher here picks by where the tensors lie: CUDA tensors go to
 the kernel, CPU tensors to the plain version. There is no fallback from
 one to the other.
 """
+from .assoc_viterbi import step_matrices, viterbi_assoc_batch
 from .incremental import (incremental_step_cuda, incremental_step_plain,
                           incremental_steps_cuda, incremental_steps_plain)
 from .route_relax import (pair_costs_cuda, pair_costs_packed,
@@ -27,8 +32,9 @@ from .route_relax import (pair_costs_cuda, pair_costs_packed,
                           relax_global_cuda, relax_kernel_for)
 from .viterbi import viterbi_cuda, viterbi_plain
 
-__all__ = ["decode_batch", "incremental_step_batch", "incremental_steps",
-           "relax_routes",
+__all__ = ["decode_batch", "DECODES", "incremental_step_batch",
+           "incremental_steps", "relax_routes", "viterbi_assoc_batch",
+           "step_matrices",
            "route_pair_costs", "viterbi_cuda", "viterbi_plain",
            "incremental_step_cuda", "incremental_step_plain",
            "incremental_steps_cuda", "incremental_steps_plain", "relax_cuda",
@@ -37,18 +43,30 @@ __all__ = ["decode_batch", "incremental_step_batch", "incremental_steps",
            "pair_costs_packed"]
 
 
+#: the decodes ``decode_batch`` offers (the JAX package's
+#: ``REPORTER_TPU_DECODE`` names, its "pallas" being "fused" here)
+DECODES = ("fused", "scan", "assoc")
+
+
 def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta,
-                 events=None):
+                 events=None, decode="fused"):
     """Batched Viterbi decode; same contract as
     ``matcher.hmm.viterbi_decode_batch``: dist_m (B,T,K) f16 or f32, valid
     (B,T,K) bool, route_m (B,T-1|T,K,K), gc_m (B,T-1|T), case (B,T) int32,
     sigma and beta scalars. Returns (paths (B,T) int32, scores (B,) f32)
-    on the tensors' device. ``events``, on the card only, is a (start,
+    on the tensors' device. ``decode`` is one of ``DECODES``; an unknown
+    name raises. ``events``, with "fused" on the card only, is a (start,
     end) pair of timing CUDA events recorded around the kernel."""
-    if dist_m.device.type == "cpu":
-        if events is not None:
-            raise ValueError("events time the CUDA kernel; the CPU path "
-                             "has none")
+    if decode not in DECODES:
+        raise ValueError(f"unknown decode {decode!r}: one of {DECODES}")
+    on_cpu = dist_m.device.type == "cpu"
+    if events is not None and (on_cpu or decode != "fused"):
+        raise ValueError("events time the CUDA kernel; only the fused "
+                         "decode on the card has one")
+    if decode == "assoc":
+        return viterbi_assoc_batch(dist_m, valid, route_m, gc_m, case,
+                                   sigma, beta)
+    if decode == "scan" or on_cpu:
         return viterbi_plain(dist_m, valid, route_m, gc_m, case, sigma, beta)
     return viterbi_cuda(dist_m, valid, route_m, gc_m, case, sigma, beta,
                         events)

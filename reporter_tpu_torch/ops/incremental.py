@@ -100,7 +100,8 @@ def build():
     library (``csrc/viterbi.cu``, compiled once per source version by
     ``ops.nvcc``); raises if the build fails."""
     global _kernel
-    with _lock:
+    # once a process: a second caller waits for the one build and bind
+    with _lock:  # lint: ignore[LD003]
         if _kernel is None:
             lib, _log = nvcc.load(viterbi.SOURCE, "viterbi")
             fn = lib.incremental_steps

@@ -66,7 +66,9 @@ def load(source: Path, stem: str):
     Returns ``(ctypes.CDLL, compiler log)``; raises if the build fails."""
     with _lock:
         lock = _locks.setdefault(source, threading.Lock())
-    with lock:
+    # the build runs under its source's lock by design: a library builds
+    # once, and a second caller waits for that build, not a second nvcc
+    with lock:  # lint: ignore[LD003]
         got = _loaded.get(source)
         if got is None:
             t0 = time.perf_counter()

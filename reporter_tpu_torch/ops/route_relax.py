@@ -229,7 +229,8 @@ def build():
     """Compile (once per source version) and load ``csrc/route_relax.cu``.
     Returns ``(library, compiler log)``; raises if the build fails."""
     global _lib
-    with _lock:
+    # once a process: a second caller waits for the one build and bind
+    with _lock:  # lint: ignore[LD003]
         if _lib is None:
             lib, log = nvcc.load(SOURCE, "route_relax")
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -238,7 +239,8 @@ def build():
             lib.relax_cluster.argtypes = [p, i, p, p, p, p, i, i, f, i, i,
                                           p, p, p, p]
             lib.relax_cluster.restype = i
-            lib.relax_cluster_occupancy.argtypes = [i, i, i, p]
+            lib.relax_cluster_occupancy.argtypes = [i, i, i,
+                                                    ctypes.POINTER(i)]
             lib.relax_cluster_occupancy.restype = i
             lib.relax_global.argtypes = [p, i, p, p, p, p, i, f, i, i, i,
                                          p, p, p, p, p, p]
@@ -575,7 +577,9 @@ def relax_global_cuda(arcs: CsrArcs, src_nodes, bound, *, n_nodes: int,
     and ``converged`` read back in one copy. Raises on a source outside
     the graph."""
     dev = _check_arcs(arcs, src_nodes, n_nodes)
-    with global_scratch(dev).lock:  # until _relax_once's read: it ended
+    # the device's one scratch is held until _relax_once's read: it ended;
+    # a first launch's library build (once a process) falls inside
+    with global_scratch(dev).lock:  # lint: ignore[LD003]
         return _relax_once(
             relax_global_cuda, lambda src, dist, time, info:
             launch_relax_global(arcs, src, bound, max_iters, dist, time,

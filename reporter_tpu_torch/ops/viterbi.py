@@ -128,7 +128,8 @@ def build():
     (``ops.nvcc``). Returns ``(entry point, compiler log)``; raises if the
     build fails."""
     global _kernel
-    with _lock:
+    # once a process: a second caller waits for the one build and bind
+    with _lock:  # lint: ignore[LD003]
         if _kernel is None:
             lib, log = nvcc.load(SOURCE, "viterbi")
             fn = lib.viterbi_decode

@@ -86,7 +86,7 @@ class CityEntry:
         # content-derived graph identity (graph/version.py), stamped by
         # the registry's load; swap() compares it across versions
         self.map_version = map_version
-        # in-flight request pins (the registry's _reslock guards both): an
+        # in-flight request pins (the registry's _res_lock guards both): an
         # evicted entry with live pins defers its close to the last release
         self._refs = 0
         self._evicted = False
@@ -145,7 +145,9 @@ class CityRegistry:
 
     ``loader`` (tests, harnesses) overrides the config-driven build:
     ``loader(name) -> (service, size_bytes_or_None)``. ``device`` is where
-    a config-built city's matcher decodes (``cuda`` unless given)."""
+    a config-built city's matcher decodes (``cuda`` unless given), and
+    ``matcher`` its ``SegmentMatcher`` keyword arguments (the service
+    config's matcher keys, ``server.MATCHER_KEYS``)."""
 
     def __init__(self, config: Optional[Dict[str, dict]] = None,
                  budget_bytes: int = DEFAULT_BUDGET_BYTES,
@@ -153,8 +155,10 @@ class CityRegistry:
                  swap_sample: float = DEFAULT_SWAP_SAMPLE,
                  swap_agreement: float = DEFAULT_SWAP_AGREEMENT,
                  swap_window: int = DEFAULT_SWAP_WINDOW,
-                 swap_force: bool = False):
+                 swap_force: bool = False,
+                 matcher: Optional[dict] = None):
         self.config = dict(config or {})
+        self.matcher_kwargs = dict(matcher or {})
         self.budget_bytes = int(budget_bytes)
         self.loader = loader
         self.device = device
@@ -169,10 +173,10 @@ class CityRegistry:
         self._lock = _locks.new_lock("datastore.cities", long_hold_ok=True)
         # the resident map has its own small lock so /health and /profile
         # snapshots (and pin/release) never wait out a city load; the
-        # order is always _lock -> _reslock
-        self._reslock = _locks.new_lock("datastore.cities.resident")
+        # order is always _lock -> _res_lock
+        self._res_lock = _locks.new_lock("datastore.cities.resident")
         self._resident: "OrderedDict[str, CityEntry]" = OrderedDict()
-        # swap bookkeeping (guarded by _reslock): the last record per city
+        # swap bookkeeping (guarded by _res_lock): the last record per city
         # and the flip and refusal totals, /health's swap block
         self._swap_last: Dict[str, dict] = {}
         self._swap_flips = 0
@@ -189,7 +193,7 @@ class CityRegistry:
         loaded city never waits out another city's load. The pin is taken
         inside the same critical section, so no eviction can close the
         entry first."""
-        with self._reslock:
+        with self._res_lock:
             got = self._resident.get(name)
             if got is not None:
                 self._resident.move_to_end(name)
@@ -199,13 +203,14 @@ class CityRegistry:
 
     def _evict_over_budget(self) -> list:
         """Drop LRU cities until resident bytes fit the budget, the most
-        recent staying regardless (called with _reslock held); returns the
+        recent staying regardless (called with _res_lock held); returns the
         unpinned evictees for the caller to close after the locks drop (a
         pinned one closes at its last release)."""
         evicted = []
         while len(self._resident) > 1 and sum(
                 e.size_bytes for e in self._resident.values()) \
                 > self.budget_bytes:
+            # lint: ignore[LD001] — its callers (get, _admit) hold _res_lock
             ename, e = self._resident.popitem(last=False)
             e._evicted = True
             metrics.count("datastore.city.evictions")
@@ -223,7 +228,11 @@ class CityRegistry:
             return got
         evicted = []
         try:
-            with self._lock:
+            # a miss loads the whole city (graph, host runtime build, memo
+            # pre-warm) under _lock by design (long_hold_ok): loads and
+            # swaps are serialised, and requests for the loading city want
+            # this wait; hits take _res_lock only
+            with self._lock:  # lint: ignore[LD003]
                 got = self._hit(name, pin)  # loaded while we waited
                 if got is not None:
                     metrics.count("datastore.city.hits")
@@ -233,7 +242,7 @@ class CityRegistry:
                                    f"{sorted(self.config)}")
                 metrics.count("datastore.city.misses")
                 entry = self._load(name)
-                with self._reslock:
+                with self._res_lock:
                     self._resident[name] = entry
                     if pin:
                         entry._refs += 1
@@ -253,7 +262,7 @@ class CityRegistry:
     def release(self, entry: CityEntry) -> None:
         """Unpin; closes an entry evicted mid-request once its last
         in-flight request has drained off it."""
-        with self._reslock:
+        with self._res_lock:
             entry._refs -= 1
             close_now = entry._evicted and entry._refs <= 0
         if close_now:
@@ -327,15 +336,16 @@ class CityRegistry:
         if conf.get("datastore"):
             from ..datastore import LocalDatastore
             datastore = LocalDatastore(conf["datastore"])
-        service = ReporterService(SegmentMatcher(net, device=self.device),
-                                  datastore=datastore)
+        service = ReporterService(
+            SegmentMatcher(net, device=self.device, **self.matcher_kwargs),
+            datastore=datastore)
         return self._entry(name, service, graph_bytes(net))
 
     def evict(self, name: str) -> bool:
         """Explicit eviction (tests, admin); a pinned entry closes at its
         last release. Takes the registry lock too (the same _lock ->
-        _reslock order as get), so it serialises with loads."""
-        with self._lock, self._reslock:
+        _res_lock order as get), so it serialises with loads."""
+        with self._lock, self._res_lock:
             entry = self._resident.pop(name, None)
             if entry is not None:
                 entry._evicted = True
@@ -370,7 +380,10 @@ class CityRegistry:
         every outcome is counted (``swap.flips`` / ``swap.refusals``) and
         on /health's swap block."""
         forced = self.swap_force if force is None else bool(force)
-        with self._lock:
+        # a swap loads and shadow-scores the candidate under _lock by
+        # design (long_hold_ok): swaps serialise with loads, and the old
+        # map serves (hits take _res_lock only) meanwhile
+        with self._lock:  # lint: ignore[LD003]
             prev_conf = self.config.get(name)
             if new_source is not None and not callable(new_source):
                 self.config[name] = dict(new_source)
@@ -407,7 +420,7 @@ class CityRegistry:
                 # city must serve); the overshoot ends at the flip
                 evicted = []
                 refused_for = None
-                with self._reslock:
+                with self._res_lock:
                     for ename in [n for n in self._resident if n != name]:
                         total = cand.size_bytes + sum(
                             e.size_bytes for e in self._resident.values())
@@ -465,7 +478,7 @@ class CityRegistry:
                 # the widest chaos window: candidate loaded, warmed and
                 # gated, the old version serving, nothing flipped yet
                 faults.failpoint("city.swap")
-                with self._reslock:
+                with self._res_lock:
                     self._resident[name] = cand
                     self._resident.move_to_end(name)
                     old._evicted = True
@@ -507,14 +520,16 @@ class CityRegistry:
         if new_source is None or callable(new_source):
             return
         if prev_conf is None:
+            # lint: ignore[LD001] — its caller, swap, holds _lock
             self.config.pop(name, None)
         else:
+            # lint: ignore[LD001] — its caller, swap, holds _lock
             self.config[name] = prev_conf
 
     def _refuse(self, name: str, cand: CityEntry, record: dict,
                 result: str) -> dict:
         record["result"] = result
-        with self._reslock:
+        with self._res_lock:
             self._swap_last[name] = record
             self._swap_refusals += 1
         metrics.count("swap.refusals")
@@ -529,7 +544,7 @@ class CityRegistry:
     def _admit(self, name: str, entry: CityEntry, record: dict) -> None:
         """Insert a swap-loaded entry for a non-resident city under the
         same budget policy as :meth:`get`."""
-        with self._reslock:
+        with self._res_lock:
             self._resident[name] = entry
             evicted = self._evict_over_budget()
             self._swap_last[name] = record
@@ -564,7 +579,7 @@ class CityRegistry:
         """The residency table and swap block. Each entry is pinned while
         its stats are read outside the map lock, so an eviction meanwhile
         closes it only after the read."""
-        with self._reslock:
+        with self._res_lock:
             entries = list(self._resident.items())
             for _name, e in entries:
                 e._refs += 1

@@ -17,6 +17,7 @@ from typing import Callable, List, Optional, Sequence
 from ..core.tracebatch import TraceBatch
 from ..obs import profiler
 from ..obs import trace as obs_trace
+from ..utils import locks as _locks
 from ..utils import metrics
 from .admission import Overload, retry_after_s
 
@@ -149,6 +150,7 @@ class BatchDispatcher:
         if self._closed:
             raise RuntimeError("dispatcher is closed")
         slot = _Slot(trace, columns)
+        _locks.fuzz_point("dispatch.queue.put")
         self._enqueue_nowait(slot)
         if not slot.event.wait(timeout):
             raise TimeoutError("match result not ready in time")
@@ -183,6 +185,7 @@ class BatchDispatcher:
         else:
             slots = [_Slot(tr) for tr in traces]
         for slot in slots:  # enqueue ALL before waiting on any
+            _locks.fuzz_point("dispatch.queue.put")
             self._enqueue_blocking(slot, timeout)
         # deadline scales with the batches the list will ACTUALLY need:
         # under a latency budget the drain loop flushes at the EWMA-
@@ -263,6 +266,7 @@ class BatchDispatcher:
         queue stayed empty for ``idle_grace``, or the close() sentinel
         surfaced (every slot before it still flushes). Runs on the
         dispatch thread only."""
+        _locks.fuzz_point("dispatch.queue.get")
         first = self._queue.get()
         if first is _STOP:
             self._stopping = True
@@ -277,6 +281,7 @@ class BatchDispatcher:
             if remaining <= 0:
                 break
             try:
+                _locks.fuzz_point("dispatch.queue.get")
                 got = self._queue.get(
                     timeout=min(remaining, self.idle_grace))
             except queue.Empty:

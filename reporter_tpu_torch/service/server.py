@@ -38,12 +38,14 @@ keys stand for the JAX package's environment knobs:
   incremental        REPORTER_TPU_INCREMENTAL       (true)
   incremental_lag    REPORTER_TPU_INCREMENTAL_LAG   (32)
   incremental_mb     REPORTER_TPU_INCREMENTAL_MB    (64.0)
+  decode             REPORTER_TPU_DECODE            ("fused")
   trace              REPORTER_TPU_TRACE             (false)
   slo_ms             REPORTER_TPU_SLO_MS            ("", no targets)
   shadow_sample      REPORTER_TPU_SHADOW_SAMPLE     (0.0, off)
   profile_events     REPORTER_TPU_PROFILE_EVENTS    (512)
   flightrec_dir      REPORTER_TPU_FLIGHTREC         (none: no dumps)
   lockcheck          REPORTER_TPU_LOCKCHECK         (false)
+  racefuzz           REPORTER_TPU_RACEFUZZ          (none: disarmed)
   faults             REPORTER_TPU_FAULTS            (none: disarmed)
   deadletter_dir     (the worker's trace spool)     (none)
   deadletter_max_mb  REPORTER_TPU_DEADLETTER_MAX_MB (0, unbounded)
@@ -54,7 +56,7 @@ keys stand for the JAX package's environment knobs:
   pressure_hold_s    REPORTER_TPU_PRESSURE_HOLD_S   (2.0)
   city_budget_mb     REPORTER_TPU_CITY_BUDGET_MB    (512)
 
-``trace`` to ``lockcheck`` are process-wide (``configure_obs``), and so
+``trace`` to ``racefuzz`` are process-wide (``configure_obs``), and so
 are ``faults`` to ``circuit_cooldown_s`` (``configure_faults``; the two
 circuit keys also set the matcher's breakers). ``city_budget_mb`` sizes
 the city registry; its swap knobs are ``CityRegistry`` arguments, as a
@@ -155,12 +157,12 @@ SERVICE_KEYS = ("threshold_sec", "max_batch", "max_wait_ms",
                 "pressure_hold_s")
 MATCHER_KEYS = ("native", "pipeline", "chunk", "prep_threads",
                 "route_device", "prune_sigma", "incremental",
-                "incremental_lag", "incremental_mb", "circuit_threshold",
-                "circuit_cooldown_s")
+                "incremental_lag", "incremental_mb", "decode",
+                "circuit_threshold", "circuit_cooldown_s")
 SERVER_KEYS = ("pool_size",)
 #: process-wide observability settings (configure_obs)
 OBS_KEYS = ("trace", "slo_ms", "shadow_sample", "profile_events",
-            "flightrec_dir", "lockcheck")
+            "flightrec_dir", "lockcheck", "racefuzz")
 #: process-wide failure-domain settings (configure_faults); the circuit
 #: keys go to the matcher too
 FAULT_KEYS = ("faults", "deadletter_dir", "deadletter_max_mb",
@@ -185,8 +187,10 @@ def configure_obs(keys: dict) -> None:
     process: ``trace`` -> ``obs.trace.configure``, ``slo_ms`` ->
     ``obs.slo.configure``, ``shadow_sample`` and ``profile_events`` ->
     ``obs.profiler.configure``, ``flightrec_dir`` ->
-    ``obs.flightrec.set_dump_dir``, ``lockcheck`` -> ``utils.locks.arm``.
-    A key left out keeps its current setting."""
+    ``obs.flightrec.set_dump_dir``, ``lockcheck`` -> ``utils.locks.arm``,
+    ``racefuzz`` -> ``utils.locks.configure_fuzz`` (the schedule-fuzz
+    spec ``seed[:prob][@max_us]``; a malformed one raises). A key left
+    out keeps its current setting."""
     from ..obs import profiler, slo
     if "trace" in keys:
         obs_trace.configure(_on(keys["trace"]))
@@ -202,6 +206,8 @@ def configure_obs(keys: dict) -> None:
             locks.arm()
         else:
             locks.disarm()
+    if "racefuzz" in keys:
+        locks.configure_fuzz(keys["racefuzz"] or None)
 
 
 def configure_faults(keys: dict) -> None:
@@ -1043,7 +1049,8 @@ def datastore_from_config(conf: dict, root: "str | None" = None):
 def cities_from_config(conf: dict, device):
     """The ``cities.CityRegistry`` a :func:`read_config` result mounts
     (None without a ``cities`` map), building each city's matcher on
-    ``device`` and sized by the ``city`` keys."""
+    ``device`` with the ``service`` keys that go to the matcher, and
+    sized by the ``city`` keys."""
     if not conf.get("cities"):
         return None
     from .cities import CityRegistry
@@ -1051,7 +1058,8 @@ def cities_from_config(conf: dict, device):
     if "city_budget_mb" in knobs:
         knobs["budget_bytes"] = int(float(knobs.pop("city_budget_mb"))
                                     * 1024 * 1024)
-    return CityRegistry(conf["cities"], device=device, **knobs)
+    return CityRegistry(conf["cities"], device=device,
+                        matcher=conf["matcher"], **knobs)
 
 
 def matcher_from_config(conf: dict, device) -> SegmentMatcher:

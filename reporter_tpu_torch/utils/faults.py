@@ -228,6 +228,7 @@ def _fork_reset() -> None:
     call."""
     global _SITES
     if _SPEC:
+        # lint: ignore[LD001] — the forked child runs this alone, first
         _SITES = parse_spec(_SPEC)
 
 

@@ -16,14 +16,29 @@ acquisition stacks.
   on every access (RC003). ``@thread_affine`` marks methods of
   single-thread-owned objects: the first armed call binds the instance
   to its thread, any other thread's call is RC004.
+- :func:`fuzz_point`: the schedule-perturbation layer. Armed
+  (:func:`configure_fuzz`, the service config's ``racefuzz`` key, a
+  ``seed[:prob][@max_us]`` spec), every :class:`TrackedLock` acquire and
+  every hooked site (the dispatcher's queue put and get) sleeps a seeded
+  random few microseconds with probability ``prob``, to reach
+  interleavings the scheduler would rarely pick. Each site draws from its
+  own generator seeded by ``crc32(site) ^ seed``, so a site's decision
+  sequence replays bit-identically by seed. Disarmed, a hook is one
+  module-global load.
 """
 from __future__ import annotations
 
 import functools
+import logging
+import random
 import sys
 import threading
+import time
 import weakref
+import zlib
 from typing import Optional
+
+logger = logging.getLogger("reporter_tpu_torch.locks")
 
 #: default RC002 long-hold threshold: generous enough that a loaded host
 #: holding the metrics lock through a GC pause stays silent, small enough
@@ -32,6 +47,7 @@ DEFAULT_HOLD_MS = 200.0
 
 _ENABLED = False      # the one flag every disarmed lock site loads
 _witness = None       # reporter_tpu_torch.analysis.racecheck, set by arm()
+_FUZZ: Optional["_FuzzSpec"] = None   # the armed perturbation spec
 #: every live TrackedLock, for the post-fork sweep (a WeakSet: a lock
 #: lives as long as its owner)
 _instances: "weakref.WeakSet[TrackedLock]" = weakref.WeakSet()
@@ -57,6 +73,8 @@ class TrackedLock:
         _instances.add(self)
 
     def acquire(self, blocking: bool = True, timeout: float = -1) -> bool:
+        if _FUZZ is not None:
+            _FUZZ.maybe_yield("lock." + self.name)
         got = self._lock.acquire(blocking, timeout)
         if got and _ENABLED:
             self._owner = threading.get_ident()
@@ -220,6 +238,88 @@ def disarm() -> None:
     _ENABLED = False
 
 
+# ---- schedule perturbation -------------------------------------------------
+
+class _FuzzSpec:
+    """Seeded micro-yield injector: one generator per site, seeded by
+    ``crc32(site) ^ seed``, so the decision and duration sequence at each
+    site replays bit-identically under the same seed (which thread gets
+    which draw still depends on the schedule: that is the point)."""
+
+    __slots__ = ("seed", "prob", "max_us", "yields", "_rngs", "_meta")
+
+    def __init__(self, seed: int, prob: float = 0.25,
+                 max_us: float = 200.0):
+        if not 0.0 < prob <= 1.0:
+            raise ValueError(f"fuzz prob {prob} out of (0,1]")
+        if max_us <= 0:
+            raise ValueError(f"fuzz max_us {max_us} must be positive")
+        self.seed = seed
+        self.prob = prob
+        self.max_us = max_us
+        self.yields = 0
+        self._rngs = {}
+        # a bare lock, deliberately: the fuzzer's own serialisation must
+        # not feed the witness or re-enter itself
+        self._meta = threading.Lock()
+
+    def maybe_yield(self, site: str) -> None:
+        # one draw sequence per site, serialised so that replays by seed
+        # stay deterministic per site
+        with self._meta:
+            rng = self._rngs.get(site)
+            if rng is None:
+                rng = self._rngs[site] = random.Random(
+                    zlib.crc32(site.encode("utf-8")) ^ self.seed)
+            if rng.random() >= self.prob:
+                return
+            dur = rng.random() * self.max_us / 1e6
+            self.yields += 1
+        time.sleep(dur)
+
+
+def parse_fuzz_spec(spec: str) -> _FuzzSpec:
+    """``seed[:prob][@max_us]``, e.g. ``7``, ``7:0.5``, ``7:0.5@400``.
+    Raises ValueError on a malformed spec (a mistyped fuzz run must not
+    run unperturbed)."""
+    body = spec.strip()
+    max_us = 200.0
+    if "@" in body:
+        body, us = body.split("@", 1)
+        max_us = float(us)
+    prob = 0.25
+    if ":" in body:
+        body, p = body.split(":", 1)
+        prob = float(p)
+    return _FuzzSpec(int(body), prob=prob, max_us=max_us)
+
+
+def configure_fuzz(spec: Optional[str]) -> None:
+    """(Re)arm the perturbation layer from a spec string; None or "" is
+    off."""
+    global _FUZZ
+    _FUZZ = parse_fuzz_spec(spec) if spec else None
+    if _FUZZ is not None:
+        logger.warning("schedule perturbation ARMED: seed=%d prob=%g "
+                       "max_us=%g", _FUZZ.seed, _FUZZ.prob, _FUZZ.max_us)
+
+
+def fuzz_point(site: str) -> None:
+    """A perturbation hook at a schedule-sensitive site (the dispatcher's
+    queue put and get; lock acquires hook internally). One global load
+    when disarmed."""
+    f = _FUZZ
+    if f is not None:
+        f.maybe_yield(site)
+
+
+def fuzz_yields() -> int:
+    """Yields injected so far (0 when disarmed): the gauge that
+    perturbation actually happened."""
+    f = _FUZZ
+    return f.yields if f is not None else 0
+
+
 # ---- fork safety -----------------------------------------------------------
 
 def _fork_reset() -> None:
@@ -250,4 +350,6 @@ from . import forksafe as _forksafe  # noqa: E402
 _forksafe.register(_fork_reset)
 
 __all__ = ["TrackedLock", "Guarded", "new_lock", "thread_affine",
-           "reset_affinity", "arm", "disarm", "armed", "DEFAULT_HOLD_MS"]
+           "reset_affinity", "arm", "disarm", "armed", "configure_fuzz",
+           "parse_fuzz_spec", "fuzz_point", "fuzz_yields",
+           "DEFAULT_HOLD_MS"]

@@ -700,10 +700,10 @@ def test_registry_locks_are_the_jax_registrys():
     the resident map's lock is not."""
     jreg, reg = JaxRegistry(), CityRegistry()
     for mine, theirs in ((reg._lock, jreg._lock),
-                         (reg._reslock, jreg._reslock)):
+                         (reg._res_lock, jreg._reslock)):
         assert mine.name == theirs.name
         assert mine.long_hold_ok == theirs.long_hold_ok
-    assert reg._lock.long_hold_ok and not reg._reslock.long_hold_ok
+    assert reg._lock.long_hold_ok and not reg._res_lock.long_hold_ok
 
 
 def test_load_evict_cycles_return_the_thread_count(tmp_path):

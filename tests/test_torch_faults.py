@@ -574,6 +574,145 @@ def test_commit_failpoint_declines_every_slot_to_match_many(
     assert got == want
 
 
+# -- the remaining sites, armed in both packages ------------------------------
+def test_submit_failpoint_dead_letters_as_the_jax_package(tmp_path):
+    """``matcher.submit``: a failed flush of two evicted sessions drops
+    and dead-letters both in each package (an evicted session has no next
+    flush to ride), the submit is never called, and the spooled request
+    bodies are equal."""
+    from reporter_tpu.core.types import Point as JaxPoint
+    from reporter_tpu.streaming.batcher import PointBatcher as JaxBatcher
+    from reporter_tpu_torch.core.types import Point
+    from reporter_tpu_torch.streaming.batcher import PointBatcher
+    arm("matcher.submit=error#1")
+    runs = []
+    for name, P, cls, reg in (("jax", JaxPoint, JaxBatcher, jax_metrics),
+                              ("port", Point, PointBatcher, metrics)):
+        reg.default.reset()
+        calls = []
+        spool_dir = tmp_path / name
+        b = cls(lambda t: None, lambda k, s: None, report_on="0,1,2",
+                transition_on="0,1,2", deadletter_dir=str(spool_dir),
+                submit_many=lambda tb, calls=calls: calls.append(len(tb))
+                or [None] * len(tb))
+        for v in range(2):
+            for i in range(6):
+                t = 1000 + 10 * i
+                b.process(f"veh-{v}", P(lat=0.01 * i, lon=0.001 * v,
+                                        accuracy=5, time=t),
+                          stream_time_ms=t * 1000)
+        b.punctuate(stream_time_ms=10 ** 13)
+        bodies = []
+        for dirpath, _dirs, files in sorted(os.walk(spool_dir)):
+            for f in sorted(files):
+                with open(os.path.join(dirpath, f)) as fh:
+                    bodies.append(json.load(fh))
+        counters = reg.default.snapshot()["counters"]
+        runs.append((calls, bodies, {k: counters.get(k) for k in (
+            "batch.dropped", "batch.requeued", "batch.deadletter")}))
+    assert runs[0] == runs[1]
+    calls, bodies, counters = runs[1]
+    assert calls == [] and len(bodies) == 2
+    assert counters == {"batch.dropped": 2, "batch.requeued": None,
+                        "batch.deadletter": 2}
+    assert faults.fired_counts() == jax_faults.fired_counts() \
+        == {"matcher.submit": 1}
+
+
+def _observations(mod):
+    return mod.ObservationBatch(
+        segment_id=np.array([1 << 25], dtype=np.int64),
+        next_id=np.array([2 << 25], dtype=np.int64),
+        duration_s=np.array([30.0]), count=np.array([1], dtype=np.int64),
+        length_m=np.array([500], dtype=np.int64),
+        queue_m=np.array([0], dtype=np.int64),
+        min_ts=np.array([1500000000], dtype=np.int64),
+        max_ts=np.array([1500000030], dtype=np.int64))
+
+
+@pytest.mark.parametrize("site", ["datastore.commit", "datastore.lease"])
+def test_store_failpoints_refuse_then_commit_as_the_jax_package(tmp_path,
+                                                                site):
+    """``datastore.commit`` and ``datastore.lease``: the armed mutation
+    raises in both packages and the next one commits."""
+    import reporter_tpu.datastore as jax_ds
+    import reporter_tpu_torch.datastore as port_ds
+    arm(f"{site}=error#1")
+    got = []
+    for name, ds_mod, f_mod in (("jax", jax_ds, jax_faults),
+                                ("port", port_ds, faults)):
+        ds = ds_mod.LocalDatastore(str(tmp_path / name))
+        ds.lease._deadline = 0.0  # the lease's slow path: its I/O runs
+        with pytest.raises(f_mod.FaultError):
+            ds.ingest(_observations(ds_mod), ingest_key="k")
+        got.append(ds.ingest(_observations(ds_mod), ingest_key="k"))
+    assert got[0] == got[1] == 1
+    assert faults.fired_counts() == jax_faults.fired_counts() == {site: 1}
+
+
+def test_gate_failpoint_fails_open_as_the_jax_package():
+    """``admission.gate``: a gate failure admits and counts the error in
+    both packages."""
+    from reporter_tpu.service import admission as jax_admission
+    from reporter_tpu_torch.service import admission
+
+    class Sensors:
+        def queue_depth(self):
+            return 4
+
+        def queued_depth(self):
+            return 4
+
+        def service_ewma_s(self):
+            return None
+
+        queue_max, max_batch = 1, 32
+
+    arm("admission.gate=error#1")
+    reset_counters()
+    regs = (metrics.Registry(), jax_metrics.Registry())
+    gates = (admission.AdmissionGate(Sensors(), hold_s=1.0,
+                                     clock=lambda: 0.0, registry=regs[0]),
+             jax_admission.AdmissionGate(Sensors(), hold_s=1.0,
+                                         clock=lambda: 0.0,
+                                         registry=regs[1]))
+    verdicts = [[None if v is None else v.reason
+                 for v in (g.admit(), g.admit())] for g in gates]
+    assert verdicts[0] == verdicts[1] and verdicts[0][0] is None
+    assert regs[0].snapshot()["counters"] \
+        == regs[1].snapshot()["counters"]
+    assert metrics.default.counter("admission.errors") \
+        == jax_metrics.default.counter("admission.errors") == 1
+    assert gates[0].snapshot() == gates[1].snapshot()
+
+
+def test_swap_failpoint_keeps_the_old_map_as_the_jax_package(cities):
+    """``city.swap``: the armed swap raises after its gate in both
+    packages, the old map keeps serving, and the next swap flips."""
+    from reporter_tpu.service.cities import CityRegistry as JaxRegistry
+    from reporter_tpu_torch.service.cities import CityRegistry
+    ref_city, city = cities
+    arm("city.swap=error#1")
+    results = []
+    for cls, f_mod, make in (
+            (JaxRegistry, jax_faults,
+             lambda: JaxService(JaxMatcher(net=ref_city, use_native=False))),
+            (CityRegistry, faults,
+             lambda: ReporterService(SegmentMatcher(city, device="cpu",
+                                                    native=False)))):
+        reg = cls(loader=lambda n, s=make(): (s, 100), budget_bytes=1 << 30)
+        old = reg.get("metro")
+        with pytest.raises(f_mod.FaultError):
+            reg.swap("metro", lambda: (make(), 100))
+        assert reg.get("metro") is old
+        results.append(reg.swap("metro", lambda: (make(), 100))["result"])
+        assert reg.get("metro") is not old
+        reg.evict("metro")
+    assert results == ["flipped", "flipped"]
+    assert faults.fired_counts() == jax_faults.fired_counts() \
+        == {"city.swap": 1}
+
+
 # -- the dead-letter spool ------------------------------------------------------
 def spool_case(mod, root, case, cap_mb, set_cap):
     """Run one spool scenario through ``mod``; returns (files left with

@@ -597,6 +597,50 @@ class TestServiceBatches:
         assert forwarded["port"] == forwarded["jax"] and forwarded["port"]
 
 
+def test_has_runs_probe_trims_as_the_jax_batcher_without_materialising():
+    """The batcher's emptiness probe (``MatchRuns.has_runs``): each
+    package's native matcher answers the same traces, and a batch of the
+    same points trims to the same points after each response, with and
+    without ``shape_used``; the port's results stay unmaterialised."""
+    from reporter_tpu.matcher.matcher import MatchRuns as JaxRuns
+    from reporter_tpu_torch.matcher.matcher import MatchRuns
+    ref_city = jax_city(rows=8, cols=8, spacing_m=200.0, seed=6)
+    city = build_grid_city(rows=8, cols=8, spacing_m=200.0, seed=6)
+    rng_ref, rng = np.random.default_rng(5), np.random.default_rng(5)
+    reqs = []
+    while len(reqs) < 6:
+        tr_ref = jax_trace(ref_city, f"v{len(reqs)}", rng_ref, noise_m=3.0)
+        tr = generate_trace(city, f"v{len(reqs)}", rng, noise_m=3.0)
+        if tr is None:
+            continue
+        assert tr.points == tr_ref.points
+        reqs.append(tr.request_json())
+    ref = JaxMatcher(net=ref_city).match_many(reqs)
+    got = SegmentMatcher(city, device="cpu").match_many(reqs)
+    # an empty run range over a real chunk's columns: no segments
+    ref.append(JaxRuns(ref[0].cols, 0, 0, "auto"))
+    got.append(MatchRuns(got[0].cols, 0, 0, "auto"))
+    reqs.append(reqs[0])
+    assert all(isinstance(m, MatchRuns) for m in got)
+    assert [m.has_runs() for m in got] == [m.has_runs() for m in ref]
+    assert any(m.has_runs() for m in got) and not got[-1].has_runs()
+    for req, m_ref, m in zip(reqs, ref, got):
+        for shape_used in (None, 3):
+            kept = []
+            for batch_cls, P, sm in ((jax_batcher.Batch, jax_types.Point,
+                                      m_ref), (Batch, Point, m)):
+                b = batch_cls()
+                for p in req["trace"]:
+                    b.update(P(lat=p["lat"], lon=p["lon"], accuracy=5,
+                               time=int(p["time"])))
+                response = {"segment_matcher": sm}
+                if shape_used is not None:
+                    response["shape_used"] = shape_used
+                assert b.apply_response(req["uuid"], response) is response
+                kept.append([(p.lat, p.lon, p.time) for p in b.points])
+            assert kept[0] == kept[1]
+        assert m._dict is None, "the probe materialised the runs"
+
 # -- the worker -----------------------------------------------------------
 def test_replay_writes_tiles(tmp_path):
     """Six vehicles through StreamWorker + inproc_submitter in both
