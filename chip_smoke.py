@@ -45,6 +45,26 @@ Phases, each fatal on failure:
             with decode="assoc", its bodies equal to the fused decode's
             but where the paths tie; both decodes timed by CUDA events
             (median of 20) beside the card's name and power limit
+   mesh     the decode mesh and the multi-host job (parallel/), after
+            the route cities' inputs: decode_mesh("cuda") (None on one
+            card); data meshes of widths 2 and 4 naming the card
+            repeatedly, match_many of main's 512 and mixed requests with
+            bodies byte-equal to the unsharded card's, viterbi_decode
+            launched chunks x width times and decode.shard.chunks/rows
+            counted, and one warm call of the 512 at widths 1, 2 and 4
+            (median of 5) beside the card's name and power limit; the
+            time-sharded assoc decode on (1, 2) and (2, 2) meshes at
+            (64,1024,8), each path within 1e-2 of the scan's by the f64
+            re-score, the equal paths counted; device routes on a 2-entry
+            mesh (bodies equal, one relax launch a shard), and one
+            relax_cluster (125x125) and one relax_global (341x341)
+            relaxation of a first chunk through the sharded path,
+            bit-equal to one launch's; two python -m reporter_tpu_torch
+            stream children on the card as a gloo job on 127.0.0.1
+            (--num-processes 2 --process-id 0|1) and a third alone over
+            one stream of 128 vehicles: both join, each processes exactly
+            its uuids' messages, and their tile rows together equal the
+            lone worker's
 4. serve    the /report front door in this process (serve(): 64 handler
             threads, the dispatcher's flush cap of 256, native prep) on
             the card, two services built from config files, one with the
@@ -296,7 +316,9 @@ pipeline phase's card run, ``launches_accuracy`` the accuracy phase's
 card run (``launches_accuracy_osm`` its --osm-fixture run),
 ``launches_datastore`` the datastore phase's profile replay,
 ``launches_cities`` the cities phase's legs (A: the server child's
-wrapper count; B and C: this process's); relax and pair_costs: the
+wrapper count; B and C: this process's), ``launches_mesh`` the mesh
+phase's (the relaxation kernels and pair_costs too); relax and
+pair_costs: the
 routes phase's device lanes-on runs,
 cold and the first warm round; relax_cluster: route-city's 125x125
 device runs, cold and the first warm round; relax_global: route-city's
@@ -336,6 +358,9 @@ With ``--cities`` only the build runs, then the accuracy phase's
 --osm-fixture run and the cities phase.
 
 With ``--assoc`` only the build, main and assoc phases run.
+
+With ``--mesh`` only the build and main phases run, then the route
+cities' inputs that [mesh] needs and the mesh phase.
 
 With ``--global-probe`` only the build runs, then relax_global at the
 341x341 and 512x512 cities' first chunks: held bit-equal to the plain
@@ -1111,6 +1136,344 @@ def phase_assoc(dev, served, smi):
             f"{k_ms:.4f} ms (median of 20, CUDA events; the kernel's byte "
             f"bound {bms:.4f} ms) on {card}")
     return out
+
+
+#: the [mesh] phase: data-mesh widths over the card named repeatedly, the
+#: (data, seq) meshes of the time-sharded assoc decode at MESH_ASSOC_SHAPE,
+#: the timed calls a width, and the multi-host stream's vehicles
+MESH_WIDTHS = (2, 4)
+MESH_SEQ_SHAPES = ((1, 2), (2, 2))
+MESH_ASSOC_SHAPE = (64, 1024, K)
+MESH_TIMED = 5
+MESH_VEHICLES = 128
+
+
+def mesh_stream(city, path, n=MESH_VEHICLES):
+    """``n`` vehicles on ``city``, one trip each (4 m noise, a probe every
+    5 s, numpy seed 37), merged in time order as sv lines
+    ``uuid|lat|lon|time|accuracy``; returns the lines' uuids in order."""
+    from reporter_tpu_torch.synth import generate_trace
+    rng = np.random.default_rng(37)
+    rows, i = [], 0
+    while i < n:
+        tr = generate_trace(city, f"veh-{i}", rng, noise_m=4.0,
+                            sample_period_s=5.0,
+                            start_time=1_500_000_000 + 5 * i,
+                            min_route_edges=6, max_route_edges=40)
+        if tr is None:
+            continue
+        rows.extend((p["time"], tr.uuid, p) for p in tr.points)
+        i += 1
+    rows.sort(key=lambda r: (r[0], r[1]))
+    with open(path, "w") as f:
+        f.writelines(f"{u}|{p['lat']}|{p['lon']}|{p['time']}|"
+                     f"{p['accuracy']}\n" for _t, u, p in rows)
+    return [u for _t, u, _p in rows]
+
+
+def rows_by_dir(root):
+    """{tile directory: sorted data rows} of the tile files under
+    ``root`` (headers and the dead-letter spool left out)."""
+    out = {}
+    for dirpath, dirnames, files in os.walk(root):
+        dirnames[:] = [d for d in dirnames if not d.startswith(".")]
+        for name in files:
+            with open(os.path.join(dirpath, name)) as f:
+                rows = f.read().splitlines()[1:]
+            out.setdefault(os.path.relpath(dirpath, root), []).extend(rows)
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def mesh_relax_equal(dev, city_inputs, kernel_name, what):
+    """One relaxation of ``city_inputs``' first chunk through a 2-entry
+    mesh of the card (each entry's rows by ``kernel_name``, one launch and
+    one read each) and unsharded: dist and time bit-equal, the kernel
+    launched twice and once. Returns the mesh run's launches."""
+    import torch
+    from reporter_tpu_torch.graph.route_device import DeviceRouteKernel
+    from reporter_tpu_torch.parallel.mesh import make_data_mesh
+    from reporter_tpu_torch.utils import metrics
+    one = DeviceRouteKernel(city_inputs["city"], dev)
+    two = DeviceRouteKernel(city_inputs["city"], dev,
+                            mesh=make_data_mesh([dev, dev]))
+    check(one.relax_kernel == two.relax_kernel == kernel_name,
+          f"[mesh] {what}: the graph takes {one.relax_kernel}")
+    plan, srcs = first_chunk_sources(one, city_inputs)
+    wrapper = kernel_wrappers()[kernel_name]
+    wrapper.launches = 0
+    d1, t1 = one._relax(plan.srcs, plan.chunk_bound)
+    n_one = wrapper.launches
+    wrapper.launches = 0
+    s0 = metrics.default.counter("route.device.sharded_chunks")
+    d2, t2 = two._relax(plan.srcs, plan.chunk_bound)
+    torch.cuda.synchronize()
+    n_two = wrapper.launches
+    check(n_one == 1 and n_two == 2
+          and metrics.default.counter("route.device.sharded_chunks")
+          == s0 + 1, f"[mesh] {what}: {kernel_name} launched {n_one} "
+                     f"unsharded and {n_two} on the 2-entry mesh")
+    check(torch.equal(d1, d2) and torch.equal(t1, t2),
+          f"[mesh] {what}: the sharded relaxation differs from the "
+          f"unsharded one")
+    log(f"[mesh] {what}: {kernel_name} over a 2-entry mesh of the card, "
+        f"{len(srcs)} padded sources in two launches (one read each), "
+        f"dist and time bit-equal to one launch's")
+    return n_two
+
+
+def phase_mesh(dev, served, huge, past, smi):
+    """The decode mesh and the multi-host job (``parallel/``) on the card.
+
+    (a) ``decode_mesh("cuda")``: None on one card, else a data mesh over
+    every card. (b) data meshes of widths ``MESH_WIDTHS`` naming the card
+    repeatedly: ``match_many`` of main's 512 requests and its mixed batch,
+    bodies byte-equal to the unsharded card's (= the CPU run's),
+    ``viterbi_decode`` launched chunks x width times, ``decode.shard.*``
+    the chunks and their padded rows; then one warm call of the 512 at
+    widths 1, 2 and 4, the median of ``MESH_TIMED``. (c) the time-sharded
+    assoc decode on (data, seq) meshes ``MESH_SEQ_SHAPES`` at
+    ``MESH_ASSOC_SHAPE``: each path within ``RESCORE_TOL`` of the scan's
+    by the f64 re-score, the equal paths counted. (d) device routes on a
+    2-entry mesh: main's bodies equal, relaxations split (one relax launch
+    a shard), then one relax_cluster relaxation (125x125) and one
+    relax_global relaxation (341x341) at the first chunk through the
+    sharded path, bit-equal to the unsharded one. (e) two ``python -m
+    reporter_tpu_torch stream`` children on the card as a gloo job on
+    127.0.0.1 (``--num-processes 2 --process-id 0|1``) and a third alone,
+    over one stream of ``MESH_VEHICLES`` vehicles: both join, each
+    processes exactly the messages of its uuids, and their tile rows
+    together are the lone worker's. Returns {kernel: launches}."""
+    import socket
+    import tempfile
+    import torch
+    from reporter_tpu_torch import ops
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.matcher.batchpad import (bucket_length,
+                                                     padded_batch_rows)
+    from reporter_tpu_torch.parallel import sharded
+    from reporter_tpu_torch.parallel.mesh import decode_mesh, make_mesh
+    from reporter_tpu_torch.parallel.multihost import owned_by_host
+    from reporter_tpu_torch.utils import metrics
+
+    card = smi[0] if smi else "nvidia-smi: no output"
+    launches = {}
+    # (a)
+    auto = decode_mesh("cuda")
+    n_cards = torch.cuda.device_count()
+    if n_cards == 1:
+        check(auto is None, "[mesh] decode_mesh('cuda') built a mesh on "
+                            "one card")
+    else:
+        check(auto is not None and auto.shape == (n_cards, 1),
+              f"[mesh] decode_mesh('cuda') is {auto} over {n_cards} cards")
+    log(f"[mesh] decode_mesh('cuda', shard='auto') over {n_cards} card(s): "
+        f"{None if auto is None else auto.shape}")
+
+    # (b)
+    city, params = served["city"], served["params"]
+    reqs, want = served["reqs"], served["want"]
+    main = reqs[:N_TRACES]
+    launches["viterbi_decode"] = 0
+    walls = {}
+    one = SegmentMatcher(city, params)
+    check(one.decode_mesh is None, "[mesh] the default matcher has a mesh")
+    matchers = {1: one}
+    for w in MESH_WIDTHS:
+        m = matchers[w] = SegmentMatcher(city, params,
+                                         mesh_devices=[dev] * w)
+        check(m.decode_mesh.shape == (w, 1) and m.device == dev
+              and m.chunk == one.chunk * w,
+              f"[mesh] width {w}: mesh {m.decode_mesh.shape}, chunk "
+              f"{m.chunk}")
+        for what, batch in (("T=64 batch", main),
+                            ("mixed batch", reqs[N_TRACES:])):
+            metrics.default.reset()
+            ops.viterbi_cuda.launches = 0
+            got = bodies(m.match_many(batch), batch)
+            n = ops.viterbi_cuda.launches
+            launches["viterbi_decode"] += n
+            lo = 0 if batch is main else N_TRACES
+            check(got == want[lo:lo + len(batch)],
+                  f"[mesh] width {w}, {what}: bodies differ from the "
+                  f"unsharded card's")
+            sizes = {}
+            for r in batch:
+                T = bucket_length(len(r["trace"]))
+                sizes[T] = sizes.get(T, 0) + 1
+            chunks = [min(m.chunk, c - lo_) for c in sizes.values()
+                      for lo_ in range(0, c, m.chunk)]
+            rows = sum(padded_batch_rows(c, w) for c in chunks)
+            ctr = metrics.snapshot()["counters"]
+            got_c = (ctr.get("decode.shard.chunks", 0),
+                     ctr.get("decode.shard.rows", 0))
+            check(n == len(chunks) * w and got_c == (len(chunks), rows),
+                  f"[mesh] width {w}, {what}: {n} launches and "
+                  f"decode.shard (chunks, rows) {got_c}, want "
+                  f"{len(chunks) * w} and {(len(chunks), rows)}")
+            log(f"[mesh] width {w}, {what}: bodies byte-equal to the "
+                f"unsharded card's, {len(chunks)} chunks of "
+                f"{m.chunk} traces, viterbi_decode launched {n} times "
+                f"(chunks x {w}), decode.shard.rows {rows}")
+    for w, m in matchers.items():
+        m.match_many(main)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            m.match_many(main)
+            times.append(time.perf_counter() - t0)
+        walls[w] = float(np.median(times))
+    for w in matchers:
+        matchers[w].close()
+    log(f"[mesh] one warm match_many of {N_TRACES} T={T_MAIN} traces, "
+        f"median of {MESH_TIMED} (host clock): "
+        + ", ".join(f"width {w} {walls[w]:.4f} s" for w in walls)
+        + f" on {card}")
+
+    # (c)
+    B, T, Kx = MESH_ASSOC_SHAPE
+    arrays = random_inputs(B, T, Kx, 91, ties=True, special=True)
+    x = to_device(arrays, True, dev)
+    scalars = (np.float32(params.effective_sigma), np.float32(params.beta))
+    scan_paths, _ = ops.viterbi_plain(*x, *scalars)
+    scan_score = rescore_f64(x, scan_paths, *scalars)
+    for shape in MESH_SEQ_SHAPES:
+        m = make_mesh(shape, [dev] * (shape[0] * shape[1]))
+        c0 = metrics.default.counter("decode.shard.chunks")
+        t0 = time.perf_counter()
+        out = ops.decode_batch(*x, *scalars, decode="assoc", mesh=m,
+                               pending=True)
+        check(isinstance(out, sharded.ShardedDecode),
+              f"[mesh] {shape}: the assoc decode did not shard")
+        paths, _scores = out.wait()
+        wall = time.perf_counter() - t0
+        m.close()
+        check(metrics.default.counter("decode.shard.chunks") == c0 + 1,
+              f"[mesh] {shape}: decode.shard.chunks not counted")
+        gap = np.abs(rescore_f64(x, paths, *scalars) - scan_score)
+        check(float(gap.max()) <= RESCORE_TOL,
+              f"[mesh] {shape}: a time-sharded assoc path scores "
+              f"{float(gap.max())} off the scan's")
+        equal = int((paths == scan_paths.cpu()).all(dim=1).sum())
+        log(f"[mesh] assoc on a {shape} (data, seq) mesh at ({B},{T},{Kx}) "
+            f"f16: every path within {RESCORE_TOL} of the scan's by the "
+            f"f64 re-score (largest gap {float(gap.max()):.3g}), {equal} of "
+            f"{B} paths equal to the scan's; one call {wall:.4f} s")
+
+    # (d)
+    for name in ("relax", "relax_cluster", "relax_global", "pair_costs"):
+        launches[name] = 0
+    ref = SegmentMatcher(city, params, route_device=True,
+                         mesh_devices=[dev, dev])
+    check(ref.route_kernel.mesh is ref.decode_mesh,
+          "[mesh] the route kernel has not the matcher's mesh")
+    got, _wall, n, ctr, _st = counted_run(ref, reqs)
+    ref.close()
+    check(got == want, "[mesh] device routes on a 2-entry mesh: bodies "
+                       "differ from the unsharded card's")
+    relaxes = ctr.get("route.device.relaxes", 0)
+    split = ctr.get("route.device.sharded_chunks", 0)
+    check(split > 0 and n["relax"] == relaxes + split
+          and n["relax_reads"] == n["relax"],
+          f"[mesh] device routes: {n['relax']} relax launches for "
+          f"{relaxes} relaxations, {split} of them sharded")
+    for name in ("relax", "pair_costs"):
+        launches[name] += n[name]
+    launches["viterbi_decode"] += n["viterbi_decode"]
+    log(f"[mesh] device routes on a 2-entry mesh, main's {len(reqs)} "
+        f"requests: bodies byte-equal, {relaxes} relaxations ({split} "
+        f"split: one relax launch a shard, {n['relax']} in all), "
+        f"pair_costs {n['pair_costs']}, viterbi_decode "
+        f"{n['viterbi_decode']}")
+    launches["relax_cluster"] += mesh_relax_equal(
+        dev, huge, "relax_cluster",
+        f"{HUGE_CITY['rows']}x{HUGE_CITY['cols']} first chunk")
+    launches["relax_global"] += mesh_relax_equal(
+        dev, past, "relax_global",
+        f"{PAST_CITY['rows']}x{PAST_CITY['cols']} first chunk")
+
+    # (e)
+    tmp = tempfile.TemporaryDirectory()
+    graph = os.path.join(tmp.name, "city.npz")
+    city.save(graph)
+    stream = os.path.join(tmp.name, "stream.txt")
+    uuids = mesh_stream(city, stream)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    if os.path.exists("/sys/class/net/lo"):
+        env["GLOO_SOCKET_IFNAME"] = "lo"
+    base = [sys.executable, "-m", "reporter_tpu_torch", "stream", "-f",
+            WORKER_FORMAT, "--graph", graph, "-p", "1", "-q", "3600", "-i",
+            "1000000000", "-r", "0,1", "-x", "0,1", "-s", "smoke",
+            "--report-flush-interval", "1000000000", "--input", stream,
+            "--device", "cuda"]
+    legs = {"one": []}
+    for p in range(2):
+        legs[f"p{p}"] = ["--coordinator", f"127.0.0.1:{port}",
+                         "--num-processes", "2", "--process-id", str(p)]
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(base + ["-o", os.path.join(tmp.name, k)]
+                                 + extra, cwd=str(ROOT), env=env,
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, extra in legs.items()}
+    outs = {}
+    try:
+        for k, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            outs[k] = err
+            check(proc.returncode == 0, f"[mesh] stream child {k} exited "
+                                        f"{proc.returncode}: {err[-1500:]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    summaries = {}
+    for k, err in outs.items():
+        lines = [ln for ln in err.splitlines() if " summary {" in ln]
+        check(bool(lines), f"[mesh] stream child {k} logged no summary")
+        summaries[k] = json.loads(lines[-1].split(" summary ", 1)[1])
+    for p in range(2):
+        joined = f"init_multihost: process {p} of 2 joined"
+        check(joined in outs[f"p{p}"],
+              f"[mesh] stream child p{p} did not say that init_multihost "
+              f"ran")
+        mine = sum(owned_by_host(u, 2, p) for u in uuids)
+        s = summaries[f"p{p}"]
+        check(s["processed"] == mine
+              and s["skipped_other_host"] == len(uuids) - mine,
+              f"[mesh] stream child p{p}: processed {s['processed']}, "
+              f"skipped {s['skipped_other_host']}, owns {mine} of "
+              f"{len(uuids)} messages")
+    own = [{u for u in set(uuids) if owned_by_host(u, 2, p)}
+           for p in range(2)]
+    check(not own[0] & own[1] and own[0] | own[1] == set(uuids),
+          "[mesh] the two processes' uuids are not a partition")
+    check(summaries["one"]["processed"] == len(uuids),
+          "[mesh] the lone worker did not process every message")
+    parts = [rows_by_dir(os.path.join(tmp.name, f"p{p}")) for p in range(2)]
+    merged = {}
+    for t in parts:
+        for k, v in t.items():
+            merged[k] = sorted(merged.get(k, []) + v)
+    lone = rows_by_dir(os.path.join(tmp.name, "one"))
+    check(lone and parts[0] and parts[1] and merged == lone,
+          "[mesh] the two processes' tile rows together differ from the "
+          "lone worker's")
+    n_rows = sum(len(v) for v in lone.values())
+    tmp.cleanup()
+    log(f"[mesh] two stream children on the card as a gloo job on "
+        f"127.0.0.1:{port} (both joined: init_multihost ran) over "
+        f"{len(uuids)} messages of {MESH_VEHICLES} vehicles: "
+        f"{summaries['p0']['processed']} + {summaries['p1']['processed']} "
+        f"messages of {len(own[0])} + {len(own[1])} disjoint uuids, their "
+        f"{n_rows} tile rows together equal to the lone worker's; the "
+        f"three children in {wall:.1f} s on {card}")
+    return launches, walls
 
 
 def first_chunk(runtime, params, reqs, chunk, backward=False):
@@ -6506,6 +6869,9 @@ def main() -> int:
     ap.add_argument("--assoc", action="store_true",
                     help="the main phase and the associative-scan "
                          "decode's phase; nothing else runs")
+    ap.add_argument("--mesh", action="store_true",
+                    help="the main phase and the decode mesh's phase; "
+                         "nothing else runs")
     args = ap.parse_args()
     if not (ROOT / "reporter_tpu_torch" / "ops" / "csrc" / "viterbi.cu").is_file():
         fail("reporter_tpu_torch is not beside this script")
@@ -6544,6 +6910,19 @@ def main() -> int:
         lap("assoc")
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"assoc": assoc})
+    if args.mesh:
+        spills = phase_build()
+        lap("build")
+        _n, _main, _err, _scalars, served = phase_main(dev)
+        lap("main")
+        huge = grid_inputs(HUGE_CITY, 64, 17)
+        past = grid_inputs(PAST_CITY, PAST_TRACES, 19)
+        lap("the route cities' inputs")
+        mesh_launches, walls = phase_mesh(dev, served, huge, past, smi)
+        lap("mesh")
+        check(not spills, f"ptxas reports spills: {spills}")
+        return finish(smi, {"mesh_launches": mesh_launches,
+                            "mesh_walls_s": walls})
     if not (args.against or args.cities):
         # the [worker] phase's stream, written while the phases before
         # it run
@@ -6579,6 +6958,8 @@ def main() -> int:
     past = grid_inputs(PAST_CITY, PAST_TRACES, 19)
     far = grid_inputs(GLOBAL_CITY, PAST_TRACES, 23)
     lap("the route cities' inputs")
+    mesh_launches, _walls = phase_mesh(dev, served, huge, past, smi)
+    lap("mesh")
     verified = phase_verify_routes(dev, served, big, huge, past, far)
     lap("verify-routes")
     route_launches, _runs = phase_routes(dev, served)
@@ -6669,6 +7050,10 @@ def main() -> int:
         # the datastore phase's `datastore profile --replay` of main's
         # 512 traces (phase_datastore)
         "launches_datastore": datastore_launches["viterbi_decode"],
+        # the mesh phase (phase_mesh): match_many over data meshes of
+        # widths 2 and 4 naming the card (chunks x width) and the
+        # device-route run on a 2-entry mesh
+        "launches_mesh": mesh_launches["viterbi_decode"],
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,
@@ -6707,7 +7092,12 @@ def main() -> int:
             "ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound,
             "bound_by": r_by, "library_ms": None,
             # the faults phase's route.device leg (the probe)
-            "launches_faults": fault_launches[name]})
+            "launches_faults": fault_launches[name],
+            # the mesh phase (phase_mesh): device routes on a 2-entry
+            # mesh (relax: one launch a shard; pair_costs), and one
+            # sharded relaxation of the 125x125 (relax_cluster) and the
+            # 341x341 (relax_global) city's first chunk
+            "launches_mesh": mesh_launches[name]})
         if name == "relax_global":
             # one whole relaxation at the other cities' first chunks
             for (kname, city), (c_ms, c_plain, c_bound, _by) in \

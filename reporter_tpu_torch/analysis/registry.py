@@ -49,6 +49,9 @@ CONFIG_KEYS: Dict[str, str] = {
     "service.incremental_lag": "fixed-lag commit bound, kept points",
     "service.incremental_mb": "carried-state table byte budget (MB)",
     "service.decode": "decode: fused|scan|assoc",
+    "service.decode_shard": "decode mesh over the cards: auto|on|off",
+    "service.device_slice": "the cards of the mesh: slot/procs or lo:hi",
+    "service.seq_shards": "time spans of the assoc decode's mesh",
     "service.circuit_threshold": "errors that open a breaker",
     "service.circuit_cooldown_s": "breaker cooldown before a probe",
     "service.pool_size": "handler threads per process",
@@ -201,6 +204,8 @@ METRICS: Dict[str, str] = {
     "decode.shadow.mismatch_ratio": "per-chunk mismatch ratio (timer)",
     "decode.shadow.dropped": "shadow chunks shed (sampler backlogged)",
     "decode.shadow.errors": "shadow decode failures (chunk skipped)",
+    "decode.shard.chunks": "chunks decoded sharded over a decode mesh",
+    "decode.shard.rows": "rows placed across a decode mesh's data axis",
     "profile.chunks": "wide events recorded",
     # incremental matcher (matcher/incremental.py)
     "match.incremental.*": "carried-state path: steps/commits/matches/"

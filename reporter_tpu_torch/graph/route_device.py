@@ -211,10 +211,20 @@ class DeferredRoutes:
 class DeviceRouteKernel:
     """Batched device route costs for one road network on one device:
     ``cuda`` unless given the CPU (where the plain versions run). On the
-    card the kernels are built here, and a failed build raises."""
+    card the kernels are built here, and a failed build raises.
 
-    def __init__(self, net: RoadNetwork, device=None):
+    With a decode ``mesh`` (``parallel.mesh.DecodeMesh``, its first device
+    this kernel's) a relaxation whose padded sources divide by the mesh's
+    data width splits them across its data entries: each entry relaxes
+    its rows on its device with the graph's kernel, over a copy of the CSR
+    arcs kept per device, and reads its result back before the next
+    entry launches (``relax_global``'s scratch is one a device, held from
+    launch to read). The rows gather on this kernel's device for the
+    assembly; ``route.device.sharded_chunks`` counts such relaxations."""
+
+    def __init__(self, net: RoadNetwork, device=None, mesh=None):
         self.device = torch.device("cuda" if device is None else device)
+        self.mesh = mesh if mesh is not None and mesh.data > 1 else None
         on_card = self.device.type == "cuda"
         if on_card:
             route_relax.build()
@@ -247,6 +257,9 @@ class DeviceRouteKernel:
         self._arcs = (route_relax.csr_arcs(*net.csr(), net.edge_end, e_len,
                                            secs, self.device)
                       if on_card else None)
+        # the arcs on each other card of the mesh, uploaded at first use
+        self._arcs_on = {self.device: self._arcs}
+        self._csr_args = (net.csr(), net.edge_end, e_len, secs)
         # host copy for gathering sources (no device round trip per chunk)
         self._end_np = np.asarray(net.edge_end, dtype=np.int32)
         # observed relaxation stats (stats())
@@ -366,10 +379,15 @@ class DeviceRouteKernel:
         pad[:len(srcs)] = srcs
         pad[len(srcs):] = srcs[0]  # duplicate rows are redundant, not wrong
         cap = self._iter_cap()
-        dist, time, iters, converged = ops.relax_routes(
-            self._e_start, self._e_end, self._e_len, self._e_secs,
-            self._upload(pad), np.float32(chunk_bound),
-            n_nodes=self.n_nodes, max_iters=cap, arcs=self._arcs)
+        mesh = self.mesh
+        if mesh is not None and S % mesh.data == 0:
+            dist, time, iters, converged = self._relax_sharded(
+                pad, chunk_bound, cap)
+        else:
+            dist, time, iters, converged = ops.relax_routes(
+                self._e_start, self._e_end, self._e_len, self._e_secs,
+                self._upload(pad), np.float32(chunk_bound),
+                n_nodes=self.n_nodes, max_iters=cap, arcs=self._arcs)
         metrics.count("route.device.relaxes")
         metrics.count("route.device.sweeps", iters)
         if not converged:
@@ -380,6 +398,42 @@ class DeviceRouteKernel:
         self.max_iters_seen = max(self.max_iters_seen, int(iters))
         self.max_bound_seen = max(self.max_bound_seen, float(chunk_bound))
         return dist, time
+
+    def _arcs_for(self, dev: torch.device):
+        """The CSR arcs on ``dev`` (None on the CPU)."""
+        if dev.type != "cuda":
+            return None
+        arcs = self._arcs_on.get(dev)
+        if arcs is None:
+            (offsets, order), end, e_len, secs = self._csr_args
+            arcs = self._arcs_on[dev] = route_relax.csr_arcs(
+                offsets, order, end, e_len, secs, dev)
+        return arcs
+
+    def _relax_sharded(self, pad: np.ndarray, chunk_bound, cap: int):
+        """``pad``'s rows split across the mesh's data entries, each
+        relaxed on its entry's device (one launch and one read each), the
+        rows gathered on this kernel's device: ``(dist, time, iters,
+        converged)`` as one relaxation gives them."""
+        mesh = self.mesh
+        rows = len(pad) // mesh.data
+        dists, times, iters, converged = [], [], 0, True
+        for d in range(mesh.data):
+            dev = mesh.devices[mesh.entry(d)]
+            src = torch.from_numpy(pad[d * rows:(d + 1) * rows].copy())
+            # the edge columns serve the plain version on the CPU; on the
+            # card the kernel reads the entry's arcs
+            dist, time, it, conv = ops.relax_routes(
+                self._e_start, self._e_end, self._e_len, self._e_secs,
+                src.to(dev), np.float32(chunk_bound),
+                n_nodes=self.n_nodes, max_iters=cap,
+                arcs=self._arcs_for(dev))
+            dists.append(dist.to(self.device))
+            times.append(time.to(self.device))
+            iters = max(iters, int(it))
+            converged = converged and bool(conv)
+        metrics.count("route.device.sharded_chunks")
+        return torch.cat(dists), torch.cat(times), iters, converged
 
     def _kernels_cached(self, srcs: np.ndarray, chunk_bound) -> tuple:
         """(dist_sn, time_sn, node_row) from the node-kernel cache,

@@ -91,11 +91,19 @@ def occupancy_stats(kept_points: int, rows: int, T: int
     return cells, occ, 1.0 - occ
 
 
-def padded_batch_rows(B: int) -> int:
-    """Rows a native batch of B traces decodes as: the next power of two,
-    which bounds the launch shapes per bucket; the filler rows are
-    all-SKIP and decode to nothing."""
-    return 1 << max(B - 1, 0).bit_length()
+def padded_batch_rows(B: int, pad: "int | None" = None) -> int:
+    """Rows a native batch of B traces decodes as: a multiple of ``pad``
+    (a decode mesh's data width, so the mesh divides the batch), then the
+    next power of two where that stays a multiple (the JAX package's
+    policy); the power of two bounds the launch shapes per bucket. The
+    filler rows are all-SKIP and decode to nothing."""
+    rows = B
+    if pad:
+        rows = -(-rows // pad) * pad
+    p2 = 1 << max(rows - 1, 0).bit_length()
+    if not pad or p2 % pad == 0:
+        rows = p2
+    return rows
 
 
 @dataclass
@@ -370,10 +378,13 @@ def _f16_safe(p: PreparedTrace) -> bool:
     return True
 
 
-def pack_batches(prepared: Sequence[PreparedTrace]) -> List[PaddedBatch]:
+def pack_batches(prepared: Sequence[PreparedTrace],
+                 pad_rows: "int | None" = None) -> List[PaddedBatch]:
     """Group prepared traces by bucket length and stack into batches of
     exactly the group's size: the decode kernel takes any batch size, so
-    no filler rows are shipped or decoded.
+    no filler rows are shipped or decoded, but with ``pad_rows`` (a
+    decode mesh's data width) each batch is padded with all-SKIP rows to
+    its multiple, so that the mesh divides it.
 
     The float tensors are built in the f16 wire format — the cast happens
     inside the copy the pack already performs, halving host->device
@@ -390,6 +401,8 @@ def pack_batches(prepared: Sequence[PreparedTrace]) -> List[PaddedBatch]:
     for T, group in sorted(by_T.items()):
         dtype = np.float16 if all(map(_f16_safe, group)) else np.float32
         B = len(group)
+        if pad_rows:
+            B = -(-B // pad_rows) * pad_rows
         K = group[0].edge_ids.shape[1]
         with np.errstate(over="ignore"):  # sentinels overflow f16 to +inf
             dist = np.full((B, T, K), PAD_DIST, dtype=dtype)

@@ -76,6 +76,7 @@ from ..graph.spatial import SpatialGrid
 from ..native import NativeRuntime
 from ..obs import profiler
 from ..obs import trace as obs_trace
+from ..parallel import mesh as pmesh
 from ..service import wire
 from ..utils import faults, metrics, spool
 from ..utils.circuit import (DEFAULT_COOLDOWN_S, DEFAULT_THRESHOLD,
@@ -98,11 +99,24 @@ GRID_CELL_M = 75.0
 #: the native prep's default worker count is the host's cores up to this
 #: cap (the reference's); past it the threads mostly contend
 PREP_THREADS_MAX = 32
-#: the service dispatcher's default flush cap in traces: two 128-trace
-#: chunks per drained batch, so the dispatch lane has a second chunk in
-#: flight while the drain lane assembles the first. One device per
-#: matcher; a decode mesh would scale it
+#: the service dispatcher's default flush cap in traces without a decode
+#: mesh: two 128-trace chunks per drained batch, so the dispatch lane has
+#: a second chunk in flight while the drain lane assembles the first. On a
+#: mesh the chunk grows with the data width and the cap with it
+#: (:func:`match_batch_default`)
 MATCH_BATCH_DEFAULT = 256
+
+
+def match_batch_default(matcher) -> int:
+    """The dispatcher's default flush cap for ``matcher``: at least two
+    decode chunks a drained batch, so each entry of a decode mesh keeps a
+    second chunk in flight while the drain lane works;
+    ``MATCH_BATCH_DEFAULT`` without a mesh (a larger cap on one device
+    would only grow tail latency and peak memory)."""
+    mesh = getattr(matcher, "decode_mesh", None)
+    if mesh is None or mesh.data <= 1:
+        return MATCH_BATCH_DEFAULT
+    return max(MATCH_BATCH_DEFAULT, 2 * matcher.chunk)
 
 
 # the pressure ladder's last rung (``oracle_decode``,
@@ -357,6 +371,19 @@ class SegmentMatcher:
     name raises. "scan" and "assoc" may break an exact score tie
     differently from the kernel; they are the same decode.
 
+    ``decode_shard`` ("auto", "on" or "off"), ``device_slice`` and
+    ``seq_shards`` build the matcher's decode mesh
+    (``parallel.mesh.decode_mesh``, ``decode_mesh``, None on one
+    device): for a bare ``cuda`` device, the visible cards, or the block
+    a ``device_slice`` ("slot/procs" or "lo:hi") names; ``mesh_devices``
+    lists the mesh's devices outright (a device may appear more than
+    once). On a mesh, rows split across its data entries, each launching
+    the decode once a chunk (bit-identical to one device); with
+    ``decode="assoc"`` and ``seq_shards`` > 1 time splits too. The
+    default chunk scales by the data width and is padded to its
+    multiple, and device routes relax their sources split the same way.
+    The matcher's device is the mesh's first; a malformed setting raises.
+
     ``circuit_threshold`` and ``circuit_cooldown_s`` set every breaker of
     the matcher's failure domains (``CIRCUIT_DOMAINS``). A poisoned
     trace's request lands in ``quarantine_spool`` (the streaming worker
@@ -382,7 +409,10 @@ class SegmentMatcher:
                  incremental_mb: float = DEFAULT_BUDGET_MB,
                  decode: str = "fused",
                  circuit_threshold: int = DEFAULT_THRESHOLD,
-                 circuit_cooldown_s: float = DEFAULT_COOLDOWN_S):
+                 circuit_cooldown_s: float = DEFAULT_COOLDOWN_S,
+                 decode_shard: str = "auto",
+                 device_slice: Optional[str] = None, seq_shards: int = 1,
+                 mesh_devices=None):
         self.device = resolve_device(device)
         if net is None:
             raise ValueError("no network: pass net=")
@@ -392,6 +422,18 @@ class SegmentMatcher:
             raise ValueError(f"unknown decode {decode!r}: one of "
                              f"{ops.DECODES}")
         self.decode = decode
+        #: the decode mesh (``parallel.mesh.DecodeMesh``), None on one
+        #: device; built now, so a bad slice fails here
+        self.decode_mesh = pmesh.decode_mesh(
+            self.device, decode_shard, device_slice, seq_shards,
+            devices=mesh_devices)
+        if self.decode_mesh is not None:
+            first = self.decode_mesh.devices[0]
+            if self.device != first and not (
+                    self.device.type == "cuda" and self.device.index is None):
+                raise ValueError(f"device {self.device} is not its decode "
+                                 f"mesh's first, {first}")
+            self.device = first
         self.net = net
         self.params = params if params is not None else MatchParams()
         self.prune_sigma = float(prune_sigma)
@@ -399,11 +441,18 @@ class SegmentMatcher:
         self.prep_threads = (prep_threads if prep_threads is not None
                              else min(PREP_THREADS_MAX, cores))
         self.chunk = chunk if chunk is not None else (
-            128 if pipeline and cores > 1 else 512)
+            128 if pipeline and cores > 1 else 512) \
+            * pmesh.decode_mesh_size(self.decode_mesh)
+        #: the row multiple each batch pads to, so the mesh divides it
+        #: (None without one)
+        self.pad_rows = ops.batch_pad_multiple(self.decode_mesh, decode)
+        if self.pad_rows:
+            self.chunk = -(-self.chunk // self.pad_rows) * self.pad_rows
         self.runtime = (NativeRuntime(net, cell_m=GRID_CELL_M) if native
                         else None)
         self.route_kernel = (
-            device_routes.DeviceRouteKernel(net, self.device)
+            device_routes.DeviceRouteKernel(net, self.device,
+                                            mesh=self.decode_mesh)
             if route_device and native else None)
         #: wall seconds per stage, summed over calls (callers may reset).
         #: With the lanes on, the stages overlap and do not sum to the
@@ -446,10 +495,10 @@ class SegmentMatcher:
     def close(self) -> None:
         """Release what the matcher holds beyond its last call: the two
         lanes' threads, the carried incremental state, the device route
-        kernel's tensors, the timing events and the native handle with its
-        worker pool. A city the registry evicts or swaps out closes its
-        matcher (``service/cities.py``); a closed matcher raises on its
-        next call. Idempotent."""
+        kernel's tensors, the timing events, the decode mesh's streams and
+        the native handle with its worker pool. A city the registry evicts
+        or swaps out closes its matcher (``service/cities.py``); a closed
+        matcher raises on its next call. Idempotent."""
         self._closed = True
         if self._lanes is not None:
             for lane in self._lanes:
@@ -458,6 +507,8 @@ class SegmentMatcher:
             self._incremental_table.clear()
         self.route_kernel = None
         self._timing_free.clear()
+        if self.decode_mesh is not None:
+            self.decode_mesh.close()
         if self.runtime is not None:
             self.runtime.close()
 
@@ -717,7 +768,7 @@ class SegmentMatcher:
                                                     raw_counts):
                     for lo in range(0, len(bucket), chunk):
                         part = bucket[lo:lo + chunk]
-                        rows = padded_batch_rows(len(part))
+                        rows = padded_batch_rows(len(part), self.pad_rows)
                         # the chunk's span stays open until its drain
                         # ends, so the lanes' spans lie inside it
                         span = obs_trace.span("matcher.chunk", chunk=ci,
@@ -788,7 +839,7 @@ class SegmentMatcher:
         cells = 0
         while n > 0:
             take = min(n, self.chunk)
-            cells += padded_batch_rows(take) * T
+            cells += padded_batch_rows(take, self.pad_rows) * T
             n -= take
         return cells
 
@@ -857,7 +908,7 @@ class SegmentMatcher:
                 self.route_cache, self._prune_margin(params))
         self._add_stage("prep", t0)
         idx_of = {id(p): int(i) for p, i in zip(prepped, part)}
-        batches = pack_batches(prepped)
+        batches = pack_batches(prepped, pad_rows=self.pad_rows)
         for n, batch in enumerate(batches, 1):
             order = [idx_of[id(p)] for p in batch.traces]
             profiler.chunk_event(
@@ -898,8 +949,9 @@ class SegmentMatcher:
         launch (:class:`CircuitOpen`). Nothing decodes it elsewhere."""
         B, T, K = batch.dist_m.shape
         with metrics.timer("matcher.decode_dispatch"), \
-                profiler.dispatch_span(B, T, K, self.device.type,
-                                       self.decode):
+                profiler.dispatch_span(
+                    B, T, K, self.device.type, self.decode,
+                    ops.shard_width(self.decode_mesh, B, T, self.decode)):
             if not self.circuit_decode.allow():
                 metrics.count("matcher.circuit.decode.refused_chunks")
                 raise self.circuit_decode.refuse("decode.dispatch")
@@ -922,6 +974,20 @@ class SegmentMatcher:
                        else torch.from_numpy(a)
                        for a in (batch.dist_m, batch.valid, batch.route_m,
                                  batch.gc_m, batch.case))
+        mesh = self.decode_mesh
+        if mesh is not None and ops.shard_width(
+                mesh, arrays[0].shape[0], arrays[0].shape[1],
+                self.decode) > 1:
+            # the sharded decode: each entry uploads its rows, launches
+            # and copies them into one pinned host buffer; the drain lane
+            # waits on the ShardedDecode, which holds the device tensors
+            out = ops.decode_batch(*arrays, sigma, beta, None, self.decode,
+                                   mesh=mesh, pending=True)
+            if mesh.on_card and batch.routes is not None:
+                with torch.cuda.device(self.device):
+                    batch.routes.copy_back_async()
+            self._add_stage("decode", t0)
+            return out.paths, out, out, None
         if self.device.type == "cpu":
             paths, _scores = ops.decode_batch(*arrays, sigma, beta, None,
                                               self.decode)

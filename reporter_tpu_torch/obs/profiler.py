@@ -154,22 +154,27 @@ def _backend(device: str, decode: str) -> str:
 
 
 def _shape_key(B: int, T: int, K: int, device: str,
-               decode: str = "fused") -> tuple:
-    return (B, T, K, device, _backend(device, decode), 1)
+               decode: str = "fused", mesh: int = 1) -> tuple:
+    """A compiled shape: (B, T, K), the device type, the backend and the
+    mesh entries the decode spans (``ops.shard_width``), so a change of
+    mesh is a new shape, not a rebuild storm."""
+    return (B, T, K, device, _backend(device, decode), mesh)
 
 
 class _DispatchSpan:
     """Times one decode dispatch and credits library builds to its shape;
     updates the shape table and the decode.* metrics on exit."""
 
-    __slots__ = ("B", "T", "K", "device", "decode", "_acc", "_t0")
+    __slots__ = ("B", "T", "K", "device", "decode", "mesh", "_acc", "_t0")
 
-    def __init__(self, B: int, T: int, K: int, device: str, decode: str):
+    def __init__(self, B: int, T: int, K: int, device: str, decode: str,
+                 mesh: int = 1):
         self.B = B
         self.T = T
         self.K = K
         self.device = device
         self.decode = decode
+        self.mesh = mesh
 
     def __enter__(self):
         _ensure_listener()
@@ -186,7 +191,8 @@ class _DispatchSpan:
             return False
         calls, build_s = self._acc
         built = calls > 0
-        key = _shape_key(self.B, self.T, self.K, self.device, self.decode)
+        key = _shape_key(self.B, self.T, self.K, self.device, self.decode,
+                         self.mesh)
         global _compile_episodes
         with _lock:
             st = _shapes.get(key)
@@ -230,11 +236,11 @@ class _DispatchSpan:
 
 
 def dispatch_span(B: int, T: int, K: int, device: str = "cpu",
-                  decode: str = "fused") -> _DispatchSpan:
+                  decode: str = "fused", mesh: int = 1) -> _DispatchSpan:
     """Wrap one decode dispatch (the matcher's dispatch lane) on a device
     of type ``device`` ("cuda" or "cpu") by the decode named ``decode``
-    (``ops.DECODES``)."""
-    return _DispatchSpan(B, T, K, device, decode)
+    (``ops.DECODES``) over ``mesh`` entries (``ops.shard_width``)."""
+    return _DispatchSpan(B, T, K, device, decode, mesh)
 
 
 def note_launch(B: int, T: int, K: int, device: str,

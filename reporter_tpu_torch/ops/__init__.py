@@ -23,6 +23,13 @@
 Each dispatcher here picks by where the tensors lie: CUDA tensors go to
 the kernel, CPU tensors to the plain version. There is no fallback from
 one to the other.
+
+``decode_batch(mesh=)`` decodes over a decode mesh (``parallel/``): rows
+split across its data entries, each launching its decode once, and with
+``decode="assoc"`` time across its seq entries too. A batch the mesh
+does not divide decodes on the mesh's first device, uncounted as
+sharded; ``batch_pad_multiple`` is the row multiple a caller pads to so
+that it divides.
 """
 from .assoc_viterbi import step_matrices, viterbi_assoc_batch
 from .incremental import (incremental_step_cuda, incremental_step_plain,
@@ -32,8 +39,8 @@ from .route_relax import (pair_costs_cuda, pair_costs_packed,
                           relax_global_cuda, relax_kernel_for)
 from .viterbi import viterbi_cuda, viterbi_plain
 
-__all__ = ["decode_batch", "DECODES", "incremental_step_batch",
-           "incremental_steps", "relax_routes", "viterbi_assoc_batch",
+__all__ = ["decode_batch", "DECODES", "batch_pad_multiple", "shard_width",
+           "incremental_step_batch", "incremental_steps", "relax_routes", "viterbi_assoc_batch",
            "step_matrices",
            "route_pair_costs", "viterbi_cuda", "viterbi_plain",
            "incremental_step_cuda", "incremental_step_plain",
@@ -48,17 +55,68 @@ __all__ = ["decode_batch", "DECODES", "incremental_step_batch",
 DECODES = ("fused", "scan", "assoc")
 
 
+def _mesh_axes(mesh):
+    from ..parallel.mesh import mesh_axes
+    return mesh_axes(mesh)
+
+
+def batch_pad_multiple(mesh, decode: str = "fused"):
+    """The row multiple a batch is padded to so that ``decode_batch``
+    shards it over ``mesh``: the data width; None without a mesh, with a
+    data width of 1, and on a seq mesh for "fused" and "scan" (only the
+    associative decode shards time, so they would not shard there)."""
+    data, seq = _mesh_axes(mesh)
+    if data <= 1 or (seq > 1 and decode != "assoc"):
+        return None
+    return data
+
+
+def shard_width(mesh, B: int, T: int, decode: str = "fused") -> int:
+    """How many mesh entries a (B, T) decode by ``decode`` spans: the
+    profiler's shape key, so a change of mesh is a new shape and not a
+    rebuild storm. 1 unsharded."""
+    data, seq = _mesh_axes(mesh)
+    if (seq > 1 and decode != "assoc") or B % data or T % seq:
+        return 1
+    return data * seq
+
+
 def decode_batch(dist_m, valid, route_m, gc_m, case, sigma, beta,
-                 events=None, decode="fused"):
+                 events=None, decode="fused", mesh=None, pending=False):
     """Batched Viterbi decode; same contract as
     ``matcher.hmm.viterbi_decode_batch``: dist_m (B,T,K) f16 or f32, valid
     (B,T,K) bool, route_m (B,T-1|T,K,K), gc_m (B,T-1|T), case (B,T) int32,
     sigma and beta scalars. Returns (paths (B,T) int32, scores (B,) f32)
     on the tensors' device. ``decode`` is one of ``DECODES``; an unknown
     name raises. ``events``, with "fused" on the card only, is a (start,
-    end) pair of timing CUDA events recorded around the kernel."""
+    end) pair of timing CUDA events recorded around the kernel.
+
+    With a ``mesh`` (``parallel.mesh.DecodeMesh``) a batch whose shape
+    divides it (:func:`shard_width` > 1) decodes sharded
+    (``parallel.sharded``) and counts ``decode.shard.chunks`` and
+    ``decode.shard.rows``; its outputs are on the host, and with
+    ``pending=True`` the call returns the ``ShardedDecode`` in flight
+    instead of waiting for it. Any other batch decodes on the mesh's first
+    device (its tensors moved there)."""
     if decode not in DECODES:
         raise ValueError(f"unknown decode {decode!r}: one of {DECODES}")
+    if mesh is not None:
+        if events is not None:
+            raise ValueError("events time one launch; a mesh has several")
+        B, T = dist_m.shape[0], dist_m.shape[1]
+        if shard_width(mesh, B, T, decode) > 1:
+            from ..parallel import sharded
+            from ..utils import metrics
+            metrics.count("decode.shard.chunks")
+            metrics.count("decode.shard.rows", B)
+            run = (sharded.sharded_viterbi(mesh) if decode == "assoc"
+                   and mesh.seq > 1 else
+                   sharded.sharded_data_viterbi(mesh, decode))
+            out = run(dist_m, valid, route_m, gc_m, case, sigma, beta)
+            return out if pending else out.wait()
+        dev = mesh.devices[0]
+        dist_m, valid, route_m, gc_m, case = (
+            t.to(dev) for t in (dist_m, valid, route_m, gc_m, case))
     on_cpu = dist_m.device.type == "cpu"
     if events is not None and (on_cpu or decode != "fused"):
         raise ValueError("events time the CUDA kernel; only the fused "

@@ -29,6 +29,14 @@ decode on the card. Same three stages, same artifacts, same bytes:
 Stage-level resume via --trace-dir / --match-dir is preserved
 (reference: :350-363).
 
+Multi-host: with ``--num-processes N --process-id P`` the gather keeps
+only the uuids host P owns (``parallel.host_uuid_filter``), so N hosts
+reading one archive split it; ``--coordinator`` also joins a gloo process
+group (``parallel.init_multihost``) after the gather and before the match
+stage. The matcher decodes over a mesh of every visible card when there
+is more than one (the config's ``decode_shard``, ``device_slice`` and
+``seq_shards``).
+
 Worker processes are spawned and re-import this module, so its top level
 imports neither torch nor anything that does: the gather and report
 children stay cheap and never open the card. Only the match stage and
@@ -74,8 +82,16 @@ PIPELINE_KEYS = ("aws_access_key_id", "aws_secret_access_key")
 # --------------------------------------------------------------------------
 
 def _parse_part_file(path: str, valuer: Callable, time_pattern: str,
-                     bbox: List[float], dest_dir: str) -> int:
-    """Parse one downloaded part file into uuid-sharded trace files."""
+                     bbox: List[float], dest_dir: str,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None) -> int:
+    """Parse one downloaded part file into uuid-sharded trace files. In a
+    job of ``num_processes`` hosts this one (``process_id``) keeps only
+    the uuids it owns (``parallel.host_uuid_filter``), so N hosts reading
+    the same archive split the work with no coordination."""
+    # the torch-free module: this runs in a spawned gather child
+    from ..parallel.multihost import host_uuid_filter
+    uuid_filter = host_uuid_filter(num_processes, process_id)
     fast_time = time_pattern == "%Y-%m-%d %H:%M:%S"
     opener = gzip.open if path.endswith(".gz") else open
     shards: dict[str, list[str]] = {}
@@ -84,6 +100,8 @@ def _parse_part_file(path: str, valuer: Callable, time_pattern: str,
         for line in f:
             try:
                 uuid, tm, lat, lon, acc = valuer(line)
+                if uuid_filter is not None and not uuid_filter(str(uuid)):
+                    continue
                 lat = float(lat)
                 lon = float(lon)
                 if lat < bbox[0] or lat > bbox[2] or \
@@ -118,11 +136,14 @@ def _parse_part_file(path: str, valuer: Callable, time_pattern: str,
 
 
 def _gather_worker(paths: List[str], valuer_src: str, time_pattern: str,
-                   bbox: List[float], dest_dir: str) -> None:
+                   bbox: List[float], dest_dir: str,
+                   num_processes: Optional[int] = None,
+                   process_id: Optional[int] = None) -> None:
     valuer = eval(valuer_src)  # user-supplied lambda, like the reference
     for path in paths:
         try:
-            n = _parse_part_file(path, valuer, time_pattern, bbox, dest_dir)
+            n = _parse_part_file(path, valuer, time_pattern, bbox, dest_dir,
+                                 num_processes, process_id)
             logger.info("Gathered %d probes from %s", n, path)
         except Exception as e:
             logger.error("%s was not processed: %s", path, e)
@@ -130,9 +151,14 @@ def _gather_worker(paths: List[str], valuer_src: str, time_pattern: str,
 
 def gather_traces(src: str, key_regex: str, valuer_src: str,
                   time_pattern: str, bbox: List[float],
-                  concurrency: int) -> str:
+                  concurrency: int, num_processes: Optional[int] = None,
+                  process_id: Optional[int] = None) -> str:
     """Stage 1 driver. ``src`` is a local directory of part files, or an
-    ``s3://bucket/prefix`` URL (requires boto3 + credentials)."""
+    ``s3://bucket/prefix`` URL (requires boto3 + credentials). With
+    ``num_processes`` > 1 this host gathers only the uuids it owns
+    (``process_id``); a bad id raises before any child starts."""
+    from ..parallel.multihost import host_uuid_filter
+    host_uuid_filter(num_processes, process_id)
     dest_dir = tempfile.mkdtemp(prefix="traces_", dir=".")
     if src.startswith("s3://"):
         paths = _download_s3(src, key_regex)
@@ -149,7 +175,8 @@ def gather_traces(src: str, key_regex: str, valuer_src: str,
             continue
         p = _MP.Process(
             target=_gather_worker,
-            args=(chunk, valuer_src, time_pattern, bbox, dest_dir))
+            args=(chunk, valuer_src, time_pattern, bbox, dest_dir,
+                  num_processes, process_id))
         p.start()
         procs.append(p)
     for p in procs:
@@ -564,6 +591,9 @@ def main(argv=None):
     parser.add_argument("--device-batch", type=int, default=512)
     parser.add_argument("--cleanup", action=argparse.BooleanOptionalAction,
                         default=True)
+    from ..parallel.multihost import (add_multihost_args, init_multihost,
+                                      shutdown_multihost)
+    add_multihost_args(parser)
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -602,8 +632,17 @@ def main(argv=None):
         with metrics.timer("pipeline.gather"):
             trace_dir = gather_traces(args.src, args.src_key_regex,
                                       args.src_valuer, args.src_time_pattern,
-                                      args.bbox, args.concurrency)
+                                      args.bbox, args.concurrency,
+                                      args.num_processes, args.process_id)
     if not match_dir:
+        try:
+            # a multi-host job's rendezvous: after the gather (pure IO,
+            # which needs no peer) and before the match stage
+            init_multihost(args.coordinator, args.num_processes,
+                           args.process_id)
+        except Exception as e:
+            sys.stderr.write(f"could not join the multi-host job: {e}\n")
+            return 1
         try:
             with metrics.timer("pipeline.match"):
                 match_dir = match_traces(
@@ -615,6 +654,8 @@ def main(argv=None):
             logger.error("Match stage failed: %s; the gathered traces stay "
                          "in %s (resume with --trace-dir)", e, trace_dir)
             return 1
+        finally:
+            shutdown_multihost()
     if args.dest:
         with metrics.timer("pipeline.report"):
             report_tiles(match_dir, args.dest, args.privacy, args.concurrency,

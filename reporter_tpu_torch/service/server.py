@@ -23,7 +23,7 @@ and the store's environment knobs) and optionally ``service``, whose
 keys stand for the JAX package's environment knobs:
 
   threshold_sec      THRESHOLD_SEC                  (15)
-  max_batch          MATCH_BATCH_MAX                (MATCH_BATCH_DEFAULT)
+  max_batch          MATCH_BATCH_MAX                (match_batch_default)
   max_wait_ms        MATCH_BATCH_WAIT_MS            (20.0)
   idle_grace_ms      MATCH_BATCH_GRACE_MS           (2.0)
   queue_max          REPORTER_TPU_QUEUE_MAX         (4096)
@@ -39,6 +39,9 @@ keys stand for the JAX package's environment knobs:
   incremental_lag    REPORTER_TPU_INCREMENTAL_LAG   (32)
   incremental_mb     REPORTER_TPU_INCREMENTAL_MB    (64.0)
   decode             REPORTER_TPU_DECODE            ("fused")
+  decode_shard       REPORTER_TPU_DECODE_SHARD      ("auto")
+  device_slice       REPORTER_TPU_DEVICE_SLICE      (none: every card)
+  seq_shards         REPORTER_TPU_SEQ_SHARDS        (1)
   trace              REPORTER_TPU_TRACE             (false)
   slo_ms             REPORTER_TPU_SLO_MS            ("", no targets)
   shadow_sample      REPORTER_TPU_SHADOW_SAMPLE     (0.0, off)
@@ -87,10 +90,16 @@ the cooldown left, and nothing is launched for it. With ``admission``
 the gate sheds before the body is read: 429 with ``Retry-After``.
 
 The service decodes on ``cuda`` unless given ``--device cpu``, and exits
-non-zero when CUDA is missing. With ``--procs N`` the process forks N
-workers that share the port (``service/prefork.py``); each builds its
-matcher after the fork, on the first card of its share of the visible
-cards.
+non-zero when CUDA is missing. On a bare ``cuda`` it decodes over a mesh
+of every visible card when there is more than one (``decode_shard``,
+``device_slice`` and ``seq_shards``; ``parallel/mesh.py``). With
+``--procs N`` the process forks N workers that share the port
+(``service/prefork.py``); each builds its matcher after the fork, over
+the mesh of its block of the visible cards (``device_slice``
+"slot/N" unless the config names one), its device the block's first
+card. ``--coordinator``, ``--num-processes`` and ``--process-id`` join a
+multi-host job (``parallel.init_multihost``) before the service is built,
+with ``--procs 1``.
 """
 from __future__ import annotations
 
@@ -107,7 +116,7 @@ import torch
 from ..core.tracebatch import as_trace_batch, points_to_columns
 from ..graph.network import RoadNetwork
 from ..graph.version import map_version
-from ..matcher.matcher import MATCH_BATCH_DEFAULT, SegmentMatcher
+from ..matcher.matcher import SegmentMatcher, match_batch_default
 from ..matcher.params import MatchParams
 from ..obs import flightrec
 from ..obs import trace as obs_trace
@@ -158,7 +167,8 @@ SERVICE_KEYS = ("threshold_sec", "max_batch", "max_wait_ms",
 MATCHER_KEYS = ("native", "pipeline", "chunk", "prep_threads",
                 "route_device", "prune_sigma", "incremental",
                 "incremental_lag", "incremental_mb", "decode",
-                "circuit_threshold", "circuit_cooldown_s")
+                "circuit_threshold", "circuit_cooldown_s", "decode_shard",
+                "device_slice", "seq_shards")
 SERVER_KEYS = ("pool_size",)
 #: process-wide observability settings (configure_obs)
 OBS_KEYS = ("trace", "slo_ms", "shadow_sample", "profile_events",
@@ -243,7 +253,7 @@ class ReporterService:
     None: a ``city`` key answers 400) serves ``city``-tagged requests."""
 
     def __init__(self, matcher: SegmentMatcher, threshold_sec: int = 15,
-                 max_batch: int = MATCH_BATCH_DEFAULT,
+                 max_batch: "int | None" = None,
                  max_wait_ms: float = 20.0, idle_grace_ms: float = 2.0,
                  queue_max: int = DEFAULT_QUEUE_MAX,
                  queue_policy: str = "reject",
@@ -258,6 +268,8 @@ class ReporterService:
         # harness: /health surfaces its delta-pressure backlog gauge
         self.compactor = None
         self.threshold_sec = threshold_sec
+        if max_batch is None:
+            max_batch = match_batch_default(matcher)
         self.dispatcher = BatchDispatcher(
             matcher.match_many, max_batch=max_batch,
             max_wait_ms=max_wait_ms, idle_grace_ms=idle_grace_ms,
@@ -981,6 +993,7 @@ def parse_config(conf: dict) -> dict:
                                + OBS_KEYS + FAULT_KEYS + CITY_KEYS)
     if unknown:
         raise ValueError(f"unknown service keys {sorted(unknown)}")
+    check_mesh_keys(given)
     return {"graph": conf["graph"],
             "params": MatchParams(**conf.get("matcher", {})),
             "datastore": parse_datastore(conf.get("datastore")),
@@ -992,6 +1005,33 @@ def parse_config(conf: dict) -> dict:
                                   ("obs", OBS_KEYS),
                                   ("faults", FAULT_KEYS),
                                   ("city", CITY_KEYS))}}
+
+
+def check_mesh_keys(keys: dict) -> None:
+    """Raise on a malformed ``decode_shard``, ``device_slice`` or
+    ``seq_shards`` (``parallel.mesh``'s settings), before any card is
+    counted."""
+    from ..parallel.mesh import SHARD_MODES, check_slice_spec
+    if "decode_shard" in keys and keys["decode_shard"] not in SHARD_MODES:
+        raise ValueError(f"decode_shard {keys['decode_shard']!r}: one of "
+                         f"{SHARD_MODES}")
+    if "device_slice" in keys:
+        check_slice_spec(keys["device_slice"])
+    seq = keys.get("seq_shards", 1)
+    if type(seq) is not int or seq < 1:
+        raise ValueError(f"seq_shards {seq!r} must be an int >= 1")
+
+
+def slot_matcher_keys(keys: dict, device: torch.device, slot: int,
+                      procs: int) -> dict:
+    """The matcher keys of prefork worker ``slot`` of ``procs``: on a bare
+    ``cuda``, its decode mesh is over its block of the visible cards
+    (``device_slice`` "slot/procs", whose first card is
+    :func:`slot_device`), unless the config names a slice."""
+    if procs > 1 and device == torch.device("cuda") \
+            and not keys.get("device_slice"):
+        return dict(keys, device_slice=f"{slot}/{procs}")
+    return keys
 
 
 def parse_cities(value) -> "dict | None":
@@ -1081,7 +1121,12 @@ def main(argv=None) -> int:
                     help="pre-forked worker processes sharing the port")
     ap.add_argument("--device", type=torch.device, default="cuda",
                     help="cuda (default), cuda:I or cpu")
+    from ..parallel.multihost import (add_multihost_args, init_multihost,
+                                      shutdown_multihost)
+    add_multihost_args(ap)
     args = ap.parse_args(argv)
+    if args.coordinator and args.procs > 1:
+        ap.error("--coordinator joins a multi-host job with --procs 1")
     try:
         conf = read_config(args.config)
         host, port = args.address.split("/")[-1].split(":")
@@ -1104,7 +1149,9 @@ def main(argv=None) -> int:
         no child inherits a CUDA context, a native worker pool or a
         dispatcher thread."""
         device = slot_device(args.device, slot, procs)
-        matcher = matcher_from_config(conf, device)
+        slot_conf = dict(conf, matcher=slot_matcher_keys(
+            conf["matcher"], args.device, slot, procs))
+        matcher = matcher_from_config(slot_conf, device)
         datastore = datastore_from_config(conf)
         if datastore is not None:
             # stamp the store with the graph this process serves: the
@@ -1112,7 +1159,7 @@ def main(argv=None) -> int:
             # forget the active epoch
             datastore.set_map_version(map_version(matcher.net))
         return ReporterService(matcher, datastore=datastore,
-                               cities=cities_from_config(conf, device),
+                               cities=cities_from_config(slot_conf, device),
                                **conf["service"])
 
     if args.procs > 1:
@@ -1120,15 +1167,20 @@ def main(argv=None) -> int:
         return serve_prefork(make_service, host, port, args.procs,
                              pool_size)
     try:
+        init_multihost(args.coordinator, args.num_processes,
+                       args.process_id)
         service = make_service(0, 1)
     except Exception as e:
         sys.stderr.write(f"could not start the service: {e}\n")
+        shutdown_multihost()
         return 1
     httpd = make_server(service, host, port, pool_size)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
         httpd.server_close()
+    finally:
+        shutdown_multihost()
     return 0
 
 

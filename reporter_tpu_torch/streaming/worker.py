@@ -53,9 +53,19 @@ The config's ``datastore`` object sizes the ``--datastore`` store (its
 ``root`` is the flag's directory when both are given). The in-process
 matcher runs on ``cuda`` unless given ``--device cpu``, and the worker
 exits non-zero without CUDA; the tee ingests what the card decoded, and
-a tee failure spools the tile (``reason="tee"``). The JAX package's
-``--uuid-filter`` with the multi-host init is not ported yet
-(``StreamWorker(uuid_filter=)`` is).
+a tee failure spools the tile (``reason="tee"``). The matcher decodes
+over a mesh of every visible card when there is more than one (the
+config's ``decode_shard``, ``device_slice`` and ``seq_shards``).
+
+Multi-host: ``--coordinator`` (``host:port`` of process 0, or ``env://``
+for torchrun's variables), ``--num-processes`` and ``--process-id`` join
+a gloo process group before the matcher is built
+(``parallel.init_multihost``); ``--num-processes`` and ``--process-id``
+alone partition without one. ``--uuid-filter`` (:func:`resolve_uuid_filter`)
+decides whether this worker keeps only its share of the uuids
+(``parallel.host_uuid_filter``): ``auto``, on for a shared input and off
+under a Kafka consumer group, which already partitions; ``on`` and
+``off`` force it.
 """
 from __future__ import annotations
 
@@ -467,6 +477,33 @@ class StreamWorker:
                 if self.incremental_probe else None}
 
 
+def resolve_uuid_filter(mode: str, bootstrap: Optional[str],
+                        num_processes: Optional[int] = None,
+                        process_id: Optional[int] = None):
+    """The multi-host uuid ownership filter, or None.
+
+    The sha1 filter makes N workers reading one shared, unpartitioned
+    stream process each uuid exactly once, Kafka's keyed-partition
+    contract without Kafka (``parallel.multihost``). When the input is a
+    Kafka consumer group (``bootstrap`` set) the group already partitions
+    the messages, and the filter on top would drop about (N-1)/N of each
+    worker's share: ``auto`` is on for a shared input and off under a
+    group; ``on`` forces it (for an unkeyed topic, with a warning) and
+    ``off`` drops it. Raises on a ``process_id`` out of range."""
+    from ..parallel.multihost import host_uuid_filter
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"uuid filter {mode!r}: one of auto, on, off")
+    if mode == "off" or (mode == "auto" and bootstrap):
+        return None
+    uuid_filter = host_uuid_filter(num_processes, process_id)
+    if bootstrap and uuid_filter is not None:
+        logger.warning(
+            "--uuid-filter=on with a Kafka consumer group: unless the "
+            "topic is unkeyed, group partitioning x sha1 filter drops "
+            "most messages on every worker")
+    return uuid_filter
+
+
 def read_worker_config(path: str, graph: Optional[str] = None):
     """(the service's :func:`~..service.server.parse_config` of the file,
     its ``worker`` block): ``graph`` overrides the file's; an unknown
@@ -541,6 +578,15 @@ def main(argv=None) -> int:
                         default=None,
                         help="background compaction: compact partitions "
                              "whose uncompacted deltas exceed B bytes")
+    parser.add_argument("--uuid-filter", choices=("auto", "on", "off"),
+                        default="auto",
+                        help="multi-host uuid ownership filter: auto = on "
+                             "for shared unpartitioned inputs, off when a "
+                             "Kafka consumer group (--bootstrap) already "
+                             "partitions; on/off force it")
+    from ..parallel.multihost import (add_multihost_args, init_multihost,
+                                      shutdown_multihost)
+    add_multihost_args(parser)
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -567,6 +613,24 @@ def main(argv=None) -> int:
             sys.stderr.write(f"Problem with config file: {e}\n")
             return 1
 
+    try:
+        uuid_filter = resolve_uuid_filter(args.uuid_filter, args.bootstrap,
+                                          args.num_processes,
+                                          args.process_id)
+        # a multi-host job's rendezvous, before the matcher opens a card
+        init_multihost(args.coordinator, args.num_processes,
+                       args.process_id)
+    except Exception as e:
+        sys.stderr.write(f"could not join the multi-host job: {e}\n")
+        return 1
+    try:
+        return _run(args, conf, knobs, uuid_filter)
+    finally:
+        shutdown_multihost()
+
+
+def _run(args, conf, knobs, uuid_filter) -> int:
+    """The worker's body after the multi-host rendezvous."""
     service = None
     circuit_probe = degraded_probe = incremental_probe = None
     incremental_provider = on_evict = None
@@ -677,7 +741,8 @@ def main(argv=None) -> int:
                 "replay_interval_s", DeadLetterDrainer.DEFAULT_INTERVAL_S),
             replay_attempts=knobs.get(
                 "replay_attempts", DeadLetterDrainer.DEFAULT_ATTEMPTS),
-            datastore=datastore, compactor=compactor)
+            datastore=datastore, compactor=compactor,
+            uuid_filter=uuid_filter)
         if conf is not None and "flightrec_dir" in conf["obs"]:
             flightrec.set_dump_dir(conf["obs"]["flightrec_dir"])
         if service is not None:

@@ -50,6 +50,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "reporter_tpu_torch.tools.print_consumer",
             "reporter_tpu_torch.tools.tiles_cli",
             "reporter_tpu_torch.tools.datastore_cli",
+            "reporter_tpu_torch.parallel",
+            *(f"reporter_tpu_torch.parallel.{m}" for m in (
+                "mesh", "sharded", "multihost")),
             "reporter_tpu_torch.datastore",
             *(f"reporter_tpu_torch.datastore.{m}" for m in (
                 "schema", "aggregate", "lease", "store", "ingest", "query",
@@ -69,6 +72,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                                    "reporter_tpu_torch.tools.accuracy_cli",
                                    "reporter_tpu_torch.datastore",
                                    "reporter_tpu_torch.tools.datastore_cli",
+                                   "reporter_tpu_torch.parallel",
+                                   "reporter_tpu_torch.parallel.sharded",
                                    "reporter_tpu_torch.__main__"])
 def test_a_module_imports_first(first):
     """The port's modules import one another in a cycle (ops -> matcher
