@@ -6,6 +6,8 @@
     python3 chip_smoke.py --global-probe
     python3 chip_smoke.py --cities
     python3 chip_smoke.py --assoc
+    python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --chaos
 
 Phases, each fatal on failure:
 
@@ -234,6 +236,33 @@ Phases, each fatal on failure:
             force (flipped): every answer 200 and byte-equal to the
             version that served it, /health's swap block equal to the
             records
+   chaos    the port's robustness harnesses (reporter_tpu_torch/tools/)
+            on the card, after cities; each scenario in a launch scope
+            that counts viterbi_decode, incremental_steps and the plain
+            versions in this process and in every harness child (the
+            tools' children start through shim_main, which counts into an
+            O_APPEND log, so forked workers and killed children count
+            too): a scenario fails if a plain version ran or no kernel
+            launched. chaos.py's prefork_kill (two SO_REUSEPORT workers on
+            the card, one killed under load while it holds a CUDA
+            context; its successor opens the card after the fork; every
+            answer the CPU service's bytes), swap_kill (a registry child
+            killed inside CityRegistry.swap), decode_poison (500, then
+            503 with Retry-After, no host decode) and overload_recovery;
+            each scenario's fault-free tiles or answers made anew on the
+            CPU (chaos.fault_free) and held equal
+   overload overload.py --smoke in an interpreter of its own, as the
+            JAX CI runs it: every gate, the timing gates among them
+            (capacity, rate, both legs' p99 and goodput, the shed share)
+   racefuzz racefuzz.py on the card: seed 1 of the replay scenario with
+            the witness and fuzz layer armed, no finding; the disarmed
+            lock wrappers' cost on the overhead's 512-trace workload,
+            read directly (tracked-lock acquisitions a call times a
+            pair's extra cost over a bare lock's, against the call):
+            under 2%
+   bigreplay bigreplay.py --probes 100000 --writers 2: agreement with
+            the numpy oracle >= 0.99, exactly-once on both legs, empty
+            spools, fault/clean throughput ratio >= 0.2
 8. timing   the launch floor (an empty kernel with the kernels' C launch
             interface, built beside them, by CUDA graphs and back to back);
             CUDA-event times of the decode kernel from CUDA graphs (the
@@ -326,7 +355,10 @@ device runs, cold and the first warm round; relax_global: route-city's
 parity leg, one launch a call and parameter group (``launches_datastore``
 the datastore phase's tee leg);
 each kernel also its ``launches_faults``, its ``launches_worker`` (the
-worker phase's legs, each counted from 0) and the ``launch_floor_ms``),
+worker phase's legs, each counted from 0) and the ``launch_floor_ms``;
+viterbi_decode and incremental_step their ``launches_chaos`` a scenario,
+``launches_overload``, ``launches_racefuzz``, ``launches_overhead`` and
+``launches_bigreplay``),
 and as the last line {"ok": true, "device": {...}}. After each phase a
 ``[time]`` line gives its seconds and the run's so far. Exits non-zero,
 printing no result, without a CUDA card or without the package beside it.
@@ -361,6 +393,23 @@ With ``--assoc`` only the build, main and assoc phases run.
 
 With ``--mesh`` only the build and main phases run, then the route
 cities' inputs that [mesh] needs and the mesh phase.
+
+With ``--chaos`` only the build runs, then the robustness phases at
+full length: all twelve chaos scenarios and prefork_kill on a decode mesh
+naming the card twice (stream_resume: the carried states made by
+incremental_steps on the card, the worker killed and resumed from its
+snapshot onto the card, tiles equal to the fault-free card run and to a
+--device cpu run; kill_restore, storm, egress_outage, double_ingest,
+decode_poison and swap_kill also held against CPU runs), overload.py
+without --smoke, racefuzz.py's three scenarios at seeds 1-3, the
+wrappers' direct cost and the --overhead A/B (the serialized 512-trace
+match at the shipped prep threads, tracked-but-disarmed locks against
+lockcheck "raw", four live processes a leg, 150 rounds of adjacent
+pairs, the median pair ratio beside two A/A controls: under 2%), and
+bigreplay.py
+--probes 100000 --writers 2 and --probes 1000000 --writers 4 (agreement
+with the numpy oracle >= 0.99, exactly-once on both legs, empty spools,
+fault/clean throughput ratio >= 0.2; probes/s of both legs).
 
 With ``--global-probe`` only the build runs, then relax_global at the
 341x341 and 512x512 cities' first chunks: held bit-equal to the plain
@@ -6843,6 +6892,303 @@ def phase_timing_step(dev):
     return out
 
 
+# -- the robustness harnesses (reporter_tpu_torch/tools/) --------------------
+#: the full run's robustness phases: [chaos], [overload] (--smoke),
+#: [racefuzz] (a seed of replay and the wrappers' direct cost) and
+#: [bigreplay] (100k x 2), 90.2 s together in a 1,001.4 s run (NVIDIA
+#: H100 80GB HBM3, 700.00 W); a slow host reached [cities]' end at
+#: 1,014 s of the 1,200 s limit.
+#: the [chaos] scenarios of the full run: the card's own troubles (a
+#: worker holding a CUDA context killed, its successor opening the card
+#: after the fork; a registry child killed inside a swap; the decode
+#: domain refusing; the ladder). --chaos runs all twelve (stream_resume's
+#: kill and resume with carried states, 45-54 s, is also [worker]'s
+#: resume leg) and prefork_kill on a 2-entry mesh
+CHAOS_FULL = ("prefork_kill", "swap_kill", "decode_poison",
+              "overload_recovery")
+#: the [racefuzz] scenarios of the full run: the multi-writer replay on
+#: the card (submit_burst and storm re-run chaos scenarios); --chaos runs
+#: the three and the end-to-end overhead A/B, whose 600 pairs take about
+#: five minutes (fewer cannot resolve 2% on the shared host)
+RACEFUZZ_FULL = ("replay",)
+#: the bigreplay runs, (probes, writers): BIGREPLAY_r01.json's scale (the
+#: full run's) and the paper's (--chaos mode's, after the first)
+BIGREPLAY_RUNS = ((100_000, 2), (1_000_000, 4))
+#: the launch log's one-byte codes: the wrapper (or plain version) each
+#: counts, by the name the kernels line gives it
+LAUNCH_CODES = {"viterbi_cuda": ("viterbi_decode", b"v"),
+                "viterbi_plain": ("plain", b"p"),
+                "incremental_steps_cuda": ("incremental_step", b"s"),
+                "incremental_steps_plain": ("step_plain", b"q")}
+#: the interpreter command of a counted child: shim_main, then the
+#: child's own ``-m module ...`` or ``-c script ...``
+SHIM = ("import sys, chip_smoke; "
+        "chip_smoke.shim_main(sys.argv[1], sys.argv[2:])")
+
+
+def install_launch_log(path):
+    """Wrap the decode and the incremental step where ``ops`` dispatches
+    to them (each kernel's wrapper and each plain version): every call
+    appends its code byte to ``path``, opened O_APPEND, so forked workers
+    and children killed by os._exit count too. Returns the restore
+    callable."""
+    from reporter_tpu_torch import ops
+    fd = os.open(path, os.O_WRONLY | os.O_APPEND | os.O_CREAT, 0o644)
+    saved = {name: getattr(ops, name) for name in LAUNCH_CODES}
+
+    def wrap(fn, code):
+        def call(*args, **kw):
+            os.write(fd, code)
+            return fn(*args, **kw)
+        return call
+
+    for name, fn in saved.items():
+        setattr(ops, name, wrap(fn, LAUNCH_CODES[name][1]))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+        os.close(fd)
+    return restore
+
+
+def read_launch_log(path) -> dict:
+    data = b""
+    if os.path.exists(path):
+        with open(path, "rb") as f:
+            data = f.read()
+    return {label: data.count(code) for label, code in LAUNCH_CODES.values()}
+
+
+def shim_prefix(path):
+    return [sys.executable, "-c", SHIM, path]
+
+
+def shim_main(path, argv):
+    """A harness child with its launches counted into ``path``: ``argv``
+    is the child's own ``-m module args...`` or ``-c script args...``.
+    The tools' own children go through the shim too. A racefuzz leg with
+    ``lockcheck: "raw"`` turns raw locks on first, before any module
+    makes its locks."""
+    import importlib
+    import runpy
+    if argv[0] == "-m" and argv[1].endswith(".racefuzz") \
+            and "--config" in argv:
+        with open(argv[argv.index("--config") + 1]) as f:
+            conf = json.load(f).get("service") or {}
+        if conf.get("lockcheck") == "raw":
+            from reporter_tpu_torch.utils import locks
+            locks.set_raw()
+    install_launch_log(path)
+    from reporter_tpu_torch.tools import chaos
+    chaos.PYTHON = shim_prefix(path)
+    if argv[0] == "-c":
+        sys.argv = ["-c", *argv[2:]]
+        exec(compile(argv[1], "<string>", "exec"),
+             {"__name__": "__main__", "__builtins__": __builtins__})
+        return
+    sys.argv = [argv[1], *argv[2:]]
+    if argv[1].startswith("reporter_tpu_torch.tools."):
+        sys.exit(importlib.import_module(argv[1]).main(argv[2:]))
+    runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+
+
+class LaunchScope:
+    """Counts the decode's and the step's calls in this process and in
+    every child the harness tools start (``chaos.PYTHON`` set to the
+    shim) while it is entered; ``counts`` after the exit."""
+
+    def __init__(self, path):
+        self.path = path
+        self.counts = None
+
+    def __enter__(self):
+        from reporter_tpu_torch.tools import chaos
+        self._python = chaos.PYTHON
+        chaos.PYTHON = shim_prefix(self.path)
+        self._restore = install_launch_log(self.path)
+        return self
+
+    def __exit__(self, *exc):
+        from reporter_tpu_torch.tools import chaos
+        chaos.PYTHON = self._python
+        self._restore()
+        self.counts = read_launch_log(self.path)
+        return False
+
+
+def check_card_counts(what, n, need_step=False):
+    """No plain version ran on the card, and the kernels did."""
+    check(n["plain"] == 0 and n["step_plain"] == 0,
+          f"{what}: plain versions ran on the card: {n}")
+    check(n["viterbi_decode"] + n["incremental_step"] > 0,
+          f"{what}: no kernel launched: {n}")
+    check(not need_step or n["incremental_step"] > 0,
+          f"{what}: incremental_step never launched: {n}")
+
+
+def phase_chaos(names, smi):
+    """``tools/chaos.py``'s scenarios on the card, each in its own launch
+    scope: the scenario's own assertions, no plain version on the card,
+    the kernels launched, and its tiles or bodies against the CPU."""
+    import tempfile
+    from reporter_tpu_torch.tools import chaos
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            keep = {}
+            t0 = time.perf_counter()
+            scenario, kw = chaos.SCENARIOS[name.replace("_mesh", "")], {}
+            if name.startswith("prefork_kill"):
+                # the CPU service's bytes, made before the scope opens
+                kw = {"want": chaos.prefork_bodies(),
+                      "mesh": name.endswith("_mesh")}
+            with LaunchScope(f"{tmp}/{name}.log") as scope:
+                rc = scenario("cuda", keep, **kw)
+            check(rc == 0, f"[chaos] {name} failed on the card")
+            n = scope.counts
+            check_card_counts(f"[chaos] {name}", n,
+                              need_step=name == "stream_resume")
+            wall = time.perf_counter() - t0
+            # the scenario's fault-free comparand made anew on the CPU
+            ref = chaos.fault_free(name, "cpu", keep)
+            check(ref is None or ref == keep["ref"],
+                  f"[chaos] {name}: the card's comparand differs from the "
+                  f"CPU run's")
+            held = ("its fault-free tiles or answers = the CPU run's"
+                    if ref is not None else
+                    "every answer = the CPU service's" if "prefork" in name
+                    else "no CPU comparand")
+            launches[name] = n
+            log(f"[chaos] {name} ok on the card in {wall:.1f} s; launches "
+                f"viterbi_decode {n['viterbi_decode']}, incremental_step "
+                f"{n['incremental_step']}, plain {n['plain']}; {held}")
+    log(f"[chaos] {len(names)} scenarios passed on the card; {smi}")
+    return launches
+
+
+def phase_overload(smi, smoke=False):
+    """``tools/overload.py`` on the card (``--smoke`` with ``smoke``) in
+    a fresh interpreter of its own, as the JAX CI runs it, so that its
+    tail latencies are not this long-lived process's: every gate, the
+    timing gates among them."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        with LaunchScope(f"{tmp}/overload.log") as scope:
+            p = subprocess.run(
+                [*shim_prefix(scope.path), "-m",
+                 "reporter_tpu_torch.tools.overload", "--device", "cuda",
+                 "--out", f"{tmp}/overload.json",
+                 *(["--smoke"] if smoke else [])],
+                cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(os.path.exists(f"{tmp}/overload.json"),
+              f"[overload] no artifact (rc {p.returncode}): "
+              f"{p.stderr[-2000:]}")
+        with open(f"{tmp}/overload.json") as f:
+            art = json.load(f)
+    from reporter_tpu_torch.tools import overload
+    failed = overload.check_gates(art)
+    check(p.returncode == 0 and not failed,
+          f"[overload] gates failed on the card (rc {p.returncode}): "
+          f"{failed}")
+    n = scope.counts
+    check_card_counts("[overload]", n)
+    armed, unshed = art["legs"]["armed"], art["legs"]["unshed"]
+    log(f"[overload]{' --smoke' if smoke else ''} mean service "
+        f"{art['mean_service_ms']} ms (20 ms floor) -> capacity "
+        f"{1000.0 / art['mean_service_ms']:.2f}/s; {art['rate_hz']}/s x "
+        f"{art['arrivals']} arrivals, SLO {art['slo_budget_ms']} ms; unshed "
+        f"p99 {unshed['p99_ms']} ms goodput {unshed['goodput_per_s']}/s; "
+        f"armed p99 {armed['p99_ms']} ms goodput {armed['goodput_per_s']}/s "
+        f"shed share {armed['shed'] / armed['sent']:.4f} "
+        f"({armed['shed']}/{armed['sent']}, ladder "
+        f"{armed['pressure_level_seen']}); launches viterbi_decode "
+        f"{n['viterbi_decode']}, plain {n['plain']}; {smi}")
+    log("[overload] " + json.dumps(art, sort_keys=True))
+    return n
+
+
+def phase_racefuzz(seeds, scenarios, smi, ab=False):
+    """``tools/racefuzz.py`` on the card: ``seeds`` seeds of
+    ``scenarios`` (no finding); the disarmed lock wrappers' cost read
+    directly in this process on the overhead's workload (under 2%); and
+    with ``ab`` the tool's end-to-end overhead A/B at its full length
+    (under 2%)."""
+    import tempfile
+    from reporter_tpu_torch.tools import racefuzz
+    with tempfile.TemporaryDirectory() as tmp:
+        with LaunchScope(f"{tmp}/fuzz.log") as scope:
+            rc = racefuzz.run_fuzz(list(range(1, seeds + 1)), scenarios,
+                                   0.25, 200.0, "cuda")
+        check(rc == 0, "[racefuzz] findings on the card")
+        fuzz = scope.counts
+        check_card_counts("[racefuzz]", fuzz)
+        log(f"[racefuzz] {seeds} seed(s) x {', '.join(scenarios)}, 0 "
+            f"findings; launches viterbi_decode {fuzz['viterbi_decode']}, "
+            f"plain {fuzz['plain']}; {smi}")
+        with LaunchScope(f"{tmp}/overhead.log") as scope:
+            cost = racefuzz.lock_overhead("cuda")
+            ovh = racefuzz.measure_overhead(racefuzz.OVERHEAD_ROUNDS,
+                                            "cuda") if ab else None
+        n = scope.counts
+    check_card_counts("[racefuzz] overhead", n)
+    log(f"[racefuzz] disarmed wrappers: {cost['acquires']} tracked-lock "
+        f"acquisitions a {racefuzz.OVERHEAD_TRACES}-trace call, a pair "
+        f"{cost['tracked_ns']:.1f} ns tracked against {cost['bare_ns']:.1f} "
+        f"ns bare, a call {cost['call_ms']:.2f} ms -> {cost['pct']:+.5f}% "
+        f"(limit +{racefuzz.OVERHEAD_LIMIT_PCT:.0f}%); {smi}")
+    check(cost["acquires"] > 0 and
+          cost["pct"] <= racefuzz.OVERHEAD_LIMIT_PCT,
+          f"[racefuzz] disarmed wrappers' cost {cost}")
+    if ovh is not None:
+        check(ovh["types"] == {"raw": "lock", "disarmed": "TrackedLock"},
+              f"[racefuzz] overhead legs ran {ovh['types']}")
+        pairs = racefuzz.OVERHEAD_ROUNDS * racefuzz.OVERHEAD_PROCS
+        log(f"[racefuzz] overhead A/B: paired {ovh['pct']:+.2f}% (the "
+            f"median of disarmed / raw - 1 over {pairs} adjacent pairs; "
+            f"limit +{racefuzz.OVERHEAD_LIMIT_PCT:.0f}%); A/A controls raw "
+            f"{ovh['aa_raw_pct']:+.2f}%, disarmed "
+            f"{ovh['aa_disarmed_pct']:+.2f}%; leg medians raw "
+            f"{ovh['raw_ms']:.2f} ms, disarmed {ovh['disarmed_ms']:.2f} ms; "
+            f"{ovh['acquires']} acquisitions a call, the wrappers "
+            f"{ovh['wrapper_pct']:+.5f}%; {smi}")
+        check(ovh["pct"] <= racefuzz.OVERHEAD_LIMIT_PCT
+              and ovh["wrapper_pct"] <= racefuzz.OVERHEAD_LIMIT_PCT,
+              f"[racefuzz] disarmed lock overhead {ovh['pct']:+.2f}% "
+              f"(wrappers {ovh['wrapper_pct']:+.5f}%)")
+    log(f"[racefuzz] overhead launches viterbi_decode {n['viterbi_decode']}")
+    return {"fuzz": fuzz, "overhead": n}
+
+
+def phase_bigreplay(probes, writers, smi):
+    """``tools/bigreplay.py`` on the card: oracle agreement >= 0.99,
+    exactly-once on both legs, empty spools, fault ratio >= 0.2."""
+    import tempfile
+    from reporter_tpu_torch.tools import bigreplay
+    with tempfile.TemporaryDirectory() as tmp:
+        with LaunchScope(f"{tmp}/bigreplay.log") as scope:
+            rc = bigreplay.main([
+                "--device", "cuda", "--probes", str(probes), "--writers",
+                str(writers), "--out", f"{tmp}/bigreplay.json"])
+        check(rc == 0, "[bigreplay] failed on the card")
+        with open(f"{tmp}/bigreplay.json") as f:
+            art = json.load(f)
+    n = scope.counts
+    check_card_counts("[bigreplay]", n)
+    clean, chaos_leg = art["clean"], art["chaos"]
+    log(f"[bigreplay] {clean['probes']} probes, {writers} writers/city: "
+        f"clean {clean['probes_per_s']} probes/s ({clean['wall_s']} s), "
+        f"chaos {chaos_leg['probes_per_s']} probes/s "
+        f"({chaos_leg['wall_s']} s), ratio {art['fault_throughput_ratio']}; "
+        f"agreement {art['agreement']} over {art['agreement_traces']} "
+        f"traces; exactly-once clean {clean['exactly_once']}, chaos "
+        f"{chaos_leg['exactly_once']}; launches viterbi_decode "
+        f"{n['viterbi_decode']}, incremental_step {n['incremental_step']}, "
+        f"plain {n['plain']}; {smi}")
+    log("[bigreplay] " + json.dumps(art, sort_keys=True))
+    return n
+
+
 def max_sm_mhz() -> int:
     """The card's maximum SM clock, which the chain model runs at."""
     out = subprocess.run(
@@ -6872,6 +7218,11 @@ def main() -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="the main phase and the decode mesh's phase; "
                          "nothing else runs")
+    ap.add_argument("--chaos", action="store_true",
+                    help="the robustness harnesses at full length: all "
+                         "twelve chaos scenarios, overload, racefuzz "
+                         "--seeds 3 and bigreplay --probes 1000000 "
+                         "--writers 4; nothing else runs")
     args = ap.parse_args()
     if not (ROOT / "reporter_tpu_torch" / "ops" / "csrc" / "viterbi.cu").is_file():
         fail("reporter_tpu_torch is not beside this script")
@@ -6923,6 +7274,30 @@ def main() -> int:
         check(not spills, f"ptxas reports spills: {spills}")
         return finish(smi, {"mesh_launches": mesh_launches,
                             "mesh_walls_s": walls})
+    card = smi[0] if smi else "nvidia-smi: no output"
+    if args.chaos:
+        from reporter_tpu_torch.tools import chaos
+        spills = phase_build()
+        lap("build")
+        chaos_launches = phase_chaos(
+            (*chaos.SCENARIOS, "prefork_kill_mesh"), card)
+        lap("chaos")
+        overload_launches = phase_overload(card)
+        lap("overload")
+        from reporter_tpu_torch.tools.racefuzz import DEFAULT_SCENARIOS
+        racefuzz_launches = phase_racefuzz(3, DEFAULT_SCENARIOS, card,
+                                           ab=True)
+        lap("racefuzz")
+        bigreplay_launches = {}
+        for probes, writers in BIGREPLAY_RUNS:
+            bigreplay_launches[f"{probes}x{writers}"] = phase_bigreplay(
+                probes, writers, card)
+            lap(f"bigreplay {probes}x{writers}")
+        check(not spills, f"ptxas reports spills: {spills}")
+        return finish(smi, {"chaos_launches": chaos_launches,
+                            "overload_launches": overload_launches,
+                            "racefuzz_launches": racefuzz_launches,
+                            "bigreplay_launches": bigreplay_launches})
     if not (args.against or args.cities):
         # the [worker] phase's stream, written while the phases before
         # it run
@@ -7006,6 +7381,15 @@ def main() -> int:
         dev, smi[0] if smi else "nvidia-smi: no output", big, past, far,
         serving)
     lap("cities")
+    chaos_launches = phase_chaos(CHAOS_FULL, card)
+    lap("chaos")
+    overload_launches = phase_overload(card, smoke=True)
+    lap("overload")
+    racefuzz_launches = phase_racefuzz(1, RACEFUZZ_FULL, card)
+    lap("racefuzz")
+    probes, writers = BIGREPLAY_RUNS[0]
+    bigreplay_launches = phase_bigreplay(probes, writers, card)
+    lap(f"bigreplay {probes}x{writers}")
     floor = launch_floor_ms(dev)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
     lap("timing")
@@ -7130,6 +7514,19 @@ def main() -> int:
     for k in kernels:
         # an empty kernel's launch by CUDA graphs, as "ms" is timed
         k["launch_floor_ms"] = floor
+        if k["name"] in ("viterbi_decode", "incremental_step"):
+            # the robustness phases (phase_chaos a scenario,
+            # phase_racefuzz's fuzz): this process's calls and every
+            # harness child's
+            k["launches_chaos"] = {name: n[k["name"]] for name, n
+                                   in chaos_launches.items()}
+            k["launches_racefuzz"] = racefuzz_launches["fuzz"][k["name"]]
+            # overload --smoke's child, the overhead A/B's twelve live
+            # legs, and bigreplay's 100k x 2 workers (phase_overload,
+            # phase_racefuzz, phase_bigreplay)
+            k["launches_overload"] = overload_launches[k["name"]]
+            k["launches_overhead"] = racefuzz_launches["overhead"][k["name"]]
+            k["launches_bigreplay"] = bigreplay_launches[k["name"]]
         # the worker phase's legs (phase_worker), each counted from 0
         k["launches_worker"] = worker_launches[k["name"]]
     return finish(smi, {"kernels": kernels})

@@ -18,12 +18,20 @@ PrintConsumer):
 
 The commands that decode (serve, stream, pipeline, accuracy, and
 datastore profile --replay) run on the card unless given ``--device cpu``.
+serve, stream and pipeline read their config's ``lockcheck`` before
+they load: ``"raw"`` makes every lock of the process a bare one.
 """
 from __future__ import annotations
 
+import json
 import sys
 
 COMMANDS = {}
+#: where the commands that read a service config take its path: a flag,
+#: or None for serve's first positional argument (each of serve's
+#: options takes a value)
+CONFIG_ARGS = {"serve": None, "stream": "--config",
+               "pipeline": "--match-config"}
 
 
 def _cmd(name):
@@ -93,6 +101,47 @@ def _graph():
     return main
 
 
+def config_path(name, rest):
+    """The config file ``rest`` (command ``name``'s arguments) names, or
+    None."""
+    if name not in CONFIG_ARGS:
+        return None
+    flag = CONFIG_ARGS[name]
+    if flag is not None:
+        for i, arg in enumerate(rest):
+            if arg == flag:
+                return rest[i + 1] if i + 1 < len(rest) else None
+            if arg.startswith(flag + "="):
+                return arg[len(flag) + 1:]
+        return None
+    i = 0
+    while i < len(rest):
+        if not rest[i].startswith("-"):
+            return rest[i]
+        i += 1 if "=" in rest[i] else 2
+    return None
+
+
+def raw_locks_first(name, rest) -> None:
+    """Raw mode (``utils.locks.set_raw``) when the command's config has
+    ``lockcheck: "raw"``, before the command's modules load and make
+    their locks, as the JAX package's ``REPORTER_TPU_LOCKCHECK=raw``
+    does at import. A config that cannot be read is left to the
+    command, which reports it."""
+    path = config_path(name, rest)
+    if path is None:
+        return
+    try:
+        with open(path, encoding="utf-8") as f:
+            conf = json.load(f)
+    except (OSError, ValueError):
+        return
+    service = conf.get("service") if isinstance(conf, dict) else None
+    if isinstance(service, dict) and service.get("lockcheck") == "raw":
+        from .utils import locks
+        locks.set_raw()
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
@@ -103,6 +152,7 @@ def main(argv=None):
         print(f"unknown command {name!r}; one of: "
               + ", ".join(sorted(COMMANDS)), file=sys.stderr)
         return 2
+    raw_locks_first(name, rest)
     return COMMANDS[name]()(rest)
 
 

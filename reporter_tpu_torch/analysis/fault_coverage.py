@@ -14,11 +14,11 @@ FP001  site-name drift: a ``failpoint(site)`` call whose literal site is
        warning table and the lint contract are the same list).
 FP002  a registered site with NO ``failpoint()`` call site: the hook
        the registry promises was removed (or never landed).
-FP003  a registered site exercised by neither a
-       ``tests/test_torch_faults.py`` case nor ``chip_smoke.py``'s
-       ``[faults]`` phase on the card (substring scan of both files —
-       specs are strings, so the site name appears verbatim wherever it
-       is armed).
+FP003  a registered site exercised by none of a
+       ``tests/test_torch_faults.py`` case, a ``tools/chaos.py`` scenario
+       and ``chip_smoke.py``'s phases on the card (substring scan of the
+       three files — specs are strings, so the site name appears
+       verbatim wherever it is armed).
 """
 from __future__ import annotations
 
@@ -40,7 +40,8 @@ RULES = {
 FAULTS_REL = "reporter_tpu_torch/utils/faults.py"
 REGISTRY_REL = "reporter_tpu_torch/analysis/registry.py"
 #: where a site must be exercised (relative to the repo root)
-EXERCISE_FILES = ("tests/test_torch_faults.py", "chip_smoke.py")
+EXERCISE_FILES = ("tests/test_torch_faults.py",
+                  "reporter_tpu_torch/tools/chaos.py", "chip_smoke.py")
 
 
 def _call_sites(files: Sequence[SourceFile]
@@ -165,7 +166,7 @@ def run(files: Sequence[SourceFile], repo_root: str,
             findings.append(Finding(
                 REGISTRY_REL, reg_lines.get(name, 1), "FP003",
                 f"fault site {name!r} is exercised by no "
-                "tests/test_torch_faults.py case or chip_smoke.py phase "
-                "— an untested failure domain"))
+                "tests/test_torch_faults.py case, tools/chaos.py scenario "
+                "or chip_smoke.py phase — an untested failure domain"))
 
     return findings

@@ -60,7 +60,7 @@ CONFIG_KEYS: Dict[str, str] = {
     "service.shadow_sample": "decode shadow sample fraction",
     "service.profile_events": "profiler wide-event ring capacity",
     "service.flightrec_dir": "flight-recorder dump dir",
-    "service.lockcheck": "runtime lock witness on/off",
+    "service.lockcheck": "runtime lock witness on/off, raw: bare locks",
     "service.racefuzz": "schedule-fuzz spec seed[:prob][@max_us]",
     "service.faults": "deterministic failpoint spec",
     "service.deadletter_dir": "quarantined-trace spool dir",

@@ -47,7 +47,8 @@ keys stand for the JAX package's environment knobs:
   shadow_sample      REPORTER_TPU_SHADOW_SAMPLE     (0.0, off)
   profile_events     REPORTER_TPU_PROFILE_EVENTS    (512)
   flightrec_dir      REPORTER_TPU_FLIGHTREC         (none: no dumps)
-  lockcheck          REPORTER_TPU_LOCKCHECK         (false)
+  lockcheck          REPORTER_TPU_LOCKCHECK         (false; "raw": bare
+                                                     locks)
   racefuzz           REPORTER_TPU_RACEFUZZ          (none: disarmed)
   faults             REPORTER_TPU_FAULTS            (none: disarmed)
   deadletter_dir     (the worker's trace spool)     (none)
@@ -197,7 +198,10 @@ def configure_obs(keys: dict) -> None:
     process: ``trace`` -> ``obs.trace.configure``, ``slo_ms`` ->
     ``obs.slo.configure``, ``shadow_sample`` and ``profile_events`` ->
     ``obs.profiler.configure``, ``flightrec_dir`` ->
-    ``obs.flightrec.set_dump_dir``, ``lockcheck`` -> ``utils.locks.arm``,
+    ``obs.flightrec.set_dump_dir``, ``lockcheck`` -> ``utils.locks.arm``
+    (``"raw"``: ``utils.locks.set_raw``, every lock of the process bare;
+    it raises once a tracked lock exists, so the command line applies it
+    before the package loads and here it only checks),
     ``racefuzz`` -> ``utils.locks.configure_fuzz`` (the schedule-fuzz
     spec ``seed[:prob][@max_us]``; a malformed one raises). A key left
     out keeps its current setting."""
@@ -212,7 +216,9 @@ def configure_obs(keys: dict) -> None:
     if "flightrec_dir" in keys:
         flightrec.set_dump_dir(keys["flightrec_dir"])
     if "lockcheck" in keys:
-        if _on(keys["lockcheck"]):
+        if keys["lockcheck"] == "raw":
+            locks.set_raw()
+        elif _on(keys["lockcheck"]):
             locks.arm()
         else:
             locks.disarm()
@@ -1135,10 +1141,10 @@ def main(argv=None) -> int:
         sys.stderr.write(f"Problem with config file: {e}\n")
         return 1
     pool_size = conf["server"].get("pool_size", POOL_SIZE)
-    configure_obs(conf["obs"])
     try:
+        configure_obs(conf["obs"])
         configure_faults(conf["faults"])
-    except ValueError as e:
+    except (ValueError, RuntimeError) as e:
         sys.stderr.write(f"Problem with config file: {e}\n")
         return 1
 

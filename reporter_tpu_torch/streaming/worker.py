@@ -606,10 +606,10 @@ def main(argv=None) -> int:
         conf = parse_config({"graph": args.graph})
     if conf is not None:
         from ..service.server import configure_faults, configure_obs
-        configure_obs(conf["obs"])
         try:
+            configure_obs(conf["obs"])
             configure_faults(conf["faults"])
-        except ValueError as e:
+        except (ValueError, RuntimeError) as e:
             sys.stderr.write(f"Problem with config file: {e}\n")
             return 1
 

@@ -9,7 +9,12 @@ inversions (RC001, potential deadlock) and long holds (RC002) with the
 acquisition stacks.
 
 - :class:`TrackedLock`: a named ``threading.Lock`` wrapper. Disarmed,
-  it costs one module-flag load per acquire and per release.
+  it costs one module-flag load per acquire and per release (pinned by
+  ``python -m reporter_tpu_torch.tools.racefuzz --overhead``, the
+  serialized 512-trace A/B). In raw mode (:func:`set_raw`, the config's
+  ``lockcheck: "raw"``) :func:`new_lock` hands out bare
+  ``threading.Lock`` objects instead: the A leg of that A/B. The witness
+  cannot arm in raw mode.
 - :class:`Guarded` / :func:`thread_affine`: the shared-state audit.
   ``Guarded(obj, lock, name)`` proxies a mutable object and, armed,
   asserts the owning :class:`TrackedLock` is held by the calling thread
@@ -46,6 +51,7 @@ logger = logging.getLogger("reporter_tpu_torch.locks")
 DEFAULT_HOLD_MS = 200.0
 
 _ENABLED = False      # the one flag every disarmed lock site loads
+_RAW = False          # new_lock() hands out bare threading.Lock
 _witness = None       # reporter_tpu_torch.analysis.racecheck, set by arm()
 _FUZZ: Optional["_FuzzSpec"] = None   # the armed perturbation spec
 #: every live TrackedLock, for the post-fork sweep (a WeakSet: a lock
@@ -111,8 +117,11 @@ class TrackedLock:
             and self._owner == threading.get_ident()
 
 
-def new_lock(name: str, long_hold_ok: bool = False) -> TrackedLock:
-    """The package lock factory."""
+def new_lock(name: str, long_hold_ok: bool = False):
+    """The package lock factory: a :class:`TrackedLock`, or a bare
+    ``threading.Lock`` in raw mode (:func:`set_raw`)."""
+    if _RAW:
+        return threading.Lock()
     return TrackedLock(name, long_hold_ok=long_hold_ok)
 
 
@@ -225,8 +234,11 @@ def armed() -> bool:
 
 def arm(hold_ms: Optional[float] = None) -> None:
     """Arm the witness and the audit; ``hold_ms`` is the RC002 long-hold
-    threshold (default ``DEFAULT_HOLD_MS``)."""
+    threshold (default ``DEFAULT_HOLD_MS``). Raises in raw mode."""
     global _ENABLED, _witness
+    if _RAW:
+        raise RuntimeError("lockcheck \"raw\" hands out bare locks; the "
+                           "witness cannot arm in this process")
     from ..analysis import racecheck
     racecheck.enable(DEFAULT_HOLD_MS if hold_ms is None else hold_ms)
     _witness = racecheck
@@ -236,6 +248,34 @@ def arm(hold_ms: Optional[float] = None) -> None:
 def disarm() -> None:
     global _ENABLED
     _ENABLED = False
+
+
+def set_raw() -> None:
+    """Raw mode for the rest of the process: every :func:`new_lock` is a
+    bare ``threading.Lock``. It must come before the process makes its
+    first :class:`TrackedLock`, so that no lock of the process stays
+    tracked: the command line reads the config's ``lockcheck`` before it
+    imports the command (``python -m reporter_tpu_torch serve|stream|
+    pipeline``), and ``tools/racefuzz.py``'s overhead leg sets it first
+    thing. Raises while the witness is armed or once a tracked lock
+    exists; a no-op when raw mode is on already."""
+    global _RAW
+    if _RAW:
+        return
+    if _ENABLED:
+        raise RuntimeError("the witness is armed; raw mode cannot start")
+    if len(_instances):
+        raise RuntimeError(
+            f"lockcheck \"raw\" after {len(_instances)} tracked lock(s) were "
+            "made would leave them tracked: set it before the package's "
+            "modules load (python -m reporter_tpu_torch serve|stream|"
+            "pipeline reads it from the config first)")
+    _RAW = True
+
+
+def raw() -> bool:
+    """Is raw mode on (:func:`set_raw`)?"""
+    return _RAW
 
 
 # ---- schedule perturbation -------------------------------------------------
@@ -350,6 +390,7 @@ from . import forksafe as _forksafe  # noqa: E402
 _forksafe.register(_fork_reset)
 
 __all__ = ["TrackedLock", "Guarded", "new_lock", "thread_affine",
-           "reset_affinity", "arm", "disarm", "armed", "configure_fuzz",
+           "reset_affinity", "arm", "disarm", "armed", "set_raw", "raw",
+           "configure_fuzz",
            "parse_fuzz_spec", "fuzz_point", "fuzz_yields",
            "DEFAULT_HOLD_MS"]

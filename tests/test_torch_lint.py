@@ -373,11 +373,32 @@ def test_faultcov_live_drift_and_coverage_detected(live_files):
 
 def test_faultcov_every_site_is_exercised(live_files):
     """FP003 against the port's exercise files: every registered site is
-    armed by tests/test_torch_faults.py or chip_smoke.py."""
-    assert fault_coverage.EXERCISE_FILES == ("tests/test_torch_faults.py",
-                                             "chip_smoke.py")
+    armed by tests/test_torch_faults.py, the chaos tool or
+    chip_smoke.py."""
+    assert fault_coverage.EXERCISE_FILES == (
+        "tests/test_torch_faults.py", "reporter_tpu_torch/tools/chaos.py",
+        "chip_smoke.py")
     found = fault_coverage.run(live_files, REPO)
     assert [f.render() for f in found if f.rule == "FP003"] == []
+
+
+def test_faultcov_a_site_only_a_chaos_scenario_arms_is_exercised(
+        live_files):
+    """A site armed only by a tools/chaos.py scenario counts as
+    exercised; the same site armed nowhere is FP003."""
+    sites = dict(registry.FAULT_SITES, **{"chaos.only": "fixture"})
+    texts = ["", 'faults.configure("chaos.only=crash#1")', ""]
+    found = fault_coverage.run(live_files, REPO, sites=sites,
+                               exercise_texts=texts)
+    assert not [f for f in found
+                if f.rule == "FP003" and "chaos.only" in f.message]
+    found = fault_coverage.run(live_files, REPO, sites=sites,
+                               exercise_texts=["", "", ""])
+    assert [f for f in found
+            if f.rule == "FP003" and "chaos.only" in f.message]
+    with open(os.path.join(REPO, fault_coverage.EXERCISE_FILES[1])) as f:
+        chaos_text = f.read()
+    assert "city.swap=crash#1" in chaos_text
 
 
 # ---- failure domains -------------------------------------------------------
