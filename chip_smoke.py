@@ -263,6 +263,19 @@ Phases, each fatal on failure:
    bigreplay bigreplay.py --probes 100000 --writers 2: agreement with
             the numpy oracle >= 0.99, exactly-once on both legs, empty
             spools, fault/clean throughput ratio >= 0.2
+   fanout   feed_fanout.py at the JAX harness's acceptance scale: 1,000
+            world-bbox /feed long-polls against a two-worker pre-fork
+            fleet whose matchers are on the card, 400 waiters a worker
+            (so the shed path fires), one commit; every subscriber
+            delivered or shed with 429 + Retry-After, none silent, no
+            error, shed events, fanout_ratio >= 0.95; delivery p50/p99
+   trace-replay trace_cli.py record of 4 requests on the card: the
+            decode span holds a kernel.viterbi_decode launch span and
+            the launch counter moved; replay_cli.py drains a spool of 8
+            of main's trace bodies through a card service into tiles
+            and a store, equal (tile bytes, store cells) to the same
+            drain through a CPU service, the card drain's launches
+            counted
 8. timing   the launch floor (an empty kernel with the kernels' C launch
             interface, built beside them, by CUDA graphs and back to back);
             CUDA-event times of the decode kernel from CUDA graphs (the
@@ -346,7 +359,9 @@ card run (``launches_accuracy_osm`` its --osm-fixture run),
 ``launches_datastore`` the datastore phase's profile replay,
 ``launches_cities`` the cities phase's legs (A: the server child's
 wrapper count; B and C: this process's), ``launches_mesh`` the mesh
-phase's (the relaxation kernels and pair_costs too); relax and
+phase's (the relaxation kernels and pair_costs too),
+``launches_trace_replay`` the trace-replay phase's record and drain;
+relax and
 pair_costs: the
 routes phase's device lanes-on runs,
 cold and the first warm round; relax_cluster: route-city's 125x125
@@ -393,6 +408,9 @@ With ``--assoc`` only the build, main and assoc phases run.
 
 With ``--mesh`` only the build and main phases run, then the route
 cities' inputs that [mesh] needs and the mesh phase.
+
+With ``--tools`` only the build and main phases run, then [fanout] and
+[trace-replay].
 
 With ``--chaos`` only the build runs, then the robustness phases at
 full length: all twelve chaos scenarios and prefork_kill on a decode mesh
@@ -7189,6 +7207,141 @@ def phase_bigreplay(probes, writers, smi):
     return n
 
 
+#: the change feed's fan-out proof at the JAX harness's acceptance scale:
+#: subscribers, worker processes, each worker's feed waiters (below its
+#: share, so the shed path fires) and handler threads; the ratio floor is
+#: the JAX perf gate's
+FANOUT = dict(subscribers=1000, procs=2, waiters=400, pool=700, ramp=6.0,
+              sub_deadline=60.0)
+FANOUT_MIN_RATIO = 0.95
+#: the trace CLI's recorded requests, and the trace bodies the replay
+#: CLI drains from its spool
+TRACE_RECORD_N = 4
+REPLAY_TRACES = 8
+
+
+def phase_fanout(card):
+    """``tools/feed_fanout.py`` on the card: 1,000 world-bbox ``/feed``
+    subscribers against a two-worker pre-fork fleet whose matchers are on
+    the card, 400 waiters a worker; every subscriber delivered or shed
+    with 429 and Retry-After, none silent and no error, shed events, and
+    ``fanout_ratio`` at least the JAX gate's 0.95."""
+    from reporter_tpu_torch.tools import feed_fanout
+    t0 = time.perf_counter()
+    res = feed_fanout.run_fanout(device="cuda", **FANOUT)
+    art = {"kind": "feed_fanout", "waiter_cap": FANOUT["waiters"],
+           "pool": FANOUT["pool"], **res}
+    wall = time.perf_counter() - t0
+    failures = feed_fanout.check(art, FANOUT_MIN_RATIO)
+    check(not failures, f"[fanout] {failures}")
+    check(art["device"] == "cuda", f"[fanout] the fleet ran on "
+                                   f"{art['device']}")
+    n = FANOUT["subscribers"]
+    check(art["subscribers"] == n and art["delivered"] + art["shed"] == n,
+          f"[fanout] accounting open: {art}")
+    check(art["shed_events"] > 0, f"[fanout] the shed path never fired: "
+                                  f"{art}")
+    log(f"[fanout] {n} subscribers, {art['procs']} workers on the card, "
+        f"{art['waiter_cap']} waiters a worker: delivered "
+        f"{art['delivered']}, shed {art['shed']} ({art['shed_events']} shed "
+        f"events), errors {art['errors']}, silent {art['silent_lost']}; "
+        f"delivery p50 {art['delivery_p50_ms']} ms, p99 "
+        f"{art['delivery_p99_ms']} ms; fanout_ratio {art['fanout_ratio']} "
+        f"(floor {FANOUT_MIN_RATIO}); {wall:.1f} s; {card}")
+    log("[fanout] " + json.dumps(art, sort_keys=True))
+    return art
+
+
+def phase_trace_replay(dev, served, card):
+    """``tools/trace_cli.py record`` on the card: its Chrome events hold
+    the decode span with a ``kernel.viterbi_decode`` launch under it, and
+    the launch counter moved. Then ``tools/replay_cli.py`` drains a spool
+    of trace bodies through a card service into tiles (byte-equal) and a
+    store (cells equal) as through a ``device="cpu"`` service. Returns the
+    viterbi_decode launches (record, card drain)."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from reporter_tpu_torch.datastore import LocalDatastore
+    from reporter_tpu_torch.matcher import SegmentMatcher
+    from reporter_tpu_torch.ops import viterbi
+    from reporter_tpu_torch.service.server import ReporterService, serve
+    from reporter_tpu_torch.tools import replay_cli, trace_cli
+
+    viterbi.viterbi_cuda.launches = 0
+    rec = trace_cli.record(TRACE_RECORD_N, "cuda")
+    rec_launches = viterbi.viterbi_cuda.launches
+    evs = rec["traceEvents"]
+    by_id = {e["args"]["span_id"]: e for e in evs}
+    kern = [e for e in evs if e["name"] == "kernel.viterbi_decode"]
+    parents = {by_id.get(e["args"]["parent_id"], {}).get("name")
+               for e in kern}
+    check(kern and parents == {"matcher.decode_dispatch"},
+          f"[trace-replay] no kernel.viterbi_decode span under the decode "
+          f"span: {sorted({e['name'] for e in evs})}, parents {parents}")
+    # the first request, served before the recording, builds and launches
+    check(1 <= len(kern) < rec_launches,
+          f"[trace-replay] {len(kern)} launch spans, {rec_launches} "
+          f"launches counted")
+    log(f"[trace-replay] record: {len(evs)} events over {TRACE_RECORD_N} "
+        f"requests, {len(kern)} kernel.viterbi_decode spans under "
+        f"matcher.decode_dispatch, {rec_launches} launches counted "
+        f"(the warm-up request's among them)")
+
+    city, params = served["city"], served["params"]
+    with tempfile.TemporaryDirectory() as tmp:
+        spool = Path(tmp) / "spool" / ".traces"
+        spool.mkdir(parents=True)
+        for r in served["reqs"][:REPLAY_TRACES]:
+            (spool / f"batch.{r['uuid']}.json").write_text(json.dumps(r))
+        outs, drain_launches = {}, 0
+        for where in ("cuda", "cpu"):
+            work = Path(tmp) / where
+            shutil.copytree(Path(tmp) / "spool", work / "dl")
+            svc = ReporterService(SegmentMatcher(
+                city, params, device=dev if where == "cuda" else "cpu"),
+                threshold_sec=15, max_batch=64)
+            httpd = serve(svc, "127.0.0.1", 0)
+            url = f"http://127.0.0.1:{httpd.server_address[1]}/report"
+            viterbi.viterbi_cuda.launches = 0
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    rc = replay_cli.main([
+                        "--spool", str(work / "dl"), "--url", url,
+                        "--privacy", "1", "--quantisation", "3600",
+                        "--sink", str(work / "out"), "--datastore",
+                        str(work / "store"), "--source", "replay-smoke"])
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+                svc.dispatcher.close()
+                svc.matcher.close()
+            if where == "cuda":
+                drain_launches = viterbi.viterbi_cuda.launches
+            # (the summary's counters are this process's, summed over
+            # both drains)
+            summary = json.loads(buf.getvalue())
+            check(rc == 0 and summary["drained"] == REPLAY_TRACES
+                  and summary["after"] == {"tiles": 0, "traces": 0},
+                  f"[trace-replay] {where} drain: rc {rc}, {summary}")
+            outs[where] = (tile_tree(work / "out"), LocalDatastore(
+                str(work / "store")).merged_cells())
+    check(drain_launches > 0, "[trace-replay] the card drain launched "
+                              "no kernel")
+    tiles, store = outs["cuda"]
+    check(tiles and tiles == outs["cpu"][0],
+          "[trace-replay] the card drain's tiles differ from the CPU's")
+    check(store and store == outs["cpu"][1],
+          "[trace-replay] the card drain's store differs from the CPU's")
+    log(f"[trace-replay] replay: {REPLAY_TRACES} spooled traces through a "
+        f"card service, {len(tiles)} tiles byte-equal and {len(store)} "
+        f"store cells equal to the CPU service's drain; {drain_launches} "
+        f"viterbi_decode launches; {card}")
+    return {"record": rec_launches, "replay": drain_launches}
+
+
 def max_sm_mhz() -> int:
     """The card's maximum SM clock, which the chain model runs at."""
     out = subprocess.run(
@@ -7218,6 +7371,10 @@ def main() -> int:
     ap.add_argument("--mesh", action="store_true",
                     help="the main phase and the decode mesh's phase; "
                          "nothing else runs")
+    ap.add_argument("--tools", action="store_true",
+                    help="the main phase, the change feed's fan-out proof "
+                         "and the trace and replay CLIs' phase; nothing "
+                         "else runs")
     ap.add_argument("--chaos", action="store_true",
                     help="the robustness harnesses at full length: all "
                          "twelve chaos scenarios, overload, racefuzz "
@@ -7275,6 +7432,18 @@ def main() -> int:
         return finish(smi, {"mesh_launches": mesh_launches,
                             "mesh_walls_s": walls})
     card = smi[0] if smi else "nvidia-smi: no output"
+    if args.tools:
+        spills = phase_build()
+        lap("build")
+        _n, _main, _err, _scalars, served = phase_main(dev)
+        lap("main")
+        fanout = phase_fanout(card)
+        lap("fanout")
+        trace_replay = phase_trace_replay(dev, served, card)
+        lap("trace-replay")
+        check(not spills, f"ptxas reports spills: {spills}")
+        return finish(smi, {"fanout": fanout,
+                            "trace_replay_launches": trace_replay})
     if args.chaos:
         from reporter_tpu_torch.tools import chaos
         spills = phase_build()
@@ -7390,6 +7559,10 @@ def main() -> int:
     probes, writers = BIGREPLAY_RUNS[0]
     bigreplay_launches = phase_bigreplay(probes, writers, card)
     lap(f"bigreplay {probes}x{writers}")
+    phase_fanout(card)
+    lap("fanout")
+    trace_replay = phase_trace_replay(dev, served, card)
+    lap("trace-replay")
     floor = launch_floor_ms(dev)
     times = phase_timing(dev, main, scalars, max_sm_mhz())
     lap("timing")
@@ -7438,6 +7611,10 @@ def main() -> int:
         # widths 2 and 4 naming the card (chunks x width) and the
         # device-route run on a 2-entry mesh
         "launches_mesh": mesh_launches["viterbi_decode"],
+        # the trace-replay phase: trace_cli record's requests (the
+        # warm-up's among them) and replay_cli's drain through a card
+        # service (phase_trace_replay)
+        "launches_trace_replay": trace_replay,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain,

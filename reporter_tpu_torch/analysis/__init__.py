@@ -12,13 +12,19 @@ no general-purpose tool can see. Four per-file code passes:
   durability      DUR001-DUR004 tmp+fsync+replace+dir-fsync commits in the
                                 durable modules; epoch marker after sink ack
 
-three cross-layer contract passes against the declarative registry
+five cross-layer contract passes against the declarative registry
 (:mod:`registry`):
 
   registry_drift  KN001-KN002   config keys: code <-> registry <-> README
                   MT001-MT002   metric names: call sites <-> registry
   fault_coverage  FP001-FP003   failpoint sites: registered, hooked, and
                                 exercised by a fault test or the card run
+  tensorcontract  TC001-TC002   the kernels' plain versions keep the
+                                committed shape/dtype signatures (on meta
+                                tensors); counted wrappers <-> contracts
+                                <-> the card's ``extern "C"`` entries
+  placement       DP001-DP003   device lanes bring device values to the
+                                host only at declared sync points
   fallback        FB001-FB003   every circuit domain declares its fault
                                 site, config key, fallback leg ("raises"
                                 on the card) and parity test
@@ -39,14 +45,18 @@ the line (or the line above), with its reason beside it. The baseline
 but no static pass emits them. :mod:`dsmem_atomics` is a card probe.
 
 The lint modules import nothing beyond the stdlib, so the lint runs on a
-host with no accelerator stack.
+host with no accelerator stack; tensorcontract's TC001 imports torch
+inside its harness (full runs only) and needs no device. The JAX
+package's ``jit_hygiene`` pass and its TC003/TC004 have no subject here:
+the port has no traced region (no ``torch.compile``, no ``torch.jit``).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
 
 from . import (abi, durability, fallback, fault_coverage, hotpath,
-               lockgraph, locks, racecheck, registry, registry_drift)
+               lockgraph, locks, placement, racecheck, registry,
+               registry_drift, tensorcontract)
 from .core import (Finding, SourceFile, collect_py_files, compare_baseline,
                    filter_suppressed, load_baseline)
 
@@ -58,7 +68,8 @@ CODE_PASSES = (hotpath, locks, lockgraph, durability)
 #: cross-layer contract passes needing the WHOLE package (plus README and
 #: the fault tests) in view: their reverse directions (dead entries, doc
 #: drift, coverage) would false-fire on a subset.
-CONTRACT_PASSES = (registry_drift, fault_coverage, fallback)
+CONTRACT_PASSES = (registry_drift, fault_coverage, tensorcontract,
+                   placement, fallback)
 
 ALL_RULES: Dict[str, str] = {}
 for _p in (*CODE_PASSES, *CONTRACT_PASSES, abi, racecheck):
@@ -89,4 +100,4 @@ __all__ = ["Finding", "SourceFile", "collect_py_files", "load_baseline",
            "run_contract_passes", "CODE_PASSES", "CONTRACT_PASSES",
            "ALL_RULES", "abi", "hotpath", "locks", "lockgraph",
            "durability", "registry", "registry_drift", "fault_coverage",
-           "fallback", "racecheck"]
+           "tensorcontract", "placement", "fallback", "racecheck"]

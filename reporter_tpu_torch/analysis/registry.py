@@ -334,5 +334,86 @@ FALLBACK_PAIRS: Dict[str, Dict[str, object]] = {
     },
 }
 
+# ---- kernel contracts (TC rules) -------------------------------------------
+# Every counted kernel wrapper of ops/ (a function whose ``.launches``
+# counts its launches), with its plain version (the CPU path and the
+# card's reference, which TC001 runs on meta tensors) and the card's
+# ``extern "C"`` entry points it calls (the ABI pass's seven, among them
+# relax_cluster's occupancy query). Three-sided (tensorcontract TC002):
+# a counted wrapper missing here, an entry naming no counted wrapper, and
+# a card entry point no wrapper claims each fail lint. The JAX package's
+# counterpart lists its jitted entries.
+KERNEL_CONTRACTS: Dict[str, Dict[str, object]] = {
+    "reporter_tpu_torch/ops/viterbi.py::viterbi_cuda": {
+        "plain": "reporter_tpu_torch/matcher/hmm.py::viterbi_decode_batch",
+        "entries": ("viterbi_decode",),
+        "doc": "batched decode -> (B,T) paths + (B,) scores",
+    },
+    "reporter_tpu_torch/ops/incremental.py::incremental_steps_cuda": {
+        "plain": "reporter_tpu_torch/ops/incremental.py::"
+                 "incremental_steps_plain",
+        "entries": ("incremental_steps",),
+        "doc": "R decode steps for N carried traces -> (R,N,K) scores, "
+               "(R,N,K) bp, (R,N) restart anchors",
+    },
+    "reporter_tpu_torch/ops/route_relax.py::relax_cuda": {
+        "plain": "reporter_tpu_torch/ops/route_relax.py::relax_csr",
+        "entries": ("relax",),
+        "doc": "multi-source bounded relaxation in one block -> (S,N) "
+               "dist/time kernels, sweeps, converged",
+    },
+    "reporter_tpu_torch/ops/route_relax.py::relax_cluster_cuda": {
+        "plain": "reporter_tpu_torch/ops/route_relax.py::relax_csr",
+        "entries": ("relax_cluster", "relax_cluster_occupancy"),
+        "doc": "the relaxation over a thread-block cluster",
+    },
+    "reporter_tpu_torch/ops/route_relax.py::relax_global_cuda": {
+        "plain": "reporter_tpu_torch/ops/route_relax.py::relax_csr",
+        "entries": ("relax_global",),
+        "doc": "the relaxation with its state in global memory",
+    },
+    "reporter_tpu_torch/ops/route_relax.py::pair_costs_cuda": {
+        "plain": "reporter_tpu_torch/ops/route_relax.py::"
+                 "pair_costs_packed",
+        "entries": ("pair_costs",),
+        "doc": "route tensor from two packed blobs -> (B,T-1,K,K) costs "
+               "+ max_finite",
+    },
+}
+
+# ---- device lanes and host syncs (DP rules) --------------------------------
+# DEVICE_LANES are the matcher's lane stages and the prep thread's route
+# fill, the roots the placement pass walks (the submits go through
+# SegmentMatcher._lane_stage, which no structural detection sees).
+# SYNC_POINTS are the functions allowed to bring device values to the
+# host (.cpu(), .numpy(), .item(), .tolist(), float(), an event's or the
+# device's synchronize): the walk stops there. Each names its counterpart
+# in the JAX package's registry. Two-sided: an entry naming no function
+# fails lint (placement DP001/DP003).
+DEVICE_LANES: Dict[str, str] = {
+    "reporter_tpu_torch/matcher/matcher.py::SegmentMatcher._dispatch_stage":
+        "dispatch lane: upload, launch, async device-to-host copy "
+        "(reference SegmentMatcher._dispatch_stage)",
+    "reporter_tpu_torch/matcher/matcher.py::SegmentMatcher._drain_stage":
+        "drain lane: the copy's event wait, then assembly (reference "
+        "SegmentMatcher._drain_stage)",
+    "reporter_tpu_torch/graph/route_device.py::DeviceRouteKernel.fill_prep":
+        "prep-thread route fill on the native skip_routes path "
+        "(reference DeviceRouteKernel.fill_prep)",
+}
+
+SYNC_POINTS: Dict[str, str] = {
+    "reporter_tpu_torch/matcher/matcher.py::SegmentMatcher._drain_stage":
+        "the device-to-host gather: the paths' event wait under "
+        "matcher.decode_wait (reference SegmentMatcher._drain_stage)",
+    "reporter_tpu_torch/matcher/batchpad.py::PaddedBatch.finalize_wire":
+        "deferred route resolve and wire-dtype decision at dispatch "
+        "(reference PaddedBatch.finalize_wire)",
+    "reporter_tpu_torch/graph/route_device.py::DeferredRoutes.write_back":
+        "route tensor written into the prep dict on the host (reference "
+        "DeferredRoutes.write_back)",
+}
+
 __all__ = ["CONFIG_KEYS", "METRICS", "FAULT_SITES", "DURABLE_MODULES",
-           "EPOCH_COMMIT_CONTRACTS", "FALLBACK_PAIRS"]
+           "EPOCH_COMMIT_CONTRACTS", "FALLBACK_PAIRS", "KERNEL_CONTRACTS",
+           "DEVICE_LANES", "SYNC_POINTS"]

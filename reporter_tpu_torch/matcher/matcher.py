@@ -349,7 +349,9 @@ class SegmentMatcher:
     is the native prep's worker count (default the host's cores, at most
     ``PREP_THREADS_MAX``); ``chunk`` the traces per prep call and decode
     launch (default 128 with the lanes on a multi-core host, where chunks
-    are the overlap's grain, else 512). None of these changes a result.
+    are the overlap's grain, else 512); ``route_memo`` the native
+    runtime's route-pair memo bound in pairs (None: its 1 << 18; 0 turns
+    it off). None of these changes a result.
 
     ``route_device=True`` moves the native prep's route costs onto the
     matcher's device (``graph.route_device.DeviceRouteKernel``, built
@@ -412,7 +414,7 @@ class SegmentMatcher:
                  circuit_cooldown_s: float = DEFAULT_COOLDOWN_S,
                  decode_shard: str = "auto",
                  device_slice: Optional[str] = None, seq_shards: int = 1,
-                 mesh_devices=None):
+                 mesh_devices=None, route_memo: Optional[int] = None):
         self.device = resolve_device(device)
         if net is None:
             raise ValueError("no network: pass net=")
@@ -448,7 +450,8 @@ class SegmentMatcher:
         self.pad_rows = ops.batch_pad_multiple(self.decode_mesh, decode)
         if self.pad_rows:
             self.chunk = -(-self.chunk // self.pad_rows) * self.pad_rows
-        self.runtime = (NativeRuntime(net, cell_m=GRID_CELL_M) if native
+        self.runtime = (NativeRuntime(net, cell_m=GRID_CELL_M,
+                                      route_memo=route_memo) if native
                         else None)
         self.route_kernel = (
             device_routes.DeviceRouteKernel(net, self.device,

@@ -13,7 +13,9 @@ first use (:func:`load`), never at import, and loaded with ``ctypes``
 after an ABI handshake. A missing compiler, a failed build or an ABI
 mismatch raises ``RuntimeError``: nothing falls back to another
 implementation. Several processes may build at once; each compiles to a
-name of its own and moves the result into place.
+name of its own and moves the result into place. ``load(library=path)``
+binds a library built elsewhere instead (the sanitizer builds of
+``tools/sanitize.py``), through the same handshake.
 
 ctypes releases the GIL during calls, so the matcher's device lanes run
 native assembly beside the prep thread.
@@ -38,12 +40,14 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 #: the C++ compiler the library is built with
 CXX = "g++"
 #: must equal host_runtime.cpp's rt_abi_version()
-ABI_VERSION = 14
+ABI_VERSION = 15
 #: prepare_batch's phase_ns slots, counted as ``prep.phase.<name>_ns``
 PHASES = ("candidates", "select", "routes")
 
 _lock = threading.Lock()
 _lib = None
+#: the path ``_lib`` was loaded from
+_lib_path = None
 
 
 def cxx_flags() -> tuple:
@@ -58,39 +62,60 @@ def cxx_flags() -> tuple:
     return flags + (("-mavx", "-mf16c") if f16c else ())
 
 
-def _build() -> Path:
-    """Compile the library once per source and flags; returns its path."""
-    flags = cxx_flags()
+def library_name(flags, stem: str = "libreporter_host") -> str:
+    """``<stem>-<sha16>.so``: the first 16 hex digits of the SHA-256 of
+    the source and the flags, so a change to either is a new file."""
     tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(flags).encode()
                          ).hexdigest()[:16]
-    out = BUILD_DIR / f"libreporter_host-{tag}.so"
+    return f"{stem}-{tag}.so"
+
+
+def build(flags=None, stem: str = "libreporter_host",
+          cxx: "str | None" = None) -> Path:
+    """Compile the library once per source and flags (``cxx_flags()`` by
+    default) into ``BUILD_DIR`` with ``cxx`` (default ``CXX``); returns
+    its path."""
+    cxx = cxx or CXX
+    flags = tuple(cxx_flags() if flags is None else flags)
+    out = BUILD_DIR / library_name(flags, stem)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     try:
-        proc = subprocess.run([CXX, *flags, "-o", str(tmp), str(SOURCE)],
+        proc = subprocess.run([cxx, *flags, "-o", str(tmp), str(SOURCE)],
                               capture_output=True, text=True, timeout=600)
     except FileNotFoundError as e:
-        raise RuntimeError(f"C++ compiler {CXX!r} not found: the host "
+        raise RuntimeError(f"C++ compiler {cxx!r} not found: the host "
                            f"runtime is built with g++") from e
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"{CXX} failed ({proc.returncode}) building "
+        raise RuntimeError(f"{cxx} failed ({proc.returncode}) building "
                            f"{SOURCE.name}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
     return out
 
 
-def load() -> ctypes.CDLL:
-    """The built, handshaken and bound library (built on first call)."""
-    global _lib
+def load(library=None) -> ctypes.CDLL:
+    """The built, handshaken and bound library (built on first call).
+
+    ``library`` is the path of a library built elsewhere, bound in its
+    place: every later ``load()`` of the process returns it. A library
+    that fails the handshake raises, and so does a ``library`` other than
+    the one the process already bound."""
+    global _lib, _lib_path
+    want = None if library is None else str(Path(library).resolve())
     if _lib is None:
         # the build and handshake run under _lock by design: once a
         # process, and a second caller waits for them, not a second g++
         with _lock:  # lint: ignore[LD003]
             if _lib is None:
-                _lib = _bind(ctypes.CDLL(str(_build())))
+                path = want or str(build())
+                _lib = _bind(ctypes.CDLL(path))
+                _lib_path = path
+    if want is not None and want != _lib_path:
+        raise RuntimeError(f"host runtime already loaded from {_lib_path}; "
+                           f"cannot bind {want} in the same process")
     return _lib
 
 
@@ -128,6 +153,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_route_memo_export.argtypes = [vp, i64, i32p, i32p]
     lib.rt_route_memo_warm.restype = i64
     lib.rt_route_memo_warm.argtypes = [vp, i64, i32p, i32p, f64]
+    lib.rt_route_memo_set_capacity.argtypes = [vp, i64]
     lib.rt_f32_to_f16.argtypes = [f32p, u16p, i64]
     lib.rt_candidates.argtypes = [vp, i64, f64p, f64p, i32, f64, i32p, f32p,
                                   f32p, f32p, f32p]
@@ -311,9 +337,11 @@ def _destroy(lib, handle, owner_pid: int) -> None:
 
 class NativeRuntime:
     """The C++ host runtime bound to one RoadNetwork: its own spatial grid,
-    route cache, route-pair memo and prep worker pool."""
+    route cache, route-pair memo and prep worker pool. ``route_memo`` bounds
+    the route-pair memo (pairs; 0 disables it; None keeps the runtime's
+    1 << 18), the JAX package's ``REPORTER_TPU_ROUTE_MEMO``."""
 
-    def __init__(self, net, cell_m: float):
+    def __init__(self, net, cell_m: float, route_memo=None):
         lib = load()
         self._lib = lib
         self.net = net
@@ -335,6 +363,10 @@ class NativeRuntime:
             float(cell_m))
         self._finalizer = weakref.finalize(self, _destroy, lib, self._handle,
                                            self._owner_pid)
+        if route_memo is not None:
+            if route_memo < 0:
+                raise ValueError(f"route_memo={route_memo} must be >= 0")
+            lib.rt_route_memo_set_capacity(self._handle, int(route_memo))
         self._asm_cols = None
 
     def close(self) -> None:

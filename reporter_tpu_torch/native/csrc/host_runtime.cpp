@@ -14,12 +14,15 @@
 // structures (CSR, grid, caches).
 //
 // reporter_tpu_torch's copy of reporter_tpu/native/src/host_runtime.cpp
-// (ABI 14, unchanged). It reads no environment variable; the original's
-// three reads are gone, and everything else is the original's code:
+// (ABI 14, plus one entry point: ABI 15). It reads no environment
+// variable; the original's three reads are gone, and everything else is
+// the original's code:
 //   - prep threads: `default_prep_threads` (original :116-127) takes
 //     hardware_concurrency() whenever a caller passes n_threads <= 0;
 //   - route-pair memo capacity (original :445-452): the original's
-//     default, 1 << 18 pairs, fixed;
+//     default, 1 << 18 pairs, which `rt_route_memo_set_capacity` (the
+//     one addition) sets per handle, as the original's environment
+//     setting does per process;
 //   - prep timings (original :1231-1234, :1502-1509): the stderr line is
 //     dropped; `out_phase_ns` still exports the phase split.
 // Comments that named those settings are reworded to match.
@@ -217,12 +220,22 @@ class PairMemo {
   };
 
   explicit PairMemo(int64_t capacity) {
-    cap_per_stripe_ = capacity > 0 ? (capacity + kStripes - 1) / kStripes : 0;
+    cap_per_stripe_ = per_stripe(capacity);
   }
 
-  bool enabled() const { return cap_per_stripe_ > 0; }
+  bool enabled() const { return cap_per_stripe_.load() > 0; }
 
-  int64_t capacity() const { return cap_per_stripe_ * kStripes; }
+  int64_t capacity() const { return cap_per_stripe_.load() * kStripes; }
+
+  // A new bound (0 disables the memo); every stripe is evicted down to
+  // its share of it at once.
+  void set_capacity(int64_t capacity) {
+    cap_per_stripe_ = per_stripe(capacity);
+    for (auto& s : stripes_) {
+      std::lock_guard<std::mutex> lk(s.mu);
+      evict_locked(s);
+    }
+  }
 
   Stripe& stripe(int32_t ea) {
     return stripes_[static_cast<uint32_t>(ea) % kStripes];
@@ -248,9 +261,15 @@ class PairMemo {
       }
     }
     r.hot = true;
-    // clock eviction: sweep the ring, demoting hot rows, dropping cold
-    // ones, until the stripe fits its share of the bound
-    while (s.pairs > cap_per_stripe_ && !s.ring.empty()) {
+    evict_locked(s);
+  }
+
+  // Clock eviction: sweep the ring, demoting hot rows, dropping cold
+  // ones, until the stripe fits its share of the bound; caller holds
+  // stripe.mu.
+  void evict_locked(Stripe& s) {
+    const int64_t cap = cap_per_stripe_.load();
+    while (s.pairs > cap && !s.ring.empty()) {
       if (s.hand >= s.ring.size()) s.hand = 0;
       const int32_t key = s.ring[s.hand];
       auto vit = s.rows.find(key);
@@ -316,8 +335,12 @@ class PairMemo {
   }
 
  private:
+  static int64_t per_stripe(int64_t capacity) {
+    return capacity > 0 ? (capacity + kStripes - 1) / kStripes : 0;
+  }
+
   std::array<Stripe, kStripes> stripes_;
-  int64_t cap_per_stripe_ = 0;
+  std::atomic<int64_t> cap_per_stripe_{0};
 };
 
 // per-worker route scratch: the local pair memo plus per-row work lists
@@ -982,7 +1005,7 @@ extern "C" {
 // calling through a stale signature. BUMP
 // THIS on ANY change to the signatures below, in the same commit as the
 // Python-side constant.
-int32_t rt_abi_version(void) { return 14; }
+int32_t rt_abi_version(void) { return 15; }
 
 void* rt_graph_create(int64_t n_nodes, int64_t n_edges,
                       const double* node_x, const double* node_y,
@@ -1018,6 +1041,12 @@ void rt_cache_clear(void* handle) {
 // {hits, misses, size, evictions} of the cross-call route-pair memo
 void rt_route_memo_stats(void* handle, int64_t* out4) {
   static_cast<Graph*>(handle)->pair_memo.stats(out4);
+}
+
+// Bound the cross-call route-pair memo to `capacity` pairs (0 disables
+// it); residents past the new bound are evicted now.
+void rt_route_memo_set_capacity(void* handle, int64_t capacity) {
+  static_cast<Graph*>(handle)->pair_memo.set_capacity(capacity);
 }
 
 // Dump up to `cap` resident route-memo pairs into ea/eb (profile

@@ -8,7 +8,8 @@ with ``ctypes`` (``ops.nvcc``). Its plain version is the PyTorch scan
 
 :func:`viterbi_cuda` is the kernel's wrapper: it checks its tensors,
 launches the kernel or raises, and counts launches in
-``viterbi_cuda.launches``. ``ops.decode_batch`` sends CPU tensors to the
+``viterbi_cuda.launches``; with request tracing armed the launch is a
+``kernel.viterbi_decode`` span. ``ops.decode_batch`` sends CPU tensors to the
 plain version and CUDA tensors here.
 
 :func:`launch_plan` decides the launch (lanes per trace, traces per
@@ -27,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..matcher.hmm import viterbi_decode_batch as viterbi_plain
+from ..obs import trace as obs_trace
 from . import nvcc
 
 SOURCE = nvcc.CSRC / "viterbi.cu"
@@ -171,8 +173,11 @@ def viterbi_cuda(dist_m: torch.Tensor, valid: torch.Tensor,
             f"{tuple(gc_m.shape)} case {tuple(case.shape)}")
     out = (torch.empty((B, T), dtype=torch.int32, device=dev),
            torch.empty((B,), dtype=torch.float32, device=dev))
-    launch((dist_m, valid, route_m, gc_m, case), sigma, beta, out, plan,
-           events)
+    # the launch as a child of the request's decode span when tracing is
+    # armed (a shared no-op otherwise)
+    with obs_trace.span("kernel.viterbi_decode", B=B, T=T, K=K):
+        launch((dist_m, valid, route_m, gc_m, case), sigma, beta, out,
+               plan, events)
     viterbi_cuda.launches += 1
     return out
 

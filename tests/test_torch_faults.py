@@ -671,19 +671,40 @@ def test_gate_failpoint_fails_open_as_the_jax_package():
     arm("admission.gate=error#1")
     reset_counters()
     regs = (metrics.Registry(), jax_metrics.Registry())
-    gates = (admission.AdmissionGate(Sensors(), hold_s=1.0,
-                                     clock=lambda: 0.0, registry=regs[0]),
-             jax_admission.AdmissionGate(Sensors(), hold_s=1.0,
+    # each gate makes its package's process-wide pressure ladder; both go
+    # when the test ends, or a later test in this process reads them
+    try:
+        gates = (admission.AdmissionGate(Sensors(), hold_s=1.0,
                                          clock=lambda: 0.0,
-                                         registry=regs[1]))
-    verdicts = [[None if v is None else v.reason
-                 for v in (g.admit(), g.admit())] for g in gates]
-    assert verdicts[0] == verdicts[1] and verdicts[0][0] is None
-    assert regs[0].snapshot()["counters"] \
-        == regs[1].snapshot()["counters"]
-    assert metrics.default.counter("admission.errors") \
-        == jax_metrics.default.counter("admission.errors") == 1
-    assert gates[0].snapshot() == gates[1].snapshot()
+                                         registry=regs[0]),
+                 jax_admission.AdmissionGate(Sensors(), hold_s=1.0,
+                                             clock=lambda: 0.0,
+                                             registry=regs[1]))
+        verdicts = [[None if v is None else v.reason
+                     for v in (g.admit(), g.admit())] for g in gates]
+        assert verdicts[0] == verdicts[1] and verdicts[0][0] is None
+        assert regs[0].snapshot()["counters"] \
+            == regs[1].snapshot()["counters"]
+        assert metrics.default.counter("admission.errors") \
+            == jax_metrics.default.counter("admission.errors") == 1
+        assert gates[0].snapshot() == gates[1].snapshot()
+    finally:
+        admission._reset_module()
+        jax_admission._reset_module()
+
+
+def test_gate_failpoint_leaves_no_pressure_ladder_behind():
+    """The gate test above leaves neither package's pressure ladder: a
+    port ladder left while a JAX test file reset only the JAX package's
+    made ``/health``'s ``pressure`` blocks differ in a later test of the
+    same process (``test_torch_service.py::test_health``)."""
+    from reporter_tpu.service import admission as jax_admission
+    from reporter_tpu_torch.service import admission
+    test_gate_failpoint_fails_open_as_the_jax_package()
+    assert admission._ladder is None and jax_admission._ladder is None
+    quiet = {"level": 0, "state": "normal", "transitions": 0}
+    assert admission.pressure_snapshot() == quiet \
+        == jax_admission.pressure_snapshot()
 
 
 def test_swap_failpoint_keeps_the_old_map_as_the_jax_package(cities):

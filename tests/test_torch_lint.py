@@ -1,9 +1,13 @@
 """The port's lint passes (``reporter_tpu_torch/analysis/``): each rule
 fires on a bad fixture and stays silent on a good one, the ABI checks
 catch drifts injected into copies of the live bindings (the host runtime
-and the card's seven ``extern "C"`` entry points), the live tree runs
-clean with the empty committed baseline, and the fuzz layer of
-``utils/locks.py`` (the JAX package's ``TestFuzzLayer`` cases).
+and the card's seven ``extern "C"`` entry points), the placement pass
+(DP) finds on its torch fixture what the JAX pass finds on the JAX one
+and catches a sync injected into a live lane, the tensor contract (TC)
+catches signature drift, a widening plain version and each side of its
+coverage, the live tree runs clean with the empty committed baseline,
+and the fuzz layer of ``utils/locks.py`` (the JAX package's
+``TestFuzzLayer`` cases).
 
 Fixtures: where a rule is unchanged from the JAX package's, its
 ``tests/lint_fixtures/`` file is read as it is, under a fake port path;
@@ -12,6 +16,7 @@ ABI), under ``tests/torch_lint_fixtures/``.
 """
 import ast
 import copy
+import json
 import os
 import re
 import subprocess
@@ -22,7 +27,8 @@ import pytest
 from reporter_tpu_torch import analysis
 from reporter_tpu_torch.analysis import (abi, durability, fallback,
                                          fault_coverage, hotpath, lockgraph,
-                                         locks, registry, registry_drift)
+                                         locks, placement, registry,
+                                         registry_drift, tensorcontract)
 from reporter_tpu_torch.analysis.core import SourceFile, parse_suppressions
 from reporter_tpu_torch.tools import lint as lint_cli
 from reporter_tpu_torch.utils import locks as port_locks
@@ -602,6 +608,254 @@ def test_abi_card_signature_gaining_an_argument_is_caught(tmp_path):
         == [("ABI002", True)]
 
 
+# ---- placement (DP rules) --------------------------------------------------
+
+_DP_ENTRIES = {"kernel_entry"}
+
+
+def _dp_run(pass_mod, sf):
+    rel = sf.relpath
+    return analysis.filter_suppressed(pass_mod.run(
+        [sf], REPO, lanes=(f"{rel}::Lane.stage",),
+        sync_points=(f"{rel}::Lane.drain",), entry_names=_DP_ENTRIES,
+        full_scope=False), [sf])
+
+
+def test_placement_fires_on_the_torch_fixture_as_the_jax_pass_on_its():
+    """The JAX package's placement_bad.py and its torch restatement, line
+    for line: each package's pass finds the same rules on the same
+    lines."""
+    from reporter_tpu.analysis import placement as jax_placement
+    from reporter_tpu.analysis.core import SourceFile as JaxSource
+    sf = _fixture("placement_bad.py",
+                  "reporter_tpu_torch/matcher/fixture_bad.py",
+                  TORCH_FIXTURES)
+    got = _dp_run(placement, sf)
+    _assert_matches_annotations(sf, got, ("DP001", "DP002", "DP003"))
+    jsf = JaxSource.load(os.path.join(FIXTURES, "placement_bad.py"), REPO)
+    jsf.relpath = "reporter_tpu/matcher/fixture_bad.py"
+    want = jax_placement.run(
+        [jsf], REPO, lanes=(f"{jsf.relpath}::Lane.stage",),
+        sync_points=(f"{jsf.relpath}::Lane.drain",),
+        entry_names=_DP_ENTRIES, full_scope=False)
+    assert sorted((f.line, f.rule) for f in got) \
+        == sorted((f.line, f.rule) for f in want)
+    assert {f.rule for f in got} == {"DP001", "DP002", "DP003"}
+
+
+def test_placement_fires_on_every_torch_sink():
+    sf = _fixture("placement_sinks.py",
+                  "reporter_tpu_torch/matcher/fixture_sinks.py",
+                  TORCH_FIXTURES)
+    findings = _dp_run(placement, sf)
+    _assert_matches_annotations(sf, findings, ("DP001", "DP002", "DP003"))
+
+
+def test_placement_silent_on_the_good_torch_fixture():
+    sf = _fixture("placement_good.py",
+                  "reporter_tpu_torch/matcher/fixture_good.py",
+                  TORCH_FIXTURES)
+    assert _dp_run(placement, sf) == []
+
+
+def test_placement_live_lanes_are_disciplined(live_files):
+    """The declared lanes bring device values to the host only at the
+    declared sync points, each the counterpart of the JAX package's."""
+    assert analysis.filter_suppressed(placement.run(live_files, REPO),
+                                      live_files) == []
+    from reporter_tpu.analysis import registry as jax_registry
+    for table, ref in ((registry.DEVICE_LANES, jax_registry.DEVICE_LANES),
+                       (registry.SYNC_POINTS, jax_registry.SYNC_POINTS)):
+        assert {k.replace("reporter_tpu_torch/", "reporter_tpu/")
+                for k in table} == set(ref)
+
+
+def test_placement_undeclared_sync_on_a_lane_is_caught(live_files):
+    """A copy to the host inlined into fill_prep's tail, past the
+    declared write-back: DP001 at the real line on the prep lane."""
+    rel = "reporter_tpu_torch/graph/route_device.py"
+    live = _read(os.path.join(REPO, rel))
+    target = "        pending.write_back(out)  # the one device-to-host"
+    assert live.count(target) == 1, "fill_prep drifted; update the test"
+    mutated = live.replace(target, (
+        "        route, _mx = self._run(p.edge, p.offset, p.nk, p.bounds,\n"
+        "                               p.caps, p.srcs, p.chunk_bound,\n"
+        "                               btol, tpen)\n"
+        "        out['route_m'][:B, :T - 1] = route.cpu().numpy()\n"
+        + target), 1)
+    bad = SourceFile(path="x", relpath=rel, text=mutated,
+                     tree=ast.parse(mutated), suppressions={})
+    files = [bad if sf.relpath == rel else sf for sf in live_files]
+    found = placement.run(files, REPO)
+    assert any(f.rule == "DP001" and f.path == rel and "'route'" in
+               f.message for f in found), [f.render() for f in found]
+
+
+def test_placement_dangling_registry_entries_are_caught(live_files):
+    lanes = list(registry.DEVICE_LANES) + [
+        "reporter_tpu_torch/matcher/matcher.py::SegmentMatcher._gone"]
+    sync = list(registry.SYNC_POINTS) + [
+        "reporter_tpu_torch/matcher/batchpad.py::PaddedBatch.gone"]
+    found = placement.run(live_files, REPO, lanes=lanes, sync_points=sync)
+    assert {(f.rule, f.path) for f in found} == {
+        ("DP003", placement.REGISTRY_REL), ("DP001", placement.REGISTRY_REL)}
+
+
+# ---- tensor contracts (TC rules) -------------------------------------------
+
+@pytest.fixture(scope="module")
+def fresh_contracts():
+    return tensorcontract.compute_signatures()
+
+
+def test_committed_contracts_are_a_subset_of_a_fresh_regeneration(
+        fresh_contracts):
+    with open(os.path.join(REPO, tensorcontract.CONTRACTS_REL),
+              encoding="utf-8") as f:
+        committed = json.load(f)
+    assert committed["dims"].items() <= fresh_contracts["dims"].items()
+    assert committed["buckets"] == fresh_contracts["buckets"]
+    for key, entry in committed["entries"].items():
+        assert tensorcontract._diff_entry(
+            entry, fresh_contracts["entries"][key]) is None, key
+    assert set(committed["entries"]) == set(registry.KERNEL_CONTRACTS)
+
+
+def test_contract_dims_and_buckets_are_the_jax_files():
+    with open(os.path.join(REPO, "tools", "kernel_contracts.json"),
+              encoding="utf-8") as f:
+        ref = json.load(f)
+    assert list(tensorcontract.BUCKETS) == ref["buckets"]
+    assert {k: tensorcontract.DIMS[k] for k in ref["dims"]} == ref["dims"]
+
+
+def test_the_decode_contract_is_the_jax_scan_decodes(fresh_contracts):
+    """The plain decode's cases equal the JAX contract of the scan decode
+    it is held bit-equal to."""
+    with open(os.path.join(REPO, "tools", "kernel_contracts.json"),
+              encoding="utf-8") as f:
+        ref = json.load(f)["entries"][
+            "reporter_tpu/matcher/hmm.py::viterbi_decode_batch"]
+    got = fresh_contracts["entries"][
+        "reporter_tpu_torch/ops/viterbi.py::viterbi_cuda"]
+    assert [(c["inputs"], c["outputs"]) for c in got["cases"]] \
+        == [(c["inputs"], c["outputs"]) for c in ref["cases"]]
+
+
+@pytest.mark.parametrize("mutation", ["dtype", "shape", "count",
+                                      "keywords", "gone", "new"])
+def test_tensorcontract_signature_drift_is_caught(live_files,
+                                                  fresh_contracts,
+                                                  mutation):
+    fresh = copy.deepcopy(fresh_contracts)
+    key = "reporter_tpu_torch/ops/viterbi.py::viterbi_cuda"
+    entry = fresh["entries"][key]
+    if mutation == "dtype":
+        entry["cases"][0]["outputs"][1][1] = "float64"
+    elif mutation == "shape":
+        entry["cases"][1]["outputs"][0][0] = [8, 256, 1]
+    elif mutation == "count":
+        entry["cases"][0]["outputs"].pop()
+    elif mutation == "keywords":
+        entry["keyword_args"] = ["interpret"]
+    elif mutation == "gone":
+        del fresh["entries"][key]
+    else:
+        fresh["entries"]["reporter_tpu_torch/ops/x.py::x_cuda"] = entry
+    found = tensorcontract.run(live_files, REPO, signatures=fresh)
+    assert [f.rule for f in found] == ["TC001"], \
+        [f.render() for f in found]
+
+
+def test_tensorcontract_widening_plain_version_is_caught(live_files,
+                                                         monkeypatch):
+    """A plain version that widens its scores to f64: the fresh run on
+    meta tensors differs from the committed file."""
+    from reporter_tpu_torch.matcher import hmm
+    real = hmm.viterbi_decode_batch
+
+    def widened(*args, **kw):
+        paths, scores = real(*args, **kw)
+        return paths, scores.double()
+
+    monkeypatch.setattr(hmm, "viterbi_decode_batch", widened)
+    found = tensorcontract.run(live_files, REPO)
+    assert [(f.rule, f.path) for f in found] == [
+        ("TC001", "reporter_tpu_torch/ops/viterbi.py")]
+    assert "float64" in found[0].message
+
+
+def _tc2(files, contracts=None, entries=None):
+    base = copy.deepcopy(registry.KERNEL_CONTRACTS)
+    return [f for f in tensorcontract.run(
+        files, REPO, contracts=contracts or base, entries=entries,
+        signatures={"entries": {}},
+        contracts_path=os.path.join(REPO, "no-such-file.json"))
+        if f.rule == "TC002"]
+
+
+def test_tensorcontract_uncontracted_wrapper_is_caught(live_files):
+    src = ("def fixture_cuda(x):\n    fixture_cuda.launches += 1\n"
+           "    return x\n\n\nfixture_cuda.launches = 0\n")
+    sf = SourceFile(path="x", relpath="reporter_tpu_torch/ops/fixture.py",
+                    text=src, tree=ast.parse(src), suppressions={})
+    found = tensorcontract.run([sf], REPO, full_scope=False)
+    assert [(f.rule, f.line) for f in found] == [("TC002", 6)]
+    assert _tc2(live_files + [sf])[0].message.startswith(
+        "counted kernel wrapper reporter_tpu_torch/ops/fixture.py::"
+        "fixture_cuda")
+
+
+def test_tensorcontract_three_sides_are_held(live_files):
+    assert _tc2(live_files) == []
+    bad = copy.deepcopy(registry.KERNEL_CONTRACTS)
+    bad["reporter_tpu_torch/ops/viterbi.py::gone_cuda"] = dict(
+        bad["reporter_tpu_torch/ops/viterbi.py::viterbi_cuda"])
+    found = _tc2(live_files, bad)
+    assert any("names no counted kernel wrapper" in f.message
+               for f in found)
+    bad = copy.deepcopy(registry.KERNEL_CONTRACTS)
+    bad["reporter_tpu_torch/ops/route_relax.py::relax_cluster_cuda"][
+        "entries"] = ("relax_cluster",)
+    found = _tc2(live_files, bad)
+    assert [f.message.split(" is ")[0] for f in found] == [
+        'extern "C" relax_cluster_occupancy']
+    bad = copy.deepcopy(registry.KERNEL_CONTRACTS)
+    bad["reporter_tpu_torch/ops/viterbi.py::viterbi_cuda"][
+        "entries"] = ("viterbi_decode", "viterbi_gone")
+    bad["reporter_tpu_torch/ops/viterbi.py::viterbi_cuda"][
+        "plain"] = "reporter_tpu_torch/matcher/hmm.py::gone"
+    found = _tc2(live_files, bad)
+    assert len(found) == 2
+    assert any("viterbi_gone, which no card source defines" in f.message
+               for f in found)
+    assert any("plain version reporter_tpu_torch/matcher/hmm.py::gone"
+               in f.message for f in found)
+
+
+def test_tensorcontract_claims_the_abi_passes_seven_entries(live_files):
+    entries = tensorcontract.card_entries(REPO)
+    assert len(entries) == 7
+    claimed = {n for c in registry.KERNEL_CONTRACTS.values()
+               for n in c["entries"]}
+    assert claimed == set(entries)
+    assert set(tensorcontract.counted_wrappers(live_files)) \
+        == set(registry.KERNEL_CONTRACTS)
+
+
+def test_tensorcontract_missing_file_is_caught(live_files, tmp_path):
+    found = tensorcontract.run(live_files, REPO,
+                               contracts_path=str(tmp_path / "none.json"))
+    assert [f.rule for f in found] == ["TC001"]
+
+
+def test_tensorcontract_write_regenerates_the_file(tmp_path):
+    out = tmp_path / "k.json"
+    assert tensorcontract.main(["--out", str(out)]) == 0
+    assert out.read_text() == _read(os.path.join(
+        REPO, tensorcontract.CONTRACTS_REL))
+
+
 # ---- the driver ------------------------------------------------------------
 
 def _lint(*args):
@@ -660,7 +914,8 @@ def test_list_rules_covers_every_ported_pass(capsys):
                  "ABI004", "ABI005", "LD001", "LD002", "LD003", "DUR001",
                  "DUR002", "DUR003", "DUR004", "KN001", "KN002", "MT001",
                  "MT002", "FP001", "FP002", "FP003", "FB001", "FB002",
-                 "FB003", "RC001", "RC002", "RC003", "RC004"):
+                 "FB003", "RC001", "RC002", "RC003", "RC004", "DP001",
+                 "DP002", "DP003", "TC001", "TC002"):
         assert rule in out
     assert set(analysis.ALL_RULES) == set(re.findall(r"^(\w+\d{3}) ", out,
                                                      re.MULTILINE))

@@ -102,6 +102,10 @@ def servers(cities, request):
     prep path, both with threshold 15, max_batch 64, max_wait 30 ms."""
     ref_city, city = cities
     native = request.param == "native"
+    # both services start with no process-wide pressure ladder, whatever
+    # an earlier test file in this process left in either package
+    admission._reset_module()
+    jax_admission._reset_module()
     kw = dict(threshold_sec=15, max_batch=64, max_wait_ms=30.0)
     ref = JaxService(JaxMatcher(net=ref_city, use_native=native), **kw)
     port = ReporterService(SegmentMatcher(city, device="cpu", native=native),
