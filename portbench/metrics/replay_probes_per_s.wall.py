@@ -1,0 +1,9 @@
+"""The replay window's probes over its wall seconds: the rate a backfill
+user waits on, read per layer because the host's speed moves it from
+run to run by more than any bound could hold (``PERF.md`` §2)."""
+
+
+def read(obs):
+    if obs.work <= 0 or obs.window_s <= 0:
+        return None
+    return obs.work / obs.window_s
