@@ -12,9 +12,10 @@ collapses, and nothing fails.
 
 The pass walks the package's call graph from ``registry.DEVICE_LANES``
 (the lanes are declared, since their submits go through
-``SegmentMatcher._lane_stage``), resolving calls as ``lockgraph`` does
-(same class, same module, then a name unique in the package; stdlib
-protocol names are not followed) and stopping at ``registry.SYNC_POINTS``.
+``SegmentMatcher._lane_dispatch`` and ``_lane_drain``), resolving calls as
+``lockgraph`` does (same class, same module, then a name unique in the
+package; stdlib protocol names are not followed) and stopping at
+``registry.SYNC_POINTS``.
 Device values are locals assigned from a kernel wrapper
 (``registry.KERNEL_CONTRACTS``), from the ``ops`` dispatchers that reach
 one (``DISPATCHERS``), from ``.to(...)``/``.cuda()``, and from package

@@ -99,6 +99,16 @@ METRICS: Dict[str, str] = {
     "matcher.decode_dispatch": "upload + launch + async copy (timer)",
     "matcher.decode_wait": "wait for the paths (timer)",
     "matcher.assemble": "run walk + column conversion (timer)",
+    "matcher.upload": "host-to-device uploads of a batch (timer)",
+    "matcher.join": "caller's wait on the drain lane's futures (timer)",
+    "matcher.lane.dispatch_queued": "chunk's wait for the dispatch lane "
+                                    "(timer)",
+    "matcher.lane.drain_queued": "chunk's wait for the drain lane after "
+                                 "its dispatch (timer)",
+    "decode.upload.bytes": "host bytes uploaded for the decode",
+    "decode.cells.kept": "kept point cells handed to the lanes",
+    "decode.cells.launched": "B x T cells of the batches handed to the "
+                             "lanes",
     "matcher.circuit.*": "breaker transitions + degraded-chunk counts",
     "prep.phase.*": "native prep phase split (candidates/select/routes)",
     "route.device.*": "device route kernels: chunks/sources/refusals",
@@ -145,6 +155,10 @@ METRICS: Dict[str, str] = {
     # pipeline
     "pipeline.gather": "backfill stage 1 (timer)",
     "pipeline.match": "backfill stage 2 (timer)",
+    "pipeline.match.parse": "a shard's parse and window cut (timer)",
+    "pipeline.match.report": "a batch's report(), seam dedupe and rows "
+                             "(timer)",
+    "pipeline.match.write": "a shard's tile-row writes (timer)",
     "pipeline.report": "backfill stage 3 (timer)",
     "pipeline.windows": "time windows the match stage planned",
     "pipeline.chunks": "match chunks the stage planned",
@@ -384,7 +398,8 @@ KERNEL_CONTRACTS: Dict[str, Dict[str, object]] = {
 # ---- device lanes and host syncs (DP rules) --------------------------------
 # DEVICE_LANES are the matcher's lane stages and the prep thread's route
 # fill, the roots the placement pass walks (the submits go through
-# SegmentMatcher._lane_stage, which no structural detection sees).
+# SegmentMatcher._lane_dispatch and _lane_drain, which no structural
+# detection sees).
 # SYNC_POINTS are the functions allowed to bring device values to the
 # host (.cpu(), .numpy(), .item(), .tolist(), float(), an event's or the
 # device's synchronize): the walk stops there. Each names its counterpart

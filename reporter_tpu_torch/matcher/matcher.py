@@ -53,6 +53,7 @@ byte for byte is left to ``match_many``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import logging
 import os
@@ -136,6 +137,33 @@ def _route_cache_counters() -> dict:
             "pair_misses": c("route.cache.pair_misses"),
             "node_hits": c("route.cache.node_hits"),
             "node_misses": c("route.cache.node_misses")}
+
+
+def _count_cells(kept: int, launched: int) -> None:
+    """Count a prepared batch handed to the lanes: its kept point cells
+    and the cells its launch decodes (rows x T, padding included)."""
+    metrics.count("decode.cells.kept", int(kept))
+    metrics.count("decode.cells.launched", int(launched))
+
+
+class _Dispatched:
+    """The drain lane's handle on a chunk's dispatch future, made when the
+    lane takes the chunk up: :meth:`result` waits for the dispatch stage
+    and times how long the chunk sat between the stage's end and the
+    drain lane's start (``matcher.lane.drain_queued``; 0 when the lane
+    was already waiting)."""
+
+    __slots__ = ("fut", "started")
+
+    def __init__(self, fut):
+        self.fut = fut
+        self.started = time.perf_counter()
+
+    def result(self):
+        out, ended = self.fut.result()
+        metrics.observe("matcher.lane.drain_queued",
+                        max(0.0, self.started - ended))
+        return out
 
 
 def resolve_device(device=None) -> torch.device:
@@ -601,12 +629,12 @@ class SegmentMatcher:
                 # the lanes run on their own threads: carry the chunk's
                 # trace context over the hop (None when disarmed)
                 ctx = obs_trace.current()
-                d_fut = dispatch_lane.submit(self._lane_stage, ctx,
-                                             self._dispatch_stage, batch,
+                d_fut = dispatch_lane.submit(self._lane_dispatch, ctx,
+                                             time.perf_counter(), batch,
                                              sigma, beta)
                 futures.append((d_fut, drain_lane.submit(
-                    self._lane_stage, ctx, self._drain_stage, batch, order,
-                    d_fut, per_trace_params, results, tb, span), span))
+                    self._lane_drain, ctx, batch, order, d_fut,
+                    per_trace_params, results, tb, span), span))
         else:
             def submit(batch, order, sigma, beta, span=None):
                 self._drain_stage(batch, order,
@@ -641,12 +669,14 @@ class SegmentMatcher:
         # drain every chunk, then raise the first failure in submission
         # order; a dispatch failure re-raises out of its drain future
         first_err = None
-        for _d_fut, a_fut, _span in futures:
-            try:
-                a_fut.result()
-            except BaseException as e:
-                if first_err is None:
-                    first_err = e
+        with (metrics.timer("matcher.join") if self._lanes is not None
+              else contextlib.nullcontext()):
+            for _d_fut, a_fut, _span in futures:
+                try:
+                    a_fut.result()
+                except BaseException as e:
+                    if first_err is None:
+                        first_err = e
         if first_err is not None:
             raise first_err
         return results
@@ -826,6 +856,7 @@ class SegmentMatcher:
                             tot = self.bucket_totals.setdefault(T, [0, 0])
                             tot[0] += kept
                             tot[1] += rows * T
+                            _count_cells(kept, rows * T)
                             # the chunk's wide event: one call a chunk
                             profiler.chunk_event(
                                 bucket_T=int(T), K=params.max_candidates,
@@ -914,11 +945,13 @@ class SegmentMatcher:
         batches = pack_batches(prepped, pad_rows=self.pad_rows)
         for n, batch in enumerate(batches, 1):
             order = [idx_of[id(p)] for p in batch.traces]
+            kept = kept_point_count(batch)
+            _count_cells(kept, batch.case.shape[0] * batch.case.shape[1])
             profiler.chunk_event(
                 bucket_T=int(batch.case.shape[1]),
                 K=params.max_candidates, traces=len(order),
                 rows=int(batch.case.shape[0]),
-                kept_points=kept_point_count(batch),
+                kept_points=kept,
                 raw_points=int(sum(p.num_raw for p in batch.traces)),
                 cache=_route_cache_counters(), path="numpy")
             # the drain lane is FIFO: the chunk's last batch drains last
@@ -926,12 +959,24 @@ class SegmentMatcher:
             submit(batch, order, sigma, beta,
                    span if n == len(batches) else None)
 
-    @staticmethod
-    def _lane_stage(ctx, fn, *args):
-        """Run one device-lane stage under a captured trace context (the
-        executor hop drops the submitter's contextvars)."""
+    def _lane_dispatch(self, ctx, submitted: float, batch: PaddedBatch,
+                       sigma, beta):
+        """The dispatch lane's job for one chunk: the dispatch stage under
+        the submitter's trace context (the executor hop drops its
+        contextvars), after timing the chunk's wait in the lane's queue
+        since ``submitted`` (``matcher.lane.dispatch_queued``). Returns
+        (the stage's return, when the stage ended)."""
+        metrics.observe("matcher.lane.dispatch_queued",
+                        time.perf_counter() - submitted)
         with obs_trace.attach(ctx):
-            return fn(*args)
+            out = self._dispatch_stage(batch, sigma, beta)
+        return out, time.perf_counter()
+
+    def _lane_drain(self, ctx, batch: PaddedBatch, order, d_fut, *rest):
+        """The drain lane's job for one chunk: the drain stage under the
+        submitter's trace context, on the dispatch future ``d_fut``."""
+        with obs_trace.attach(ctx):
+            self._drain_stage(batch, order, _Dispatched(d_fut), *rest)
 
     def _dispatch_stage(self, batch: PaddedBatch, sigma, beta):
         """Dispatch lane: settle deferred device routes
@@ -1000,7 +1045,12 @@ class SegmentMatcher:
             # whole arrays, filler rows included: each upload (and the
             # device route tensor) is a fresh allocation, which starts on
             # 16 bytes as the kernel needs
-            x = tuple(a.to(self.device) for a in arrays)
+            with metrics.timer("matcher.upload"):
+                # a device route tensor is on the card already
+                metrics.count("decode.upload.bytes",
+                              sum(a.nbytes for a in arrays
+                                  if a.device.type == "cpu"))
+                x = tuple(a.to(self.device) for a in arrays)
             # recorded by the kernel's launcher around the launch; the
             # other decodes are op sequences, with no one launch to time
             timing = None

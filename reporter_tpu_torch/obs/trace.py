@@ -24,9 +24,21 @@ subtree into that request's tree.
 
 Closed spans land in :mod:`flightrec`'s bounded ring, and
 :func:`export_trace` renders one trace's spans as Chrome/Perfetto
-trace-event JSON (``ph:"X"`` complete events on epoch microseconds, so
-they line up with a ``torch.profiler`` trace from
-``metrics.device_trace``).
+trace-event JSON (``ph:"X"`` complete events on epoch microseconds, the
+host's wall clock; nothing lines these up with a ``torch.profiler``
+trace).
+
+The profiler mirror (``configure(True, profiler=True)``) is what puts
+spans on the device trace's clock: every span then also opens a
+``torch.profiler.record_function`` range named
+:data:`PROFILER_PREFIX` + its name, so a running profile records each
+span beside the kernels and copies, on the profiler's own clock (torch's
+CPU profile records the ranges of the thread that started it). The
+range opens when the span is entered and ends when it is detached from
+the entering thread, so it ends on the thread that opened it: a
+:func:`hold` span's range covers its block, while its flight-recorder
+record ends at ``close()``. :func:`phase_spans` records are made after
+the fact and have no range.
 """
 from __future__ import annotations
 
@@ -55,7 +67,7 @@ _ctx: "contextvars.ContextVar[Optional[Tuple[str, int]]]" = \
 _ids = itertools.count(1)
 
 #: maps perf_counter_ns onto epoch ns, so span timestamps compare across
-#: processes and with a device trace
+#: processes
 _EPOCH_OFFSET_NS = time.time_ns() - time.perf_counter_ns()
 
 
@@ -64,11 +76,17 @@ def _recompute_locked() -> None:
     _ENABLED = _ARMED or _FORCED > 0
 
 
-def configure(on: bool) -> None:
-    """Persistently arm or disarm tracing."""
-    global _ARMED
+def configure(on: bool, profiler: bool = False) -> None:
+    """Persistently arm or disarm tracing; ``profiler`` (with ``on``)
+    mirrors every span into the ``torch.profiler`` timeline."""
+    global _ARMED, _SPAN, _record_function
+    span_cls, rf = _Span, None
+    if on and profiler:
+        from torch.profiler import record_function as rf
+        span_cls = _MirroredSpan
     with _lock:
         _ARMED = bool(on)
+        _SPAN, _record_function = span_cls, rf or _record_function
         _recompute_locked()
 
 
@@ -169,11 +187,44 @@ class _Span:
         return False
 
 
+#: the name prefix of a span's ``torch.profiler`` range
+PROFILER_PREFIX = "reporter_tpu_torch.span:"
+
+
+class _MirroredSpan(_Span):
+    """A span that also holds a ``record_function`` range from entry to
+    detach, on the entering thread (``configure(profiler=True)``)."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, name: str, attrs: Optional[dict]):
+        super().__init__(name, attrs)
+        self._range = None
+
+    def __enter__(self):
+        super().__enter__()
+        self._range = _record_function(PROFILER_PREFIX + self.name)
+        self._range.__enter__()
+        return self
+
+    def detach(self) -> None:
+        super().detach()
+        rng, self._range = self._range, None
+        if rng is not None:
+            rng.__exit__(None, None, None)
+
+
+#: the armed span's class (:class:`_MirroredSpan` under the mirror) and
+#: torch's ``record_function``, both set by :func:`configure`
+_SPAN = _Span
+_record_function = None
+
+
 def span(name: str, **attrs):
     """A timed span context. Disarmed: one flag check, a shared no-op."""
     if not _ENABLED:
         return _NOOP
-    return _Span(name, attrs or None)
+    return _SPAN(name, attrs or None)
 
 
 class _Hold:

@@ -34,6 +34,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from ..utils import metrics
 from .mesh import DecodeMesh
 
 
@@ -101,7 +102,16 @@ def _put(mesh: DecodeMesh, i: int, t: torch.Tensor) -> torch.Tensor:
     if t.device == dev:
         t.record_stream(mesh.stream(i))
         return t.clone(memory_format=torch.contiguous_format)
+    if t.device.type == "cpu":
+        metrics.count("decode.upload.bytes", t.nbytes)
     return t.to(dev).contiguous()
+
+
+def _uploads(mesh: DecodeMesh):
+    """Time the entries' uploads of one batch (``matcher.upload``, on
+    the card only)."""
+    return (metrics.timer("matcher.upload") if mesh.on_card
+            else contextlib.nullcontext())
 
 
 def _handoff(mesh: DecodeMesh, t: torch.Tensor, src: int,
@@ -165,11 +175,12 @@ def shard_batch_data(mesh: DecodeMesh, dist_m, valid, route_m, gc_m,
     rows = B // mesh.data
     _begin(mesh)
     out = []
-    for d in range(mesh.data):
-        i = mesh.entry(d)
-        with _entry_ctx(mesh, i):
-            out.append(tuple(_put(mesh, i, a[d * rows:(d + 1) * rows])
-                             for a in arrays))
+    with _uploads(mesh):
+        for d in range(mesh.data):
+            i = mesh.entry(d)
+            with _entry_ctx(mesh, i):
+                out.append(tuple(_put(mesh, i, a[d * rows:(d + 1) * rows])
+                                 for a in arrays))
     return out
 
 
@@ -230,19 +241,21 @@ def shard_batch(mesh: DecodeMesh, dist_m, valid, route_m, gc_m,
     rows, L = B // mesh.data, T // mesh.seq
     _begin(mesh)
     out = []
-    for d in range(mesh.data):
-        r = slice(d * rows, (d + 1) * rows)
-        for s in range(mesh.seq):
-            i = mesh.entry(d, s)
-            a, b = s * L, (s + 1) * L
-            steps = slice(a, min(b, T - 1))
-            with _entry_ctx(mesh, i):
-                out.append({
-                    "dist": _put(mesh, i, dist_m[r, a:b + 1]),
-                    "valid": _put(mesh, i, valid[r, a:b + 1]),
-                    "case": _put(mesh, i, case[r, a:b + 1].to(torch.int32)),
-                    "route": _put(mesh, i, route_m[r, steps]),
-                    "gc": _put(mesh, i, gc_m[r, steps])})
+    with _uploads(mesh):
+        for d in range(mesh.data):
+            r = slice(d * rows, (d + 1) * rows)
+            for s in range(mesh.seq):
+                i = mesh.entry(d, s)
+                a, b = s * L, (s + 1) * L
+                steps = slice(a, min(b, T - 1))
+                with _entry_ctx(mesh, i):
+                    out.append({
+                        "dist": _put(mesh, i, dist_m[r, a:b + 1]),
+                        "valid": _put(mesh, i, valid[r, a:b + 1]),
+                        "case": _put(mesh, i,
+                                     case[r, a:b + 1].to(torch.int32)),
+                        "route": _put(mesh, i, route_m[r, steps]),
+                        "gc": _put(mesh, i, gc_m[r, steps])})
     return out
 
 

@@ -313,9 +313,9 @@ def match_traces(trace_dir: str, matcher, mode: str,
 def _match_into(dest_dir, trace_dir, matcher, mode, report_levels,
                 transition_levels, quantisation, inactivity, source,
                 threshold_sec, device_batch) -> None:
-    """:func:`match_traces`' work, its rows written under ``dest_dir``."""
-    import numpy as np
-
+    """:func:`match_traces`' work, its rows written under ``dest_dir``.
+    Times each shard's parse and row writes, and each batch's reports
+    (``pipeline.match.parse``, ``.write``, ``.report``)."""
     from ..core.tracebatch import TraceBatch
     from ..service.report import report as make_report
     from ..utils import metrics
@@ -331,46 +331,9 @@ def _match_into(dest_dir, trace_dir, matcher, mode, report_levels,
     total_traces = 0
     shared_opts = {"mode": mode}
     for shard, paths in sorted(by_shard.items()):
-        # columnar parse: per-uuid coordinate LISTS (one append per row,
-        # never a point dict), then arrays + argsort per uuid
-        by_uuid: dict[str, tuple] = {}
-        for path in paths:
-            with open(path) as f:
-                for line in f:
-                    try:
-                        uuid, tm, lat, lon, acc = line.strip().split(",")
-                        cols = by_uuid.get(uuid)
-                        if cols is None:
-                            cols = by_uuid[uuid] = ([], [], [], [])
-                        cols[0].append(int(tm))
-                        cols[1].append(float(lat))
-                        cols[2].append(float(lon))
-                        cols[3].append(int(acc))
-                    except ValueError:
-                        continue
-
-        # build every window request in this shard up front, as columnar
-        # parts (uuid, lat, lon, time, accuracy, options) over array
-        # slices. The chunker's holdback must equal report()'s threshold:
-        # report withholds segments starting within threshold_sec of a
-        # chunk's end, and the next chunk re-presents exactly that span
-        parts = []
-        for uuid, (tms, lats, lons, accs) in by_uuid.items():
-            tm = np.asarray(tms, dtype=np.float64)
-            order = np.argsort(tm, kind="stable")
-            tm = tm[order]
-            la = np.asarray(lats, dtype=np.float64)[order]
-            lo_ = np.asarray(lons, dtype=np.float64)[order]
-            ac = np.asarray(accs, dtype=np.float32)[order]
-            spans = list(_window_spans(tm, inactivity,
-                                       holdback_s=threshold_sec))
-            for k, (a, b) in enumerate(spans):
-                parts.append((uuid, la[a:b], lo_[a:b], tm[a:b], ac[a:b],
-                              shared_opts))
-                # a chunk of a longer active window overlaps a neighbour
-                if (k and a < spans[k - 1][1]) or \
-                        (k + 1 < len(spans) and spans[k + 1][0] < b):
-                    metrics.count("pipeline.chunks")
+        with metrics.timer("pipeline.match.parse"):
+            parts = _parse_shard(paths, shared_opts, inactivity,
+                                 threshold_sec)
         metrics.count("pipeline.windows", len(parts))
 
         tiles: dict[str, list[str]] = {}
@@ -383,34 +346,86 @@ def _match_into(dest_dir, trace_dir, matcher, mode, report_levels,
             tb = TraceBatch.concat(parts[lo:lo + device_batch])
             matches = matcher.match_many(tb)
             metrics.count("pipeline.batches")
-            for trace, match in zip(tb, matches):
-                uuid = trace["uuid"]
-                try:
-                    rep = make_report(match, trace, threshold_sec,
-                                      report_levels, transition_levels)
-                except Exception:
-                    logger.error("Failed to report trace with uuid %s "
-                                 "from file %s", uuid, shard)
-                    continue
-                floor = last_t0.get(uuid)
-                reports = rep["datastore"]["reports"]
-                if floor is not None:
-                    kept = [r for r in reports if r["t0"] > floor]
-                    metrics.count("pipeline.seam_dropped",
-                                  len(reports) - len(kept))
-                    reports = rep["datastore"]["reports"] = kept
-                if reports:
-                    last_t0[uuid] = max(r["t0"] for r in reports)
-                _emit_rows(rep, trace, quantisation, source, mode, tiles)
-        for tile_file, rows in tiles.items():
-            path = os.path.join(dest_dir, tile_file)
-            os.makedirs(os.path.dirname(path), exist_ok=True)
-            with open(path, "a") as f:
-                f.writelines(rows)
+            with metrics.timer("pipeline.match.report"):
+                for trace, match in zip(tb, matches):
+                    uuid = trace["uuid"]
+                    try:
+                        rep = make_report(match, trace, threshold_sec,
+                                          report_levels, transition_levels)
+                    except Exception:
+                        logger.error("Failed to report trace with uuid %s "
+                                     "from file %s", uuid, shard)
+                        continue
+                    floor = last_t0.get(uuid)
+                    reports = rep["datastore"]["reports"]
+                    if floor is not None:
+                        kept = [r for r in reports if r["t0"] > floor]
+                        metrics.count("pipeline.seam_dropped",
+                                      len(reports) - len(kept))
+                        reports = rep["datastore"]["reports"] = kept
+                    if reports:
+                        last_t0[uuid] = max(r["t0"] for r in reports)
+                    _emit_rows(rep, trace, quantisation, source, mode, tiles)
+        with metrics.timer("pipeline.match.write"):
+            for tile_file, rows in tiles.items():
+                path = os.path.join(dest_dir, tile_file)
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, "a") as f:
+                    f.writelines(rows)
         total_traces += len(parts)
         logger.info("Finished matching %d windows in %s",
                     len(parts), shard)
     logger.info("Matched %d windows total", total_traces)
+
+
+def _parse_shard(paths: List[str], opts: dict, inactivity: int,
+                 threshold_sec: int) -> list:
+    """One shard's files as columnar window parts (uuid, lat, lon, time,
+    accuracy, options) over array slices, in each uuid's time order."""
+    import numpy as np
+
+    from ..utils import metrics
+
+    # columnar parse: per-uuid coordinate LISTS (one append per row,
+    # never a point dict), then arrays + argsort per uuid
+    by_uuid: dict[str, tuple] = {}
+    for path in paths:
+        with open(path) as f:
+            for line in f:
+                try:
+                    uuid, tm, lat, lon, acc = line.strip().split(",")
+                    cols = by_uuid.get(uuid)
+                    if cols is None:
+                        cols = by_uuid[uuid] = ([], [], [], [])
+                    cols[0].append(int(tm))
+                    cols[1].append(float(lat))
+                    cols[2].append(float(lon))
+                    cols[3].append(int(acc))
+                except ValueError:
+                    continue
+
+    # build every window request in this shard up front. The chunker's
+    # holdback must equal report()'s threshold: report withholds segments
+    # starting within threshold_sec of a chunk's end, and the next chunk
+    # re-presents exactly that span
+    parts = []
+    for uuid, (tms, lats, lons, accs) in by_uuid.items():
+        tm = np.asarray(tms, dtype=np.float64)
+        order = np.argsort(tm, kind="stable")
+        tm = tm[order]
+        la = np.asarray(lats, dtype=np.float64)[order]
+        lo_ = np.asarray(lons, dtype=np.float64)[order]
+        ac = np.asarray(accs, dtype=np.float32)[order]
+        spans = list(_window_spans(tm, inactivity,
+                                   holdback_s=threshold_sec))
+        for k, (a, b) in enumerate(spans):
+            parts.append((uuid, la[a:b], lo_[a:b], tm[a:b], ac[a:b],
+                          opts))
+            # a chunk of a longer active window overlaps a neighbour
+            if (k and a < spans[k - 1][1]) or \
+                    (k + 1 < len(spans) and spans[k + 1][0] < b):
+                metrics.count("pipeline.chunks")
+    return parts
 
 
 def _emit_rows(rep: dict, trace: dict, quantisation: int, source: str,

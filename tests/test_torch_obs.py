@@ -47,6 +47,10 @@ FIXTURE = os.path.join(ROOT, "tests", "fixtures", "report_parity.json")
 #: the stage timers the repair added to the port's matcher
 STAGE_TIMERS = {"matcher.prep", "matcher.decode_dispatch",
                 "matcher.decode_wait", "matcher.assemble"}
+#: the port's own timers of its device lanes, which the JAX package does
+#: not time: the caller's join (a span too) and the two queue waits
+LANE_TIMERS = {"matcher.join", "matcher.lane.dispatch_queued",
+               "matcher.lane.drain_queued"}
 
 
 @pytest.fixture(autouse=True)
@@ -185,6 +189,125 @@ class TestSpans:
         assert 2.5 <= r["dur_ns"] / c["dur_ns"] <= 3.5
 
 
+class TestProfilerMirror:
+    """``configure(True, profiler=True)``: every span also opens a
+    ``torch.profiler`` range named ``PROFILER_PREFIX`` + its name, on the
+    thread that entered it."""
+
+    @staticmethod
+    def profiled(body):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            body()
+        return prof
+
+    @staticmethod
+    def mirrored(prof):
+        return [e for e in prof.events()
+                if e.name.startswith(obs_trace.PROFILER_PREFIX)]
+
+    @staticmethod
+    def marker(prof, name):
+        return next(e for e in prof.events() if e.name == name)
+
+    def test_a_timer_yields_one_prefixed_event_on_its_thread(self):
+        from torch.profiler import record_function
+        obs_trace.configure(True, profiler=True)
+        r = Registry()
+
+        def body():
+            with r.timer("x"):
+                with record_function("inside"):
+                    pass
+
+        prof = self.profiled(body)
+        (ev,) = self.mirrored(prof)
+        assert ev.name == obs_trace.PROFILER_PREFIX + "x"
+        inside = self.marker(prof, "inside")
+        assert ev.thread == inside.thread
+        assert ev.time_range.start <= inside.time_range.start
+        assert inside.time_range.end <= ev.time_range.end
+        # still a timer and a flight-recorder span
+        assert r.snapshot()["timers"]["x"]["count"] == 1
+        assert [e["name"] for e in flightrec.events()] == ["x"]
+
+    def test_a_nested_timer_yields_a_nested_event(self):
+        obs_trace.configure(True, profiler=True)
+        r = Registry()
+
+        def body():
+            with r.timer("outer"):
+                with r.timer("inner"):
+                    pass
+
+        evs = {e.name[len(obs_trace.PROFILER_PREFIX):]: e
+               for e in self.mirrored(self.profiled(body))}
+        assert sorted(evs) == ["inner", "outer"]
+        o, i = evs["outer"].time_range, evs["inner"].time_range
+        assert o.start <= i.start and i.end <= o.end
+        assert evs["outer"].thread == evs["inner"].thread
+
+    def test_a_held_span_ends_its_range_on_the_opening_thread(self):
+        """The range ends when the hold block ends, on the thread that
+        entered it (torch's CPU profile records the thread that started
+        it), though another thread closes the span later."""
+        from torch.profiler import record_function
+        obs_trace.configure(True, profiler=True)
+        sp = obs_trace.span("chunk")
+
+        def body():
+            with record_function("opening"):
+                with obs_trace.hold(sp):
+                    pass
+            with record_function("handed_on"):
+                t = threading.Thread(target=sp.close)
+                t.start()
+                t.join()
+
+        prof = self.profiled(body)
+        (ev,) = self.mirrored(prof)
+        opening, handed_on = (self.marker(prof, n)
+                              for n in ("opening", "handed_on"))
+        assert ev.name == obs_trace.PROFILER_PREFIX + "chunk"
+        assert ev.thread == opening.thread
+        assert opening.time_range.start <= ev.time_range.start
+        assert ev.time_range.end <= opening.time_range.end \
+            <= handed_on.time_range.start
+        # the flight-recorder record ends at close(), on the other thread
+        (rec,) = flightrec.events()
+        assert rec["name"] == "chunk"
+        assert rec["dur_ns"] / 1e3 >= ev.time_range.end - ev.time_range.start
+
+    @pytest.mark.parametrize("arm", [(False, False), (False, True),
+                                     (True, False)])
+    def test_disarmed_or_unmirrored_adds_no_event(self, arm):
+        on, mirror = arm
+        obs_trace.configure(on, profiler=mirror)
+        r = Registry()
+
+        def body():
+            with r.timer("x"):
+                with obs_trace.span("y"):
+                    pass
+
+        assert self.mirrored(self.profiled(body)) == []
+        if not on:
+            assert obs_trace.span("a") is obs_trace.span("b")
+        assert r.snapshot()["timers"]["x"]["count"] == 1
+
+    def test_rearming_without_the_mirror_drops_it(self):
+        obs_trace.configure(True, profiler=True)
+        obs_trace.configure(True)
+
+        def body():
+            with obs_trace.span("y"):
+                pass
+
+        assert self.mirrored(self.profiled(body)) == []
+        assert [e["name"] for e in flightrec.events()] == ["y"]
+
+
+# ---------------------------------------------------------------------------
 class TestTraceEvents:
     def test_export_shape_as_the_jax_module(self):
         objs = []
@@ -470,11 +593,17 @@ class TestServiceObservability:
             evs = env["trace"]["traceEvents"]
             assert len({e["args"]["trace_id"] for e in evs}) == 1
             trees.append(span_tree(env))
-        assert trees[0] == trees[1]
         names = set(trees[1][0])
         assert {"service.request", "service.parse", "service.handle",
                 "dispatch.batch", "dispatch.match_many", "matcher.chunk",
-                "report.serialise"} | STAGE_TIMERS <= names
+                "report.serialise", "matcher.join"} | STAGE_TIMERS <= names
+        # the port's tree is the JAX service's plus the join, a leaf under
+        # the match call
+        joins = [pair for pair in trees[1][1] if pair[0] == "matcher.join"]
+        assert set(joins) == {("matcher.join", "dispatch.match_many")}
+        assert trees[0] == ([n for n in trees[1][0] if n != "matcher.join"],
+                            [pair for pair in trees[1][1]
+                             if pair[0] != "matcher.join"])
 
     def test_falsy_spellings_stay_plain(self, fixture, servers):
         _u_ref, u_port = servers
@@ -486,7 +615,7 @@ class TestServiceObservability:
 
     def test_stats_timer_names_as_the_jax_service(self, fixture, servers):
         """The port's /stats carries the JAX service's timers, the
-        matcher's four stage timers among them."""
+        matcher's four stage timers among them, and the lanes' own."""
         u_ref, u_port = servers
         jax_metrics.default.reset()
         metrics.default.reset()
@@ -496,8 +625,8 @@ class TestServiceObservability:
                 assert call(url, "/report", body)[0] == 200
         names = [set(json.loads(call(url, "/stats")[2])["timers"])
                  for url in (u_ref, u_port)]
-        assert names[0] == names[1]
-        assert STAGE_TIMERS <= names[1]
+        assert names[0] == names[1] - LANE_TIMERS
+        assert STAGE_TIMERS | LANE_TIMERS <= names[1]
 
     def test_metrics_endpoint_scrape_clean(self, fixture, servers):
         _u_ref, u_port = servers

@@ -602,3 +602,76 @@ def test_the_module_imports_no_torch():
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                          text=True, check=True, timeout=120)
     assert out.stdout.strip() == "False"
+
+
+#: the match stage's timers and the lanes' that one ``match_traces``
+#: call over the lanes counts
+STAGE_TIMERS = ("pipeline.match.parse", "pipeline.match.report",
+                "pipeline.match.write", "matcher.join",
+                "matcher.lane.dispatch_queued", "matcher.lane.drain_queued")
+
+
+def window_delta(before: dict, after: dict) -> tuple:
+    """({counter: delta}, {timer: count delta}) between two snapshots."""
+    counters = {k: v - before["counters"].get(k, 0)
+                for k, v in after["counters"].items()}
+    timers = {k: t["count"] - before["timers"].get(k, {"count": 0})["count"]
+              for k, t in after["timers"].items()}
+    return counters, timers
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+def test_match_stage_timers_and_cells(city, archive, tmp_path, monkeypatch,
+                                      native):
+    """One ``match_traces`` call over the lanes counts each stage timer
+    (parse and writes once a shard, reports once a batch, the join once a
+    ``match_many``) and both lanes' queue timers once a batch; the kept
+    cells are at most the launched ones; nothing is uploaded on the CPU.
+    The same call with tracing armed and mirrored into a running
+    ``torch.profiler`` writes the same bytes, and the window thread's
+    profile holds the stage's spans."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from reporter_tpu_torch.obs import trace as obs_trace
+
+    root, bbox = archive
+    monkeypatch.chdir(tmp_path)
+    trace_dir = simple_reporter.gather_traces(
+        str(root / "src"), ".*", simple_reporter.DEFAULT_VALUER,
+        "%Y-%m-%d %H:%M:%S", bbox, concurrency=2)
+    shards = {f.split(".")[0] for _r, _d, fs in os.walk(trace_dir)
+              for f in fs}
+    matcher = SegmentMatcher(city, device="cpu", native=native)
+
+    def call():
+        return match_traces(trace_dir, matcher, "auto", {0, 1}, {0, 1},
+                            quantisation=3600, inactivity=120,
+                            source="test")
+
+    before = metrics.snapshot()
+    plain = call()
+    counters, timers = window_delta(before, metrics.snapshot())
+    batches = counters["pipeline.batches"]
+    assert timers["pipeline.match.parse"] == len(shards) >= 1
+    assert timers["pipeline.match.write"] == len(shards)
+    assert timers["pipeline.match.report"] == batches >= 1
+    assert timers["matcher.join"] == batches
+    handed = timers["matcher.lane.dispatch_queued"]
+    assert handed == timers["matcher.lane.drain_queued"] >= batches
+    assert 0 < counters["decode.cells.kept"] \
+        <= counters["decode.cells.launched"]
+    assert counters.get("decode.upload.bytes", 0) == 0
+    assert "matcher.upload" not in timers
+
+    obs_trace.configure(True, profiler=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            traced = call()
+    finally:
+        obs_trace.configure(False)
+    assert tree(traced) == tree(plain) and tree(plain)
+    spans = {e.name[len(obs_trace.PROFILER_PREFIX):] for e in prof.events()
+             if e.name.startswith(obs_trace.PROFILER_PREFIX)}
+    assert {"pipeline.match.parse", "pipeline.match.report",
+            "pipeline.match.write", "matcher.join", "matcher.prep"} <= spans
+    matcher.close()
