@@ -106,6 +106,11 @@ METRICS: Dict[str, str] = {
     "matcher.lane.drain_queued": "chunk's wait for the drain lane after "
                                  "its dispatch (timer)",
     "decode.upload.bytes": "host bytes uploaded for the decode",
+    "decode.upload.copies": "host-to-device copies issued for the decode "
+                            "(one a batch: its slab)",
+    "decode.upload.restaged_bytes": "host bytes the dispatch lane copied "
+                                    "into a slab because the prep had not "
+                                    "written them there",
     "decode.cells.kept": "kept point cells handed to the lanes",
     "decode.cells.launched": "B x T cells of the batches handed to the "
                              "lanes",

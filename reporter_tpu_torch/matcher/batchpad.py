@@ -35,6 +35,7 @@ from ..obs import trace as obs_trace
 from ..utils import metrics
 from .hmm import NORMAL, RESTART, SKIP, UNREACHABLE_THRESHOLD, WIRE_MAX_M
 from .params import MatchParams
+from .slab import Slab
 
 LENGTH_BUCKETS = (16, 64, 256, 1024)
 #: padding-waste ratio above which the native dispatch breaks a
@@ -348,6 +349,10 @@ class PaddedBatch:
     # DeferredRoutes) copies the route bytes back into ``prep``
     finalize: "object | None" = None
     routes: "object | None" = None
+    # the host slab whose views dist_m, valid, route_m, gc_m and case are
+    # (prepare_batch with a slab allocator, f16 wire): the dispatch lane
+    # uploads it in one copy (``slab.upload``); held until the drain
+    slab: "Slab | None" = None
 
     def finalize_wire(self) -> None:
         """Install the deferred route tensor and settle the wire dtype; a
@@ -426,7 +431,8 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
                   pad_rows: int | None = None,
                   n_threads: int = 0, route_kernel=None,
                   route_circuit=None, defer_routes: bool = False,
-                  prune_margin_m: float = 0.0) -> PaddedBatch:
+                  prune_margin_m: float = 0.0,
+                  slab_alloc=None) -> PaddedBatch:
     """Whole-chunk host prep through ONE native call
     (``NativeRuntime.prepare_batch``), with the per-trace semantics of
     :func:`prepare_traces_numpy`: the flat coordinate columns of ``tb``
@@ -459,6 +465,14 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
     The route bytes reach the prep dict through ``routes``
     (:meth:`PaddedBatch.routes_to_host`), which the assembly and the
     per-trace views wait on.
+
+    ``slab_alloc`` (bytes -> ``uint8`` tensor; ``slab.pinned`` on the
+    card) stages the f16 wire in one host slab (:class:`slab.Slab`): the
+    casts, the valid mask and the case codes are written straight into
+    its views, which become the batch's arrays, bit-equal to those made
+    without one. The f32 wire and deferred routes leave the slab to the
+    dispatch lane (``slab.stage``): their arrays are the prep's own, or
+    made there.
 
     The batch's ``traces`` are PreparedTrace views over rows of the f32
     tensors, built on first access.
@@ -515,8 +529,9 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
                 has_cands=out["has_cands"][lo:hi].astype(bool)))
         return views
 
-    dist, route, gc = out["dist_m"], out["route_m"], out["gc_m"]
-    finalize = None
+    dist, route, gc, case = (out["dist_m"], out["route_m"], out["gc_m"],
+                             out["case"])
+    valid = wire = finalize = None
     if pending is not None:
         route = None
 
@@ -527,11 +542,24 @@ def prepare_batch(runtime, tb: TraceBatch, params: MatchParams, T: int,
                 batch.gc_m = runtime.to_f16(out["gc_m"])
                 batch.route_m = batch.route_m.to(torch.float16)
     elif float(out["max_finite"][0]) <= WIRE_MAX_M:
-        dist, route, gc = (runtime.to_f16(a) for a in (dist, route, gc))
+        if slab_alloc is None:
+            dist, route, gc = (runtime.to_f16(a) for a in (dist, route, gc))
+        else:
+            edge = out["edge_ids"]
+            wire = Slab(((dist.shape, np.float16), (edge.shape, np.bool_),
+                         (route.shape, np.float16), (gc.shape, np.float16),
+                         (case.shape, np.int32)), slab_alloc)
+            to_dist, valid, to_route, to_gc, case = wire.views
+            dist, route, gc = (runtime.to_f16(a, out=v) for a, v in (
+                (dist, to_dist), (route, to_route), (gc, to_gc)))
+            np.not_equal(edge, PAD_EDGE, out=valid)
+            np.copyto(case, out["case"])
+    if valid is None:
+        valid = out["edge_ids"] != PAD_EDGE
     return PaddedBatch(traces=_LazyTraceViews(B, build_views), dist_m=dist,
-                       valid=out["edge_ids"] != PAD_EDGE, route_m=route,
-                       gc_m=gc, case=out["case"], prep=out, pt_off=pt_off,
-                       times_flat=times, finalize=finalize, routes=pending)
+                       valid=valid, route_m=route, gc_m=gc, case=case,
+                       prep=out, pt_off=pt_off, times_flat=times,
+                       finalize=finalize, routes=pending, slab=wire)
 
 
 def _device_route_full(route_dev, rows: int, T: int):

@@ -83,6 +83,7 @@ from ..utils import faults, metrics, spool
 from ..utils.circuit import (DEFAULT_COOLDOWN_S, DEFAULT_THRESHOLD,
                              CircuitBreaker, CircuitOpen)
 from . import incremental as _inc
+from . import slab as wire_slab
 from .assemble import assemble_segments
 from .batchpad import (LENGTH_BUCKETS, DeviceRouteError, PaddedBatch,
                        PreparedTrace, kept_point_count, pack_batches,
@@ -478,6 +479,11 @@ class SegmentMatcher:
         self.pad_rows = ops.batch_pad_multiple(self.decode_mesh, decode)
         if self.pad_rows:
             self.chunk = -(-self.chunk // self.pad_rows) * self.pad_rows
+        #: where a batch's decode wire is staged for its one upload: pinned
+        #: host memory on the card (``slab.pinned``); None on the CPU,
+        #: where the decode reads the prep's numpy arrays
+        self._slab_alloc = (wire_slab.pinned if self.device.type == "cuda"
+                            else None)
         self.runtime = (NativeRuntime(net, cell_m=GRID_CELL_M,
                                       route_memo=route_memo) if native
                         else None)
@@ -831,7 +837,9 @@ class SegmentMatcher:
                                         route_circuit=self.circuit_route,
                                         defer_routes=True,
                                         prune_margin_m=self._prune_margin(
-                                            params))
+                                            params),
+                                        slab_alloc=self._batch_slab_alloc(
+                                            rows, int(T)))
                             except (CircuitOpen, DeviceRouteError):
                                 self.circuit.record_success()
                                 raise
@@ -1013,19 +1021,31 @@ class SegmentMatcher:
             self.circuit_decode.record_success()
             return out
 
+    def _sharded(self, B: int, T: int) -> bool:
+        """Whether a (B, T) batch decodes sharded over the decode mesh."""
+        return self.decode_mesh is not None and ops.shard_width(
+            self.decode_mesh, B, T, self.decode) > 1
+
+    def _batch_slab_alloc(self, B: int, T: int):
+        """The slab allocator for a (B, T) native prep: the matcher's, but
+        None where the batch decodes sharded (each entry uploads its own
+        rows from the prep's arrays)."""
+        return None if self._sharded(B, T) else self._slab_alloc
+
     def _dispatch_timed(self, batch: PaddedBatch, sigma, beta):
         t0 = time.perf_counter()
         batch.finalize_wire()
-        # numpy arrays, but for a device route tensor (already a tensor on
-        # this device)
-        arrays = tuple(a if isinstance(a, torch.Tensor)
-                       else torch.from_numpy(a)
-                       for a in (batch.dist_m, batch.valid, batch.route_m,
-                                 batch.gc_m, batch.case))
+        wire = (batch.dist_m, batch.valid, batch.route_m, batch.gc_m,
+                batch.case)
+        # the sharded and CPU decodes take the numpy arrays as tensors (a
+        # device route tensor is one already); the card's own upload
+        # stages them in a slab
+        sharded = self._sharded(*batch.dist_m.shape[:2])
+        if sharded or self.device.type == "cpu":
+            arrays = tuple(a if isinstance(a, torch.Tensor)
+                           else torch.from_numpy(a) for a in wire)
         mesh = self.decode_mesh
-        if mesh is not None and ops.shard_width(
-                mesh, arrays[0].shape[0], arrays[0].shape[1],
-                self.decode) > 1:
+        if sharded:
             # the sharded decode: each entry uploads its rows, launches
             # and copies them into one pinned host buffer; the drain lane
             # waits on the ShardedDecode, which holds the device tensors
@@ -1042,15 +1062,12 @@ class SegmentMatcher:
             self._add_stage("decode", t0)
             return paths, None, None, None
         with torch.cuda.device(self.device):
-            # whole arrays, filler rows included: each upload (and the
-            # device route tensor) is a fresh allocation, which starts on
-            # 16 bytes as the kernel needs
+            # whole arrays, filler rows included, in one non-blocking copy
+            # of the batch's pinned slab (restaged into one when its prep
+            # wrote none); a device route tensor is on the card already
             with metrics.timer("matcher.upload"):
-                # a device route tensor is on the card already
-                metrics.count("decode.upload.bytes",
-                              sum(a.nbytes for a in arrays
-                                  if a.device.type == "cpu"))
-                x = tuple(a.to(self.device) for a in arrays)
+                x = wire_slab.upload(wire, batch.slab, self._slab_alloc,
+                                     self.device)
             # recorded by the kernel's launcher around the launch; the
             # other decodes are op sequences, with no one launch to time
             timing = None

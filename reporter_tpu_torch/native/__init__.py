@@ -540,12 +540,20 @@ class NativeRuntime:
             ("prep.candidates", "prep.select", "prep.routes"), phase_ns)
         return out
 
-    def to_f16(self, arr: np.ndarray) -> np.ndarray:
+    def to_f16(self, arr: np.ndarray,
+               out: np.ndarray | None = None) -> np.ndarray:
         """f32 -> f16 wire cast (F16C where built with it): bit-equal to
         numpy's ``astype(np.float16)``, round to nearest even, overflow
-        to inf."""
+        to inf. Writes into ``out`` (a C-contiguous float16 array of
+        ``arr``'s shape, such as a view of a slab) when given; returns
+        the cast."""
         src = np.ascontiguousarray(arr, dtype=np.float32)
-        out = np.empty(src.shape, dtype=np.float16)
+        if out is None:
+            out = np.empty(src.shape, dtype=np.float16)
+        elif (out.dtype != np.float16 or out.shape != src.shape
+              or not out.flags.c_contiguous):
+            raise ValueError(f"out must be C-contiguous float16 of shape "
+                             f"{src.shape}, got {out.dtype} {out.shape}")
         self._lib.rt_f32_to_f16(src.reshape(-1),
                                 out.view(np.uint16).reshape(-1), src.size)
         return out

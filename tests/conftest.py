@@ -54,3 +54,9 @@ def _racecheck_gate():
         racecheck.reset()
         pytest.fail("runtime concurrency findings:\n"
                     + "\n".join(lines), pytrace=False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card (CUDA); skipped where there "
+        "is none")
