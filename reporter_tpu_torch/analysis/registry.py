@@ -230,6 +230,21 @@ METRICS: Dict[str, str] = {
     "match.incremental.*": "carried-state path: steps/commits/matches/"
                            "state_bytes/evictions/fallbacks/resets/"
                            "shadow checks + the advance/decode timers",
+    "match.incremental.prep": "host prep of the appended points: state "
+                              "lookups, candidates, routes (timer)",
+    "match.incremental.upload": "the step's operands copied to the "
+                                "device (timer)",
+    "match.incremental.assemble": "the matches' assembly from the "
+                                  "committed paths (timer)",
+    "match.incremental.launches": "incremental_steps launches",
+    "match.incremental.cells.launched": "R x N cells of each launch, "
+                                        "padding included",
+    "match.incremental.cells.kept": "real steps among the launched cells",
+    "match.incremental.rows.launched": "N rows of each launch",
+    "match.incremental.upload.bytes": "bytes of the operands handed to "
+                                      "each launch",
+    "match.incremental.evictions.budget": "carried states evicted by the "
+                                          "byte budget (LRU)",
     # runtime concurrency witness (analysis/racecheck.py)
     "racecheck.findings": "witness/audit findings, all RC rules",
     "racecheck.*": "per-rule finding counts (RC001-RC004)",

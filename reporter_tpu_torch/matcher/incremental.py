@@ -408,6 +408,7 @@ class IncrementalTable:
             self._order.remove(victim)
             self.evictions += 1
             metrics.count("match.incremental.evictions")
+            metrics.count("match.incremental.evictions.budget")
             self._recount()
 
     # -- snapshot serde ----------------------------------------------------
@@ -451,34 +452,40 @@ class IncrementalTable:
                 # rounds, the fixed-lag commits), timed apart from the
                 # assembly below, which the batch path pays alike
                 t_dec = time.perf_counter()
-                for i in range(len(tb)):
-                    uuid = tb.uuid(i)
-                    if not uuid:
-                        continue
-                    params = per_trace_params[i]
-                    lat, lon, times = tb.trace_columns(i)
-                    if len(times) == 0:
-                        continue
-                    touched.append(uuid)
-                    try:
-                        state = self._state_for(uuid, params, times)
-                        steps = self._prep_appended(state, params, lat,
-                                                    lon, times)
-                    except _Fallback as fb:
-                        self._fall_back(uuid, fb)
-                        continue
-                    jobs.append([i, uuid, state, steps, params, True])
+                # the host prep of the appended points (state lookups,
+                # candidates, routes), timed apart from the device rounds
+                with metrics.timer("match.incremental.prep"):
+                    for i in range(len(tb)):
+                        uuid = tb.uuid(i)
+                        if not uuid:
+                            continue
+                        params = per_trace_params[i]
+                        lat, lon, times = tb.trace_columns(i)
+                        if len(times) == 0:
+                            continue
+                        touched.append(uuid)
+                        try:
+                            state = self._state_for(uuid, params, times)
+                            steps = self._prep_appended(state, params, lat,
+                                                        lon, times)
+                        except _Fallback as fb:
+                            self._fall_back(uuid, fb)
+                            continue
+                        jobs.append([i, uuid, state, steps, params, True])
                 self._run_rounds(jobs)
                 metrics.observe("match.incremental.decode",
                                 time.perf_counter() - t_dec)
 
-                for i, uuid, state, _steps, params, alive in jobs:
-                    if not alive:
-                        continue
-                    times = tb.trace_columns(i)[2]
-                    results[i] = self._build_match(state, times, params)
-                    self._touch(uuid)
-                    metrics.count("match.incremental.matches")
+                # the matches' assembly from the committed paths
+                with metrics.timer("match.incremental.assemble"):
+                    for i, uuid, state, _steps, params, alive in jobs:
+                        if not alive:
+                            continue
+                        times = tb.trace_columns(i)[2]
+                        results[i] = self._build_match(state, times,
+                                                       params)
+                        self._touch(uuid)
+                        metrics.count("match.incremental.matches")
             except BaseException:
                 # a mid-advance error leaves some state half-stepped
                 # (n_raw past the scores): drop every state this call
@@ -803,18 +810,31 @@ class IncrementalTable:
         """One ``ops.incremental_steps`` on the matcher's device;
         (new_scores, bp, prev_best) as host arrays. On the card: one
         upload per operand, one launch, and one copy of the kernel's one
-        output buffer into pinned memory."""
+        output buffer into pinned memory.
+
+        Counts the launch (``match.incremental.launches``), its R x N
+        cells (``.cells.launched``), the real steps among them
+        (``.cells.kept``), its N rows (``.rows.launched``) and the bytes of
+        the operands handed to the device (``.upload.bytes``); times their
+        copies to the device (``match.incremental.upload``: on the CPU the
+        operands are the host arrays and nothing is copied)."""
         dev = self.matcher.device
-        x = tuple(torch.from_numpy(a) for a in arrays)
+        R, N, K = arrays[0].shape
+        metrics.count("match.incremental.launches")
+        metrics.count("match.incremental.cells.launched", R * N)
+        metrics.count("match.incremental.cells.kept", int(arrays[-1].sum()))
+        metrics.count("match.incremental.rows.launched", N)
+        metrics.count("match.incremental.upload.bytes",
+                      sum(a.nbytes for a in arrays))
+        with metrics.timer("match.incremental.upload"):
+            x = tuple(torch.from_numpy(a).to(dev) for a in arrays)
         if dev.type == "cpu":
             return tuple(t.numpy() for t in
                          ops.incremental_steps(*x, sigma, beta))
-        R, N, K = arrays[0].shape
         with torch.cuda.device(dev):
             out = torch.empty(ops.incremental.output_words(N, K, R),
                               dtype=torch.int32, device=dev)
-            ops.incremental_steps(*(t.to(dev) for t in x), sigma, beta,
-                                  out=out)
+            ops.incremental_steps(*x, sigma, beta, out=out)
             host = torch.empty(out.shape, dtype=torch.int32,
                                pin_memory=True)
             host.copy_(out, non_blocking=True)
